@@ -1,0 +1,114 @@
+"""Build and load the CUDA C++ kernels; count kernel launches.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use (never at import), from the sources in the checkout, into
+``build/`` at the repository root, keyed by a hash of the sources so an edit
+rebuilds. Triton's kernel cache goes under ``build/`` too. Nothing here falls
+back: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Set, Tuple
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build"
+TRITON_CACHE_DIR = BUILD_DIR / "triton"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def import_triton():
+    """Import triton with its kernel cache under ``build/`` (not ``$HOME``)."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
+    import triton
+
+    return triton
+
+
+class LaunchCounter:
+    """Counts one kernel's launches and the distinct shapes it was launched at.
+
+    A wrapper calls :meth:`hit` once per kernel launch, after the launch
+    succeeded, and nowhere else: the plain CPU path does not count."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.shapes: Set[Tuple] = set()
+
+    def hit(self, key: Tuple) -> None:
+        self.count += 1
+        self.shapes.add(key)
+
+    def reset(self) -> None:
+        self.count = 0
+        self.shapes = set()
+
+
+COUNTERS: Dict[str, LaunchCounter] = {}
+
+
+def counter(name: str) -> LaunchCounter:
+    COUNTERS[name] = LaunchCounter(name)
+    return COUNTERS[name]
+
+
+def reset_counters() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn = lib.sd_flash_attention_forward
+    fn.argtypes = [i, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [f, p]
+    fn.restype = ctypes.c_int
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libsd_kernels_{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    return lib

@@ -3,38 +3,60 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Four phases, each printing one JSON line; any failure exits nonzero:
+Phases, each printing one JSON line; any failure exits nonzero:
 
 1. env: the card (``nvidia-smi`` name and power limit), torch/CUDA/Triton
    versions, and the time to build the CUDA kernels from ``csrc/``.
-2. kernels: the flash-attention kernel (CUDA C++) and the GroupNorm and
-   GroupNorm-concat kernels (Triton) against their plain PyTorch versions on
-   the card, at every distinct shape the 512x512 slice launches (recorded from
-   a one-step run of the slice), in float32 (TF32 off) and bfloat16: max-abs
-   error with its tolerance, kernel and plain times (CUDA events, median of 5
-   runs of 5 launches).
+2. kernels: every ported kernel against its plain PyTorch version on the card,
+   at every distinct shape the two main paths launch, recorded from a one-step
+   run of each (the 512x512 txt2img slice; one micro step of SD-1.5 training at
+   512x512, batch 4, taken with an optimizer that applies nothing): flash
+   attention forward (K1) and backward (K3), CUDA C++; GroupNorm (K6), its
+   backward (K7, which also serves the concat form's backward) and
+   GroupNorm-concat (K8), Triton. In float32 (TF32 off) and bfloat16: max-abs
+   error with its tolerance; the kernel's, the plain version's and the library
+   call's times (CUDA events, median of 5 runs of 5 launches); and the bound:
+   the larger of bytes / 3.35 TB/s and FLOPs / peak (989 TFLOP/s bf16, 67
+   TFLOP/s f32; H100 SXM data sheet).
 3. unet_parity: one SD-1.5-size UNet forward (full widths, 64x64 latent) in
    float32 on the card with the kernels, against the same weights and inputs
    on the CPU through the plain path (a deliberate CPU reference).
-4. slice: ``pipeline.sample`` at 512x512, DDIM with CFG 7.5, bf16, seeded
+4. train_parity: one SD-1.5-size UNet forward and backward (32x32 latent,
+   batch 1) in float32, card with the kernels vs CPU through the plain path:
+   the relative gradient error overall and of the worst tensor; then the
+   training step's precision (bf16 autocast over the same f32 weights) vs
+   f32 on the card: output drift and gradient drift.
+5. slice: ``pipeline.sample`` at 512x512, DDIM with CFG 7.5, bf16, seeded
    random weights; checks the decoded image is [B, 512, 512, 3] and finite and
-   that each kernel was launched by this run; seconds per step and images/s.
+   that each forward kernel was launched by this run; seconds per step and
+   images/s.
+6. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
+   synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
+   (the default), two optimizer steps and one evaluation; checks a finite
+   loss, changed parameters and that all five kernels were launched by this
+   run; samples/s, step ms p50, peak memory. Then ``torch.profiler`` over one
+   more accumulation window: device ms per micro step by kernel category and
+   the device's idle share (the profiler's own cost included).
+7. checkpoint: a small-width run on the card saves ``checkpoint-2``; a second
+   trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phase 4's run alone; ``max_abs_err``, ``ms``
-and ``plain_ms`` are phase 2's bf16 numbers, the times summed over the slice's
-distinct shapes (one launch of each).
+the summary, ``launches`` counts phases 5 and 6 (each run with the counts set
+to 0 just before it; the split is in the JSON record); ``max_abs_err``,
+``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
+numbers summed over the kernel's distinct shapes (one launch of each).
 Without a CUDA device, or outside a checkout of the repository, it exits
 nonzero and prints no result. Weights are random from a seed, with the
 zero-initialized layers (each ResBlock's last conv, each transformer's
-proj_out) filled too, so every path contributes to the outputs.
+proj_out) filled too, so every path contributes to the outputs and gradients.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,14 +67,33 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0          # of the random weights
 STEPS = 10        # DDIM steps of the slice run
 NUM_IMAGES = 1    # per slice run; CFG doubles the UNet batch
+TRAIN_BATCH = 4
+TRAIN_STEPS = 2   # optimizer steps of the train phase (x4 micro steps)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TPU_KERNELS = {
     "flash_attention": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/flash_attention.cu",
                         "stable_diffusion_pytorch_tpu/ops/flash_attention.py:45"),
+    "flash_attention_bwd": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "stable_diffusion_pytorch_tpu/ops/flash_attention_bwd.py:102"),
     "group_norm": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
                    "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:44"),
+    "group_norm_bwd": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
+                       "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:71"),
     "group_norm_cat": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:187"),
 }
+SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
+# the SD-1.5 stack (models/presets.py) as training-CLI flags
+SD15_FLAGS = (
+    "--channels-list 320,640,1280,1280 --n-heads 8 --attention-resolutions 1,2,4 --num-res-blocks 2 "
+    "--time-emb-dim 1280 --context-dim 768 --n-layers 1 --dropout 0 "
+    "--autoencoder-channels-list 128,256,512,512 --autoencoder-num-res-blocks 2 --groups 32"
+).split()
+TINY_FLAGS = (
+    "--channels-list 32,64 --n-heads 4 --time-emb-dim 64 --n-layers 1 "
+    "--autoencoder-channels-list 16,32 --groups 8"
+).split()
 
 
 class SmokeFailure(Exception):
@@ -123,6 +164,32 @@ def build_sd15(device, dtype, seed: int):
     return model
 
 
+def train_argv(work: str, *flags: str):
+    return ["--device", "cuda", "--dataset", "synthetic", "--seed", str(SEED),
+            "--logging-dir", os.path.join(work, "logs"), "--ckpt-dir", os.path.join(work, "ckpt"), *flags]
+
+
+def build_sd15_trainer(work: str):
+    """The training entry point's trainer at SD-1.5 width, 512x512, batch 4."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
+
+    shutil.rmtree(work, ignore_errors=True)
+    trainer = build_trainer(train_argv(
+        work, *SD15_FLAGS, "--resolution", "512", "--train-batch-size", str(TRAIN_BATCH),
+        "--eval-batch-size", str(TRAIN_BATCH), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
+        "--learning-rate", "1e-4", "--max-train-samples", "64", "--max-val-samples", str(TRAIN_BATCH),
+        "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
+    ))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    fill_zero_weights(trainer.model.unet, gen)
+    fill_zero_weights(trainer.model.autoencoder, gen)
+    return trainer
+
+
 def phase_env() -> dict:
     import torch
 
@@ -141,15 +208,61 @@ def phase_env() -> dict:
     return info
 
 
+# --------------------------------------------------------------------------- #
+# phase 2: each kernel against its plain version, its library call and its bound
+# --------------------------------------------------------------------------- #
+
+
+def _elem(dtype) -> int:
+    return 4 if dtype == "float32" else 2
+
+
 def _attn_case(key, dtype, gen):
+    """K1 at [B, N, M, H, D]: (kernel, plain, library, flops, bytes)."""
     import torch
+    import torch.nn.functional as F
 
     from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     b, n, m, h, d = key
-    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype) for s in (n, m, m))
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(getattr(torch, dtype)) for s in (n, m, m))
     scale = d ** -0.5
-    return (lambda: flash_attention(q, k, v, scale)), (lambda: flash_attention_plain(q, k, v, scale))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    return (
+        lambda: flash_attention(q, k, v, scale),
+        lambda: flash_attention_plain(q, k, v, scale),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+        4 * b * h * n * m * d,
+        _elem(dtype) * (2 * b * n * h * d + 2 * b * m * h * d),
+    )
+
+
+def _attn_bwd_case(key, dtype, gen):
+    """K3 at [B, N, M, H, D], given the K1 forward's output and lse."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (
+        _forward_kernel,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    b, n, m, h, d = key
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dt) for s in (n, m, m, n))
+    scale = d ** -0.5
+    out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    do_h = do.transpose(1, 2)
+    return (
+        lambda: flash_attention_bwd(q, k, v, out, do, lse, scale),
+        lambda: flash_attention_bwd_plain(q, k, v, do, scale),
+        lambda: torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True),
+        10 * b * h * n * m * d,
+        _elem(dtype) * 4 * (b * n * h * d + b * m * h * d),
+    )
 
 
 def _gn_inputs(shape, c, gen, offset=0.5):
@@ -161,95 +274,217 @@ def _gn_inputs(shape, c, gen, offset=0.5):
     return x, w, b
 
 
+def _torch_gn(x, w, b, g, silu):
+    """F.group_norm (+ F.silu) on a channel-last [B, S, C] map."""
+    import torch.nn.functional as F
+
+    y = F.group_norm(x.transpose(1, 2), g, w.to(x.dtype), b.to(x.dtype), 1e-5)
+    return F.silu(y) if silu else y
+
+
 def _gn_case(key, dtype, gen):
+    """K6 at [B, S, C, groups, silu]."""
     from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import fused_group_norm
     from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import xla_group_norm
 
+    import torch
+
     b, s, c, g, silu = key
     x, w, bias = _gn_inputs((b, s, c), c, gen)
-    x = x.to(dtype)
-    return (lambda: fused_group_norm(x, w, bias, g, 1e-5, silu)), (lambda: xla_group_norm(x, w, bias, g, 1e-5, silu))
+    x = x.to(getattr(torch, dtype))
+    return (
+        lambda: fused_group_norm(x, w, bias, g, 1e-5, silu),
+        lambda: xla_group_norm(x, w, bias, g, 1e-5, silu),
+        lambda: _torch_gn(x, w, bias, g, silu),
+        (12 if silu else 8) * x.numel(),
+        _elem(dtype) * 2 * x.numel(),
+    )
 
 
 def _gn_cat_case(key, dtype, gen):
+    """K8 at [B, S, C1, C2, groups, silu]."""
+    import torch
+
     from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import fused_group_norm_cat
     from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import xla_group_norm_cat
 
     b, s, c1, c2, g, silu = key
     x, w, bias = _gn_inputs((b, s, c1), c1 + c2, gen)
-    skip = (_gn_inputs((b, s, c2), c2, gen, offset=-1.0)[0] * 1.5).to(dtype)
-    x = x.to(dtype)
+    skip = (_gn_inputs((b, s, c2), c2, gen, offset=-1.0)[0] * 1.5).to(getattr(torch, dtype))
+    x = x.to(getattr(torch, dtype))
+    n = x.numel() + skip.numel()
     return (
         lambda: fused_group_norm_cat(x, skip, w, bias, g, 1e-5, silu),
         lambda: xla_group_norm_cat(x, skip, w, bias, g, 1e-5, silu),
+        lambda: _torch_gn(torch.cat([x, skip], dim=-1), w, bias, g, silu),
+        (12 if silu else 8) * n,
+        _elem(dtype) * 2 * n,
     )
 
 
-# Tolerances on max|kernel - plain|, relative to max(1, max|plain|):
-# float32 -- another summation order over at most a few thousand terms;
+def _gn_bwd_case(key, dtype, gen):
+    """K7 at [B, S, C1, C2, groups, silu] (C2 > 0: the concat form's
+    backward), given the K6/K8 forward's statistics."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (
+        _forward,
+        group_norm_bwd,
+        group_norm_bwd_plain,
+    )
+
+    b, s, c1, c2, g, silu = key
+    dt = getattr(torch, dtype)
+    x, w, bias = _gn_inputs((b, s, c1), c1 + c2, gen)
+    parts = [x.to(dt)]
+    if c2:
+        parts.append((_gn_inputs((b, s, c2), c2, gen, offset=-1.0)[0] * 1.5).to(dt))
+    dy = torch.randn(b, s, c1 + c2, device="cuda", generator=gen).to(dt)
+    _, mean, rstd = _forward(parts[0], parts[1] if c2 else None, w, bias, g, 1e-5, silu)
+    leaves = [t.detach().requires_grad_(True) for t in (*parts, w, bias)]
+    whole = torch.cat(leaves[:len(parts)], dim=-1) if c2 else leaves[0]
+    lib_out = _torch_gn(whole, leaves[-2], leaves[-1], g, silu)
+    dy_t = dy.transpose(1, 2)
+    n = b * s * (c1 + c2)
+    return (
+        lambda: group_norm_bwd(parts, dy, w, bias, mean, rstd, g, 1e-5, silu),
+        lambda: group_norm_bwd_plain(parts, dy, w, bias, g, 1e-5, silu),
+        lambda: torch.autograd.grad(lib_out, leaves, dy_t, retain_graph=True),
+        (24 if silu else 16) * n,
+        _elem(dtype) * 3 * n,
+    )
+
+
+# Tolerances on max|kernel - plain| of each output, relative to max(1, max|plain|)
+# of that output:
+# float32 -- another summation order over at most a few thousand terms (the
+# backward: sums over up to 4096 kv or 40960 map rows, and K3's dq is summed
+# with atomics in an order that changes between runs);
 # bfloat16 -- both sides round outputs (and attention's P) to bf16, whose
-# spacing is 2^-7 of the magnitude, so a few ulps.
+# spacing is 2^-7 of the magnitude, so a few ulps; K3's delta = rowsum(dO * O)
+# reads the bf16-rounded O where the plain version sums dP * P in f32.
 TOLERANCE = {
     "flash_attention": {"float32": 1e-5, "bfloat16": 2e-2},
+    "flash_attention_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
     "group_norm": {"float32": 5e-5, "bfloat16": 2e-2},
+    "group_norm_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
     "group_norm_cat": {"float32": 5e-5, "bfloat16": 2e-2},
 }
-CASES = {"flash_attention": _attn_case, "group_norm": _gn_case, "group_norm_cat": _gn_cat_case}
+CASES = {"flash_attention": _attn_case, "flash_attention_bwd": _attn_bwd_case, "group_norm": _gn_case,
+         "group_norm_bwd": _gn_bwd_case, "group_norm_cat": _gn_cat_case}
 
 
-def phase_kernels(model) -> dict:
-    """Record the slice's kernel shapes with a one-step run, then compare."""
+class _NoUpdate:
+    """An optimizer for the shape probe: takes the gradients, applies nothing."""
+
+    def step(self, grads):
+        import torch
+
+        return False, torch.zeros(())
+
+
+def record_shapes(model, trainer) -> dict:
+    """The distinct launch shapes of each kernel: a one-step txt2img run and one
+    micro step of training at batch 4 (parameters untouched)."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch import pipeline
     from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
 
     native.reset_counters()
     with torch.inference_mode():
         pipeline.sample(model, image_size=512, prompt="a photo of a cat", time_steps=1,
                         guidance_scale=7.5, save_dir=None, num_images=NUM_IMAGES, seed=0)
     torch.cuda.synchronize()
-    shapes = {name: sorted({k[:-1] for k in native.COUNTERS[name].shapes}) for name in CASES}
+    shapes = {name: {k[:-1] for k in native.COUNTERS[name].shapes} for name in SLICE_KERNELS}
+
+    native.reset_counters()
+    batch = trainer._place_batch(next(iter(trainer.train_loader)))
+    probe = TrainState(trainer.model.unet, _NoUpdate())
+    trainer._train(probe, batch, trainer.uncond_ids, trainer._draws(batch, step_generator("cuda", 9)))
+    torch.cuda.synchronize()
+    for name in TPU_KERNELS:
+        shapes[name] = shapes.get(name, set()) | {k[:-1] for k in native.COUNTERS[name].shapes}
+    return {name: sorted(v) for name, v in shapes.items()}
+
+
+def _bound(flops: float, nbytes: float, dtype: str):
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _max_err(out, ref):
+    """(max-abs error, max over outputs of error / max(1, max|plain output|))."""
+    pairs = list(zip(_flat(out), _flat(ref))) if isinstance(out, (list, tuple)) else [(out, ref)]
+    errs = [((o.float() - r.float()).abs().max().item(), max(1.0, r.float().abs().max().item())) for o, r in pairs]
+    return max(e for e, _ in errs), max(e / s for e, s in errs)
+
+
+def _flat(xs):
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            yield from _flat(x)
+        else:
+            yield x
+
+
+def phase_kernels(shapes: dict) -> dict:
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows, failures = [], []
-    summary = {name: {"max_rel_err": {}, "ms_bf16": 0.0, "plain_ms_bf16": 0.0, "max_abs_err_bf16": 0.0}
-               for name in CASES}
-    with torch.inference_mode():
-        for name, keys in shapes.items():
-            for key in keys:
-                for dname in ("float32", "bfloat16"):
-                    kernel, plain = CASES[name](key, getattr(torch, dname), gen)
-                    out, ref = kernel(), plain()
-                    torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
-                    scale = max(1.0, ref.float().abs().max().item())
-                    tol = TOLERANCE[name][dname] * scale
-                    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-                    row = {"k": name, "shape": list(key), "dtype": dname, "err": err, "tol": tol,
-                           "ms": round(ms, 5), "plain_ms": round(plain_ms, 5)}
-                    rows.append(row)
-                    s = summary[name]
-                    s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), err / scale)
-                    if dname == "bfloat16":
-                        s["ms_bf16"] += ms
-                        s["plain_ms_bf16"] += plain_ms
-                        s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
-                    if not (err <= tol):
-                        failures.append(row)
-                    del out, ref
+    summary = {name: {"max_rel_err": {}, "ms_bf16": 0.0, "plain_ms_bf16": 0.0, "library_ms_bf16": 0.0,
+                      "bound_ms_bf16": 0.0, "ops_bound_ms_bf16": 0.0, "bytes_bound_ms_bf16": 0.0,
+                      "max_abs_err_bf16": 0.0}
+               for name in TPU_KERNELS}
+    for name, keys in shapes.items():
+        for key in keys:
+            for dname in ("float32", "bfloat16"):
+                kernel, plain, library, flops, nbytes = CASES[name](key, dname, gen)
+                out, ref = kernel(), plain()
+                torch.cuda.synchronize()
+                err, rel = _max_err(out, ref)
+                tol = TOLERANCE[name][dname]
+                del out, ref
+                ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+                bound_ms, bound_by = _bound(flops, nbytes, dname)
+                row = {"k": name, "shape": list(key), "dtype": dname, "err": err, "rel_err": rel, "tol": tol, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "flops": flops, "bytes": nbytes}
+                rows.append(row)
+                s = summary[name]
+                s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), rel)
+                if dname == "bfloat16":
+                    s["ms_bf16"] += ms
+                    s["plain_ms_bf16"] += plain_ms
+                    s["library_ms_bf16"] += library_ms
+                    s["bound_ms_bf16"] += bound_ms
+                    s["ops_bound_ms_bf16" if bound_by == "operations" else "bytes_bound_ms_bf16"] += bound_ms
+                    s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
+                if not (rel <= tol):
+                    failures.append(row)
+                del kernel, plain, library
+            torch.cuda.empty_cache()
     result = {"phase": "kernels", "ok": not failures, "n_shapes": {k: len(v) for k, v in shapes.items()},
               "summary": summary, "failures": failures, "shapes": rows}
-    emit(result)
-    check(all(shapes.values()), f"a kernel recorded no shape in the probe run: {shapes}")
+    emit({k: v for k, v in result.items() if k != "shapes"})
+    check(all(shapes.get(name) for name in TPU_KERNELS), f"a kernel recorded no shape in the probe runs: "
+          f"{ {k: len(shapes.get(k, [])) for k in TPU_KERNELS} }")
     check(not failures, f"kernel disagrees with its plain version: {failures}")
     return result
 
 
-def phase_unet_parity(seed: int) -> dict:
-    """SD-1.5 UNet in float32: CUDA (kernels, TF32 off) vs CPU (plain path)."""
+# --------------------------------------------------------------------------- #
+# phases 3-4: the SD-1.5 UNet in f32, card (kernels) vs CPU (plain path)
+# --------------------------------------------------------------------------- #
+
+
+def _sd15_unet_pair(seed: int):
     import copy
 
     import torch
@@ -257,7 +492,6 @@ def phase_unet_parity(seed: int) -> dict:
     from stable_diffusion_pytorch_tpu_torch.models import presets
     from stable_diffusion_pytorch_tpu_torch.models.build import cast_for_inference, init_weights
     from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
-    from stable_diffusion_pytorch_tpu_torch.ops import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -267,8 +501,16 @@ def phase_unet_parity(seed: int) -> dict:
     init_weights(unet, gen)
     fill_zero_weights(unet, gen)
     cast_for_inference(unet, torch.float32)
-    cpu_unet = copy.deepcopy(unet).cpu()
+    return unet, copy.deepcopy(unet).cpu()
 
+
+def phase_unet_parity(seed: int) -> dict:
+    """SD-1.5 UNet in float32: CUDA (kernels, TF32 off) vs CPU (plain path)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    unet, cpu_unet = _sd15_unet_pair(seed)
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(1, 64, 64, 4, generator=g)
     t = torch.tensor([601], dtype=torch.int32)
@@ -277,7 +519,7 @@ def phase_unet_parity(seed: int) -> dict:
     with torch.inference_mode():
         out = unet(x.cuda(), t.cuda(), ctx.cuda()).cpu()
         torch.cuda.synchronize()
-        launches = {k: c.count for k, c in native.COUNTERS.items()}
+        launches = {k: native.COUNTERS[k].count for k in SLICE_KERNELS}
         t0 = time.perf_counter()
         ref = cpu_unet(x, t, ctx)
         cpu_s = time.perf_counter() - t0
@@ -294,6 +536,90 @@ def phase_unet_parity(seed: int) -> dict:
     check(all(launches.values()), f"a kernel was not launched by the CUDA UNet forward: {launches}")
     check(err <= tol, f"UNet f32 CUDA vs CPU max abs err {err} > {tol}")
     return res
+
+
+# Limits of the f32 gradient parity: both sides f32 with sums in another order
+# (cuDNN vs CPU convs, kernels vs plain attention and GroupNorm, K3's atomic
+# dq) through ~60 layers forward and back; the forward alone agrees to ~4e-6
+# of its scale, so 1e-4 overall leaves room for the backward's longer sums,
+# and 1e-3 for the tensor whose gradient is smallest against that error.
+GRAD_REL_LIMIT = 1e-4
+GRAD_TENSOR_REL_LIMIT = 1e-3
+# bf16 compute (autocast over the same f32 weights) vs f32 on the card: the
+# JAX package's SD-1.5 UNet drifts 0.0108 (PARITY_FULLSCALE.json, one draw of
+# random weights); bf16 keeps 8 mantissa bits and the drift compounds over
+# ~60 layers, so the port is held to 2e-2 of the output scale
+BF16_DRIFT_LIMIT = 2e-2
+
+
+def phase_train_parity(seed: int) -> dict:
+    """SD-1.5 UNet forward + backward in float32 at a 32x32 latent, batch 1."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    unet, cpu_unet = _sd15_unet_pair(seed)
+    g = torch.Generator().manual_seed(seed + 2)
+    x = torch.randn(1, 32, 32, 4, generator=g)
+    t = torch.tensor([301], dtype=torch.int32)
+    ctx = torch.randn(1, 77, 768, generator=g)
+    w = torch.randn(1, 32, 32, 4, generator=g)
+    grads, outs = [], []
+    native.reset_counters()
+    for module, dev in ((unet, "cuda"), (cpu_unet, "cpu")):
+        module.requires_grad_(True)
+        t0 = time.perf_counter()
+        out = module(x.to(dev), t.to(dev), ctx.to(dev))
+        (out * w.to(dev)).sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append({n: p.grad.detach().cpu() for n, p in module.named_parameters()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: native.COUNTERS[k].count for k in TPU_KERNELS}
+        else:
+            cpu_s = time.perf_counter() - t0
+    card, cpu = grads
+
+    # the training step's precision: bf16 autocast over the same f32 weights
+    unet.zero_grad(set_to_none=True)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out_bf = unet(x.cuda(), t.cuda(), ctx.cuda())
+    (out_bf.float() * w.cuda()).sum().backward()
+    bf_out = out_bf.detach().float().cpu()
+    bf_drift = (bf_out - outs[0]).abs().max().item() / max(1.0, outs[0].abs().max().item())
+    bf_grad = math.sqrt(sum(((p.grad.detach().cpu() - card[n]).double() ** 2).sum().item()
+                            for n, p in unet.named_parameters()) / sum((g.double() ** 2).sum().item()
+                                                                       for g in card.values()))
+    diff2 = sum(((card[n] - cpu[n]).double() ** 2).sum().item() for n in cpu)
+    ref2 = sum((cpu[n].double() ** 2).sum().item() for n in cpu)
+    rel = math.sqrt(diff2 / ref2)
+    per_tensor = {n: ((card[n] - cpu[n]).norm() / cpu[n].norm().clamp(min=1e-30)).item() for n in cpu}
+    worst = max(per_tensor, key=per_tensor.get)
+    res = {"phase": "train_parity", "cpu_reference": True, "latent": [1, 32, 32, 4], "n_tensors": len(cpu),
+           "grad_rel_err": rel, "limit": GRAD_REL_LIMIT, "worst_tensor": worst,
+           "worst_tensor_rel_err": per_tensor[worst], "tensor_limit": GRAD_TENSOR_REL_LIMIT,
+           "cuda_launches": launches, "cpu_fwd_bwd_s": cpu_s,
+           "all_finite": all(bool(torch.isfinite(v).all()) for v in card.values()),
+           "bf16_vs_f32_out_drift": bf_drift, "bf16_drift_limit": BF16_DRIFT_LIMIT,
+           "bf16_vs_f32_grad_rel_err": bf_grad, "bf16_finite": bool(torch.isfinite(bf_out).all())}
+    res["ok"] = (res["all_finite"] and rel <= GRAD_REL_LIMIT and per_tensor[worst] <= GRAD_TENSOR_REL_LIMIT
+                 and all(launches.values()) and res["bf16_finite"] and bf_drift <= BF16_DRIFT_LIMIT)
+    emit(res)
+    check(res["all_finite"], "non-finite gradient on CUDA")
+    check(all(launches.values()), f"a kernel was not launched by the CUDA UNet forward/backward: {launches}")
+    check(rel <= GRAD_REL_LIMIT, f"f32 gradient CUDA vs CPU relative error {rel} > {GRAD_REL_LIMIT}")
+    check(per_tensor[worst] <= GRAD_TENSOR_REL_LIMIT,
+          f"f32 gradient of {worst}: relative error {per_tensor[worst]} > {GRAD_TENSOR_REL_LIMIT}")
+    check(res["bf16_finite"] and bf_drift <= BF16_DRIFT_LIMIT,
+          f"bf16-autocast UNet output drifts {bf_drift} of scale from f32 (limit {BF16_DRIFT_LIMIT})")
+    del unet, cpu_unet, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: the txt2img slice; phases 6-7: training and the checkpoint round trip
+# --------------------------------------------------------------------------- #
 
 
 def phase_slice(model, steps: int, num_images: int) -> dict:
@@ -339,13 +665,160 @@ def phase_slice(model, steps: int, num_images: int) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     res["ok"] = (res["finite"] and res["decoded_shape"] == [num_images, 512, 512, 3]
-                 and all(v > 0 for v in launches.values())
+                 and all(launches[k] > 0 for k in SLICE_KERNELS)
                  and len(images) == num_images and images[0].shape == (512, 512, 3))
     emit(res)
     check(res["decoded_shape"] == [num_images, 512, 512, 3], f"decoded shape {res['decoded_shape']}")
     check(res["finite"], "non-finite values in the decoded image")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched by the slice: {launches}")
+    check(all(launches[k] > 0 for k in SLICE_KERNELS), f"a kernel was not launched by the slice: {launches}")
     check(res["ok"], "slice output check failed")
+    return res
+
+
+def phase_train(trainer) -> dict:
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    state = trainer.state
+    watch = [n for n in state.names if n.endswith(("conv_in.weight", "out.2.weight", "middle_block.1.proj_in.weight"))]
+    watch += [state.names[i] for i in range(0, len(state.names), 97)]
+    before = {n: p.detach().clone() for n, p in zip(state.names, state.params) if n in watch}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_counters()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {name: native.COUNTERS[name].count for name in TPU_KERNELS}
+    with open(trainer.tracker.jsonl_path) as f:
+        records = [json.loads(line) for line in f]
+    changed = {n: (p.detach() - before[n]).abs().max().item() for n, p in zip(state.names, state.params)
+               if n in before}
+    train_recs = [r for r in records if "train_loss" in r]
+    eval_recs = [r for r in records if "eval_loss" in r]
+    losses = [r["train_loss"] for r in train_recs] + [r["eval_loss"] for r in eval_recs]
+    timer = trainer.step_timer
+    micro = TRAIN_STEPS * trainer.cfg.train.gradient_accumulation_steps
+    res = {
+        "phase": "train", "gpu": gpu_line(), "image_size": 512, "batch": TRAIN_BATCH,
+        "gradient_accumulation_steps": trainer.cfg.train.gradient_accumulation_steps,
+        "optimizer_steps": state.optimizer.count, "micro_steps": state.step, "dtype": str(trainer.dtype),
+        "param_dtype": str(state.params[0].dtype), "n_params": sum(p.numel() for p in state.params),
+        "train_loss": [r["train_loss"] for r in train_recs], "eval_loss": [r["eval_loss"] for r in eval_recs],
+        "lr": [r["lr"] for r in train_recs], "finite": all(math.isfinite(v) for v in losses),
+        "max_param_change": changed, "launches": launches,
+        "step_ms_p50": timer.percentile(50) * 1e3, "step_ms_samples": len(timer.durations),
+        "samples_per_s": TRAIN_BATCH / timer.percentile(50), "total_s": total_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    res["ok"] = (res["finite"] and len(train_recs) == TRAIN_STEPS and len(eval_recs) == 1
+                 and state.step == micro and all(v > 0 for v in changed.values())
+                 and all(v > 0 for v in launches.values()))
+    emit(res)
+    check(len(train_recs) == TRAIN_STEPS and state.step == micro, f"train ran {state.step} micro steps")
+    check(res["finite"], f"non-finite loss: {losses}")
+    check(all(v > 0 for v in changed.values()), f"parameters did not change: {changed}")
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched by the train run: {launches}")
+    check(res["ok"], "train phase check failed")
+    res["profile"] = profile_window(trainer)
+    emit({"phase": "train_profile", **{k: v for k, v in res["profile"].items() if k != "top_kernels"}})
+    return res
+
+
+# kernel-name substrings -> category of the training profile, first match wins
+PROFILE_CATEGORIES = [
+    ("K1 flash attention fwd", ("fa_forward_kernel",)),
+    ("K3 flash attention bwd", ("dkv_kernel", "delta_kernel", "cast_kernel<")),
+    ("K7 GroupNorm bwd", ("gn_bwd",)),
+    ("K6/K8 GroupNorm fwd", ("gn_partial_sums", "gn_finalize", "gn_normalize")),
+    ("optimizer and accumulation (foreach)", ("multi_tensor_apply", "foreach")),
+    ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("copies and fills", ("memcpy", "memset", "copy", "fill")),
+    ("other elementwise and reductions", ("elementwise", "vectorized", "reduce", "softmax", "norm", "index")),
+]
+
+
+def profile_window(trainer) -> dict:
+    """torch.profiler over one accumulation window (its micro steps and the
+    optimizer update) after the train run: device ms per micro step by
+    category, and the device's busy share of the window's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    accum = trainer.cfg.train.gradient_accumulation_steps
+    it = iter(trainer.train_loader)
+    batches = [trainer._place_batch(next(it)) for _ in range(accum)]
+    del it
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            trainer._train_step(batch, step_generator("cuda", 7, i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats, kernels, top = {}, 0, []
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        if us <= 0:
+            continue
+        name = e.key.lower()
+        cat = next((c for c, keys in PROFILE_CATEGORIES if any(k in name for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3 / accum
+        kernels += e.count
+        top.append((us / 1e3 / accum, cat, e.key[:100]))
+    busy = sum(cats.values()) * accum
+    if busy <= 0:
+        return {"measured": False, "wall_ms_per_micro_step": wall_ms / accum}
+    return {"measured": True, "micro_steps": accum, "wall_ms_per_micro_step": wall_ms / accum,
+            "device_ms_per_micro_step": busy / accum, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "kernel_launches_per_micro_step": kernels / accum,
+            "device_ms_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"ms": ms, "category": c, "name": n} for ms, c, n in sorted(top, reverse=True)[:25]]}
+
+
+def phase_checkpoint(work: str) -> dict:
+    """Small width on the card: train 2 steps saving checkpoint-2, then resume
+    ``latest`` in a new trainer and compare every tensor."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
+    from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_checkpoint
+
+    shutil.rmtree(work, ignore_errors=True)
+    flags = [*TINY_FLAGS, "--resolution", "64", "--train-batch-size", "2", "--eval-batch-size", "2",
+             "--gradient-accumulation-steps", "2", "--max-train-steps", "2", "--checkpointing-steps", "2",
+             "--lr-warmup-steps", "0", "--ema-decay", "0.9", "--max-train-samples", "8", "--max-val-samples", "2",
+             "--log-interval", "0", "--dataloader-num-workers", "0"]
+    first = build_trainer(train_argv(work, *flags))
+    first.train()
+    path = os.path.join(work, "ckpt", "checkpoint-2")
+    saved = load_checkpoint(path, map_location="cuda")
+    second = build_trainer(train_argv(work, *flags, "--resume-from-checkpoint", "latest", "--seed", "1"))
+    replay = second._resume()
+    got = second.state.state_dict()
+    mismatched = [f"{part}.{n}" for part in ("params", "ema_params")
+                  for n, t in saved[part].items() if not torch.equal(got[part][n], t)]
+    mismatched += [f"opt_state.{k}" for k in ("mu", "nu")
+                   if not all(torch.equal(a, b) for a, b in zip(got["opt_state"][k], saved["opt_state"][k]))]
+    live = first.state.state_dict()
+    mismatched += [f"live.{n}" for n, t in live["params"].items() if not torch.equal(got["params"][n], t)]
+    res = {"phase": "checkpoint", "path": os.path.relpath(path, REPO), "files": sorted(os.listdir(path)),
+           "resumed_global_step": replay["global_step"], "step": got["step"],
+           "count": got["opt_state"]["count"], "n_tensors": len(saved["params"]), "mismatched": mismatched[:20]}
+    res["ok"] = (not mismatched and replay["global_step"] == 2 and got["step"] == saved["step"] == 4
+                 and got["opt_state"]["count"] == 2)
+    emit(res)
+    check(res["ok"], f"checkpoint round trip failed: {res}")
     return res
 
 
@@ -364,26 +837,40 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     os.chdir(REPO)
+    work = os.path.join(REPO, "build", "chip_smoke_train")
 
     env = phase_env()
     model = build_sd15("cuda", torch.bfloat16, SEED)
-    kernels = phase_kernels(model)
+    trainer = build_sd15_trainer(work)
+    shapes = record_shapes(model, trainer)
+    kernels = phase_kernels(shapes)
     parity = phase_unet_parity(SEED)
+    train_parity = phase_train_parity(SEED)
     slice_res = phase_slice(model, STEPS, NUM_IMAGES)
+    del model
+    torch.cuda.empty_cache()
+    train_res = phase_train(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
         summary.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": slice_res["launches"][name], "max_abs_err": s["max_abs_err_bf16"],
-            "ms": s["ms_bf16"], "plain_ms": s["plain_ms_bf16"],
+            "launches": slice_res["launches"][name] + train_res["launches"][name],
+            "max_abs_err": s["max_abs_err_bf16"], "ms": s["ms_bf16"], "plain_ms": s["plain_ms_bf16"],
+            "bound_ms": s["bound_ms_bf16"],
+            "bound_by": "operations" if s["ops_bound_ms_bf16"] >= s["bytes_bound_ms_bf16"] else "bytes",
+            "library_ms": s["library_ms_bf16"],
         })
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"env": env, "kernels": kernels, "unet_parity": parity, "slice": slice_res,
-                       "summary": summary}, f, indent=1)
+            json.dump({"env": env, "shapes": shapes, "kernels": kernels, "unet_parity": parity,
+                       "train_parity": train_parity, "slice": slice_res, "train": train_res,
+                       "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

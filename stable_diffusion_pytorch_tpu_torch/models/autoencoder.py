@@ -4,8 +4,8 @@ Kept reference quirks: the decoder walks the channel list in reverse from
 ``channels_list[0]`` (so its bottleneck runs at ``channels_list[0]``), and the
 bottleneck's single-head attention is not residual. Names follow the reference
 torch VAE (``encoder.down.{i}.0``, ``decoder.up.{i}.1.0.conv``, ...). The
-encoder is ported so a whole state dict loads strictly; text-to-image runs only
-``decode``.
+encoder returns the posterior (:class:`GaussianDistribution`) the UNet trainer
+samples latents from; text-to-image runs only ``decode``.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig
 from stable_diffusion_pytorch_tpu_torch.models.blocks import (
     CrossAttention,
     DownSample,
+    GaussianDistribution,
     GroupNorm,
     ResBlock,
     UpSample,
@@ -108,11 +109,10 @@ class AutoEncoderKL(nn.Module):
     def downsample_factor(self) -> int:
         return 2 ** (len(self.channels_list) - 1)
 
-    def encode(self, img: torch.Tensor):
-        """img [B, H, W, in_ch] -> (mean, log_var), each [B, H/f, W/f, latent_ch]."""
+    def encode(self, img: torch.Tensor) -> GaussianDistribution:
+        """img [B, H, W, in_ch] -> posterior over [B, H/f, W/f, latent_ch]."""
         dtype = self.quant_conv.weight.dtype
-        moments = self.quant_conv(self.encoder(img.to(dtype)))
-        return moments.chunk(2, dim=-1)
+        return GaussianDistribution.from_moments(self.quant_conv(self.encoder(img.to(dtype))))
 
     def decode(self, latent: torch.Tensor) -> torch.Tensor:
         """latent [B, h, w, latent_ch] -> image [B, H, W, out_ch]."""

@@ -36,6 +36,36 @@ def sinusoidal_time_proj(
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+class GaussianDistribution:
+    """Diagonal Gaussian posterior over channel-last latents: ``moments``
+    [B, h, w, 2*C] split along channels into (mean, log_var)."""
+
+    def __init__(self, mean: torch.Tensor, log_var: torch.Tensor):
+        self.mean = mean
+        self.log_var = log_var
+
+    @classmethod
+    def from_moments(cls, moments: torch.Tensor) -> "GaussianDistribution":
+        mean, log_var = moments.chunk(2, dim=-1)
+        return cls(mean, log_var)
+
+    def sample(self, generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + eps * exp(log_var / 2), eps ~ N(0, I) from ``generator`` (on
+        the mean's device) unless given."""
+        std = torch.exp(0.5 * self.log_var)
+        if eps is None:
+            eps = torch.randn(std.shape, generator=generator, device=std.device, dtype=std.dtype)
+        return self.mean + eps.to(std.dtype) * std
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def kl(self) -> torch.Tensor:
+        """KL(q || N(0, I)) summed over all but the batch dim -> [B] f32."""
+        mean, log_var = self.mean.float(), self.log_var.float()
+        return 0.5 * torch.sum(mean**2 + torch.exp(log_var) - 1.0 - log_var, dim=tuple(range(1, mean.dim())))
+
+
 class GroupNorm(nn.Module):
     """GroupNorm(+SiLU) over channel-last input, through ops.groupnorm.
 
@@ -158,7 +188,7 @@ class ResBlock(nn.Module):
         c1 = x.shape[-1]
         if self.skip_connection is not None:
             w = self.skip_connection.weight[:, :, 0, 0]  # [C_out, C_in]
-            res = F.linear(x, w[:, :c1]) + F.linear(skip_cat, w[:, c1:]) + self.skip_connection.bias
+            res = F.linear(x, w[:, :c1], self.skip_connection.bias) + F.linear(skip_cat, w[:, c1:])
             return h + res
         return torch.cat([h[..., :c1] + x, h[..., c1:] + skip_cat], dim=-1)
 

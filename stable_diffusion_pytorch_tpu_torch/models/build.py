@@ -8,9 +8,16 @@ SpatialTransformer's ``proj_out``). The draws differ from JAX's PRNG; parity
 tests load JAX weights through ``utils/convert.py`` instead. Loading
 reference-format ``unet.pt``/``vae.pt`` checkpoints is not ported yet.
 
-Precision: the parameters are cast to the compute dtype once, at build time
-(the JAX package casts f32 parameters per op, which gives the same result in
-inference); GroupNorm affine parameters stay f32, as the kernels take them.
+Precision: for inference the parameters are cast to the compute dtype once, at
+build time (the JAX package casts f32 parameters per op, which gives the same
+result in inference); GroupNorm affine parameters stay f32, as the kernels take
+them. For training (``for_training=True``) the UNet keeps f32 trainable
+parameters and the trainer computes in the compute dtype under
+``torch.autocast``, the counterpart of Flax's ``dtype=bf16`` over
+``param_dtype=f32``; CLIP and the VAE are frozen and cast as for inference.
+
+Entry points run on the card: ``device`` defaults to ``"cuda"``, and without a
+CUDA device only an explicit ``"cpu"`` runs (:func:`require_device`).
 """
 
 from __future__ import annotations
@@ -75,6 +82,29 @@ def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module.eval().requires_grad_(False)
 
 
+def require_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch.device; raises when it is a CUDA device and none
+    is present, naming the explicit CPU option."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU unless asked "
+            "for the CPU: pass --device cpu (device='cpu')"
+        )
+    return device
+
+
+def prepare_for_training(module: nn.Module) -> nn.Module:
+    """f32 trainable parameters (GroupNorm affine included), conv weights in
+    ``channels_last``; the compute dtype comes from autocast in the step.
+
+    The module stays in eval mode: the JAX package's train step calls the
+    UNet with its default ``deterministic=True``, so ``--dropout`` (default
+    0.1) never drops anything in training there, and not here either."""
+    module.to(dtype=torch.float32, memory_format=torch.channels_last)
+    return module.eval().requires_grad_(True)
+
+
 def build_models(
     unet_cfg: UnetConfig,
     vae_cfg: AutoencoderConfig,
@@ -82,12 +112,15 @@ def build_models(
     ddpm_cfg: DDPMConfig,
     compat: Optional[CompatConfig] = None,
     dtype: torch.dtype = torch.float32,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     seed: int = 0,
+    for_training: bool = False,
 ) -> LatentDiffusion:
-    """Schedule + UNet + CLIP + VAE on ``device`` in ``dtype``, seeded."""
-    compat = compat or CompatConfig()
-    device = torch.device(device)
+    """Schedule + UNet + CLIP + VAE on ``device``, seeded. ``dtype`` is the
+    compute dtype: every module is cast to it for inference; with
+    ``for_training`` the UNet keeps f32 trainable parameters instead."""
+    compat = compat.resolved() if compat is not None else CompatConfig()
+    device = require_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     with device:
         unet = UNetModel(
@@ -99,7 +132,11 @@ def build_models(
         text = CLIPTextTransformer(max_positions=clip_cfg.max_seq_len)
     for module in (unet, vae, text):
         init_weights(module, generator)
-        cast_for_inference(module, dtype)
+        if for_training and module is unet:
+            prepare_for_training(module)
+        else:
+            cast_for_inference(module, dtype)
     return LatentDiffusion(
-        unet, vae, CLIPModel(clip_cfg, text), make_schedule(ddpm_cfg), compat=compat
+        unet, vae, CLIPModel(clip_cfg, text), make_schedule(ddpm_cfg), compat=compat,
+        compute_dtype=dtype,
     )

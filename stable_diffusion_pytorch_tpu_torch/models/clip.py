@@ -6,8 +6,8 @@ JAX package's ``convert_text_tower``. The causal-masked attention runs as
 ``ops.attention.xla_attention`` on every device: it never reached the flash
 kernel in the JAX package either.
 
-Tokenizer resolution: the CLIP BPE of ``stable_diffusion_pytorch_tpu.models.bpe``
-(numpy only) with staged ``{model_dir}/tokenizer/vocab.json`` + merges, else its
+Tokenizer resolution: the CLIP BPE of ``models/bpe.py`` (the port's copy of
+the JAX package's numpy-only tokenizer) with staged ``{model_dir}/tokenizer/vocab.json`` + merges, else its
 offline byte-level vocabulary. The HF tokenizer the JAX package tries first is
 not used (``transformers`` is not a dependency of the port).
 """
@@ -21,8 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from stable_diffusion_pytorch_tpu.models.bpe import CLIPBPETokenizer
 from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
+from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer
 from stable_diffusion_pytorch_tpu_torch.ops.attention import xla_attention
 
 BOS_TOKEN_ID = 49406

@@ -83,12 +83,14 @@ def make_sample_fn(
 class LatentDiffusion:
     """Modules + schedule with the JAX package's method surface."""
 
-    def __init__(self, unet, autoencoder, text_encoder, schedule: DiffusionSchedule, compat=None):
+    def __init__(self, unet, autoencoder, text_encoder, schedule: DiffusionSchedule, compat=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.unet = unet
         self.autoencoder = autoencoder
         self.text_encoder = text_encoder
         self.noise_scheduler = schedule
         self.compat = compat
+        self._compute_dtype = compute_dtype
 
     @property
     def device(self) -> torch.device:
@@ -96,7 +98,8 @@ class LatentDiffusion:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.unet.conv_in.weight.dtype
+        """The compute dtype (a training build keeps f32 UNet parameters)."""
+        return self._compute_dtype or self.unet.conv_in.weight.dtype
 
     def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
         """[B] prompts -> [B, 77, 768]; prompts past 75 tokens are truncated

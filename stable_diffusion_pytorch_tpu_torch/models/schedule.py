@@ -4,11 +4,12 @@ Tables are float32 tensors on the CPU, computed as the JAX package computes
 them; a step gathers its coefficients as 0-d float32 tensors, which PyTorch
 applies to tensors on any device as scalars. The DDPM, DPM-Solver++ and
 sigma-space samplers, v-prediction and zero-terminal-SNR rescaling are not
-ported yet.
+ported yet. ``add_noise`` is the trainer's forward process.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -69,6 +70,28 @@ def make_schedule(cfg: DDPMConfig) -> DiffusionSchedule:
         mean_xt_coef=(1.0 - alpha_bar_prev) * torch.sqrt(alphas) / (1.0 - alphas_cumprod),
         noise_steps=cfg.noise_steps,
     )
+
+
+def add_noise(
+    sched: DiffusionSchedule, original_samples: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor
+) -> torch.Tensor:
+    """q(x_t | x_0): sqrt(abar_t) x0 + sqrt(1 - abar_t) noise; ``timesteps`` [B] int
+    on the samples' device. The gather runs where the tables lie: a caller on
+    a CUDA device passes tables moved there once (:func:`schedule_on`)."""
+    shape = (-1,) + (1,) * (original_samples.dim() - 1)
+    dtype, device = original_samples.dtype, original_samples.device
+    t = timesteps.long().to(sched.sqrt_alpha_bar.device)
+    a = sched.sqrt_alpha_bar[t].reshape(shape).to(device=device, dtype=dtype)
+    b = sched.sqrt_1m_alpha_bar[t].reshape(shape).to(device=device, dtype=dtype)
+    return a * original_samples + b * noise
+
+
+def schedule_on(sched: DiffusionSchedule, device) -> DiffusionSchedule:
+    """The schedule with every table moved to ``device``."""
+    return dataclasses.replace(sched, **{
+        f.name: getattr(sched, f.name).to(device)
+        for f in dataclasses.fields(sched) if isinstance(getattr(sched, f.name), torch.Tensor)
+    })
 
 
 def pred_x0_from_eps(sched: DiffusionSchedule, x_t: torch.Tensor, eps: torch.Tensor, t: int) -> torch.Tensor:

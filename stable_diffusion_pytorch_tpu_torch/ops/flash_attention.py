@@ -1,20 +1,32 @@
-"""Flash-attention forward: wrapper around the CUDA kernel and its plain version.
+"""Flash attention, forward and backward: wrappers around the CUDA kernels, their
+plain versions, and the autograd Function that joins them.
 
-Replaces the Pallas TPU kernel ``stable_diffusion_pytorch_tpu/ops/flash_attention.py``
-``_fa_kernel`` (launched from ``_flash_fwd_impl``). The kernel is CUDA C++ in
-``csrc/flash_attention.cu``, built for sm_90a by ``ops/native.py``; its design
-notes are at the top of that file. The TPU's 128-lane padding of D and its
-resident/streaming split at 9216 kv tokens were VMEM mechanics and do not carry
-over: the kernel takes any D up to 256 and any kv length, strided q/k/v views
-included (the fused-QKV split hands it non-contiguous views).
+Forward: replaces the Pallas TPU kernel ``stable_diffusion_pytorch_tpu/ops/flash_attention.py``
+``_fa_kernel`` (launched from ``_flash_fwd_impl``); CUDA C++ in
+``csrc/flash_attention.cu``. Backward: replaces ``ops/flash_attention_bwd.py``
+``_fused_bwd_kernel`` (``flash_attention_bwd_fused``, the JAX package's default
+backward); CUDA C++ in ``csrc/flash_attention_bwd.cu``. Both are built for
+sm_90a by ``ops/native.py``; their design notes are at the top of each source.
+The TPU's 128-lane padding of D and its resident/streaming split at 9216 kv
+tokens were VMEM mechanics and do not carry over: the forward takes any D up to
+512 and any kv length, the backward any D up to 160 (the UNet's widest head),
+strided q/k/v views included (the fused-QKV split hands them non-contiguous
+views).
 
-:func:`flash_attention_plain` is the same function in plain PyTorch (the JAX
-package's ``xla_attention`` math). The wrapper takes it only for CPU tensors.
+:func:`flash_attention_plain` is the forward in plain PyTorch (the JAX package's
+``xla_attention`` math) and :func:`flash_attention_bwd_plain` the backward (its
+``xla_attention_bwd``). The wrappers take them only for CPU tensors.
+
+:func:`flash_attention` is what the model calls. When autograd records (grad
+enabled and an input requires grad) it goes through :class:`FlashAttention`,
+whose forward also keeps the row log-sum-exp for the backward kernel; otherwise
+it launches the forward kernel alone, as inference always has.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,7 +34,9 @@ from stable_diffusion_pytorch_tpu_torch.ops import native
 from stable_diffusion_pytorch_tpu_torch.ops.attention import xla_attention
 
 LAUNCHES = native.counter("flash_attention")
-MAX_HEAD_DIM = 256  # the largest padded head dim csrc/flash_attention.cu instantiates
+BWD_LAUNCHES = native.counter("flash_attention_bwd")
+MAX_HEAD_DIM = 512      # the largest padded head dim csrc/flash_attention.cu instantiates
+MAX_BWD_HEAD_DIM = 160  # the same for csrc/flash_attention_bwd.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,34 +47,139 @@ def flash_attention_plain(
     return xla_attention(q, k, v, scale)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Einsum gradients with f32 scores (the JAX package's ``xla_attention_bwd``)."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_d: int, name: str) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
-            f"flash_attention: q, k, v must share one CUDA device "
+            f"{name}: q, k, v must share one CUDA device "
             f"(got {q.device}, {k.device}, {v.device})"
         )
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention takes float32 or bfloat16 q/k/v of one dtype "
+            f"{name} takes float32 or bfloat16 q/k/v of one dtype "
             f"(got {q.dtype}, {k.dtype}, {v.dtype})"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
-            f"flash_attention: q [B,N,H,D], k/v [B,M,H,D] "
+            f"{name}: q [B,N,H,D], k/v [B,M,H,D] "
             f"(got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)})"
         )
     b, _, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(
-            f"flash_attention: batch/heads/head dim differ between q "
+            f"{name}: batch/heads/head dim differ between q "
             f"{tuple(q.shape)} and k/v {tuple(k.shape)}"
         )
     if min(q.shape) == 0 or k.shape[1] == 0:
-        raise ValueError("flash_attention: empty input")
+        raise ValueError(f"{name}: empty input")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: the head dim of q, k, v must be contiguous")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} exceeds the kernel's {MAX_HEAD_DIM}")
+        raise ValueError(f"{name}: the head dim of q, k, v must be contiguous")
+    if d > max_d:
+        raise ValueError(f"{name}: head dim {d} exceeds the kernel's {max_d}")
+
+
+def _strides(*tensors) -> list:
+    return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _forward_kernel(q, k, v, scale: float, with_lse: bool):
+    """Launch the forward kernel -> (out, lse or None); lse is f32 [B, H, N]."""
+    _check(q, k, v, MAX_HEAD_DIM, "flash_attention")
+    lib = native.load_library()
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.sd_flash_attention_forward(
+            _DTYPE_CODES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            b, h, n, m, d, *_strides(q, k, v, out), float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
+    """Launch the backward kernel (K3) -> (dq, dk, dv), contiguous [B, L, H, D]."""
+    _check(q, k, v, MAX_BWD_HEAD_DIM, "flash_attention_bwd")
+    if out.shape != q.shape or do.shape != q.shape or out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention_bwd: out/do must be {tuple(q.shape)} {q.dtype} "
+            f"(got {tuple(out.shape)} {out.dtype}, {tuple(do.shape)} {do.dtype})"
+        )
+    if out.stride(-1) != 1 or do.stride(-1) != 1 or out.device != q.device or do.device != q.device:
+        raise ValueError("flash_attention_bwd: out and do must lie on q's device with a contiguous head dim")
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be the forward's contiguous f32 [B, H, N]")
+    lib = native.load_library()
+    dev = q.device
+    dq_acc = torch.zeros((b, n, h, d), dtype=torch.float32, device=dev)
+    dq = dq_acc if q.dtype == torch.float32 else torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, m, h, d), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 15)(*_strides(q, k, v, out, do))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sd_flash_attention_backward(
+            _DTYPE_CODES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            None if dq is dq_acc else dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n, m, d, strides, float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    BWD_LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q k^T * scale) v with the K1 forward and the K3 backward on CUDA
+    tensors, the plain forward and backward on CPU tensors."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, scale: float):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, scale), None
+        else:
+            out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(
@@ -71,27 +190,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v; q [B,N,H,D], k/v [B,M,H,D] -> [B,N,H,D].
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or raise."""
+    CPU tensors run the plain versions; CUDA tensors launch the kernels or raise."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, float(scale))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    _check(q, k, v)
-    lib = native.load_library()
-    b, n, h, d = q.shape
-    m = k.shape[1]
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    strides = []
-    for t in (q, k, v, out):
-        strides.extend((t.stride(0), t.stride(1), t.stride(2)))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.sd_flash_attention_forward(
-            _DTYPE_CODES[q.dtype],
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, n, m, d, *strides, float(scale), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
-    return out
+    return _forward_kernel(q, k, v, scale, with_lse=False)[0]

@@ -1,12 +1,20 @@
-"""GroupNorm(+SiLU) kernels for Hopper: wrappers around the Triton kernels.
+"""GroupNorm(+SiLU) kernels for Hopper: wrappers around the Triton kernels, and
+the autograd Functions that pair each forward with its backward.
 
 Replaces the Pallas TPU kernels ``stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py``
-``_gn_kernel`` (launched from ``pallas_group_norm``) and ``_gn_cat_kernel``
-(from ``pallas_group_norm_cat``). The kernels are in ``ops/groupnorm_triton.py``.
+``_gn_kernel`` (launched from ``pallas_group_norm``), ``_gn_cat_kernel``
+(from ``pallas_group_norm_cat``) and ``_gn_bwd_kernel`` (from
+``pallas_group_norm_bwd``, the backward of ``_gn_kernel``). The kernels are in
+``ops/groupnorm_triton.py``. The JAX package has no kernel for the concat
+form's backward (its custom VJP differentiates ``xla_group_norm_cat``); here
+it runs the ``_gn_bwd_kernel`` port over the two parts with joint statistics,
+the way the concat forward reuses the forward's kernels.
 
 What bounds them on this card: no matrix product, about 10 FLOPs per element,
-so memory bandwidth. The floor is one read of x for the statistics plus one
-read of x and one write of y for the normalize pass.
+so memory bandwidth. The forward's floor is one read of x for the statistics
+plus one read of x and one write of y for the normalize pass. The backward
+reads x and dy twice (partial sums, then dx) and writes dx once; it takes
+each group's mean and 1/std from the forward instead of recomputing them.
 
 What the design does about it, and what did not carry over from the TPU:
 
@@ -29,8 +37,9 @@ What the design does about it, and what did not carry over from the TPU:
   is never stored.
 
 Every shape on the path is taken: any C, any number of groups that divides C,
-any spatial size. The plain versions are ``ops/groupnorm.py:xla_group_norm``
-and ``xla_group_norm_cat``; the wrappers take them only for CPU tensors.
+any spatial size. The plain versions are ``ops/groupnorm.py:xla_group_norm``,
+``xla_group_norm_cat`` and :func:`group_norm_bwd_plain`; the wrappers take
+them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -41,12 +50,14 @@ import torch
 
 from stable_diffusion_pytorch_tpu_torch.ops import native
 from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import (
+    group_stats,
     xla_group_norm,
     xla_group_norm_cat,
 )
 
 LAUNCHES = native.counter("group_norm")
 CAT_LAUNCHES = native.counter("group_norm_cat")
+BWD_LAUNCHES = native.counter("group_norm_bwd")
 
 _TILE = 4096           # elements per program in the row/channel passes
 _MAX_SPLITS = 64       # row splits of the statistics pass
@@ -80,24 +91,29 @@ def _check(parts, scale, bias, num_groups) -> None:
                              f"on {x.device} (got {t.dtype} {tuple(t.shape)} on {t.device})")
 
 
-def _launch(parts, scale, bias, num_groups, eps, apply_silu) -> torch.Tensor:
-    """Run the three kernels over the channel concat of ``parts`` (1 or 2)."""
+def _tiling(widths, s: int):
+    """(block_s, block_c, n_split, rows_per_prog) of the row-split passes."""
+    block_c = min(128, _next_pow2(max(widths)))
+    block_s = max(16, _TILE // block_c)
+    n_split = min(_MAX_SPLITS, _cdiv(s, block_s))
+    rows_per_prog = _cdiv(_cdiv(s, n_split), block_s) * block_s
+    return block_s, block_c, _cdiv(s, rows_per_prog), rows_per_prog
+
+
+def _launch(parts, scale, bias, num_groups, eps, apply_silu):
+    """Run the three forward kernels over the channel concat of ``parts`` (1 or
+    2) -> (out, mean, rstd), the statistics f32 [B, G]."""
     native.import_triton()
     from stable_diffusion_pytorch_tpu_torch.ops import groupnorm_triton as k
 
     x = parts[0]
     b = x.shape[0]
     s = math.prod(x.shape[1:-1])
-    c = sum(p.shape[-1] for p in parts)
+    widths = [p.shape[-1] for p in parts]
+    c = sum(widths)
     cpg = c // num_groups
     out = torch.empty(x.shape[:-1] + (c,), dtype=x.dtype, device=x.device)
-
-    widths = [p.shape[-1] for p in parts]
-    block_c = min(128, _next_pow2(max(widths)))
-    block_s = max(16, _TILE // block_c)
-    n_split = min(_MAX_SPLITS, _cdiv(s, block_s))
-    rows_per_prog = _cdiv(_cdiv(s, n_split), block_s) * block_s
-    n_split = _cdiv(s, rows_per_prog)
+    block_s, block_c, n_split, rows_per_prog = _tiling(widths, s)
 
     psum = torch.empty((b, n_split, c), dtype=torch.float32, device=x.device)
     psq = torch.empty_like(psum)
@@ -123,7 +139,179 @@ def _launch(parts, scale, bias, num_groups, eps, apply_silu) -> torch.Tensor:
                 APPLY_SILU=bool(apply_silu), BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4,
             )
             offset += cp
-    return out
+    return out, mean, rstd
+
+
+def _launch_bwd(parts, dy, scale, bias, mean, rstd, num_groups, apply_silu):
+    """Run the four backward kernels (K7) over the channel concat of ``parts``
+    -> ([dx per part], dscale, dbias)."""
+    native.import_triton()
+    from stable_diffusion_pytorch_tpu_torch.ops import groupnorm_triton as k
+
+    x = parts[0]
+    b = x.shape[0]
+    s = math.prod(x.shape[1:-1])
+    widths = [p.shape[-1] for p in parts]
+    c = sum(widths)
+    cpg = c // num_groups
+    block_s, block_c, n_split, rows_per_prog = _tiling(widths, s)
+    dev = x.device
+
+    pdb = torch.empty((b, n_split, c), dtype=torch.float32, device=dev)
+    pds = torch.empty_like(pdb)
+    s1 = torch.empty((b, num_groups), dtype=torch.float32, device=dev)
+    s2 = torch.empty_like(s1)
+    dscale = torch.empty(c, dtype=torch.float32, device=dev)
+    dbias = torch.empty_like(dscale)
+    dxs = [torch.empty_like(p) for p in parts]
+    silu = bool(apply_silu)
+
+    with torch.cuda.device(dev):
+        offset = 0
+        for p, cp in zip(parts, widths):
+            k.gn_bwd_partial_sums[(b, n_split, _cdiv(cp, block_c))](
+                p, dy, mean, rstd, scale, bias, pdb, pds, s, cp, c, offset, cpg, num_groups,
+                rows_per_prog, n_split, APPLY_SILU=silu, BLOCK_S=block_s, BLOCK_C=block_c,
+                num_warps=4,
+            )
+            offset += cp
+        k.gn_bwd_finalize[(b, num_groups)](
+            pdb, pds, scale, s1, s2, n_split, c, cpg, num_groups,
+            BLOCK_P=_next_pow2(n_split), BLOCK_G=_next_pow2(cpg), num_warps=4,
+        )
+        k.gn_bwd_param_grads[(_cdiv(c, 128),)](
+            pdb, pds, dscale, dbias, b * n_split, c, BLOCK_R=32, BLOCK_C=128, num_warps=4,
+        )
+        offset = 0
+        for p, dx, cp in zip(parts, dxs, widths):
+            k.gn_bwd_dx[(b, _cdiv(s, block_s), _cdiv(cp, block_c))](
+                p, dy, dx, mean, rstd, scale, bias, s1, s2, s, cp, c, offset, cpg, num_groups,
+                1.0 / float(s * cpg), APPLY_SILU=silu, BLOCK_S=block_s, BLOCK_C=block_c,
+                num_warps=4,
+            )
+            offset += cp
+    return dxs, dscale, dbias
+
+
+def group_norm_bwd_plain(parts, dy, scale, bias, num_groups, eps=1e-5, apply_silu=False):
+    """Plain GroupNorm(+SiLU) backward over the channel concat of ``parts`` ->
+    ([dx per part], dscale, dbias): the JAX package's ``_gn_bwd_kernel`` math
+    (statistics recomputed from x, var = E[x^2] - E[x]^2)."""
+    b = parts[0].shape[0]
+    widths = [p.shape[-1] for p in parts]
+    c = sum(widths)
+    x = torch.cat([p.float().reshape(b, -1, p.shape[-1]) for p in parts], dim=-1)
+    g = dy.float().reshape(b, -1, c)
+    n = x.shape[1] * (c // num_groups)
+    mean_c, inv_c = group_stats(x.sum(1), (x * x).sum(1), num_groups, n, eps)
+    xhat = (x - mean_c) * inv_c
+    w = scale.float()
+    if apply_silu:
+        y = xhat * w + bias.float()
+        sig = torch.sigmoid(y)
+        g = g * (sig * (1.0 + y * (1.0 - sig)))
+    dbias = g.sum((0, 1))
+    dscale = (g * xhat).sum((0, 1))
+    dxhat = g * w
+    cpg = c // num_groups
+    s1 = dxhat.sum(1).view(b, num_groups, cpg).sum(-1).repeat_interleave(cpg, dim=1)[:, None, :]
+    s2 = (dxhat * xhat).sum(1).view(b, num_groups, cpg).sum(-1).repeat_interleave(cpg, dim=1)[:, None, :]
+    dx = inv_c * (dxhat - (s1 + xhat * s2) / n)
+    dxs = [d.reshape(p.shape).to(p.dtype) for d, p in zip(dx.split(widths, dim=-1), parts)]
+    return dxs, dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def group_norm_bwd(parts, dy, scale, bias, mean, rstd, num_groups, eps=1e-5, apply_silu=False):
+    """GroupNorm(+SiLU) backward over the channel concat of ``parts`` (1 or 2)
+    -> ([dx per part], dscale, dbias). CUDA tensors launch K7 with the
+    forward's ``mean``/``rstd`` (f32 [B, G]); CPU tensors run the plain
+    version, which recomputes the statistics."""
+    if parts[0].device.type == "cpu":
+        return group_norm_bwd_plain(parts, dy, scale, bias, num_groups, eps, apply_silu)
+    dy = dy.contiguous()
+    _check(parts, scale, bias, num_groups)
+    x = parts[0]
+    c = sum(p.shape[-1] for p in parts)
+    if dy.shape != x.shape[:-1] + (c,) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"group norm backward: dy must be {tuple(x.shape[:-1]) + (c,)} {x.dtype} on {x.device} "
+                         f"(got {tuple(dy.shape)} {dy.dtype} on {dy.device})")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t is None or t.shape != (x.shape[0], num_groups) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"group norm backward: {name} must be the forward's f32 [B, G] statistics")
+    dxs, dscale, dbias = _launch_bwd(parts, dy, scale, bias, mean, rstd, num_groups, apply_silu)
+    BWD_LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1],
+                      parts[1].shape[-1] if len(parts) > 1 else 0, num_groups,
+                      bool(apply_silu), str(x.dtype)))
+    return dxs, dscale, dbias
+
+
+def _bwd(ctx, dy):
+    """Shared backward of the two Functions -> grads of (parts..., scale, bias)."""
+    *parts, scale, bias, mean, rstd = ctx.saved_tensors
+    dxs, dscale, dbias = group_norm_bwd(parts, dy, scale, bias, mean, rstd, ctx.num_groups, ctx.eps, ctx.silu)
+    return (*dxs, dscale, dbias)
+
+
+class GroupNormFn(torch.autograd.Function):
+    """GroupNorm(+SiLU): K6 forward and K7 backward on CUDA tensors, the plain
+    forward and backward on CPU tensors."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        out, mean, rstd = _forward(x, None, scale, bias, num_groups, eps, apply_silu)
+        ctx.num_groups, ctx.eps, ctx.silu = num_groups, eps, bool(apply_silu)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        dx, dscale, dbias = _bwd(ctx, dy)
+        return dx, dscale, dbias, None, None, None
+
+
+class GroupNormCatFn(torch.autograd.Function):
+    """GroupNorm(+SiLU) of the virtual concat(x, s): K8 forward and the K7
+    kernels over both parts backward on CUDA tensors, plain versions on CPU."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, s, scale, bias, num_groups, eps, apply_silu):
+        out, mean, rstd = _forward(x, s, scale, bias, num_groups, eps, apply_silu)
+        ctx.num_groups, ctx.eps, ctx.silu = num_groups, eps, bool(apply_silu)
+        ctx.save_for_backward(x, s, scale, bias, mean, rstd)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        dx, ds, dscale, dbias = _bwd(ctx, dy)
+        return dx, ds, dscale, dbias, None, None, None
+
+
+def _forward(x, s, scale, bias, num_groups, eps, apply_silu):
+    """One forward (K6 or, with ``s``, K8) -> (out, mean, rstd); CPU tensors
+    run the plain version and return no statistics."""
+    if s is None:
+        if x.device.type == "cpu":
+            return xla_group_norm(x, scale, bias, num_groups, eps, apply_silu), None, None
+        _check([x], scale, bias, num_groups)
+        out, mean, rstd = _launch([x], scale, bias, num_groups, eps, apply_silu)
+        LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], num_groups,
+                      bool(apply_silu), str(x.dtype)))
+        return out, mean, rstd
+    if x.device.type == "cpu" and s.device.type == "cpu":
+        return xla_group_norm_cat(x, s, scale, bias, num_groups, eps, apply_silu), None, None
+    _check([x, s], scale, bias, num_groups)
+    out, mean, rstd = _launch([x, s], scale, bias, num_groups, eps, apply_silu)
+    CAT_LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], s.shape[-1],
+                      num_groups, bool(apply_silu), str(x.dtype)))
+    return out, mean, rstd
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def fused_group_norm(
@@ -134,16 +322,12 @@ def fused_group_norm(
     eps: float = 1e-5,
     apply_silu: bool = False,
 ) -> torch.Tensor:
-    """GroupNorm(+SiLU) of channel-last x [B, ..., C] (K6).
+    """GroupNorm(+SiLU) of channel-last x [B, ..., C] (K6; backward K7).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or raise."""
-    if x.device.type == "cpu":
-        return xla_group_norm(x, scale, bias, num_groups, eps, apply_silu)
-    _check([x], scale, bias, num_groups)
-    out = _launch([x], scale, bias, num_groups, eps, apply_silu)
-    LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], num_groups,
-                  bool(apply_silu), str(x.dtype)))
-    return out
+    CPU tensors run the plain versions; CUDA tensors launch the kernels or raise."""
+    if _records_grad(x, scale, bias):
+        return GroupNormFn.apply(x, scale, bias, num_groups, eps, apply_silu)
+    return _forward(x, None, scale, bias, num_groups, eps, apply_silu)[0]
 
 
 def fused_group_norm_cat(
@@ -155,13 +339,10 @@ def fused_group_norm_cat(
     eps: float = 1e-5,
     apply_silu: bool = False,
 ) -> torch.Tensor:
-    """GroupNorm(+SiLU) of the virtual concat(x, s) -> [..., C1+C2] (K8).
+    """GroupNorm(+SiLU) of the virtual concat(x, s) -> [..., C1+C2] (K8;
+    backward: the K7 kernels over both parts).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or raise."""
-    if x.device.type == "cpu" and s.device.type == "cpu":
-        return xla_group_norm_cat(x, s, scale, bias, num_groups, eps, apply_silu)
-    _check([x, s], scale, bias, num_groups)
-    out = _launch([x, s], scale, bias, num_groups, eps, apply_silu)
-    CAT_LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], s.shape[-1],
-                      num_groups, bool(apply_silu), str(x.dtype)))
-    return out
+    CPU tensors run the plain versions; CUDA tensors launch the kernels or raise."""
+    if _records_grad(x, s, scale, bias):
+        return GroupNormCatFn.apply(x, s, scale, bias, num_groups, eps, apply_silu)
+    return _forward(x, s, scale, bias, num_groups, eps, apply_silu)[0]

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 
-def _group_stats(sums: torch.Tensor, sumsq: torch.Tensor, num_groups: int, n: int, eps: float):
+def group_stats(sums: torch.Tensor, sumsq: torch.Tensor, num_groups: int, n: int, eps: float):
     """Per-channel [B, C] sums -> per-channel mean and 1/std [B, 1, C]."""
     b, c = sums.shape
     cpg = c // num_groups
@@ -40,7 +40,7 @@ def xla_group_norm(
     b = x.shape[0]
     xf = x.float().reshape(b, -1, c)
     n = xf.shape[1] * (c // num_groups)
-    mean_c, inv_c = _group_stats(xf.sum(1), (xf * xf).sum(1), num_groups, n, eps)
+    mean_c, inv_c = group_stats(xf.sum(1), (xf * xf).sum(1), num_groups, n, eps)
     y = (xf - mean_c) * inv_c * scale.float() + bias.float()
     if apply_silu:
         y = y * torch.sigmoid(y)
@@ -70,7 +70,7 @@ def xla_group_norm_cat(
     n = xf.shape[1] * (c // num_groups)
     sums = torch.cat([xf.sum(1), sf.sum(1)], dim=-1)
     sumsq = torch.cat([(xf * xf).sum(1), (sf * sf).sum(1)], dim=-1)
-    mean_c, inv_c = _group_stats(sums, sumsq, num_groups, n, eps)
+    mean_c, inv_c = group_stats(sums, sumsq, num_groups, n, eps)
     y = (torch.cat([xf, sf], dim=-1) - mean_c) * inv_c * scale.float() + bias.float()
     if apply_silu:
         y = y * torch.sigmoid(y)

@@ -1,10 +1,10 @@
 """Build and load the CUDA C++ kernels; count kernel launches.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use (never at import), from the sources in the checkout, into
-``build/`` at the repository root, keyed by a hash of the sources so an edit
-rebuilds. Triton's kernel cache goes under ``build/`` too. Nothing here falls
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use (never at import), from the sources in the checkout, into ``build/``
+at the repository root, keyed by a hash of the sources so an edit rebuilds. Triton's kernel cache goes under ``build/`` too. Nothing here falls
 back: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -26,8 +26,7 @@ TRITON_CACHE_DIR = BUILD_DIR / "triton"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -85,8 +84,24 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn = lib.sd_flash_attention_forward
-    fn.argtypes = [i, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [f, p]
+    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [f, p]
     fn.restype = ctypes.c_int
+    fn = lib.sd_flash_attention_backward
+    fn.argtypes = [i] + [p] * 11 + [i] * 5 + [ctypes.POINTER(ll), f, p]
+    fn.restype = ctypes.c_int
+
+
+def _run(cmds) -> None:
+    """Run the commands in parallel; raise with the output of the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.cache
@@ -100,15 +115,15 @@ def load_library() -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"libsd_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        obj_dir = BUILD_DIR / f"obj_{digest.hexdigest()[:16]}_{os.getpid()}"
+        obj_dir.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        objs = [obj_dir / f"{src.stem}.o" for src in sources]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objs)])
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
+        shutil.rmtree(obj_dir, ignore_errors=True)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     return lib

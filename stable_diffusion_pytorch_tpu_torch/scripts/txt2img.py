@@ -7,7 +7,8 @@
 Flag names are the JAX CLI's for the ported subset: the sampling flags, the
 model-size flags of the UNet/VAE/CLIP/DDPM config groups, the compat switches
 the slice reads, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``.
-``--device`` (default: ``cuda`` when available) is the port's own. Weights are
+``--device`` (default ``cuda``; without a card the run stops unless given
+``--device cpu``) is the port's own. Weights are
 random, made from ``--seed``: no pretrained weights ship with the repository.
 """
 
@@ -17,8 +18,6 @@ import argparse
 import logging
 import time
 
-import torch
-
 from stable_diffusion_pytorch_tpu_torch.config import (
     AutoencoderConfig,
     ClipConfig,
@@ -26,7 +25,7 @@ from stable_diffusion_pytorch_tpu_torch.config import (
     UnetConfig,
     add_dataclass_args,
 )
-from stable_diffusion_pytorch_tpu_torch.models.build import build_models, resolve_dtype
+from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
 from stable_diffusion_pytorch_tpu_torch.pipeline import SamplingConfig, sample
 from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
@@ -44,8 +43,8 @@ def parse_args(argv=None):
                         help="guidance scale for classifier free guidance")
     parser.add_argument("--mixed-precision", default="bf16", choices=["no", "bf16", "fp16", "fp32"],
                         help="compute dtype on a CUDA device (the CPU always computes in float32)")
-    parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
-                        help="torch device to run on")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (cuda; the CPU only when asked: --device cpu)")
     args = parser.parse_args(argv)
     configs = {
         dc: dc(**{f: getattr(args, f) for f in dc.__dataclass_fields__}) for dc in _GROUPS
@@ -55,6 +54,10 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args, cfg = parse_args(argv)
+    try:
+        require_device(args.device)
+    except RuntimeError as exc:
+        raise SystemExit(f"txt2img: {exc}") from None
     dtype = resolve_dtype(args.mixed_precision, args.device)
     model = build_models(
         cfg[UnetConfig], cfg[AutoencoderConfig], cfg[ClipConfig], cfg[DDPMConfig],

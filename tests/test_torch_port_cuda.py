@@ -8,7 +8,12 @@ repository's conftest (which imports jax) is skipped:
 
 Tolerances on max-abs error, relative to max(1, max|plain|): float32 1e-5 for
 attention and 5e-5 for GroupNorm (summation order); bfloat16 2e-2 (both sides
-round their outputs to bf16, spacing 2^-7 of the magnitude).
+round their outputs to bf16, spacing 2^-7 of the magnitude). The backward
+kernels: float32 5e-5 for attention (sums over up to 300 kv rows, and dq is
+summed with atomics in an order that changes between runs) and 1e-4 for
+GroupNorm (two reductions over the map); bfloat16 2e-2 as above (the kernel's
+delta = rowsum(dO * O) reads the bf16-rounded O, the plain version sums
+dP * P in f32).
 """
 
 import pytest
@@ -17,12 +22,16 @@ torch = pytest.importorskip("torch")
 
 from stable_diffusion_pytorch_tpu_torch.ops import native  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E402
+    _forward_kernel,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_plain,
 )
 from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E402
     fused_group_norm,
     fused_group_norm_cat,
+    group_norm_bwd_plain,
 )
 from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import (  # noqa: E402
     xla_group_norm,
@@ -31,6 +40,7 @@ from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import (  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": (1e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
+BWD_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -50,7 +60,8 @@ def _rel_err(out, ref):
 def test_flash_attention_matches_plain(cuda, dtype):
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(0)
-    for b, n, m, h, d in [(2, 200, 77, 8, 40), (2, 256, 256, 8, 160), (1, 64, 64, 1, 128), (1, 33, 300, 2, 80)]:
+    for b, n, m, h, d in [(2, 200, 77, 8, 40), (2, 256, 256, 8, 160), (1, 64, 64, 1, 128), (1, 33, 300, 2, 80),
+                          (1, 100, 130, 1, 512)]:
         q, k, v = (torch.randn(b, s, h, d, device=cuda, generator=g).to(dt) for s in (n, m, m))
         assert _rel_err(flash_attention(q, k, v), flash_attention_plain(q, k, v, d ** -0.5)) <= TOL[dtype][0]
 
@@ -81,6 +92,63 @@ def test_group_norm_kernels_match_plain(cuda, dtype):
             assert _rel_err(out, xla_group_norm_cat(x1, x2, w, bias, groups, 1e-5, silu)) <= TOL[dtype][1]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_plain(cuda, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for b, n, m, h, d in [(2, 200, 77, 8, 40), (2, 256, 256, 8, 160), (1, 33, 300, 2, 80), (1, 70, 64, 1, 128)]:
+        q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=g).to(dt) for s in (n, m, m, n))
+        out, lse = _forward_kernel(q, k, v, d ** -0.5, with_lse=True)
+        grads = flash_attention_bwd(q, k, v, out, do, lse, d ** -0.5)
+        refs = flash_attention_bwd_plain(q, k, v, do, d ** -0.5)
+        for got, ref in zip(grads, refs):
+            assert got.shape == ref.shape and got.dtype == ref.dtype
+            assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h, d)
+
+
+def test_flash_attention_function_gradients(cuda):
+    """Autograd through the Function (K1 + K3) against autograd through the
+    plain forward, on strided fused-QKV views as the model hands them."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(2, 96, 3 * 2 * 40, device=cuda, generator=g)
+    w = torch.randn(2, 96, 2, 40, device=cuda, generator=g)
+    grads = []
+    for fn in (flash_attention, lambda q, k, v: flash_attention_plain(q, k, v, 40 ** -0.5)):
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = (t.view(2, 96, 2, 40) for t in leaf.split(80, dim=-1))
+        (fn(q, k, v) * w).sum().backward()
+        grads.append(leaf.grad)
+    assert _rel_err(grads[0], grads[1]) <= BWD_TOL["float32"][0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_bwd_matches_plain(cuda, dtype):
+    """K7 through the Functions (single and concat, straddling group) against
+    the plain backward, and the concat's gradients against autograd through
+    the plain concat forward."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for shape, groups in [((2, 64, 960), 32), ((1, 8, 8, 128), 32), ((2, 17, 40), 8)]:
+        c = shape[-1]
+        x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.5).to(dt)
+        w, bias = 1 + 0.3 * torch.randn(c, device=cuda, generator=g), 0.3 * torch.randn(c, device=cuda, generator=g)
+        dy = torch.randn(*shape, device=cuda, generator=g).to(dt)
+        c1 = c * 2 // 3
+        for silu in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+            fused_group_norm(*leaves, groups, 1e-5, silu).backward(dy)
+            (dx_ref,), dw_ref, db_ref = group_norm_bwd_plain([x], dy, w, bias, groups, 1e-5, silu)
+            for t, ref in zip(leaves, (dx_ref, dw_ref, db_ref)):
+                assert _rel_err(t.grad, ref) <= BWD_TOL[dtype][1], (shape, silu)
+            parts = [x[..., :c1].contiguous(), x[..., c1:].contiguous()]
+            leaves = [t.clone().requires_grad_(True) for t in (*parts, w, bias)]
+            fused_group_norm_cat(*leaves, groups, 1e-5, silu).backward(dy)
+            refs = [t.clone().float().requires_grad_(True) for t in (*parts, w, bias)]
+            xla_group_norm_cat(*refs, groups, 1e-5, silu).backward(dy.float())
+            for t, ref in zip(leaves, refs):
+                assert _rel_err(t.grad, ref.grad) <= BWD_TOL[dtype][1], (shape, silu, "cat")
+
+
 def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
     native.reset_counters()
     q = torch.randn(1, 16, 2, 40, device=cuda)
@@ -90,7 +158,8 @@ def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
     fused_group_norm(x, w, w, 8)
     fused_group_norm_cat(x, x, torch.ones(128, device=cuda), torch.ones(128, device=cuda), 8)
     assert {k: c.count for k, c in native.COUNTERS.items()} == {
-        "flash_attention": 1, "group_norm": 1, "group_norm_cat": 1,
+        "flash_attention": 1, "flash_attention_bwd": 0, "group_norm": 1, "group_norm_cat": 1,
+        "group_norm_bwd": 0,
     }
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())
@@ -99,3 +168,40 @@ def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         fused_group_norm(x, w.bfloat16(), w, 8)  # affine params must be f32
     assert native.COUNTERS["flash_attention"].count == 1
+
+
+def test_train_step_on_cuda_runs_the_backward_kernels(cuda, tmp_path):
+    """A tiny UNet train step on the card in bf16 over f32 parameters: finite
+    loss, every parameter updated, K1/K3/K6/K7/K8 launched."""
+    from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, DDPMConfig, UnetConfig
+    from stable_diffusion_pytorch_tpu_torch.models.build import build_models
+    from stable_diffusion_pytorch_tpu_torch.trainers.optim import AdamW, build_lr_schedule
+    from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState, make_unet_train_step, sample_draws
+
+    model = build_models(
+        UnetConfig(channels_list=[32, 64], n_heads=4, time_emb_dim=64, n_layers=1, context_dim=768),
+        AutoencoderConfig(autoencoder_channels_list=[16, 32], groups=8), ClipConfig(model_dir=None), DDPMConfig(),
+        dtype=torch.bfloat16, device=cuda, seed=0, for_training=True,
+    )
+    params = [p for p in model.unet.parameters()]
+    with torch.no_grad():  # the zero-initialized layers would pass no gradient to the layers before them
+        for p in params:
+            if p.dim() > 1 and not p.any():
+                p.normal_(0.0, 0.02)
+    before = [p.detach().clone() for p in params]
+    state = TrainState(model.unet, AdamW(params, build_lr_schedule("constant", 1e-3, 0, 10), max_grad_norm=1.0))
+    train_step, _ = make_unet_train_step(model.unet, model.text_encoder.module, model.autoencoder,
+                                         model.noise_scheduler, compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"pixel_values": torch.rand(2, 32, 32, 3, device=cuda, generator=g) * 2 - 1,
+             "input_ids": torch.randint(0, 49408, (2, 77), device=cuda, generator=g)}
+    uncond = torch.tensor(model.text_encoder.tokenize([""]).input_ids[0], device=cuda)
+    native.reset_counters()
+    metrics = train_step(state, batch, uncond, sample_draws(g, 2, (2, 16, 16, 4), 1000, cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    unchanged = [n for (n, _), a, b in zip(model.unet.named_parameters(), before, params) if torch.equal(a, b)]
+    assert not unchanged, unchanged
+    counts = {k: c.count for k, c in native.COUNTERS.items()}
+    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd",
+                                       "group_norm_cat")), counts

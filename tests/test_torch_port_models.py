@@ -235,10 +235,10 @@ def test_autoencoder_encode_decode_match_jax():
     post = model.apply(params, jnp.asarray(img), method=model.encode).latent_dist
     dec = model.apply(params, jnp.asarray(lat), method=model.decode)
     with torch.no_grad():
-        mean, log_var = port.encode(torch.from_numpy(img))
+        port_post = port.encode(torch.from_numpy(img))
         out = port.decode(torch.from_numpy(lat))
-    np.testing.assert_allclose(mean.numpy(), np.asarray(post.mean), **TOL)
-    np.testing.assert_allclose(log_var.numpy(), np.asarray(post.log_var), **TOL)
+    np.testing.assert_allclose(port_post.mean.numpy(), np.asarray(post.mean), **TOL)
+    np.testing.assert_allclose(port_post.log_var.numpy(), np.asarray(post.log_var), **TOL)
     np.testing.assert_allclose(out.numpy(), np.asarray(dec), **TOL)
 
 

@@ -8,16 +8,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
 1. env: the card (``nvidia-smi`` name and power limit), torch/CUDA/Triton
    versions, and the time to build the CUDA kernels from ``csrc/``.
 2. kernels: every ported kernel against its plain PyTorch version on the card,
-   at every distinct shape the two main paths launch, recorded from a one-step
-   run of each (the 512x512 txt2img slice; one micro step of SD-1.5 training at
-   512x512, batch 4, taken with an optimizer that applies nothing): flash
-   attention forward (K1) and backward (K3), CUDA C++; GroupNorm (K6), its
-   backward (K7, which also serves the concat form's backward) and
-   GroupNorm-concat (K8), Triton. In float32 (TF32 off) and bfloat16: max-abs
-   error with its tolerance; the kernel's, the plain version's and the library
-   call's times (CUDA events, median of 5 runs of 5 launches); and the bound:
-   the larger of bytes / 3.35 TB/s and FLOPs / peak (989 TFLOP/s bf16, 67
-   TFLOP/s f32; H100 SXM data sheet).
+   at every distinct shape the main paths launch, recorded from a one-step run
+   of each (the 512x512 txt2img slice; 1024x1024 txt2img; the hires fix's
+   refine; one micro step of SD-1.5 training at 512x512, batch 4, and at
+   1024x1024, batch 1, taken with an optimizer that applies nothing): flash
+   attention forward (K1, also at the kv > 9216 shapes of the TPU's K2),
+   its fused backward (K3) and its split backward (K4/K5, at its own shapes
+   and at every K3 shape, K4's domain; launched twice, and the two results
+   must agree bit for bit), CUDA C++; GroupNorm (K6), its backward (K7, which
+   also serves the concat form's backward) and GroupNorm-concat (K8), Triton.
+   In float32 (TF32 off) and bfloat16: max-abs error with its tolerance; the
+   kernel's, the plain version's and the library call's times (CUDA events,
+   median of 5 runs of 5 launches); and the bound: the larger of bytes / 3.35
+   TB/s and FLOPs / peak (989 TFLOP/s bf16, 67 TFLOP/s f32; H100 SXM data
+   sheet). The plain attention versions hold f32 [B, H, N, M] scores; past
+   2^30 elements they run one (batch, head) at a time (``plain_per_head`` in
+   the record), the same per-row math.
 3. unet_parity: one SD-1.5-size UNet forward (full widths, 64x64 latent) in
    float32 on the card with the kernels, against the same weights and inputs
    on the CPU through the plain path (a deliberate CPU reference).
@@ -30,19 +36,32 @@ Phases, each printing one JSON line; any failure exits nonzero:
    random weights; checks the decoded image is [B, 512, 512, 3] and finite and
    that each forward kernel was launched by this run; seconds per step and
    images/s.
-6. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
+6. hires: (a) ``pipeline.sample`` at 1024x1024, DDIM with CFG 7.5, bf16,
+   whole decode: the image is [1, 1024, 1024, 3] and finite and K1 ran at kv
+   16384; seconds per step, images/s, peak memory. (b) the hires fix: 512x512
+   base, ``hires_scale=2``, ``hires_strength=0.6``, ``vae_tile=64``, a
+   1024x1024 image from finite tiles; then its stages timed one by one (base
+   loop, refine, tiled and whole decode of the refined latent) and the max
+   difference between the tiled and the whole decode (no limit: the JAX
+   package calls tiled decode an approximation); ``torch.profiler`` over two
+   1024x1024 DDIM steps: device ms per step by kernel category.
+7. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
    synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
    (the default), two optimizer steps and one evaluation; checks a finite
-   loss, changed parameters and that all five kernels were launched by this
-   run; samples/s, step ms p50, peak memory. Then ``torch.profiler`` over one
-   more accumulation window: device ms per micro step by kernel category and
-   the device's idle share (the profiler's own cost included).
-7. checkpoint: a small-width run on the card saves ``checkpoint-2``; a second
+   loss, changed parameters and that its five kernels (all but the split
+   backward) were launched by this run; samples/s, step ms p50, peak memory.
+   Then ``torch.profiler`` over one more accumulation window: device ms per
+   micro step by kernel category and the device's idle share (the
+   profiler's own cost included).
+8. hires_train: the same at 1024x1024, batch 1: the 16384-token
+   self-attention's backward runs the split kernels, the rest K3; all six
+   kernels must be launched by this run.
+9. checkpoint: a small-width run on the card saves ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 and 6 (each run with the counts set
+the summary, ``launches`` counts phases 5 to 8 (each run with the counts set
 to 0 just before it; the split is in the JSON record); ``max_abs_err``,
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each).
@@ -55,6 +74,7 @@ proj_out) filled too, so every path contributes to the outputs and gradients.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -65,17 +85,26 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0          # of the random weights
-STEPS = 10        # DDIM steps of the slice run
+STEPS = 10        # DDIM steps of the slice and hires runs
 NUM_IMAGES = 1    # per slice run; CFG doubles the UNet batch
+HIRES = 1024      # image side of the hires runs: a 128x128 latent, 16384 tokens
+HIRES_BASE = HIRES // 2  # the hires fix's first stage, upscaled x2
+HIRES_TILE = 64   # latent tile of the hires fix's tiled decode
 TRAIN_BATCH = 4
-TRAIN_STEPS = 2   # optimizer steps of the train phase (x4 micro steps)
+HIRES_TRAIN_BATCH = 1
+TRAIN_STEPS = 2   # optimizer steps of each train phase (x4 micro steps)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TPU_KERNELS = {
     "flash_attention": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/flash_attention.cu",
-                        "stable_diffusion_pytorch_tpu/ops/flash_attention.py:45"),
+                        "stable_diffusion_pytorch_tpu/ops/flash_attention.py:45 _fa_kernel (K1), "
+                        ":113 _fa_kernel_stream (K2)"),
     "flash_attention_bwd": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
                             "stable_diffusion_pytorch_tpu/ops/flash_attention_bwd.py:102"),
+    "flash_attention_bwd_split": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/flash_attention_bwd_split.cu",
+                                  "stable_diffusion_pytorch_tpu/ops/flash_attention_bwd.py:51 _dq_kernel, "
+                                  ":61 _dkv_kernel (K4); :355 _sbwd_stats_kernel, :406 _sbwd_dq_kernel, "
+                                  ":443 _sbwd_dkv_kernel (K5)"),
     "group_norm": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
                    "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:44"),
     "group_norm_bwd": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
@@ -84,6 +113,7 @@ TPU_KERNELS = {
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:187"),
 }
 SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
+TRAIN_KERNELS = tuple(k for k in TPU_KERNELS if k != "flash_attention_bwd_split")  # at 512px
 # the SD-1.5 stack (models/presets.py) as training-CLI flags
 SD15_FLAGS = (
     "--channels-list 320,640,1280,1280 --n-heads 8 --attention-resolutions 1,2,4 --num-res-blocks 2 "
@@ -115,6 +145,17 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the counts were last set to 0, and those
+    of K1 at kv > 9216 (the shapes the TPU's streaming forward, K2, took)."""
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    counts = {name: native.COUNTERS[name].count for name in TPU_KERNELS}
+    counts["flash_attention_kv_past_9216"] = sum(
+        n for key, n in native.COUNTERS["flash_attention"].shapes.items() if key[2] > 9216)
+    return counts
 
 
 def cuda_ms(fn, iters: int = 5, repeats: int = 5) -> float:
@@ -169,8 +210,8 @@ def train_argv(work: str, *flags: str):
             "--logging-dir", os.path.join(work, "logs"), "--ckpt-dir", os.path.join(work, "ckpt"), *flags]
 
 
-def build_sd15_trainer(work: str):
-    """The training entry point's trainer at SD-1.5 width, 512x512, batch 4."""
+def build_sd15_trainer(work: str, resolution: int, batch: int):
+    """The training entry point's trainer at SD-1.5 width."""
     import shutil
 
     import torch
@@ -179,9 +220,9 @@ def build_sd15_trainer(work: str):
 
     shutil.rmtree(work, ignore_errors=True)
     trainer = build_trainer(train_argv(
-        work, *SD15_FLAGS, "--resolution", "512", "--train-batch-size", str(TRAIN_BATCH),
-        "--eval-batch-size", str(TRAIN_BATCH), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
-        "--learning-rate", "1e-4", "--max-train-samples", "64", "--max-val-samples", str(TRAIN_BATCH),
+        work, *SD15_FLAGS, "--resolution", str(resolution), "--train-batch-size", str(batch),
+        "--eval-batch-size", str(batch), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
+        "--learning-rate", "1e-4", "--max-train-samples", str(16 * batch), "--max-val-samples", str(batch),
         "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
     ))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -217,8 +258,38 @@ def _elem(dtype) -> int:
     return 4 if dtype == "float32" else 2
 
 
+# The plain attention versions hold f32 [B, H, N, M] scores (the backward about
+# three such); past this many elements they run one (batch, head) at a time
+# (one head's scores at 16384 tokens: 2^28 elements, 1 GiB).
+PLAIN_SCORES_MAX = 2 ** 30
+
+
+def _per_head(plain, *tensors, scale):
+    """``plain`` on one (batch, head) slice of [B, L, H, D] tensors at a time,
+    written into whole outputs: the same math, row by row."""
+    b, h = tensors[0].shape[0], tensors[0].shape[2]
+    outs = None
+    for i in range(b):
+        for j in range(h):
+            parts = plain(*(t[i:i + 1, :, j:j + 1] for t in tensors), scale)
+            parts = parts if isinstance(parts, tuple) else (parts,)
+            if outs is None:
+                outs = [p.new_empty((b, p.shape[1], h, p.shape[3])) for p in parts]
+            for o, p in zip(outs, parts):
+                o[i:i + 1, :, j:j + 1] = p
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _plain_attn(plain, key, *tensors, scale):
+    """(the plain version as a callable, whether it runs per (batch, head))."""
+    b, n, m, h, _ = key
+    if b * h * n * m > PLAIN_SCORES_MAX:
+        return (lambda: _per_head(plain, *tensors, scale=scale)), True
+    return (lambda: plain(*tensors, scale)), False
+
+
 def _attn_case(key, dtype, gen):
-    """K1 at [B, N, M, H, D]: (kernel, plain, library, flops, bytes)."""
+    """K1 at [B, N, M, H, D]: (kernel, plain, library, flops, bytes, record)."""
     import torch
     import torch.nn.functional as F
 
@@ -228,17 +299,21 @@ def _attn_case(key, dtype, gen):
     q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(getattr(torch, dtype)) for s in (n, m, m))
     scale = d ** -0.5
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    plain, per_head = _plain_attn(flash_attention_plain, key, q, k, v, scale=scale)
     return (
         lambda: flash_attention(q, k, v, scale),
-        lambda: flash_attention_plain(q, k, v, scale),
+        plain,
         lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
         4 * b * h * n * m * d,
         _elem(dtype) * (2 * b * n * h * d + 2 * b * m * h * d),
+        {"plain_per_head": per_head},
     )
 
 
-def _attn_bwd_case(key, dtype, gen):
-    """K3 at [B, N, M, H, D], given the K1 forward's output and lse."""
+def _attn_bwd_case(key, dtype, gen, split: bool = False):
+    """K3 (or, with ``split``, K4/K5) at [B, N, M, H, D], given the K1
+    forward's output and lse. Both bounds count the 10 B H N M D FLOPs of
+    the five products the gradient needs, so the two rows compare."""
     import torch
     import torch.nn.functional as F
 
@@ -246,6 +321,7 @@ def _attn_bwd_case(key, dtype, gen):
         _forward_kernel,
         flash_attention_bwd,
         flash_attention_bwd_plain,
+        flash_attention_bwd_split,
     )
 
     b, n, m, h, d = key
@@ -256,13 +332,17 @@ def _attn_bwd_case(key, dtype, gen):
     leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
     do_h = do.transpose(1, 2)
+    kernel = flash_attention_bwd_split if split else flash_attention_bwd
+    plain, per_head = _plain_attn(flash_attention_bwd_plain, key, q, k, v, do, scale=scale)
     return (
-        lambda: flash_attention_bwd(q, k, v, out, do, lse, scale),
-        lambda: flash_attention_bwd_plain(q, k, v, do, scale),
+        lambda: kernel(q, k, v, out, do, lse, scale),
+        plain,
         lambda: torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True),
         10 * b * h * n * m * d,
         _elem(dtype) * 4 * (b * n * h * d + b * m * h * d),
+        {"plain_per_head": per_head},
     )
+
 
 
 def _gn_inputs(shape, c, gen, offset=0.5):
@@ -362,16 +442,20 @@ def _gn_bwd_case(key, dtype, gen):
 # with atomics in an order that changes between runs);
 # bfloat16 -- both sides round outputs (and attention's P) to bf16, whose
 # spacing is 2^-7 of the magnitude, so a few ulps; K3's delta = rowsum(dO * O)
-# reads the bf16-rounded O where the plain version sums dP * P in f32.
+# reads the bf16-rounded O where the plain version sums dP * P in f32. The
+# split backward (K4/K5) sums over up to 16384 rows without atomics; the same
+# limits as K3.
 TOLERANCE = {
     "flash_attention": {"float32": 1e-5, "bfloat16": 2e-2},
     "flash_attention_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
+    "flash_attention_bwd_split": {"float32": 1e-4, "bfloat16": 2e-2},
     "group_norm": {"float32": 5e-5, "bfloat16": 2e-2},
     "group_norm_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
     "group_norm_cat": {"float32": 5e-5, "bfloat16": 2e-2},
 }
-CASES = {"flash_attention": _attn_case, "flash_attention_bwd": _attn_bwd_case, "group_norm": _gn_case,
-         "group_norm_bwd": _gn_bwd_case, "group_norm_cat": _gn_cat_case}
+CASES = {"flash_attention": _attn_case, "flash_attention_bwd": _attn_bwd_case,
+         "flash_attention_bwd_split": functools.partial(_attn_bwd_case, split=True),
+         "group_norm": _gn_case, "group_norm_bwd": _gn_bwd_case, "group_norm_cat": _gn_cat_case}
 
 
 class _NoUpdate:
@@ -383,9 +467,12 @@ class _NoUpdate:
         return False, torch.zeros(())
 
 
-def record_shapes(model, trainer) -> dict:
-    """The distinct launch shapes of each kernel: a one-step txt2img run and one
-    micro step of training at batch 4 (parameters untouched)."""
+def record_shapes(model, trainers) -> dict:
+    """The distinct launch shapes of each kernel: one-step runs of txt2img at
+    512x512 and at 1024x1024 and of the hires fix (a one-step base and a
+    one-step refine), and one training micro step of each trainer (parameters
+    untouched). The split backward is also held at every K3 shape (K4's
+    domain: ``SD_FLASH_BWD=split`` sends every length to it)."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch import pipeline
@@ -393,20 +480,27 @@ def record_shapes(model, trainer) -> dict:
     from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState
     from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
 
-    native.reset_counters()
-    with torch.inference_mode():
-        pipeline.sample(model, image_size=512, prompt="a photo of a cat", time_steps=1,
-                        guidance_scale=7.5, save_dir=None, num_images=NUM_IMAGES, seed=0)
-    torch.cuda.synchronize()
-    shapes = {name: {k[:-1] for k in native.COUNTERS[name].shapes} for name in SLICE_KERNELS}
+    shapes = {name: set() for name in TPU_KERNELS}
+
+    def collect():
+        torch.cuda.synchronize()
+        for name in TPU_KERNELS:
+            shapes[name] |= {k[:-1] for k in native.COUNTERS[name].shapes}
+        native.reset_counters()
 
     native.reset_counters()
-    batch = trainer._place_batch(next(iter(trainer.train_loader)))
-    probe = TrainState(trainer.model.unet, _NoUpdate())
-    trainer._train(probe, batch, trainer.uncond_ids, trainer._draws(batch, step_generator("cuda", 9)))
-    torch.cuda.synchronize()
-    for name in TPU_KERNELS:
-        shapes[name] = shapes.get(name, set()) | {k[:-1] for k in native.COUNTERS[name].shapes}
+    with torch.inference_mode():
+        for size, hires in ((512, {}), (HIRES, {}),
+                            (HIRES_BASE, {"hires_scale": 2.0, "hires_strength": 0.6, "vae_tile": HIRES_TILE})):
+            pipeline.sample(model, image_size=size, prompt="a photo of a cat", time_steps=1,
+                            guidance_scale=7.5, save_dir=None, num_images=NUM_IMAGES, seed=0, **hires)
+            collect()
+    for trainer in trainers:
+        batch = trainer._place_batch(next(iter(trainer.train_loader)))
+        probe = TrainState(trainer.model.unet, _NoUpdate())
+        trainer._train(probe, batch, trainer.uncond_ids, trainer._draws(batch, step_generator("cuda", 9)))
+        collect()
+    shapes["flash_attention_bwd_split"] |= shapes["flash_attention_bwd"]
     return {name: sorted(v) for name, v in shapes.items()}
 
 
@@ -445,17 +539,20 @@ def phase_kernels(shapes: dict) -> dict:
     for name, keys in shapes.items():
         for key in keys:
             for dname in ("float32", "bfloat16"):
-                kernel, plain, library, flops, nbytes = CASES[name](key, dname, gen)
+                kernel, plain, library, flops, nbytes, *record = CASES[name](key, dname, gen)
                 out, ref = kernel(), plain()
+                # the split backward has no atomics: a second launch must agree bit for bit
+                again = kernel() if name == "flash_attention_bwd_split" else out
                 torch.cuda.synchronize()
                 err, rel = _max_err(out, ref)
+                identical = again is out or all(torch.equal(a, b) for a, b in zip(again, out))
                 tol = TOLERANCE[name][dname]
-                del out, ref
+                del out, ref, again
                 ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
                 bound_ms, bound_by = _bound(flops, nbytes, dname)
                 row = {"k": name, "shape": list(key), "dtype": dname, "err": err, "rel_err": rel, "tol": tol, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "flops": flops, "bytes": nbytes}
+                       "flops": flops, "bytes": nbytes, "repeat_identical": identical, **(record[0] if record else {})}
                 rows.append(row)
                 s = summary[name]
                 s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), rel)
@@ -466,7 +563,7 @@ def phase_kernels(shapes: dict) -> dict:
                     s["bound_ms_bf16"] += bound_ms
                     s["ops_bound_ms_bf16" if bound_by == "operations" else "bytes_bound_ms_bf16"] += bound_ms
                     s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
-                if not (rel <= tol):
+                if not (rel <= tol and identical):
                     failures.append(row)
                 del kernel, plain, library
             torch.cuda.empty_cache()
@@ -575,7 +672,7 @@ def phase_train_parity(seed: int) -> dict:
         grads.append({n: p.grad.detach().cpu() for n, p in module.named_parameters()})
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = {k: native.COUNTERS[k].count for k in TPU_KERNELS}
+            launches = {k: native.COUNTERS[k].count for k in TRAIN_KERNELS}
         else:
             cpu_s = time.perf_counter() - t0
     card, cpu = grads
@@ -641,7 +738,7 @@ def phase_slice(model, steps: int, num_images: int) -> dict:
                                      guidance_scale=7.5, save_dir=out_dir, num_images=num_images, seed=42)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = {name: native.COUNTERS[name].count for name in TPU_KERNELS}
+        launches = launch_counts()
     finally:
         hook.remove()
 
@@ -675,7 +772,95 @@ def phase_slice(model, steps: int, num_images: int) -> dict:
     return res
 
 
-def phase_train(trainer) -> dict:
+def _timed(fn):
+    """(fn(), host seconds) around work that ends in a device synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_hires(model, steps: int) -> dict:
+    """(a) txt2img at 1024x1024 with the whole decode; (b) the hires fix from
+    512x512 with the tiled decode; then (b)'s stages timed one by one."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    decoded = []
+    hook = model.autoencoder.decoder.register_forward_hook(lambda m, i, o: decoded.append(o.detach()))
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    prompt = "a photograph of an astronaut riding a horse"
+    fix = {"hires_scale": 2.0, "hires_strength": 0.6, "vae_tile": HIRES_TILE}
+    runs = {}
+    try:
+        for run, size, extra in (("txt2img_1024", HIRES, {}), ("hires_fix", HIRES_BASE, fix)):
+            decoded.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            native.reset_counters()
+            with torch.inference_mode():
+                images, total_s = _timed(lambda: pipeline.sample(
+                    model, image_size=size, prompt=prompt, time_steps=steps, guidance_scale=7.5, save_dir=out_dir,
+                    num_images=1, seed=42, name=run, **extra))
+            runs[run] = {
+                "image_size": size, **extra, "launches": launch_counts(),
+                "flash_kv_lengths": sorted({key[2] for key in native.COUNTERS["flash_attention"].shapes}),
+                "decoder_outputs": [list(o.shape) for o in decoded],
+                "finite": all(bool(torch.isfinite(o).all()) for o in decoded),
+                "image_shape": list(images[0].shape), "total_s": total_s, "images_per_s": 1.0 / total_s,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            }
+    finally:
+        hook.remove()
+
+    # the stages alone (not part of the counts): the 1024 loop; the hires fix's
+    # base loop, refine, and tiled vs whole decode of the refined latent
+    with torch.inference_mode():
+        ctx = model.encode_prompts([prompt])
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        noise = torch.randn(model.latent_shape(1, HIRES), device="cuda", generator=gen).to(model.dtype)
+        _, loop_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps))
+        noise = torch.randn(model.latent_shape(1, HIRES_BASE), device="cuda", generator=gen).to(model.dtype)
+        x0, base_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps))
+        x1, refine_s = _timed(lambda: pipeline.hires_refine(
+            model, x0, ctx, guidance_scale=7.5, sampler="ddim", time_steps=steps, hires_scale=2.0,
+            hires_strength=0.6, generator=torch.Generator().manual_seed(8)))
+        tiled, tiled_s = _timed(lambda: model.decode_latent(x1, tile=HIRES_TILE))
+        whole, whole_s = _timed(lambda: model.decode_latent(x1))
+        tile_diff = (tiled.float() - whole.float()).abs().max().item()
+        noise = torch.randn(model.latent_shape(1, HIRES), device="cuda", generator=gen).to(model.dtype)
+        profile = profile_device(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=2), 2, "step")
+    refine_steps = max(min(round(steps * 0.6), steps), 1)
+    a, b = runs["txt2img_1024"], runs["hires_fix"]
+    res = {
+        "phase": "hires", "gpu": gpu_line(), "steps": steps, "guidance_scale": 7.5, "dtype": str(model.dtype),
+        "runs": runs, "s_per_step_1024": loop_s / steps,
+        "hires_fix_stages_s": {"base": base_s, "refine": refine_s, "tiled_decode": tiled_s,
+                               "whole_decode": whole_s},
+        "refine_steps": refine_steps, "refine_s_per_step": refine_s / refine_steps,
+        "tiled_vs_whole_decode_max_abs": tile_diff, "tiled_vs_whole_image_max_abs": whole.float().abs().max().item(),
+        "profile_1024_step": profile,
+    }
+    emit({k: v for k, v in res.items() if k != "profile_1024_step"})
+    emit({"phase": "hires_profile", **{k: v for k, v in profile.items() if k != "top_kernels"}})
+    full = [1, HIRES, HIRES, 3]
+    check(a["decoder_outputs"] == [full] and a["finite"] and a["image_shape"] == full[1:],
+          f"1024x1024 txt2img: decoder outputs {a['decoder_outputs']}, finite {a['finite']}")
+    check(HIRES * HIRES // 64 in a["flash_kv_lengths"], f"K1 never ran at kv 16384: {a['flash_kv_lengths']}")
+    check(len(b["decoder_outputs"]) > 1 and b["finite"] and b["image_shape"] == full[1:],
+          f"hires fix: decoder tiles {b['decoder_outputs']}, finite {b['finite']}, image {b['image_shape']}")
+    for run in runs.values():
+        check(all(run["launches"][k] > 0 for k in SLICE_KERNELS), f"a kernel was not launched: {run['launches']}")
+    check(bool(torch.isfinite(tiled).all() and torch.isfinite(whole).all()), "non-finite staged decode")
+    return res
+
+
+def phase_train(trainer, name: str, image_size: int, batch: int, required) -> dict:
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
@@ -691,7 +876,7 @@ def phase_train(trainer) -> dict:
     trainer.train()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {name: native.COUNTERS[name].count for name in TPU_KERNELS}
+    launches = launch_counts()
     with open(trainer.tracker.jsonl_path) as f:
         records = [json.loads(line) for line in f]
     changed = {n: (p.detach() - before[n]).abs().max().item() for n, p in zip(state.names, state.params)
@@ -702,7 +887,7 @@ def phase_train(trainer) -> dict:
     timer = trainer.step_timer
     micro = TRAIN_STEPS * trainer.cfg.train.gradient_accumulation_steps
     res = {
-        "phase": "train", "gpu": gpu_line(), "image_size": 512, "batch": TRAIN_BATCH,
+        "phase": name, "gpu": gpu_line(), "image_size": image_size, "batch": batch,
         "gradient_accumulation_steps": trainer.cfg.train.gradient_accumulation_steps,
         "optimizer_steps": state.optimizer.count, "micro_steps": state.step, "dtype": str(trainer.dtype),
         "param_dtype": str(state.params[0].dtype), "n_params": sum(p.numel() for p in state.params),
@@ -710,26 +895,27 @@ def phase_train(trainer) -> dict:
         "lr": [r["lr"] for r in train_recs], "finite": all(math.isfinite(v) for v in losses),
         "max_param_change": changed, "launches": launches,
         "step_ms_p50": timer.percentile(50) * 1e3, "step_ms_samples": len(timer.durations),
-        "samples_per_s": TRAIN_BATCH / timer.percentile(50), "total_s": total_s,
+        "samples_per_s": batch / timer.percentile(50), "total_s": total_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     res["ok"] = (res["finite"] and len(train_recs) == TRAIN_STEPS and len(eval_recs) == 1
                  and state.step == micro and all(v > 0 for v in changed.values())
-                 and all(v > 0 for v in launches.values()))
+                 and all(launches[k] > 0 for k in required))
     emit(res)
     check(len(train_recs) == TRAIN_STEPS and state.step == micro, f"train ran {state.step} micro steps")
     check(res["finite"], f"non-finite loss: {losses}")
     check(all(v > 0 for v in changed.values()), f"parameters did not change: {changed}")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched by the train run: {launches}")
-    check(res["ok"], "train phase check failed")
+    check(all(launches[k] > 0 for k in required), f"a kernel was not launched by the {name} run: {launches}")
+    check(res["ok"], f"{name} phase check failed")
     res["profile"] = profile_window(trainer)
-    emit({"phase": "train_profile", **{k: v for k, v in res["profile"].items() if k != "top_kernels"}})
+    emit({"phase": f"{name}_profile", **{k: v for k, v in res["profile"].items() if k != "top_kernels"}})
     return res
 
 
 # kernel-name substrings -> category of the training profile, first match wins
 PROFILE_CATEGORIES = [
     ("K1 flash attention fwd", ("fa_forward_kernel",)),
+    ("K4/K5 split attention bwd", ("split_dq_kernel", "split_dkv_kernel", "split_delta_kernel")),
     ("K3 flash attention bwd", ("dkv_kernel", "delta_kernel", "cast_kernel<")),
     ("K7 GroupNorm bwd", ("gn_bwd",)),
     ("K6/K8 GroupNorm fwd", ("gn_partial_sums", "gn_finalize", "gn_normalize")),
@@ -741,24 +927,17 @@ PROFILE_CATEGORIES = [
 ]
 
 
-def profile_window(trainer) -> dict:
-    """torch.profiler over one accumulation window (its micro steps and the
-    optimizer update) after the train run: device ms per micro step by
-    category, and the device's busy share of the window's wall time."""
+def profile_device(fn, units: int, unit: str) -> dict:
+    """torch.profiler around ``fn()``, a window of ``units`` steps: device ms
+    per step by kernel category, and the device's busy share of the window's
+    wall time (the profiler's own cost included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
-
-    accum = trainer.cfg.train.gradient_accumulation_steps
-    it = iter(trainer.train_loader)
-    batches = [trainer._place_batch(next(it)) for _ in range(accum)]
-    del it
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i, batch in enumerate(batches):
-            trainer._train_step(batch, step_generator("cuda", 7, i))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats, kernels, top = {}, 0, []
@@ -771,17 +950,34 @@ def profile_window(trainer) -> dict:
             continue
         name = e.key.lower()
         cat = next((c for c, keys in PROFILE_CATEGORIES if any(k in name for k in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + us / 1e3 / accum
+        cats[cat] = cats.get(cat, 0.0) + us / 1e3 / units
         kernels += e.count
-        top.append((us / 1e3 / accum, cat, e.key[:100]))
-    busy = sum(cats.values()) * accum
+        top.append((us / 1e3 / units, cat, e.key[:100]))
+    busy = sum(cats.values()) * units
     if busy <= 0:
-        return {"measured": False, "wall_ms_per_micro_step": wall_ms / accum}
-    return {"measured": True, "micro_steps": accum, "wall_ms_per_micro_step": wall_ms / accum,
-            "device_ms_per_micro_step": busy / accum, "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "kernel_launches_per_micro_step": kernels / accum,
+        return {"measured": False, f"wall_ms_per_{unit}": wall_ms / units}
+    return {"measured": True, f"{unit}s": units, f"wall_ms_per_{unit}": wall_ms / units,
+            f"device_ms_per_{unit}": busy / units, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            f"kernel_launches_per_{unit}": kernels / units,
             "device_ms_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"ms": ms, "category": c, "name": n} for ms, c, n in sorted(top, reverse=True)[:25]]}
+
+
+def profile_window(trainer) -> dict:
+    """One accumulation window (its micro steps and the optimizer update)
+    after the train run, profiled."""
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    accum = trainer.cfg.train.gradient_accumulation_steps
+    it = iter(trainer.train_loader)
+    batches = [trainer._place_batch(next(it)) for _ in range(accum)]
+    del it
+
+    def window():
+        for i, batch in enumerate(batches):
+            trainer._train_step(batch, step_generator("cuda", 7, i))
+
+    return profile_device(window, accum, "micro_step")
 
 
 def phase_checkpoint(work: str) -> dict:
@@ -841,25 +1037,32 @@ def main(argv=None) -> int:
 
     env = phase_env()
     model = build_sd15("cuda", torch.bfloat16, SEED)
-    trainer = build_sd15_trainer(work)
-    shapes = record_shapes(model, trainer)
+    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH)
+    hires_trainer = build_sd15_trainer(work + "_1024", HIRES, HIRES_TRAIN_BATCH)
+    shapes = record_shapes(model, (trainer, hires_trainer))
     kernels = phase_kernels(shapes)
     parity = phase_unet_parity(SEED)
     train_parity = phase_train_parity(SEED)
     slice_res = phase_slice(model, STEPS, NUM_IMAGES)
+    hires_res = phase_hires(model, STEPS)
     del model
     torch.cuda.empty_cache()
-    train_res = phase_train(trainer)
+    train_res = phase_train(trainer, "train", 512, TRAIN_BATCH, TRAIN_KERNELS)
     del trainer
+    torch.cuda.empty_cache()
+    hires_train_res = phase_train(hires_trainer, "hires_train", HIRES, HIRES_TRAIN_BATCH, tuple(TPU_KERNELS))
+    del hires_trainer
     torch.cuda.empty_cache()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
+    main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
+                 train_res["launches"], hires_train_res["launches"]]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
         summary.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": slice_res["launches"][name] + train_res["launches"][name],
+            "launches": sum(launches[name] for launches in main_path),
             "max_abs_err": s["max_abs_err_bf16"], "ms": s["ms_bf16"], "plain_ms": s["plain_ms_bf16"],
             "bound_ms": s["bound_ms_bf16"],
             "bound_by": "operations" if s["ops_bound_ms_bf16"] >= s["bytes_bound_ms_bf16"] else "bytes",
@@ -869,8 +1072,10 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"env": env, "shapes": shapes, "kernels": kernels, "unet_parity": parity,
-                       "train_parity": train_parity, "slice": slice_res, "train": train_res,
-                       "checkpoint": ckpt, "summary": summary}, f, indent=1)
+                       "flash_attention_launches_kv_past_9216": sum(
+                           launches["flash_attention_kv_past_9216"] for launches in main_path),
+                       "train_parity": train_parity, "slice": slice_res, "hires": hires_res, "train": train_res,
+                       "hires_train": hires_train_res, "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 The JAX package runs the reverse loop as one ``lax.scan``; here it is a Python
 loop that runs the UNet once per step on the CFG-doubled batch [uncond, cond].
-Only the DDIM sampler is ported; ddpm, dpmpp and the sigma-space samplers,
-ControlNet, DeepCache, prompt weighting, long prompts and tiled decode wait
-for later work.
+Only the DDIM sampler is ported, with ``strength`` (the hires fix's partial
+schedule) and tiled VAE decode; ddpm, dpmpp and the sigma-space samplers,
+ControlNet, DeepCache, prompt weighting and long prompts wait for later work.
 """
 
 from __future__ import annotations
@@ -57,14 +57,23 @@ def make_sample_fn(
     guidance_scale: float = 7.5,
     eta: float = 0.0,
     reference_cfg_formula: bool = False,
+    strength: float = 1.0,
 ) -> Callable:
-    """Reverse loop ``f(x_T, context_emb, uncond_emb, generator=None) -> x_0``."""
+    """Reverse loop ``f(x_T, context_emb, uncond_emb, generator=None) -> x_0``.
+
+    ``strength < 1`` runs only the final ``round(num_steps * strength)`` steps
+    (at least one) of the subsequence; the caller q-samples its latents to the
+    first of them, exposed as ``.start_timestep`` (the JAX package's rule,
+    Python's ``round``, halves to even)."""
     if sampler not in SAMPLERS:
         raise NotImplementedError(f"sampler {sampler!r} is not ported yet (have {SAMPLERS})")
     if num_steps == schedule.noise_steps:
         ts = sched_lib.leading_timesteps(num_steps)
     else:
         ts = sched_lib.spaced_timesteps(schedule.noise_steps, num_steps)
+    if strength < 1.0:
+        keep = max(min(round(num_steps * strength), num_steps), 1)
+        ts = ts[num_steps - keep:]
     ts_prev = ts[1:] + [-1]
     pred_noise = make_pred_noise_fn(unet, guidance_scale, reference_cfg_formula)
 
@@ -77,6 +86,7 @@ def make_sample_fn(
             x, _ = sched_lib.ddim_step(schedule, eps, x, t, t_prev, eta, generator)
         return x
 
+    sample.start_timestep = ts[0]
     return sample
 
 
@@ -147,9 +157,47 @@ class LatentDiffusion:
         return fn(noised_sample, context_emb, uncond, generator)
 
     @torch.no_grad()
-    def decode_latent(self, latent: torch.Tensor) -> torch.Tensor:
-        """VAE decode of the whole latent (tiled decode is not ported yet)."""
-        return self.autoencoder.decode(latent)
+    def decode_latent(self, latent: torch.Tensor, tile: Optional[int] = None,
+                      tile_overlap: int = 8) -> torch.Tensor:
+        """VAE decode; ``tile`` (a latent-space tile side) decodes overlapping
+        tiles one by one and blends them with linear ramps on interior edges,
+        bounding the decoder's activations by the tile instead of the image.
+        Per-tile GroupNorm statistics make it an approximation of the whole
+        decode, as in the JAX package (``decode_latent``), whose tiling this is."""
+        h, w = latent.shape[1:3]
+        if tile is None or (h <= tile and w <= tile):
+            return self.autoencoder.decode(latent)
+        if tile <= 2 * tile_overlap:
+            raise ValueError(f"tile {tile} must exceed twice the overlap {tile_overlap}")
+        f = self.autoencoder.downsample_factor
+        stride = tile - tile_overlap
+        r = tile_overlap * f
+        edge = (torch.arange(r, dtype=torch.float32, device=latent.device) + 1.0) / (r + 1.0)
+
+        def ramp(n_pix: int, lo_open: bool, hi_open: bool) -> torch.Tensor:
+            wgt = torch.ones(n_pix, dtype=torch.float32, device=latent.device)
+            if lo_open:
+                wgt[:r] = edge
+            if hi_open:
+                wgt[-r:] = edge.flip(0)
+            return wgt
+
+        out = acc = None
+        for r0 in range(0, max(h - tile_overlap, 1), stride):
+            r1 = min(r0 + tile, h)
+            r0 = max(r1 - tile, 0)  # a full-size tile even at the edge
+            for c0 in range(0, max(w - tile_overlap, 1), stride):
+                c1 = min(c0 + tile, w)
+                c0 = max(c1 - tile, 0)
+                dec = self.autoencoder.decode(latent[:, r0:r1, c0:c1, :]).float()
+                if out is None:
+                    out = dec.new_zeros((latent.shape[0], h * f, w * f, dec.shape[-1]))
+                    acc = dec.new_zeros((1, h * f, w * f, 1))
+                wgt = (ramp((r1 - r0) * f, r0 > 0, r1 < h)[:, None]
+                       * ramp((c1 - c0) * f, c0 > 0, c1 < w)[None, :])[None, :, :, None]
+                out[:, r0 * f:r1 * f, c0 * f:c1 * f, :] += dec * wgt
+                acc[:, r0 * f:r1 * f, c0 * f:c1 * f, :] += wgt
+        return (out / acc.clamp(min=1e-8)).to(latent.dtype)
 
     def latent_shape(self, batch: int, image_size: int) -> Tuple[int, int, int, int]:
         f = self.autoencoder.downsample_factor

@@ -1,32 +1,46 @@
 """Flash attention, forward and backward: wrappers around the CUDA kernels, their
 plain versions, and the autograd Function that joins them.
 
-Forward: replaces the Pallas TPU kernel ``stable_diffusion_pytorch_tpu/ops/flash_attention.py``
-``_fa_kernel`` (launched from ``_flash_fwd_impl``); CUDA C++ in
-``csrc/flash_attention.cu``. Backward: replaces ``ops/flash_attention_bwd.py``
-``_fused_bwd_kernel`` (``flash_attention_bwd_fused``, the JAX package's default
-backward); CUDA C++ in ``csrc/flash_attention_bwd.cu``. Both are built for
-sm_90a by ``ops/native.py``; their design notes are at the top of each source.
-The TPU's 128-lane padding of D and its resident/streaming split at 9216 kv
-tokens were VMEM mechanics and do not carry over: the forward takes any D up to
-512 and any kv length, the backward any D up to 160 (the UNet's widest head),
-strided q/k/v views included (the fused-QKV split hands them non-contiguous
-views).
+Forward: replaces the Pallas TPU kernels ``stable_diffusion_pytorch_tpu/ops/flash_attention.py``
+``_fa_kernel`` (resident K/V) and ``_fa_kernel_stream`` (kv past 9216 tokens);
+CUDA C++ in ``csrc/flash_attention.cu``, whose online softmax over kv tiles
+serves every kv length, so the forward has no resident/streaming split.
+Backward, two kernel sets, both CUDA C++:
+
+- fused, K3 (``csrc/flash_attention_bwd.cu``): replaces ``ops/flash_attention_bwd.py``
+  ``_fused_bwd_kernel`` (``flash_attention_bwd_fused``, the JAX package's default);
+  kv-outer with dq added by atomics.
+- split, K4/K5 (``csrc/flash_attention_bwd_split.cu``): replaces ``_dq_kernel``
+  and ``_dkv_kernel`` (``flash_attention_bwd``, ``SD_FLASH_BWD=split``) and
+  ``_sbwd_stats_kernel``, ``_sbwd_dq_kernel`` and ``_sbwd_dkv_kernel``
+  (``flash_attention_bwd_streaming``); a q-outer dq kernel and a kv-outer
+  dk/dv kernel, no atomics, the same result on every run.
+
+:func:`backward_route` picks between them by the JAX package's rule
+(``_flash_bwd``): the split kernels past the 9216-token crossover or under
+``SD_FLASH_BWD=split``, K3 otherwise. The crossover is the TPU's VMEM limit,
+kept as the selection rule until a measurement on the card moves it. All are
+built for sm_90a by ``ops/native.py``; their design notes are at the top of
+each source. The forward takes any D up to 512 and any kv length, the backward
+any D up to 160 (the UNet's widest head), strided q/k/v views included (the
+fused-QKV split hands them non-contiguous views).
 
 :func:`flash_attention_plain` is the forward in plain PyTorch (the JAX package's
-``xla_attention`` math) and :func:`flash_attention_bwd_plain` the backward (its
-``xla_attention_bwd``). The wrappers take them only for CPU tensors.
+``xla_attention`` math) and :func:`flash_attention_bwd_plain` the backward of
+both kernel sets (its ``xla_attention_bwd``). The wrappers take them only for
+CPU tensors.
 
 :func:`flash_attention` is what the model calls. When autograd records (grad
 enabled and an input requires grad) it goes through :class:`FlashAttention`,
-whose forward also keeps the row log-sum-exp for the backward kernel; otherwise
-it launches the forward kernel alone, as inference always has.
+whose forward also keeps the row log-sum-exp for the backward kernels;
+otherwise it launches the forward kernel alone, as inference always has.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import os
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -35,8 +49,10 @@ from stable_diffusion_pytorch_tpu_torch.ops.attention import xla_attention
 
 LAUNCHES = native.counter("flash_attention")
 BWD_LAUNCHES = native.counter("flash_attention_bwd")
+SPLIT_BWD_LAUNCHES = native.counter("flash_attention_bwd_split")
 MAX_HEAD_DIM = 512      # the largest padded head dim csrc/flash_attention.cu instantiates
-MAX_BWD_HEAD_DIM = 160  # the same for csrc/flash_attention_bwd.cu
+MAX_BWD_HEAD_DIM = 160  # the same for both backward sources
+KV_RESIDENT_MAX = 9216  # the JAX package's backward crossover, in kv tokens padded to 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -117,28 +133,43 @@ def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
-    """Launch the backward kernel (K3) -> (dq, dk, dv), contiguous [B, L, H, D]."""
-    _check(q, k, v, MAX_BWD_HEAD_DIM, "flash_attention_bwd")
+def backward_route(kv_len: int, env: Mapping[str, str] = os.environ) -> str:
+    """``"split"`` (K4/K5) or ``"fused"`` (K3) for a backward over ``kv_len`` kv
+    tokens: the JAX package's ``_flash_bwd`` rule, split past the crossover
+    (kv padded to 128) or under ``SD_FLASH_BWD=split``, fused otherwise."""
+    if -(-kv_len // 128) * 128 > KV_RESIDENT_MAX or env.get("SD_FLASH_BWD") == "split":
+        return "split"
+    return "fused"
+
+
+def _check_bwd(q, k, v, out, do, lse, name: str):
+    """Validate a backward launch's inputs -> the 15 (batch, token, head) strides."""
+    _check(q, k, v, MAX_BWD_HEAD_DIM, name)
     if out.shape != q.shape or do.shape != q.shape or out.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(
-            f"flash_attention_bwd: out/do must be {tuple(q.shape)} {q.dtype} "
+            f"{name}: out/do must be {tuple(q.shape)} {q.dtype} "
             f"(got {tuple(out.shape)} {out.dtype}, {tuple(do.shape)} {do.dtype})"
         )
     if out.stride(-1) != 1 or do.stride(-1) != 1 or out.device != q.device or do.device != q.device:
-        raise ValueError("flash_attention_bwd: out and do must lie on q's device with a contiguous head dim")
+        raise ValueError(f"{name}: out and do must lie on q's device with a contiguous head dim")
+    b, n, h, _ = q.shape
+    if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be the forward's contiguous f32 [B, H, N]")
+    return (ctypes.c_longlong * 15)(*_strides(q, k, v, out, do))
+
+
+def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
+    """Launch the fused backward kernel (K3) -> (dq, dk, dv), contiguous [B, L, H, D]."""
+    strides = _check_bwd(q, k, v, out, do, lse, "flash_attention_bwd")
+    lib = native.load_library()
     b, n, h, d = q.shape
     m = k.shape[1]
-    if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("flash_attention_bwd: lse must be the forward's contiguous f32 [B, H, N]")
-    lib = native.load_library()
     dev = q.device
     dq_acc = torch.zeros((b, n, h, d), dtype=torch.float32, device=dev)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, m, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 15)(*_strides(q, k, v, out, do))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sd_flash_attention_backward(
@@ -154,9 +185,36 @@ def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
     return dq, dk, dv
 
 
+def flash_attention_bwd_split(q, k, v, out, do, lse, scale: float):
+    """Launch the split backward kernels (K4/K5) -> (dq, dk, dv), contiguous
+    [B, L, H, D]; no atomics, so two launches on the same inputs agree bit for bit."""
+    strides = _check_bwd(q, k, v, out, do, lse, "flash_attention_bwd_split")
+    lib = native.load_library()
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    dev = q.device
+    dq = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, m, h, d), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sd_flash_attention_backward_split(
+            _DTYPE_CODES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n, m, d, strides, float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_split kernel launch failed: CUDA error {rc}")
+    SPLIT_BWD_LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """softmax(q k^T * scale) v with the K1 forward and the K3 backward on CUDA
-    tensors, the plain forward and backward on CPU tensors."""
+    """softmax(q k^T * scale) v with the K1 forward and, by :func:`backward_route`,
+    the K3 or the split (K4/K5) backward on CUDA tensors; the plain forward and
+    backward on CPU tensors."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
@@ -178,7 +236,9 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, ctx.scale)
         else:
-            dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.scale)
+            split = backward_route(k.shape[1]) == "split"
+            bwd = flash_attention_bwd_split if split else flash_attention_bwd
+            dq, dk, dv = bwd(q, k, v, out, do, lse, ctx.scale)
         return dq, dk, dv, None
 
 

@@ -10,6 +10,7 @@ back: a missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Set, Tuple
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -39,7 +40,7 @@ def import_triton():
 
 
 class LaunchCounter:
-    """Counts one kernel's launches and the distinct shapes it was launched at.
+    """Counts one kernel's launches, in all and by launch shape.
 
     A wrapper calls :meth:`hit` once per kernel launch, after the launch
     succeeded, and nowhere else: the plain CPU path does not count."""
@@ -47,15 +48,15 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self.count = 0
-        self.shapes: Set[Tuple] = set()
+        self.shapes: Dict[Tuple, int] = collections.Counter()
 
     def hit(self, key: Tuple) -> None:
         self.count += 1
-        self.shapes.add(key)
+        self.shapes[key] += 1
 
     def reset(self) -> None:
         self.count = 0
-        self.shapes = set()
+        self.shapes = collections.Counter()
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -88,6 +89,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
     fn = lib.sd_flash_attention_backward
     fn.argtypes = [i] + [p] * 11 + [i] * 5 + [ctypes.POINTER(ll), f, p]
+    fn.restype = ctypes.c_int
+    fn = lib.sd_flash_attention_backward_split
+    fn.argtypes = [i] + [p] * 10 + [i] * 5 + [ctypes.POINTER(ll), f, p]
     fn.restype = ctypes.c_int
 
 

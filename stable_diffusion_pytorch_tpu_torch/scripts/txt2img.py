@@ -73,7 +73,8 @@ def main(argv=None) -> None:
         model, image_size=s.image_size, prompt=s.prompt, time_steps=s.sampling_steps,
         guidance_scale=args.guidance_scale, save_dir=s.output_dir, sampler=s.sampler,
         eta=s.eta, num_images=s.num_images, seed=args.seed, name=s.output_name,
-        negative_prompt=s.negative_prompt,
+        negative_prompt=s.negative_prompt, hires_scale=s.hires_scale,
+        hires_strength=s.hires_strength, vae_tile=s.vae_tile,
     )
     logger.info(f"saved to {s.output_dir}/ in {time.perf_counter() - start:.2f} s")
 

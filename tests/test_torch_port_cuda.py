@@ -13,7 +13,8 @@ kernels: float32 5e-5 for attention (sums over up to 300 kv rows, and dq is
 summed with atomics in an order that changes between runs) and 1e-4 for
 GroupNorm (two reductions over the map); bfloat16 2e-2 as above (the kernel's
 delta = rowsum(dO * O) reads the bf16-rounded O, the plain version sums
-dP * P in f32).
+dP * P in f32). The split backward (K4/K5) is held to the same tolerances and,
+having no atomics, to bit-identical results from two launches.
 """
 
 import pytest
@@ -24,8 +25,10 @@ from stable_diffusion_pytorch_tpu_torch.ops import native  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E402
     _forward_kernel,
     flash_attention,
+    backward_route,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_bwd_split,
     flash_attention_plain,
 )
 from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E402
@@ -106,6 +109,45 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype):
             assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h, d)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_split_matches_plain_and_repeats_bit_for_bit(cuda, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for b, n, m, h, d in [(2, 200, 77, 8, 40), (2, 256, 256, 8, 160), (1, 33, 300, 2, 80), (1, 70, 64, 1, 128),
+                          (1, 130, 10000, 2, 40)]:
+        q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=g).to(dt) for s in (n, m, m, n))
+        out, lse = _forward_kernel(q, k, v, d ** -0.5, with_lse=True)
+        grads = flash_attention_bwd_split(q, k, v, out, do, lse, d ** -0.5)
+        again = flash_attention_bwd_split(q, k, v, out, do, lse, d ** -0.5)
+        refs = flash_attention_bwd_plain(q, k, v, do, d ** -0.5)
+        for got, rep, ref in zip(grads, again, refs):
+            assert got.shape == ref.shape and got.dtype == ref.dtype
+            assert torch.equal(got, rep), (b, n, m, h, d)
+            assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h, d)
+
+
+def test_kv_past_the_crossover_runs_k1_and_the_split_backward(cuda):
+    """K1 and the Function at 10000 kv tokens (past the 9216 crossover): the
+    backward routes to the split kernels."""
+    assert backward_route(10000) == "split" and backward_route(4096) == "fused"
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(1, 96, 2, 40, device=cuda, generator=g)
+    kv = torch.randn(1, 10000, 2, 80, device=cuda, generator=g)
+    assert _rel_err(flash_attention(q, kv[..., :40], kv[..., 40:]),
+                    flash_attention_plain(q, kv[..., :40], kv[..., 40:], 40 ** -0.5)) <= TOL["float32"][0]
+    w = torch.randn(1, 96, 2, 40, device=cuda, generator=g)
+    native.reset_counters()
+    grads = []
+    for fn in (flash_attention, lambda q, k, v: flash_attention_plain(q, k, v, 40 ** -0.5)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, kv)]
+        (fn(leaves[0], leaves[1][..., :40], leaves[1][..., 40:]) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert native.COUNTERS["flash_attention_bwd_split"].count == 1
+    assert native.COUNTERS["flash_attention_bwd"].count == 0
+    for got, ref in zip(*grads):
+        assert _rel_err(got, ref) <= BWD_TOL["float32"][0]
+
+
 def test_flash_attention_function_gradients(cuda):
     """Autograd through the Function (K1 + K3) against autograd through the
     plain forward, on strided fused-QKV views as the model hands them."""
@@ -158,8 +200,8 @@ def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
     fused_group_norm(x, w, w, 8)
     fused_group_norm_cat(x, x, torch.ones(128, device=cuda), torch.ones(128, device=cuda), 8)
     assert {k: c.count for k, c in native.COUNTERS.items()} == {
-        "flash_attention": 1, "flash_attention_bwd": 0, "group_norm": 1, "group_norm_cat": 1,
-        "group_norm_bwd": 0,
+        "flash_attention": 1, "flash_attention_bwd": 0, "flash_attention_bwd_split": 0, "group_norm": 1,
+        "group_norm_cat": 1, "group_norm_bwd": 0,
     }
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())

@@ -10,13 +10,23 @@ Phases, each printing one JSON line; any failure exits nonzero:
 2. kernels: every ported kernel against its plain PyTorch version on the card,
    at every distinct shape the main paths launch, recorded from a one-step run
    of each (the 512x512 txt2img slice; 1024x1024 txt2img; the hires fix's
-   refine; one micro step of SD-1.5 training at 512x512, batch 4, and at
-   1024x1024, batch 1, taken with an optimizer that applies nothing): flash
+   refine; one micro step of SD-1.5 training at 512x512, batch 4, at
+   1024x1024, batch 1, and of the lean configuration at 512x512, batch 16,
+   each trainer built for its probe and freed after it, taken with an
+   optimizer that applies nothing): flash
    attention forward (K1, also at the kv > 9216 shapes of the TPU's K2),
    its fused backward (K3) and its split backward (K4/K5, at its own shapes
    and at every K3 shape, K4's domain; launched twice, and the two results
    must agree bit for bit), CUDA C++; GroupNorm (K6), its backward (K7, which
-   also serves the concat form's backward) and GroupNorm-concat (K8), Triton.
+   also serves the concat form's backward) and GroupNorm-concat (K8), Triton;
+   the int8 Adam update (K9), CUDA C++, at each of the 49 parameter shapes of
+   the SD-1.5 UNet in the port's layout (conv weights channels_last), from
+   seeded non-zero state with step-3 bias corrections, gradient in float32
+   and bfloat16: the update at rtol 1e-6, codes at most one apart at no more
+   than one in 10^4, dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere;
+   no PyTorch call computes it (``library_ms`` null); its bound counts bytes
+   and the f32 peak. Then, as context, the whole optimizer step over the 686
+   leaves: the f32 foreach ``AdamW._update`` and ``AdamW8bit._update``.
    In float32 (TF32 off) and bfloat16: max-abs error with its tolerance; the
    kernel's, the plain version's and the library call's times (CUDA events,
    median of 5 runs of 5 launches); and the bound: the larger of bytes / 3.35
@@ -49,22 +59,29 @@ Phases, each printing one JSON line; any failure exits nonzero:
    synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
    (the default), two optimizer steps and one evaluation; checks a finite
    loss, changed parameters and that its five kernels (all but the split
-   backward) were launched by this run; samples/s, step ms p50, peak memory.
+   backward and K9) were launched by this run; samples/s, step ms p50, peak
+   memory and the optimizer state's bytes. The trainer is built where its
+   phase runs, after every other phase's model and trainer is freed, so the
+   peak (after ``reset_peak_memory_stats``) is this configuration's own.
    Then ``torch.profiler`` over one more accumulation window: device ms per
    micro step by kernel category and the device's idle share (the
    profiler's own cost included).
 8. hires_train: the same at 1024x1024, batch 1: the 16384-token
-   self-attention's backward runs the split kernels, the rest K3; all six
-   kernels must be launched by this run.
-9. checkpoint: a small-width run on the card saves ``checkpoint-2``; a second
+   self-attention's backward runs the split kernels, the rest K3.
+9. lean_train: the same at 512x512, batch 16, with ``--use-8bit-adam
+   --accum-dtype bf16 --remat-policy conv-save``: K9 must run once per
+   parameter leaf per optimizer step, and K1, K3, K6, K7, K8 run.
+10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
+   one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 8 (each run with the counts set
+the summary, ``launches`` counts phases 5 to 9 (each run with the counts set
 to 0 just before it; the split is in the JSON record); ``max_abs_err``,
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
-numbers summed over the kernel's distinct shapes (one launch of each).
+numbers summed over the kernel's distinct shapes (one launch of each; for K9
+the bfloat16 gradient of the lean path).
 Without a CUDA device, or outside a checkout of the repository, it exits
 nonzero and prints no result. Weights are random from a seed, with the
 zero-initialized layers (each ResBlock's last conv, each transformer's
@@ -92,6 +109,8 @@ HIRES_BASE = HIRES // 2  # the hires fix's first stage, upscaled x2
 HIRES_TILE = 64   # latent tile of the hires fix's tiled decode
 TRAIN_BATCH = 4
 HIRES_TRAIN_BATCH = 1
+LEAN_TRAIN_BATCH = 16
+LEAN_FLAGS = ("--use-8bit-adam", "--accum-dtype", "bf16", "--remat-policy", "conv-save")
 TRAIN_STEPS = 2   # optimizer steps of each train phase (x4 micro steps)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -111,9 +130,19 @@ TPU_KERNELS = {
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:71"),
     "group_norm_cat": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:187"),
+    "adam8bit_update": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/adam8bit_update.cu",
+                        "stable_diffusion_pytorch_tpu/ops/adam8bit_update.py:98 _kernel (pallas_call :188)"),
 }
 SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
-TRAIN_KERNELS = tuple(k for k in TPU_KERNELS if k != "flash_attention_bwd_split")  # at 512px
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd", "group_norm_cat")  # at 512px
+HIRES_TRAIN_KERNELS = (*TRAIN_KERNELS, "flash_attention_bwd_split")
+LEAN_TRAIN_KERNELS = (*TRAIN_KERNELS, "adam8bit_update")
+# (phase, image size, batch, extra flags, kernels its run must launch)
+TRAIN_PHASES = (
+    ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
+    ("hires_train", HIRES, HIRES_TRAIN_BATCH, (), HIRES_TRAIN_KERNELS),
+    ("lean_train", 512, LEAN_TRAIN_BATCH, LEAN_FLAGS, LEAN_TRAIN_KERNELS),
+)
 # the SD-1.5 stack (models/presets.py) as training-CLI flags
 SD15_FLAGS = (
     "--channels-list 320,640,1280,1280 --n-heads 8 --attention-resolutions 1,2,4 --num-res-blocks 2 "
@@ -210,7 +239,7 @@ def train_argv(work: str, *flags: str):
             "--logging-dir", os.path.join(work, "logs"), "--ckpt-dir", os.path.join(work, "ckpt"), *flags]
 
 
-def build_sd15_trainer(work: str, resolution: int, batch: int):
+def build_sd15_trainer(work: str, resolution: int, batch: int, flags=()):
     """The training entry point's trainer at SD-1.5 width."""
     import shutil
 
@@ -223,7 +252,7 @@ def build_sd15_trainer(work: str, resolution: int, batch: int):
         work, *SD15_FLAGS, "--resolution", str(resolution), "--train-batch-size", str(batch),
         "--eval-batch-size", str(batch), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
         "--learning-rate", "1e-4", "--max-train-samples", str(16 * batch), "--max-val-samples", str(batch),
-        "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
+        "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4", *flags,
     ))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     fill_zero_weights(trainer.model.unet, gen)
@@ -231,9 +260,23 @@ def build_sd15_trainer(work: str, resolution: int, batch: int):
     return trainer
 
 
+def free_cuda() -> float:
+    """Collect garbage, return cached blocks; -> GB still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
 def phase_env() -> dict:
     import torch
 
+    # every kernel module, so that each launch counter exists from the start
+    from stable_diffusion_pytorch_tpu_torch.ops import adam8bit_update, flash_attention, fused_groupnorm  # noqa: F401
     from stable_diffusion_pytorch_tpu_torch.ops import native
 
     triton = native.import_triton()
@@ -435,6 +478,85 @@ def _gn_bwd_case(key, dtype, gen):
     )
 
 
+ADAM_BC = (1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3)  # bias corrections at step 3
+
+
+def _adam_state(shape, gen):
+    """Seeded non-zero (g scale 0.02, mu, sqrt(nu)) int8 state of one leaf in the
+    main path's layout (4-D conv weights channels_last, as the trainer keeps them)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import quantize
+
+    fmt = torch.channels_last if len(shape) == 4 else torch.contiguous_format
+
+    def state(x):
+        q, sc = quantize(x, 256)
+        return q.contiguous(memory_format=fmt), sc.contiguous(memory_format=fmt)
+
+    mu = state(torch.randn(shape, device="cuda", generator=gen) * 0.01)
+    nu = state((torch.randn(shape, device="cuda", generator=gen).abs() * 1e-4).sqrt())
+    return mu, nu, fmt
+
+
+def _adam_case(key, dtype, gen):
+    """K9 at one parameter shape, from step-3 state: (kernel, plain, library
+    (none), FLOPs, bytes, record). Bytes: g and the update once each in the
+    gradient's dtype, two codes read and written, two f32 scales read and
+    written; about 30 f32 operations per element (bound by bytes)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import (
+        adam8bit_update,
+        adam8bit_update_plain,
+        blocked_layout,
+    )
+
+    shape = tuple(key)
+    mu, nu, fmt = _adam_state(shape, gen)
+    g = (torch.randn(shape, device="cuda", generator=gen) * 0.02).to(getattr(torch, dtype))
+    g = g.contiguous(memory_format=fmt)
+    bc1, bc2 = (float(torch.tensor(b, dtype=torch.float32)) for b in ADAM_BC)
+    n = g.numel()
+    _, r, _, nb = blocked_layout(shape, 256)
+    return (
+        lambda: adam8bit_update(g, mu, nu, bc1, bc2),
+        lambda: adam8bit_update_plain(g, mu, nu, bc1, bc2, 0.9, 0.999, 1e-8, 256),
+        None,
+        30 * n,
+        2 * _elem(dtype) * n + 4 * n + 16 * nb * r,
+        {"compare": _adam_compare, "peak": "float32"},
+    )
+
+
+def _adam_compare(out, ref):
+    """K9 vs plain -> (max-abs update error, worst ratio to its limit, record):
+    the update at rtol 1e-6 / atol 1e-7 in f32 (one bf16 ulp, rtol 2^-8, when
+    it is bf16: an f32 value within an ulp of a bf16 rounding midpoint may
+    round either way); codes at most one apart at no more than max(1, n /
+    10^4) places (a value on a rounding boundary); dequantized moments at rtol
+    1e-5 / atol 1e-8 where the codes agree. Both sides do the same IEEE
+    operations in the same order, so all of it is expected to be exact."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import dequantize
+
+    rtol = 1e-6 if out[0].dtype == torch.float32 else 2.0 ** -8
+    upd, r_upd = out[0].float(), ref[0].float()
+    d = (upd - r_upd).abs()
+    ratios = [(d / (1e-7 + rtol * r_upd.abs())).max().item()]
+    rec = {"update_max_abs_err": d.max().item(), "update_bitwise_equal": bool(torch.equal(out[0], ref[0]))}
+    for name, ours, theirs in (("mu", out[1], ref[1]), ("nu", out[2], ref[2])):
+        diff = (ours[0].int() - theirs[0].int()).abs()
+        n_diff, n = int((diff > 0).sum()), diff.numel()
+        got, want = dequantize(*ours), dequantize(*theirs)
+        deq = ((got - want).abs() / (1e-8 + 1e-5 * want.abs()))[diff == 0]
+        ratios += [int(diff.max()) / 1.0, n_diff / max(1, n // 10 ** 4), deq.max().item() if deq.numel() else 0.0]
+        rec.update({f"{name}_codes_differ": n_diff, f"{name}_codes_max_diff": int(diff.max()),
+                    f"{name}_dequant_max_rel_err": ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()})
+    return rec["update_max_abs_err"], max(ratios), rec
+
+
 # Tolerances on max|kernel - plain| of each output, relative to max(1, max|plain|)
 # of that output:
 # float32 -- another summation order over at most a few thousand terms (the
@@ -452,10 +574,13 @@ TOLERANCE = {
     "group_norm": {"float32": 5e-5, "bfloat16": 2e-2},
     "group_norm_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
     "group_norm_cat": {"float32": 5e-5, "bfloat16": 2e-2},
+    # K9: its comparison (_adam_compare) returns the worst ratio to its own limits
+    "adam8bit_update": {"float32": 1.0, "bfloat16": 1.0},
 }
 CASES = {"flash_attention": _attn_case, "flash_attention_bwd": _attn_bwd_case,
          "flash_attention_bwd_split": functools.partial(_attn_bwd_case, split=True),
-         "group_norm": _gn_case, "group_norm_bwd": _gn_bwd_case, "group_norm_cat": _gn_cat_case}
+         "group_norm": _gn_case, "group_norm_bwd": _gn_bwd_case, "group_norm_cat": _gn_cat_case,
+         "adam8bit_update": _adam_case}
 
 
 class _NoUpdate:
@@ -467,12 +592,17 @@ class _NoUpdate:
         return False, torch.zeros(())
 
 
-def record_shapes(model, trainers) -> dict:
+def record_shapes(model, work: str):
     """The distinct launch shapes of each kernel: one-step runs of txt2img at
     512x512 and at 1024x1024 and of the hires fix (a one-step base and a
-    one-step refine), and one training micro step of each trainer (parameters
-    untouched). The split backward is also held at every K3 shape (K4's
-    domain: ``SD_FLASH_BWD=split`` sends every length to it)."""
+    one-step refine), and one training micro step of each train phase's
+    trainer (parameters untouched), each trainer built for its probe and
+    freed after it. The split backward is also held at every K3 shape (K4's
+    domain: ``SD_FLASH_BWD=split`` sends every length to it); K9 at every
+    parameter shape of the lean trainer's UNet. -> (shapes by kernel, the
+    count of UNet leaves of each parameter shape)."""
+    import collections
+
     import torch
 
     from stable_diffusion_pytorch_tpu_torch import pipeline
@@ -495,13 +625,20 @@ def record_shapes(model, trainers) -> dict:
             pipeline.sample(model, image_size=size, prompt="a photo of a cat", time_steps=1,
                             guidance_scale=7.5, save_dir=None, num_images=NUM_IMAGES, seed=0, **hires)
             collect()
-    for trainer in trainers:
-        batch = trainer._place_batch(next(iter(trainer.train_loader)))
+    leaf_shapes = None
+    for name, size, batch, flags, _required in TRAIN_PHASES:
+        trainer = build_sd15_trainer(f"{work}_{name}_probe", size, batch, flags)
+        batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
         probe = TrainState(trainer.model.unet, _NoUpdate())
-        trainer._train(probe, batch, trainer.uncond_ids, trainer._draws(batch, step_generator("cuda", 9)))
+        trainer._train(probe, batch_in, trainer.uncond_ids, trainer._draws(batch_in, step_generator("cuda", 9)))
         collect()
+        if name == "lean_train":
+            leaf_shapes = collections.Counter(tuple(p.shape) for p in trainer.state.params)
+        del trainer, probe, batch_in
+        free_cuda()
     shapes["flash_attention_bwd_split"] |= shapes["flash_attention_bwd"]
-    return {name: sorted(v) for name, v in shapes.items()}
+    shapes["adam8bit_update"] = set(leaf_shapes)
+    return {name: sorted(v) for name, v in shapes.items()}, leaf_shapes
 
 
 def _bound(flops: float, nbytes: float, dtype: str):
@@ -540,26 +677,30 @@ def phase_kernels(shapes: dict) -> dict:
         for key in keys:
             for dname in ("float32", "bfloat16"):
                 kernel, plain, library, flops, nbytes, *record = CASES[name](key, dname, gen)
+                record = dict(record[0]) if record else {}
+                compare = record.pop("compare", None)
                 out, ref = kernel(), plain()
                 # the split backward has no atomics: a second launch must agree bit for bit
                 again = kernel() if name == "flash_attention_bwd_split" else out
                 torch.cuda.synchronize()
-                err, rel = _max_err(out, ref)
+                err, rel, *detail = compare(out, ref) if compare else _max_err(out, ref)
+                record.update(detail[0] if detail else {})
                 identical = again is out or all(torch.equal(a, b) for a, b in zip(again, out))
                 tol = TOLERANCE[name][dname]
                 del out, ref, again
-                ms, plain_ms, library_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
-                bound_ms, bound_by = _bound(flops, nbytes, dname)
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                library_ms = None if library is None else cuda_ms(library)
+                bound_ms, bound_by = _bound(flops, nbytes, record.pop("peak", dname))
                 row = {"k": name, "shape": list(key), "dtype": dname, "err": err, "rel_err": rel, "tol": tol, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "flops": flops, "bytes": nbytes, "repeat_identical": identical, **(record[0] if record else {})}
+                       "flops": flops, "bytes": nbytes, "repeat_identical": identical, **record}
                 rows.append(row)
                 s = summary[name]
                 s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), rel)
                 if dname == "bfloat16":
                     s["ms_bf16"] += ms
                     s["plain_ms_bf16"] += plain_ms
-                    s["library_ms_bf16"] += library_ms
+                    s["library_ms_bf16"] = None if library_ms is None else s["library_ms_bf16"] + library_ms
                     s["bound_ms_bf16"] += bound_ms
                     s["ops_bound_ms_bf16" if bound_by == "operations" else "bytes_bound_ms_bf16"] += bound_ms
                     s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
@@ -574,6 +715,54 @@ def phase_kernels(shapes: dict) -> dict:
           f"{ {k: len(shapes.get(k, [])) for k in TPU_KERNELS} }")
     check(not failures, f"kernel disagrees with its plain version: {failures}")
     return result
+
+
+def phase_optimizer(leaf_shapes, kernels: dict) -> dict:
+    """Context for K9: one whole optimizer step over the SD-1.5 UNet's leaves
+    (the shapes and layouts of the trainer's parameters, seeded values): the
+    f32 foreach ``AdamW._update`` and ``AdamW8bit._update`` with f32 and
+    bf16 gradients (clip, K9 per leaf, the unfused apply), CUDA events around
+    each (device wall, the host's launches included); and K9 alone per step,
+    its per-shape times from the kernels phase times each shape's leaves."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit
+    from stable_diffusion_pytorch_tpu_torch.trainers.optim import AdamW, build_lr_schedule, global_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+
+    def leaf(shape, scale):
+        t = torch.randn(shape, device="cuda", generator=gen) * scale
+        return t.contiguous(memory_format=torch.channels_last) if len(shape) == 4 else t
+
+    shapes = [shape for shape, n in sorted(leaf_shapes.items()) for _ in range(n)]
+    params = [leaf(shape, 0.02) for shape in shapes]
+    grads = {"float32": [leaf(shape, 1e-3) for shape in shapes]}
+    grads["bfloat16"] = [g.bfloat16() for g in grads["float32"]]
+    sched = build_lr_schedule("constant", 1e-4, 0, 10)
+    kw = dict(weight_decay=0.1, max_grad_norm=0.1)
+    res = {"phase": "optimizer", "gpu": gpu_line(), "n_leaves": len(shapes),
+           "n_params": sum(p.numel() for p in params)}
+    opt = AdamW(params, sched, **kw)
+    norm = global_norm(grads["float32"])
+    res["adamw_f32_foreach_ms"] = cuda_ms(lambda: opt._update(grads["float32"], norm), iters=1)
+    res["adamw_f32_state_bytes"] = opt.state_bytes()
+    del opt
+    opt = AdamW8bit(params, sched, **kw)
+    for dname, g in grads.items():
+        norm = global_norm(g)
+        res[f"adamw8bit_{dname}_grad_ms"] = cuda_ms(lambda: opt._update(g, norm), iters=1)
+    res["adamw8bit_state_bytes"] = opt.state_bytes()
+    rows = [r for r in kernels["shapes"] if r["k"] == "adam8bit_update"]
+    for dname in ("float32", "bfloat16"):
+        by_shape = {tuple(r["shape"]): r for r in rows if r["dtype"] == dname}
+        for field in ("ms", "plain_ms", "bound_ms"):
+            res[f"k9_{field}_per_step_{dname}"] = sum(by_shape[sh][field] * n for sh, n in leaf_shapes.items())
+    emit(res)
+    check(all(torch.isfinite(p).all() for p in params[:: max(1, len(params) // 20)]), "non-finite parameters")
+    del opt, params, grads
+    free_cuda()
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -731,6 +920,7 @@ def phase_slice(model, steps: int, num_images: int) -> dict:
     prompt = "a photograph of an astronaut riding a horse"
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         native.reset_counters()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -860,7 +1050,9 @@ def phase_hires(model, steps: int) -> dict:
     return res
 
 
-def phase_train(trainer, name: str, image_size: int, batch: int, required) -> dict:
+def phase_train(trainer, name: str, image_size: int, batch: int, required, allocated_before_gb: float) -> dict:
+    """Train ``TRAIN_STEPS`` optimizer steps with the trainer, alone on the card
+    (``allocated_before_gb``: what its own build holds), then profile."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
@@ -896,16 +1088,21 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required) -> di
         "max_param_change": changed, "launches": launches,
         "step_ms_p50": timer.percentile(50) * 1e3, "step_ms_samples": len(timer.durations),
         "samples_per_s": batch / timer.percentile(50), "total_s": total_s,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "allocated_at_start_gb": allocated_before_gb,
+        "optimizer": type(state.optimizer).__name__, "optimizer_layout": state.optimizer.layout(),
+        "optimizer_state_bytes": state.optimizer.state_bytes(), "remat": trainer.model.unet.remat,
     }
+    k9_want = len(state.params) * TRAIN_STEPS if "adam8bit_update" in required else 0
     res["ok"] = (res["finite"] and len(train_recs) == TRAIN_STEPS and len(eval_recs) == 1
                  and state.step == micro and all(v > 0 for v in changed.values())
-                 and all(launches[k] > 0 for k in required))
+                 and all(launches[k] > 0 for k in required) and launches["adam8bit_update"] == k9_want)
     emit(res)
     check(len(train_recs) == TRAIN_STEPS and state.step == micro, f"train ran {state.step} micro steps")
     check(res["finite"], f"non-finite loss: {losses}")
     check(all(v > 0 for v in changed.values()), f"parameters did not change: {changed}")
     check(all(launches[k] > 0 for k in required), f"a kernel was not launched by the {name} run: {launches}")
+    check(launches["adam8bit_update"] == k9_want,
+          f"K9 ran {launches['adam8bit_update']} times in the {name} run, want {k9_want} (once per leaf and step)")
     check(res["ok"], f"{name} phase check failed")
     res["profile"] = profile_window(trainer)
     emit({"phase": f"{name}_profile", **{k: v for k, v in res["profile"].items() if k != "top_kernels"}})
@@ -914,6 +1111,7 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required) -> di
 
 # kernel-name substrings -> category of the training profile, first match wins
 PROFILE_CATEGORIES = [
+    ("K9 int8 Adam", ("adam8bit",)),
     ("K1 flash attention fwd", ("fa_forward_kernel",)),
     ("K4/K5 split attention bwd", ("split_dq_kernel", "split_dkv_kernel", "split_delta_kernel")),
     ("K3 flash attention bwd", ("dkv_kernel", "delta_kernel", "cast_kernel<")),
@@ -980,9 +1178,9 @@ def profile_window(trainer) -> dict:
     return profile_device(window, accum, "micro_step")
 
 
-def phase_checkpoint(work: str) -> dict:
-    """Small width on the card: train 2 steps saving checkpoint-2, then resume
-    ``latest`` in a new trainer and compare every tensor."""
+def _checkpoint_round_trip(work: str, flags) -> dict:
+    """Train 2 steps saving checkpoint-2, resume ``latest`` in a new trainer
+    and compare every tensor of the parameters, EMA and optimizer state."""
     import shutil
 
     import torch
@@ -994,7 +1192,7 @@ def phase_checkpoint(work: str) -> dict:
     flags = [*TINY_FLAGS, "--resolution", "64", "--train-batch-size", "2", "--eval-batch-size", "2",
              "--gradient-accumulation-steps", "2", "--max-train-steps", "2", "--checkpointing-steps", "2",
              "--lr-warmup-steps", "0", "--ema-decay", "0.9", "--max-train-samples", "8", "--max-val-samples", "2",
-             "--log-interval", "0", "--dataloader-num-workers", "0"]
+             "--log-interval", "0", "--dataloader-num-workers", "0", *flags]
     first = build_trainer(train_argv(work, *flags))
     first.train()
     path = os.path.join(work, "ckpt", "checkpoint-2")
@@ -1004,17 +1202,30 @@ def phase_checkpoint(work: str) -> dict:
     got = second.state.state_dict()
     mismatched = [f"{part}.{n}" for part in ("params", "ema_params")
                   for n, t in saved[part].items() if not torch.equal(got[part][n], t)]
-    mismatched += [f"opt_state.{k}" for k in ("mu", "nu")
-                   if not all(torch.equal(a, b) for a, b in zip(got["opt_state"][k], saved["opt_state"][k]))]
+    lists = sorted(k for k, v in saved["opt_state"].items() if isinstance(v, list))
+    mismatched += [f"opt_state.{k}" for k in lists
+                   if len(got["opt_state"][k]) != len(saved["opt_state"][k])
+                   or not all(torch.equal(a, b) for a, b in zip(got["opt_state"][k], saved["opt_state"][k]))]
     live = first.state.state_dict()
     mismatched += [f"live.{n}" for n, t in live["params"].items() if not torch.equal(got["params"][n], t)]
-    res = {"phase": "checkpoint", "path": os.path.relpath(path, REPO), "files": sorted(os.listdir(path)),
-           "resumed_global_step": replay["global_step"], "step": got["step"],
-           "count": got["opt_state"]["count"], "n_tensors": len(saved["params"]), "mismatched": mismatched[:20]}
+    res = {"flags": list(flags[len(TINY_FLAGS):]), "path": os.path.relpath(path, REPO),
+           "files": sorted(os.listdir(path)), "resumed_global_step": replay["global_step"], "step": got["step"],
+           "count": got["opt_state"]["count"], "layout": got["opt_state"]["layout"], "optimizer_lists": lists,
+           "n_tensors": len(saved["params"]), "mismatched": mismatched[:20]}
     res["ok"] = (not mismatched and replay["global_step"] == 2 and got["step"] == saved["step"] == 4
-                 and got["opt_state"]["count"] == 2)
+                 and got["opt_state"]["count"] == 2 and got["opt_state"]["layout"] == saved["opt_state"]["layout"])
+    return res
+
+
+def phase_checkpoint(work: str) -> dict:
+    """Small width on the card, the f32 optimizer and the lean one (int8 Adam,
+    bf16 accumulator): each saves checkpoint-2 and is resumed exactly."""
+    runs = {"f32": _checkpoint_round_trip(work, ()),
+            "lean": _checkpoint_round_trip(work + "_lean", ("--use-8bit-adam", "--accum-dtype", "bf16"))}
+    res = {"phase": "checkpoint", "runs": runs, "ok": all(r["ok"] for r in runs.values())}
     emit(res)
     check(res["ok"], f"checkpoint round trip failed: {res}")
+    check("mu_q" in runs["lean"]["optimizer_lists"], f"the lean checkpoint holds no int8 codes: {runs['lean']}")
     return res
 
 
@@ -1037,26 +1248,25 @@ def main(argv=None) -> int:
 
     env = phase_env()
     model = build_sd15("cuda", torch.bfloat16, SEED)
-    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH)
-    hires_trainer = build_sd15_trainer(work + "_1024", HIRES, HIRES_TRAIN_BATCH)
-    shapes = record_shapes(model, (trainer, hires_trainer))
+    shapes, leaf_shapes = record_shapes(model, work)
     kernels = phase_kernels(shapes)
+    optimizer = phase_optimizer(leaf_shapes, kernels)
     parity = phase_unet_parity(SEED)
     train_parity = phase_train_parity(SEED)
     slice_res = phase_slice(model, STEPS, NUM_IMAGES)
     hires_res = phase_hires(model, STEPS)
     del model
-    torch.cuda.empty_cache()
-    train_res = phase_train(trainer, "train", 512, TRAIN_BATCH, TRAIN_KERNELS)
-    del trainer
-    torch.cuda.empty_cache()
-    hires_train_res = phase_train(hires_trainer, "hires_train", HIRES, HIRES_TRAIN_BATCH, tuple(TPU_KERNELS))
-    del hires_trainer
-    torch.cuda.empty_cache()
+    free_cuda()
+    trains = {}
+    for name, size, batch, flags, required in TRAIN_PHASES:
+        trainer = build_sd15_trainer(f"{work}_{name}", size, batch, flags)
+        trains[name] = phase_train(trainer, name, size, batch, required, free_cuda())
+        del trainer
+        free_cuda()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
-                 train_res["launches"], hires_train_res["launches"]]
+                 *(r["launches"] for r in trains.values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -1071,11 +1281,12 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"env": env, "shapes": shapes, "kernels": kernels, "unet_parity": parity,
+            json.dump({"env": env, "shapes": shapes, "leaf_shapes": sorted((list(k), n) for k, n in leaf_shapes.items()),
+                       "kernels": kernels, "optimizer": optimizer, "unet_parity": parity,
                        "flash_attention_launches_kv_past_9216": sum(
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
-                       "train_parity": train_parity, "slice": slice_res, "hires": hires_res, "train": train_res,
-                       "hires_train": hires_train_res, "checkpoint": ckpt, "summary": summary}, f, indent=1)
+                       "train_parity": train_parity, "slice": slice_res, "hires": hires_res, **trains,
+                       "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -115,10 +115,12 @@ def build_models(
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
     for_training: bool = False,
+    remat: str = "none",
 ) -> LatentDiffusion:
     """Schedule + UNet + CLIP + VAE on ``device``, seeded. ``dtype`` is the
     compute dtype: every module is cast to it for inference; with
-    ``for_training`` the UNet keeps f32 trainable parameters instead."""
+    ``for_training`` the UNet keeps f32 trainable parameters instead.
+    ``remat`` is the UNet's per-block remat policy (``--remat-policy``)."""
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -127,6 +129,7 @@ def build_models(
             vae_cfg.latent_channels, vae_cfg.groups, unet_cfg,
             flipped_time_embedding=compat.flipped_time_embedding,
             bottleneck_default_groups=compat.bottleneck_default_groups,
+            remat=remat,
         )
         vae = AutoEncoderKL(vae_cfg, bottleneck_default_groups=compat.bottleneck_default_groups)
         text = CLIPTextTransformer(max_positions=clip_cfg.max_seq_len)

@@ -7,16 +7,33 @@ Module names are the reference torch UNet's (``time_embedding.0``,
 ``out.2``), the layout ``utils/convert.py`` writes. Kept quirks: the first
 bottleneck ResBlock may use 2 groups (compat ``bottleneck_default_groups``) and
 the bottleneck attention takes its d_head from the last input-level attention.
-ControlNet residuals, DeepCache and rematerialization are not ported yet.
+ControlNet residuals and DeepCache are not ported yet.
+
+Per-block rematerialization (``remat``, the JAX ``UNetModel(remat=...)``
+policies): in training, each ResBlock and each SpatialTransformer runs under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes one
+block at a time. ``full`` saves nothing inside a block; ``conv-save`` saves
+the outputs of the ResBlock's two 3x3 convs (the ops JAX tags
+``checkpoint_name(h, "resblock_conv")``) and recomputes GroupNorm, SiLU and
+attention; ``dots_saveable`` saves the matmul outputs (JAX's convs are not
+``dot_general``, so no conv). The kernel Functions (attention, GroupNorm)
+recompute with the rest of their block.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from stable_diffusion_pytorch_tpu_torch.config import UnetConfig
 from stable_diffusion_pytorch_tpu_torch.models.blocks import (
@@ -28,6 +45,30 @@ from stable_diffusion_pytorch_tpu_torch.models.blocks import (
     conv3x3,
     sinusoidal_time_proj,
 )
+
+
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.baddbmm.default}
+
+
+def _save_resblock_convs(ctx, op, *args, **kwargs):
+    """conv-save: keep each 3x3 conv's output (in a remat block, only the
+    ResBlock's two), recompute everything else."""
+    if op is torch.ops.aten.convolution.default and tuple(args[1].shape[-2:]) == (3, 3):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """dots_saveable: keep matmul outputs, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_CONTEXTS = {
+    "full": noop_context_fn,
+    "conv-save": functools.partial(create_selective_checkpoint_contexts, _save_resblock_convs),
+    "dots_saveable": functools.partial(create_selective_checkpoint_contexts, _save_matmuls),
+}
 
 
 def plan_input_blocks(
@@ -93,8 +134,12 @@ class UNetModel(nn.Module):
         cfg: UnetConfig,
         flipped_time_embedding: bool = False,
         bottleneck_default_groups: bool = False,
+        remat: str = "none",
     ):
         super().__init__()
+        if remat not in ("none", *REMAT_CONTEXTS):
+            raise ValueError(f"unknown remat policy {remat!r}")
+        self.remat = remat
         channels = list(cfg.channels_list)
         ch0 = channels[0]
         t_dim = cfg.time_emb_dim or ch0 * 4
@@ -167,23 +212,28 @@ class UNetModel(nn.Module):
                 x = self._run(layer, x, t_emb, context_emb)
             skips.append(x)
 
-        res1, attn, res2 = self.middle_block
-        x = res2(attn(res1(x, t_emb), context_emb), t_emb)
+        for layer in self.middle_block:
+            x = self._run(layer, x, t_emb, context_emb)
 
         for layers in self.output_blocks:
-            x = layers[0](x, t_emb, skip_cat=skips.pop())
+            x = self._block(layers[0], x, t_emb, skip_cat=skips.pop())
             for layer in layers[1:]:
                 x = self._run(layer, x, t_emb, context_emb)
 
         x = self.out[0](x, silu=True)
         return self.out[2](x)
 
-    @staticmethod
-    def _run(layer: nn.Module, x, t_emb, context_emb):
+    def _block(self, layer: nn.Module, *args, **kwargs):
+        """A ResBlock or SpatialTransformer, under the remat policy when autograd records."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return layer(*args, **kwargs)
+        return checkpoint(layer, *args, use_reentrant=False, context_fn=REMAT_CONTEXTS[self.remat], **kwargs)
+
+    def _run(self, layer: nn.Module, x, t_emb, context_emb):
         if isinstance(layer, ResBlock):
-            return layer(x, t_emb)
+            return self._block(layer, x, t_emb)
         if isinstance(layer, SpatialTransformer):
-            return layer(x, context_emb)
+            return self._block(layer, x, context_emb)
         if isinstance(layer, nn.ModuleList):  # the up-path UpSample, nested as in the reference
             return layer[0](x)
         return layer(x)

@@ -93,6 +93,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.sd_flash_attention_backward_split
     fn.argtypes = [i] + [p] * 10 + [i] * 5 + [ctypes.POINTER(ll), f, p]
     fn.restype = ctypes.c_int
+    fn = lib.sd_adam8bit_update
+    fn.argtypes = [i] + [p] * 10 + [ll, i, i] + [f] * 7 + [p]
+    fn.restype = ctypes.c_int
 
 
 def _run(cmds) -> None:

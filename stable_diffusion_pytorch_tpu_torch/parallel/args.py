@@ -1,9 +1,10 @@
 """Parallelism / runtime configuration (copy of the JAX package's ``parallel/args.py``).
 
 The same fields, defaults and help strings (a test pins them equal). The port
-trains on one device: ``mixed_precision`` picks the compute dtype; a sharding,
-offload, tensor-parallel or remat option other than its default raises
-``NotImplementedError`` in the trainer.
+trains on one device: ``mixed_precision`` picks the compute dtype and
+``remat_policy`` the UNet's per-block remat; a sharding, offload or
+tensor-parallel option other than its default raises ``NotImplementedError``
+in the trainer.
 """
 
 from dataclasses import dataclass, field

@@ -16,6 +16,10 @@ from ``--seed``. Tiny run on the CPU:
         --max-val-samples 4 --log-interval 2 --checkpointing-steps 2 --ckpt-dir /tmp/ckpt \\
         --channels-list 32,64 --n-heads 4 --time-emb-dim 64 --n-layers 1 \\
         --autoencoder-channels-list 16,32 --groups 8
+
+The memory-lean configuration (int8 Adam moments, a bf16 gradient
+accumulator, per-block remat saving the ResBlock convs) adds
+``--use-8bit-adam --accum-dtype bf16 --remat-policy conv-save``.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ def build_trainer(argv=None) -> UNetTrainer:
         UnetConfig(**m.unet.to_dict()), AutoencoderConfig(**m.autoencoder.to_dict()),
         ClipConfig(**m.clip.to_dict()), DDPMConfig(**m.ddpm.to_dict()),
         compat=compat, dtype=dtype, device=device, seed=cfg.train.seed, for_training=True,
+        remat=cfg.parallel.remat_policy,
     )
     tokenizer = model.text_encoder.tokenizer
     train_dataset = get_dataset(cfg.dataset, split="train", tokenizer=tokenizer, logger=logger)

@@ -16,6 +16,15 @@ Gradient accumulation over ``k`` micro steps is ``fused_accumulate``'s: a
 running mean ``acc += (g - acc) / (i + 1)`` of the micro gradients, and the
 update from that mean on the k-th. The JAX package has no Pallas kernel here;
 the scalars stay on the device, so a step does not wait on the host.
+
+Narrow storage (``--adam-mu-dtype``, ``--adam-nu-dtype``, ``--accum-dtype``
+bf16) keeps the math of ``fused_adamw._leaf`` and ``fused_accumulate._accumulate``:
+each leaf is computed in f32 and each store rounds once. The update then runs
+leaf by leaf (``torch._foreach_*`` on bf16 lists would round after every
+operation, and upcasting whole lists would undo the memory saved). The clip's
+norm is taken in f32 for a bf16 accumulator too (:func:`global_norm` says
+where that departs from the JAX package). :class:`~stable_diffusion_pytorch_tpu_torch.trainers.adam8bit.AdamW8bit`
+(``--use-8bit-adam``) shares the accumulation (:class:`Accumulating`).
 """
 
 from __future__ import annotations
@@ -65,16 +74,46 @@ def lr_at_step(optim_cfg, max_train_steps: int, opt_step: int) -> float:
     )(opt_step)
 
 
-class AdamW:
-    """clip-by-global-norm + AdamW over ``params``, optionally accumulated over
-    ``accum_steps`` micro steps.
+_FLAGS = {
+    "use_8bit_adam": "--use-8bit-adam",
+    "adam_mu_dtype": "--adam-mu-dtype",
+    "adam_nu_dtype": "--adam-nu-dtype",
+    "gradient_accumulation": "--gradient-accumulation-steps",
+    "accum_dtype": "--accum-dtype",
+}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def storage_dtype(name: str) -> torch.dtype:
+    """``f32`` or ``bf16`` (the storage-dtype flags' values) -> torch dtype."""
+    return {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum over leaves of ``sum(x * x)``, in f32 (a 0-d tensor)
+    whatever the leaves' dtype. For a bf16 accumulator this departs from the
+    JAX package on purpose: there ``optax.global_norm`` sums the leaves in
+    bf16, one by one in tree order, so its value depends on the leaf order
+    and a leaf below 1/512 of the running total adds nothing."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors, dtype=torch.float32)))
+
+
+class Accumulating:
+    """clip-by-global-norm + an Adam variant over ``params``, optionally
+    accumulated over ``accum_steps`` micro steps (``fused_accumulate``).
 
     ``step(grads)`` takes the micro step's gradients (one per parameter) and
-    returns the global norm of those gradients (a 0-d f32 tensor). It applies
-    the update when the micro step completes an accumulation window and
-    returns whether it did. State: ``count`` (updates applied), ``mu``, ``nu``
-    (f32, like the parameters), and with accumulation ``mini_step`` and
-    ``acc``."""
+    returns ``(applied, norm)``: whether it applied an update (the micro step
+    completed an accumulation window) and the global norm of those gradients
+    (a 0-d f32 tensor). State here: ``count`` (updates applied), and with
+    accumulation ``mini_step`` and ``acc`` (``acc_dtype``). Subclasses hold the
+    moments and implement ``_update(grads, norm)``, ``_moments_state`` and
+    ``_load_moments``."""
 
     def __init__(
         self,
@@ -86,6 +125,7 @@ class AdamW:
         weight_decay: float = 0.0,
         max_grad_norm: Optional[float] = None,
         accum_steps: int = 1,
+        acc_dtype: torch.dtype = torch.float32,
     ):
         self.params = list(params)
         self.schedule = schedule
@@ -96,52 +136,111 @@ class AdamW:
         self.count = 0
         self.mini_step = 0
         with torch.no_grad():
-            self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-            self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-            self.acc = (
-                [torch.zeros_like(p, dtype=torch.float32) for p in self.params] if accum_steps > 1 else None
-            )
-
-    @staticmethod
-    def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-        """sqrt(sum of squares) over every element of every gradient, f32."""
-        norms = torch._foreach_norm([g.float() for g in grads])
-        return torch.linalg.vector_norm(torch.stack(norms))
+            self.acc = [torch.zeros_like(p, dtype=acc_dtype) for p in self.params] if accum_steps > 1 else None
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]):
         """-> (applied, global norm of ``grads``)."""
         grads = [g.float() for g in grads]
-        norm = self.global_norm(grads)
+        norm = global_norm(grads)
         if self.acc is None:
             self._update(grads, norm)
             return True, norm
-        # running mean of the micro gradients (fused_accumulate's formula)
+        # running mean of the micro gradients (fused_accumulate's formula),
+        # in f32; the in-place add rounds once into the accumulator's dtype
         delta = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
+        del delta
         if self.mini_step < self.accum_steps - 1:
             self.mini_step += 1
             return False, norm
-        self._update(self.acc, self.global_norm(self.acc))
+        self._update(self.acc, global_norm(self.acc))
         for a in self.acc:
             a.zero_()
         self.mini_step = 0
         return True, norm
 
+    def _scalars(self):
+        """(count + 1, bc1, bc2, lr): the f32 scalars of the next update, the
+        bias corrections ``1 - b^(count + 1)`` computed in f32 as optax does."""
+        count_inc = self.count + 1
+        c = torch.tensor(float(count_inc))
+        bc1, bc2 = (float(torch.tensor(1.0) - torch.tensor(b) ** c) for b in (self.b1, self.b2))
+        return count_inc, bc1, bc2, f32(self.schedule(self.count))
+
+    def layout(self) -> Dict:
+        """The state's layout, by the flags that set it."""
+        return {"gradient_accumulation": self.acc is not None,
+                "accum_dtype": None if self.acc is None else _DTYPE_NAMES[self.acc[0].dtype]}
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimizer state (moments and accumulator)."""
+        return list(self.acc or [])
+
+    def state_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.state_tensors())
+
+    def state_dict(self) -> Dict:
+        return {"layout": self.layout(), "count": self.count, "mini_step": self.mini_step, "acc": self.acc,
+                **self._moments_state()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        saved = state.get("layout") or _legacy_layout(state)
+        mine = self.layout()
+        differ = [k for k in sorted(set(saved) | set(mine)) if saved.get(k) != mine.get(k)]
+        # a dtype means nothing where the other side has no such state
+        if "gradient_accumulation" in differ:
+            differ = [k for k in differ if k != "accum_dtype"]
+        if "use_8bit_adam" in differ:
+            differ = [k for k in differ if k not in ("adam_mu_dtype", "adam_nu_dtype")]
+        if differ:
+            raise ValueError(
+                "checkpoint optimizer state does not match this run's flags: "
+                + ", ".join(f"{_FLAGS[k]} (checkpoint: {saved.get(k)}, this run: {mine.get(k)})" for k in differ)
+                + "; re-run with the saving run's flags"
+            )
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        for d, s in zip(self.acc or [], state["acc"] or []):
+            d.copy_(s)
+        self._load_moments(state)
+
+
+def _legacy_layout(state: Dict) -> Dict:
+    """The layout of a checkpoint written before layouts were recorded: f32 AdamW."""
+    return {"use_8bit_adam": False, "adam_mu_dtype": "f32", "adam_nu_dtype": "f32",
+            "gradient_accumulation": state.get("acc") is not None,
+            "accum_dtype": None if state.get("acc") is None else "f32"}
+
+
+class AdamW(Accumulating):
+    """clip-by-global-norm + AdamW (``fused_adamw``), optionally accumulated.
+    Moments ``mu``, ``nu`` in ``mu_dtype`` and ``nu_dtype`` (f32 or bf16)."""
+
+    def __init__(self, params: List[torch.Tensor], schedule, mu_dtype: torch.dtype = torch.float32,
+                 nu_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(params, schedule, **kw)
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
+            self.nu = [torch.zeros_like(p, dtype=nu_dtype) for p in self.params]
+
+    def _clip_scale(self, norm: torch.Tensor) -> torch.Tensor:
+        """1 when ``norm < c``, else ``c / norm`` (f32)."""
+        c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
+        return torch.where(norm < c, torch.ones_like(norm), c / norm)
+
     def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
         b1, b2 = self.b1, self.b2
-        count_inc = self.count + 1
-        # f32 scalars, as optax computes them
-        bc1 = float(torch.tensor(1.0) - torch.tensor(b1) ** torch.tensor(float(count_inc)))
-        bc2 = float(torch.tensor(1.0) - torch.tensor(b2) ** torch.tensor(float(count_inc)))
-        lr = float(torch.tensor(self.schedule(self.count), dtype=torch.float32))
-        if self.max_grad_norm is not None:
-            c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
-            scale = torch.where(norm < c, torch.ones_like(norm), c / norm)
-            g = torch._foreach_mul(grads, scale)
-        else:
-            g = grads
+        count_inc, bc1, bc2, lr = self._scalars()
+        scale = None if self.max_grad_norm is None else self._clip_scale(norm)
+        if any(t.dtype != torch.float32 for t in (grads[0], self.mu[0], self.nu[0])):
+            for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+                self._leaf(p, g, mu, nu, bc1, bc2, lr, scale)
+            self.count = count_inc
+            return
+        g = grads if scale is None else torch._foreach_mul(grads, scale)
         # mu = b1 mu + (1 - b1) g ; nu = b2 nu + (1 - b2) g^2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - b1))
@@ -159,40 +258,54 @@ class AdamW:
         torch._foreach_sub_(self.params, adam)
         self.count = count_inc
 
-    def state_dict(self) -> Dict:
-        return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu,
-                "acc": self.acc}
+    def _leaf(self, p, g, mu, nu, bc1, bc2, lr, scale) -> None:
+        """``fused_adamw._leaf``: the leaf in f32, each store rounded once."""
+        b1, b2 = self.b1, self.b2
+        g32 = g.float() if scale is None else g.float() * scale
+        mu_n = b1 * mu.float() + (1.0 - b1) * g32
+        nu_n = b2 * nu.float() + (1.0 - b2) * g32 * g32
+        adam = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + self.eps)
+        p.sub_(lr * (adam + self.weight_decay * p))
+        mu.copy_(mu_n)
+        nu.copy_(nu_n)
 
-    @torch.no_grad()
-    def load_state_dict(self, state: Dict) -> None:
-        self.count = int(state["count"])
-        self.mini_step = int(state["mini_step"])
-        for name in ("mu", "nu", "acc"):
-            dst, src = getattr(self, name), state[name]
-            if (dst is None) != (src is None):
-                raise ValueError(
-                    f"checkpoint optimizer state {name!r} does not match this run's "
-                    "--gradient-accumulation-steps"
-                )
-            for d, s in zip(dst or [], src or []):
-                d.copy_(s)
+    def layout(self) -> Dict:
+        return {**super().layout(), "use_8bit_adam": False, "adam_mu_dtype": _DTYPE_NAMES[self.mu[0].dtype],
+                "adam_nu_dtype": _DTYPE_NAMES[self.nu[0].dtype]}
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        return self.mu + self.nu + super().state_tensors()
+
+    def _moments_state(self) -> Dict:
+        return {"mu": self.mu, "nu": self.nu}
+
+    def _load_moments(self, state: Dict) -> None:
+        for d, s in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            d.copy_(s)
 
 
-def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulation_steps: int = 1) -> AdamW:
+def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulation_steps: int = 1) -> Accumulating:
     """clip-by-global-norm -> AdamW(schedule, wd), accumulated over k micro
-    steps: the JAX package's default (fused) optimizer. The 8-bit optimizer
-    and the bf16 moment or accumulator storage are not ported."""
-    if getattr(optim_cfg, "use_8bit_adam", False):
-        raise NotImplementedError("--use-8bit-adam is not ported yet (ROADMAP queue 2, K9)")
-    for flag in ("adam_mu_dtype", "adam_nu_dtype", "accum_dtype"):
-        if getattr(optim_cfg, flag, "f32") != "f32":
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} bf16 is not ported yet (ROADMAP queue 1, slice 2 follow-ups)"
-            )
+    steps, as the JAX package's ``build_optimizer`` composes it: the fused
+    AdamW with ``--adam-mu-dtype``/``--adam-nu-dtype`` storage, or under
+    ``--use-8bit-adam`` the int8 optimizer (which ignores the moment dtype
+    flags); both honour ``--accum-dtype``. ``--no-fused-adamw`` (the optax
+    chain with ``MultiSteps``) is not ported."""
+    if getattr(optim_cfg, "no_fused_adamw", False):
+        raise NotImplementedError("--no-fused-adamw is not ported yet (ROADMAP queue 1, item 13a)")
     schedule = build_lr_schedule(
         optim_cfg.scheduler_type, optim_cfg.learning_rate, optim_cfg.lr_warmup_steps, max_train_steps
     )
-    return AdamW(
-        params, schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay=optim_cfg.adam_weight_decay,
+    common = dict(
+        b1=0.9, b2=0.999, eps=1e-8, weight_decay=optim_cfg.adam_weight_decay,
         max_grad_norm=optim_cfg.max_grad_norm, accum_steps=gradient_accumulation_steps,
+        acc_dtype=storage_dtype(getattr(optim_cfg, "accum_dtype", "f32")),
+    )
+    if getattr(optim_cfg, "use_8bit_adam", False):
+        from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit
+
+        return AdamW8bit(params, schedule, **common)
+    return AdamW(
+        params, schedule, mu_dtype=storage_dtype(getattr(optim_cfg, "adam_mu_dtype", "f32")),
+        nu_dtype=storage_dtype(getattr(optim_cfg, "adam_nu_dtype", "f32")), **common,
     )

@@ -14,11 +14,13 @@ seeded with ``SeedSequence([0, seed, m])`` (evaluation batch ``i``:
 package's ``fold_in(seed, m)`` keys do. The streams differ from JAX's.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP item
-(:func:`check_supported`): multi-device and sharded training, remat, chained
+(:func:`check_supported`): multi-device and sharded training, chained
 dispatch, v-prediction, Min-SNR, gradient-noise-scale, LoRA, prior
 preservation, the latent cache, on-device preprocessing, image logging, wandb
-tracking, loss-spike detection, the 8-bit optimizer and bf16 optimizer
-storage.
+tracking, loss-spike detection and the unfused optax optimizer
+(``--no-fused-adamw``). Ported memory levers: ``--remat-policy`` (per-block
+remat, set on the UNet by ``build_models``), ``--use-8bit-adam`` (int8
+moments, K9), ``--adam-mu-dtype``/``--adam-nu-dtype``/``--accum-dtype`` bf16.
 """
 
 from __future__ import annotations
@@ -55,7 +57,6 @@ def _unsupported(cfg):
         (p.offload_optimizer, "--offload-optimizer", "ROADMAP queue 1, item 17"),
         (p.shard_params, "--shard-params", "ROADMAP queue 1, item 17"),
         ((p.tensor_parallel or 1) > 1, "--tensor-parallel", "ROADMAP queue 1, item 17"),
-        (p.remat_policy != "none", f"--remat-policy {p.remat_policy}", SLICE2_REST),
         (not p.use_pallas_attention, "--use-pallas-attention off", SLICE2_REST),
         ((t.steps_per_dispatch or 1) > 1, "--steps-per-dispatch", SLICE2_REST),
         (t.prediction_type != "epsilon", f"--prediction-type {t.prediction_type}", SLICE2_REST),
@@ -68,11 +69,7 @@ def _unsupported(cfg):
         ((lg.spike_threshold or 0.0) > 0.0, "--spike-threshold", SLICE2_REST),
         (d.latent_cache is not None, "--latent-cache", SLICE2_REST),
         (d.device_preprocess, "--device-preprocess", SLICE2_REST),
-        (o.use_8bit_adam, "--use-8bit-adam", "ROADMAP queue 1, item 18"),
         (o.no_fused_adamw, "--no-fused-adamw", SLICE2_REST),
-        (o.adam_mu_dtype != "f32", "--adam-mu-dtype", SLICE2_REST),
-        (o.adam_nu_dtype != "f32", "--adam-nu-dtype", SLICE2_REST),
-        (o.accum_dtype != "f32", "--accum-dtype", SLICE2_REST),
     ]
     return [(flag, item) for bad, flag, item in checks if bad]
 
@@ -300,6 +297,9 @@ class UNetTrainer(Trainer):
         unet = model.unet
         if next(unet.parameters()).dtype != torch.float32 or not next(unet.parameters()).requires_grad:
             raise ValueError("the UNet must hold f32 trainable parameters: build_models(..., for_training=True)")
+        if unet.remat != cfg.parallel.remat_policy:
+            raise ValueError(f"the UNet was built with remat {unet.remat!r}, the run asks for "
+                             f"--remat-policy {cfg.parallel.remat_policy}: build_models(..., remat=...)")
         optimizer = build_optimizer(
             [p for p in unet.parameters() if p.requires_grad], cfg.optim,
             max_train_steps=cfg.train.max_train_steps,

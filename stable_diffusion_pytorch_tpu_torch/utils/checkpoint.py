@@ -3,7 +3,12 @@ utils/checkpoint.py; Orbax becomes ``torch.save``).
 
 - a checkpoint is the directory ``{ckpt_dir}/checkpoint-{global_step}`` (or
   ``epoch_{n}`` for per-epoch saves) holding ``train_state.pt``: the step, the
-  UNet's parameters, the optimizer state, the EMA parameters and the epoch;
+  UNet's parameters, the optimizer state, the EMA parameters and the epoch.
+  The optimizer state is saved exactly as it lies: f32 or bf16 moments, or
+  the int8 codes and f32 scales of ``--use-8bit-adam``, ``count``, and the
+  accumulator in its ``--accum-dtype``, with its layout by flag; a restore
+  into a run whose flags give another layout is refused with a message that
+  names those flags (``trainers/optim.py:Accumulating.load_state_dict``);
 - ``resume_from_checkpoint="latest"`` restores the ``checkpoint-*`` entry with
   the largest step; any other value is a path (or a name under ``ckpt_dir``);
 - ``keep_last_only`` removes the previous checkpoint after a save;

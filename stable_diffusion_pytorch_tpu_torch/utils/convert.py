@@ -14,11 +14,18 @@ the port's modules load with ``load_state_dict(..., strict=True)`` after
 
 Layouts: conv kernel [kh, kw, I, O] -> weight [O, I, kh, kw]; dense kernel
 [I, O] -> weight [O, I]; norm scale -> weight.
+
+Optimizer state (:func:`unet_optimizer_state`): the JAX package's
+``FusedAccumState`` around ``FusedAdamWState`` or around the 8-bit chain's
+``ScaleByAdam8bitState`` -> the port's optimizer ``state_dict``. Each leaf's
+moments, accumulator, int8 codes and scales take the same transpose as its
+weight; a scale ``[..., nb, 1]`` or ``[..., 1]`` is first read as the weight's
+rank with ``nb`` in the minor place, so it lands as ``[nb, *shape[1:]]``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -192,3 +199,73 @@ def clip_state_dict(tree: Dict) -> StateDict:
 def to_torch(sd: StateDict) -> Dict[str, torch.Tensor]:
     """numpy state dict -> float32 tensors for ``load_state_dict``."""
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _as_weight_rank(scale, param) -> np.ndarray:
+    """A JAX int8 scale ([..., nb, 1] or [..., 1]) in its parameter's rank,
+    nb in the minor place, so the weight's transpose applies to it."""
+    scale, lead = np.asarray(scale), tuple(np.shape(param))[:-1]
+    return scale.reshape(lead + (scale.size // max(int(np.prod(lead)), 1),))
+
+
+def _dtype_name(a) -> str:
+    return {"float32": "f32", "bfloat16": "bf16"}[str(np.asarray(a).dtype)]
+
+
+def unet_optimizer_state(state, params: Dict, unet_cfg, names: List[str]) -> Dict:
+    """JAX UNet optimizer state (numpy leaves) -> the port's optimizer
+    ``state_dict`` over the parameters ``names`` (the port's order).
+
+    ``state``: a ``FusedAccumState`` (``mini_step``, ``acc``, ``inner``), or
+    its inner state alone. The inner state is a ``FusedAdamWState``
+    (``count``, ``mu``, ``nu``) or the 8-bit chain's tuple, which holds a
+    ``ScaleByAdam8bitState`` whose ``mu``/``nu`` leaves carry ``q`` and
+    ``scale``. ``params`` is the JAX parameter tree (for the leaves' ranks).
+    Arrays keep their dtypes (bf16 as numpy's extension type, which a
+    caller widens to f32 before ``torch.from_numpy``; the copy into a bf16
+    tensor is then exact)."""
+    params = _params(params)
+
+    def port(tree) -> List[np.ndarray]:
+        sd = unet_state_dict(tree, unet_cfg)
+        return [np.ascontiguousarray(sd[n]) for n in names]
+
+    inner = getattr(state, "inner", state)
+    acc = getattr(state, "acc", None)
+    out = {"count": None, "mini_step": int(getattr(state, "mini_step", 0)),
+           "acc": None if acc is None else port(_params(acc))}
+    layout = {"gradient_accumulation": acc is not None,
+              "accum_dtype": None if acc is None else _dtype_name(out["acc"][0])}
+    adam = _find_adam(inner)
+    if adam is None:
+        raise ValueError("no Adam state (FusedAdamWState or ScaleByAdam8bitState) in the optimizer state")
+    out["count"] = int(np.asarray(adam.count))
+    mu, nu = _params(adam.mu), _params(adam.nu)
+    first = mu
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    if not hasattr(first, "q"):
+        out.update(mu=port(mu), nu=port(nu))
+        out["layout"] = {**layout, "use_8bit_adam": False, "adam_mu_dtype": _dtype_name(out["mu"][0]),
+                         "adam_nu_dtype": _dtype_name(out["nu"][0])}
+        return out
+    out["layout"] = {**layout, "use_8bit_adam": True}
+    for name, tree in (("mu", mu), ("nu", nu)):
+        out[f"{name}_q"] = port(_map_with(tree, params, lambda qt, p: np.asarray(qt.q)))
+        out[f"{name}_scale"] = port(_map_with(tree, params, lambda qt, p: _as_weight_rank(qt.scale, p)))
+    return out
+
+
+def _find_adam(state):
+    """The first state in (nested chain tuples of) ``state`` that holds ``mu``."""
+    if hasattr(state, "mu"):
+        return state
+    if isinstance(state, tuple):
+        return next((found for s in state if (found := _find_adam(s)) is not None), None)
+    return None
+
+
+def _map_with(tree, other, fn):
+    if isinstance(tree, dict):
+        return {k: _map_with(v, other[k], fn) for k, v in tree.items()}
+    return fn(tree, other)

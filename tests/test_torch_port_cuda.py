@@ -14,7 +14,11 @@ summed with atomics in an order that changes between runs) and 1e-4 for
 GroupNorm (two reductions over the map); bfloat16 2e-2 as above (the kernel's
 delta = rowsum(dO * O) reads the bf16-rounded O, the plain version sums
 dP * P in f32). The split backward (K4/K5) is held to the same tolerances and,
-having no atomics, to bit-identical results from two launches.
+having no atomics, to bit-identical results from two launches. The int8 Adam
+update (K9) repeats its plain version's IEEE operations in the same order:
+updates at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp (rtol 2^-8)
+in bf16, at most one code in 10^4 one step apart (a value on a rounding
+boundary), dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere.
 """
 
 import pytest
@@ -22,6 +26,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stable_diffusion_pytorch_tpu_torch.ops import native  # noqa: E402
+from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import (  # noqa: E402
+    adam8bit_update,
+    adam8bit_update_plain,
+    dequantize,
+    quantize,
+)
 from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E402
     _forward_kernel,
     flash_attention,
@@ -201,7 +211,7 @@ def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
     fused_group_norm_cat(x, x, torch.ones(128, device=cuda), torch.ones(128, device=cuda), 8)
     assert {k: c.count for k, c in native.COUNTERS.items()} == {
         "flash_attention": 1, "flash_attention_bwd": 0, "flash_attention_bwd_split": 0, "group_norm": 1,
-        "group_norm_cat": 1, "group_norm_bwd": 0,
+        "group_norm_cat": 1, "group_norm_bwd": 0, "adam8bit_update": 0,
     }
     with pytest.raises(TypeError):
         flash_attention(q.half(), q.half(), q.half())
@@ -245,5 +255,76 @@ def test_train_step_on_cuda_runs_the_backward_kernels(cuda, tmp_path):
     unchanged = [n for (n, _), a, b in zip(model.unet.named_parameters(), before, params) if torch.equal(a, b)]
     assert not unchanged, unchanged
     counts = {k: c.count for k, c in native.COUNTERS.items()}
+    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd",
+                                       "group_norm_cat")), counts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adam8bit_update_matches_plain(cuda, dtype):
+    """K9 at a sub-blocked conv, a one-block conv, a linear and 1-D leaves,
+    from non-zero seeded state with step-3 bias corrections."""
+    g_ = torch.Generator(device=cuda).manual_seed(0)
+    bc1, bc2 = float(torch.tensor(1 - 0.9 ** 3)), float(torch.tensor(1 - 0.999 ** 3))
+    native.reset_counters()
+    for shape in [(1280, 640, 3, 3), (320, 4, 3, 3), (640, 768), (1280,), (320,)]:
+        g = (torch.randn(shape, device=cuda, generator=g_) * 0.02).to(getattr(torch, dtype))
+        mu = quantize(torch.randn(shape, device=cuda, generator=g_) * 0.01, 256)
+        nu = quantize(torch.randn(shape, device=cuda, generator=g_).abs().mul(1e-4).sqrt(), 256)
+        upd, nmu, nnu = adam8bit_update(g, mu, nu, bc1, bc2)
+        r_upd, r_mu, r_nu = adam8bit_update_plain(g, mu, nu, bc1, bc2, 0.9, 0.999, 1e-8, 256)
+        torch.cuda.synchronize()
+        assert upd.dtype == g.dtype and nmu[0].dtype == torch.int8 and nmu[1].shape == mu[1].shape
+        torch.testing.assert_close(upd.float(), r_upd.float(), rtol=1e-6 if dtype == "float32" else 2.0 ** -8,
+                                   atol=1e-7, msg=lambda m: f"{shape}: {m}")
+        for ours, ref in ((nmu, r_mu), (nnu, r_nu)):
+            diff = (ours[0].int() - ref[0].int()).abs()
+            assert diff.max() <= 1 and int((diff > 0).sum()) <= max(1, ours[0].numel() // 10 ** 4), (
+                shape, int(diff.max()), int((diff > 0).sum()))
+            got, want = dequantize(*ours), dequantize(*ref)
+            assert (((got - want).abs() <= 1e-8 + 1e-5 * want.abs()) | (diff > 0)).all(), shape
+    assert native.COUNTERS["adam8bit_update"].count == 5
+    with pytest.raises(ValueError):
+        adam8bit_update(g, (mu[0].float(), mu[1]), nu, bc1, bc2)
+
+
+def test_lean_train_step_on_cuda_runs_k9_per_leaf(cuda):
+    """A tiny UNet accumulated over 2 micro steps with int8 Adam, a bf16
+    accumulator and conv-save remat on the card: finite loss, every parameter
+    updated, K9 launched once per leaf, the UNet kernels launched."""
+    from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, DDPMConfig, UnetConfig
+    from stable_diffusion_pytorch_tpu_torch.models.build import build_models
+    from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit
+    from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_lr_schedule
+    from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState, make_unet_train_step, sample_draws
+
+    model = build_models(
+        UnetConfig(channels_list=[32, 64], n_heads=4, time_emb_dim=64, n_layers=1, context_dim=768),
+        AutoencoderConfig(autoencoder_channels_list=[16, 32], groups=8), ClipConfig(model_dir=None), DDPMConfig(),
+        dtype=torch.bfloat16, device=cuda, seed=0, for_training=True, remat="conv-save",
+    )
+    params = [p for p in model.unet.parameters()]
+    with torch.no_grad():
+        for p in params:
+            if p.dim() > 1 and not p.any():
+                p.normal_(0.0, 0.02)
+    before = [p.detach().clone() for p in params]
+    opt = AdamW8bit(params, build_lr_schedule("constant", 1e-3, 0, 10), max_grad_norm=1.0, accum_steps=2,
+                    acc_dtype=torch.bfloat16)
+    state = TrainState(model.unet, opt)
+    train_step, _ = make_unet_train_step(model.unet, model.text_encoder.module, model.autoencoder,
+                                         model.noise_scheduler, compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"pixel_values": torch.rand(2, 32, 32, 3, device=cuda, generator=g) * 2 - 1,
+             "input_ids": torch.randint(0, 49408, (2, 77), device=cuda, generator=g)}
+    uncond = torch.tensor(model.text_encoder.tokenize([""]).input_ids[0], device=cuda)
+    native.reset_counters()
+    for _ in range(2):
+        metrics = train_step(state, batch, uncond, sample_draws(g, 2, (2, 16, 16, 4), 1000, cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"]) and opt.count == 1
+    unchanged = [n for (n, _), a, b in zip(model.unet.named_parameters(), before, params) if torch.equal(a, b)]
+    assert not unchanged, unchanged
+    counts = {k: c.count for k, c in native.COUNTERS.items()}
+    assert counts["adam8bit_update"] == len(params), counts
     assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd",
                                        "group_norm_cat")), counts

@@ -205,11 +205,11 @@ def test_entry_points_run_on_cuda_unless_given_the_cpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize(
     "flags",
-    [["--remat-policy", "full"], ["--use-8bit-adam"], ["--prediction-type", "v_prediction"],
+    [["--no-fused-adamw"], ["--snr-gamma", "5"], ["--prediction-type", "v_prediction"],
      ["--lora-rank", "4"], ["--steps-per-dispatch", "2"], ["--num-devices", "4"], ["--latent-cache", "c.npz"],
      ["--dataset", "poloclub/diffusiondb"]],
-    ids=["remat", "adam8bit", "v_prediction", "lora", "steps_per_dispatch", "multi_device", "latent_cache",
-         "hf_dataset"],
+    ids=["no_fused_adamw", "snr_gamma", "v_prediction", "lora", "steps_per_dispatch", "multi_device",
+         "latent_cache", "hf_dataset"],
 )
 def test_unported_training_options_raise(tmp_path, monkeypatch, flags):
     monkeypatch.chdir(tmp_path)

@@ -27,11 +27,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
    no PyTorch call computes it (``library_ms`` null); its bound counts bytes
    and the f32 peak. Then, as context, the whole optimizer step over the 686
    leaves: the f32 foreach ``AdamW._update`` and ``AdamW8bit._update``.
-   In float32 (TF32 off) and bfloat16: max-abs error with its tolerance; the
-   kernel's, the plain version's and the library call's times (CUDA events,
+   In float32 (TF32 off) and bfloat16: the implementation each attention
+   record ran (``impl``, as the launch reported it: bfloat16 K1 and K4/K5 on
+   the tensor cores, ``wgmma``; float32 on FMAs, ``fma``; any other pairing
+   fails), max-abs error with its tolerance (of each output's max(1,
+   max|plain|); bfloat16 attention of its own max|plain|, ``scale`` in the
+   record); the kernel's, the plain version's and the library call's times (CUDA events,
    median of 5 runs of 5 launches); and the bound: the larger of bytes / 3.35
    TB/s and FLOPs / peak (989 TFLOP/s bf16, 67 TFLOP/s f32; H100 SXM data
-   sheet). The plain attention versions hold f32 [B, H, N, M] scores; past
+   sheet); for attention also bf16 sums by group (K1 at kv <= 9216 and at
+   the K2 shapes, the split backward at K3's shapes and at its own). The
+   plain attention versions hold f32 [B, H, N, M] scores; past
    2^30 elements they run one (batch, head) at a time (``plain_per_head`` in
    the record), the same per-row math.
 3. unet_parity: one SD-1.5-size UNet forward (full widths, 64x64 latent) in
@@ -81,7 +87,8 @@ the summary, ``launches`` counts phases 5 to 9 (each run with the counts set
 to 0 just before it; the split is in the JSON record); ``max_abs_err``,
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
-the bfloat16 gradient of the lean path).
+the bfloat16 gradient of the lean path); ``impl`` is the implementation each
+dtype's records ran (null for a kernel with one).
 Without a CUDA device, or outside a checkout of the repository, it exits
 nonzero and prints no result. Weights are random from a seed, with the
 zero-initialized layers (each ResBlock's last conv, each transformer's
@@ -133,6 +140,9 @@ TPU_KERNELS = {
     "adam8bit_update": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/adam8bit_update.cu",
                         "stable_diffusion_pytorch_tpu/ops/adam8bit_update.py:98 _kernel (pallas_call :188)"),
 }
+# the implementation each dtype must run, for the kernels whose sources hold two
+EXPECTED_IMPL = {name: {"float32": "fma", "bfloat16": "wgmma"}
+                 for name in ("flash_attention", "flash_attention_bwd_split")}
 SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd", "group_norm_cat")  # at 512px
 HIRES_TRAIN_KERNELS = (*TRAIN_KERNELS, "flash_attention_bwd_split")
@@ -349,7 +359,7 @@ def _attn_case(key, dtype, gen):
         lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
         4 * b * h * n * m * d,
         _elem(dtype) * (2 * b * n * h * d + 2 * b * m * h * d),
-        {"plain_per_head": per_head},
+        {"plain_per_head": per_head, "compare": _own_scale_err if dtype == "bfloat16" else None},
     )
 
 
@@ -383,7 +393,7 @@ def _attn_bwd_case(key, dtype, gen, split: bool = False):
         lambda: torch.autograd.grad(lib_out, leaves, do_h, retain_graph=True),
         10 * b * h * n * m * d,
         _elem(dtype) * 4 * (b * n * h * d + b * m * h * d),
-        {"plain_per_head": per_head},
+        {"plain_per_head": per_head, "compare": _own_scale_err if dtype == "bfloat16" else None},
     )
 
 
@@ -558,12 +568,14 @@ def _adam_compare(out, ref):
 
 
 # Tolerances on max|kernel - plain| of each output, relative to max(1, max|plain|)
-# of that output:
+# of that output (bf16 attention: to max|plain|, ``_own_scale_err``):
 # float32 -- another summation order over at most a few thousand terms (the
 # backward: sums over up to 4096 kv or 40960 map rows, and K3's dq is summed
 # with atomics in an order that changes between runs);
 # bfloat16 -- both sides round outputs (and attention's P) to bf16, whose
-# spacing is 2^-7 of the magnitude, so a few ulps; K3's delta = rowsum(dO * O)
+# spacing is 2^-8 to 2^-7 of the magnitude, so a few ulps; a kv tile of 64
+# dropped at 16384 kv moves an attention output by ~3-6 % of its magnitude
+# (tests/test_torch_port_attention_bf16.py); K3's delta = rowsum(dO * O)
 # reads the bf16-rounded O where the plain version sums dP * P in f32. The
 # split backward (K4/K5) sums over up to 16384 rows without atomics; the same
 # limits as K3.
@@ -647,11 +659,17 @@ def _bound(flops: float, nbytes: float, dtype: str):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _max_err(out, ref):
-    """(max-abs error, max over outputs of error / max(1, max|plain output|))."""
+def _max_err(out, ref, floor: float = 1.0):
+    """(max-abs error, max over outputs of error / max(floor, max|plain output|),
+    {"scale": each output's max(floor, max|plain|)})."""
     pairs = list(zip(_flat(out), _flat(ref))) if isinstance(out, (list, tuple)) else [(out, ref)]
-    errs = [((o.float() - r.float()).abs().max().item(), max(1.0, r.float().abs().max().item())) for o, r in pairs]
-    return max(e for e, _ in errs), max(e / s for e, s in errs)
+    errs = [((o.float() - r.float()).abs().max().item(), max(floor, r.float().abs().max().item())) for o, r in pairs]
+    return max(e for e, _ in errs), max(e / s for e, s in errs), {"scale": [s for _, s in errs]}
+
+
+# bf16 attention outputs are held to their own magnitude (no floor of 1): at
+# long kv they are ~0.01-0.1, where a floor would let a dropped kv tile pass
+_own_scale_err = functools.partial(_max_err, floor=0.0)
 
 
 def _flat(xs):
@@ -662,14 +680,37 @@ def _flat(xs):
             yield x
 
 
+def _attention_groups(rows, shapes) -> dict:
+    """bf16 sums of K1 at kv <= 9216 and at the K2 shapes, and of the split
+    backward at K3's shapes (K4's domain) and at its own."""
+    k3 = {tuple(k) for k in shapes.get("flash_attention_bwd", [])}
+    groups = {}
+    for row in rows:
+        if row["dtype"] != "bfloat16":
+            continue
+        if row["k"] == "flash_attention":
+            name = "flash_attention kv>9216" if row["shape"][2] > 9216 else "flash_attention kv<=9216"
+        elif row["k"] == "flash_attention_bwd_split":
+            name = f"flash_attention_bwd_split at {'K3' if tuple(row['shape']) in k3 else 'its own'} shapes"
+        else:
+            continue
+        acc = groups.setdefault(name, {"n": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0})
+        acc["n"] += 1
+        for field in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            acc[field] += row[field] or 0.0
+    return groups
+
+
 def phase_kernels(shapes: dict) -> dict:
     import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows, failures = [], []
-    summary = {name: {"max_rel_err": {}, "ms_bf16": 0.0, "plain_ms_bf16": 0.0, "library_ms_bf16": 0.0,
+    summary = {name: {"max_rel_err": {}, "impl": {}, "ms_bf16": 0.0, "plain_ms_bf16": 0.0, "library_ms_bf16": 0.0,
                       "bound_ms_bf16": 0.0, "ops_bound_ms_bf16": 0.0, "bytes_bound_ms_bf16": 0.0,
                       "max_abs_err_bf16": 0.0}
                for name in TPU_KERNELS}
@@ -679,7 +720,12 @@ def phase_kernels(shapes: dict) -> dict:
                 kernel, plain, library, flops, nbytes, *record = CASES[name](key, dname, gen)
                 record = dict(record[0]) if record else {}
                 compare = record.pop("compare", None)
-                out, ref = kernel(), plain()
+                counter = native.COUNTERS[name]
+                before = dict(counter.impls)
+                out = kernel()
+                ran = sorted(k for k, n in counter.impls.items() if n > before.get(k, 0))
+                impl = ran[0] if len(ran) == 1 else (ran or None)
+                ref = plain()
                 # the split backward has no atomics: a second launch must agree bit for bit
                 again = kernel() if name == "flash_attention_bwd_split" else out
                 torch.cuda.synchronize()
@@ -691,7 +737,8 @@ def phase_kernels(shapes: dict) -> dict:
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                 library_ms = None if library is None else cuda_ms(library)
                 bound_ms, bound_by = _bound(flops, nbytes, record.pop("peak", dname))
-                row = {"k": name, "shape": list(key), "dtype": dname, "err": err, "rel_err": rel, "tol": tol, "ms": ms,
+                row = {"k": name, "shape": list(key), "dtype": dname, "impl": impl, "err": err, "rel_err": rel,
+                       "tol": tol, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                        "flops": flops, "bytes": nbytes, "repeat_identical": identical, **record}
                 rows.append(row)
@@ -704,12 +751,16 @@ def phase_kernels(shapes: dict) -> dict:
                     s["bound_ms_bf16"] += bound_ms
                     s["ops_bound_ms_bf16" if bound_by == "operations" else "bytes_bound_ms_bf16"] += bound_ms
                     s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
-                if not (rel <= tol and identical):
+                want_impl = EXPECTED_IMPL.get(name, {}).get(dname)
+                if want_impl:
+                    s["impl"][dname] = impl
+                if not (rel <= tol and identical and impl == want_impl):
                     failures.append(row)
                 del kernel, plain, library
             torch.cuda.empty_cache()
     result = {"phase": "kernels", "ok": not failures, "n_shapes": {k: len(v) for k, v in shapes.items()},
-              "summary": summary, "failures": failures, "shapes": rows}
+              "summary": summary, "groups_bf16": _attention_groups(rows, shapes), "failures": failures,
+              "shapes": rows}
     emit({k: v for k, v in result.items() if k != "shapes"})
     check(all(shapes.get(name) for name in TPU_KERNELS), f"a kernel recorded no shape in the probe runs: "
           f"{ {k: len(shapes.get(k, [])) for k in TPU_KERNELS} }")
@@ -1112,8 +1163,9 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
 # kernel-name substrings -> category of the training profile, first match wins
 PROFILE_CATEGORIES = [
     ("K9 int8 Adam", ("adam8bit",)),
-    ("K1 flash attention fwd", ("fa_forward_kernel",)),
-    ("K4/K5 split attention bwd", ("split_dq_kernel", "split_dkv_kernel", "split_delta_kernel")),
+    ("K1 flash attention fwd", ("fa_forward_kernel", "fa_forward_wgmma")),
+    ("K4/K5 split attention bwd", ("split_dq_kernel", "split_dkv_kernel", "split_delta_kernel",
+                                   "split_dq_wgmma", "split_dkv_wgmma")),
     ("K3 flash attention bwd", ("dkv_kernel", "delta_kernel", "cast_kernel<")),
     ("K7 GroupNorm bwd", ("gn_bwd",)),
     ("K6/K8 GroupNorm fwd", ("gn_partial_sums", "gn_finalize", "gn_normalize")),
@@ -1276,7 +1328,7 @@ def main(argv=None) -> int:
             "max_abs_err": s["max_abs_err_bf16"], "ms": s["ms_bf16"], "plain_ms": s["plain_ms_bf16"],
             "bound_ms": s["bound_ms_bf16"],
             "bound_by": "operations" if s["ops_bound_ms_bf16"] >= s["bytes_bound_ms_bf16"] else "bytes",
-            "library_ms": s["library_ms_bf16"],
+            "library_ms": s["library_ms_bf16"], "impl": s["impl"] or None,
         })
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -8,31 +8,60 @@
 //       (`flash_attention_bwd_streaming`, its backward past 9216 padded kv
 //       tokens, e.g. the 16384-token self-attention of 1024px training).
 // K4 keeps one head's K/V resident in VMEM and K5 streams it in chunks; on
-// Hopper no head's K/V is ever resident in shared memory (see
-// csrc/flash_attention_bwd.cu), so one kernel set computes what both compute,
-// in f32 from the forward's row log-sum-exp (the algebra is in
-// flash_attention_bwd_common.cuh):
+// Hopper no head's K/V is ever resident in shared memory, so one kernel set
+// computes what both compute, from the forward's row log-sum-exp (the algebra
+// is in flash_attention_bwd_common.cuh):
 //   1. stats, `split_delta_kernel`: delta = rowsum(dO * O), one warp per row.
 //      The TPU's `_sbwd_stats_kernel` also recomputes the row log-sum-exp,
 //      because the JAX forward keeps none; here the forward kernel
 //      (csrc/flash_attention.cu) writes lse2 and FlashAttention saves it, so
-//      the stats pass is delta alone.
-//   2. `split_dq_kernel`: a block owns 64 q rows (its Q and dO tiles stay in
-//      shared memory) and loops over all kv tiles of 64 rows; it recomputes S
-//      and dP, forms dS and accumulates dQ = scale * dS K in f32 registers,
-//      written once at the end. No atomics: K3 adds dQ from every kv block with
-//      atomicAdd, whose traffic per head grows as N * M / 64 * D.
-//   3. `split_dkv_kernel`: a block owns 64 kv rows and loops over all q tiles
-//      (`dkv_body` without its dQ share, the loop K3 runs).
+//      the stats pass is delta alone. It reads O as stored; in bfloat16 that
+//      O is rounded, where the TPU kernels sum P * dP in f32, and where keys
+//      share a large component that rounding moves dQ well past the bf16
+//      tolerance (an open fault, PERF.md section 7).
+//   2. a q-outer dQ kernel: a block owns 64 q rows and loops over all kv
+//      tiles; it recomputes S and dP, forms dS and accumulates dQ = scale *
+//      dS K in f32 registers, written once at the end. No atomics.
+//   3. a kv-outer dK/dV kernel: a block owns 64 kv rows and loops over all q
+//      tiles, accumulating dV = P^T dO and dK = scale * dS^T Q.
 // Every output element is summed by one thread in a fixed order, so two
 // launches on the same inputs give bit-identical dQ, dK and dV.
 //
 // What bounds it on this card: seven products of 2*N*M*D FLOPs (S and dP in
 // both kernels, then dQ, dK and dV) against O((N+M)*D) bytes: arithmetic, far
-// above the ridge. Like K1 and K3, this first version runs them on f32 FMAs
-// from shared memory with the 16 x 16 thread layout and 4-row micro-tiles; the
-// dq kernel's shared memory holds Q, dO, K and V transposed plus dS (191 KB at
-// DP = 160). Tensor cores (wgmma) and TMA are later work.
+// above the ridge, with 2*N*M exponentials beside them.
+//
+// bfloat16, `split_dq_wgmma_kernel` and `split_dkv_wgmma_kernel`, on the
+// tensor cores (the building blocks are in attention_sm90.cuh). Each block
+// has two consumer warpgroups of 64 rows of the outer dimension that share the
+// streamed tiles (K and V in the dQ kernel; Q, dO and their lse and delta in
+// the dK/dV kernel), which run through a ring of two shared-memory stages
+// filled by cp.async, the next tile's copy in flight during this tile's
+// products.
+//   - dQ kernel: S = Q K^T and dP = dO V^T on wgmma with both operands in
+//     shared memory; P = exp2(S * scale * log2(e) - lse2) and dS = P * (dP -
+//     delta) in f32 registers; dS rounded to bf16 (the TPU kernels'
+//     `t.astype(k.dtype)`) becomes the register A operand of dQ += dS K, K read
+//     MN-major from the same tile.
+//   - dK/dV kernel: it computes S^T = K Q^T and dP^T = V dO^T directly (its
+//     own K and V rows as the A operands), so P^T and dS^T come out in the
+//     accumulator layout with kv rows: rounded to bf16 (`p.astype(v.dtype)`,
+//     `t.astype(q.dtype)`) they are the register A operands of dV += P^T dO
+//     and dK += dS^T Q, dO and Q read MN-major. No transpose pass anywhere.
+//   - At DP = 128 and 160 the f32 dK and dV accumulators of 64 kv rows would
+//     take 160 registers a thread, so the dK/dV kernel's two warpgroups split
+//     the head dim of one 64-row kv tile instead, each recomputing S^T and
+//     dP^T (cheaper than an exchange through shared memory with a barrier per
+//     tile), with 32-row q tiles; the dQ kernel takes 32-row kv tiles and
+//     one warpgroup per block there. Shared memory stays at or under 81 KB
+//     at every DP, so two blocks fit an SM where registers allow.
+//
+// float32 keeps the FMA kernels, `split_dq_kernel` and `split_dkv_kernel`
+// (`dkv_body`, the loop K3 runs), unchanged: the f32 parity checks (1e-4
+// against the plain version, the UNet's gradients on the card against the
+// CPU) need full f32 products; TF32 keeps about three decimal digits. They
+// use the 16 x 16 thread layout and 4-row micro-tiles with Q, dO, K and V
+// transposed in shared memory (191 KB at DP = 160, one block per SM).
 //
 // Layout: q/o/do [B, N, H, D] and k/v [B, M, H, D], each with its own
 // batch/token/head strides in elements and the head dim contiguous; dq, dk and
@@ -40,6 +69,7 @@
 // f32 [B, H, N].
 
 #include "flash_attention_bwd_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -207,7 +237,7 @@ __global__ void __launch_bounds__(NT, 1) split_dkv_kernel(
 template <typename T, int DP>
 int launch_split(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* dq, void* dk, void* dv, int B, int H, int N, int M,
-                 int D, const long long* st, float scale, cudaStream_t stream) {
+                 int D, const long long* st, float scale, cudaStream_t stream, int* impl) {
   constexpr size_t dq_smem = dq_smem_bytes<DP>();
   constexpr size_t dkv_smem = dkv_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -230,14 +260,16 @@ int launch_split(const void* q, const void* k, const void* v, const void* dout, 
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, N, M, D, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
       scale_log2);
-  return int(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *impl = 0;
+  return int(err);
 }
 
 template <typename T>
 int backward_split(int D, const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, int B, int H, int N, int M, const long long* st, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* impl) {
   const int64_t rows = int64_t(B) * H * N;
   const int64_t blocks = (rows * 32 + 255) / 256;
   split_delta_kernel<T><<<unsigned(blocks), 256, 0, stream>>>(
@@ -248,10 +280,368 @@ int backward_split(int D, const void* q, const void* k, const void* v, const voi
 #define SD_SPLIT_CASE(DP)                                                                    \
   if (D <= DP)                                                                               \
     return launch_split<T, DP>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, st,     \
-                               scale, stream);
+                               scale, stream, impl);
   SD_SPLIT_CASE(32) SD_SPLIT_CASE(48) SD_SPLIT_CASE(64) SD_SPLIT_CASE(80) SD_SPLIT_CASE(96)
   SD_SPLIT_CASE(128) SD_SPLIT_CASE(160)
 #undef SD_SPLIT_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+// ---- bfloat16: tensor cores ------------------------------------------------
+
+using sd_sm90::bf16;
+
+template <int DP, int BKV, int WGR>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q, dO [64 * WGR][DP] + K, V [2 stages][BKV][DP], bf16
+  return 2 * (2 * size_t(64) * WGR * DP + 4 * size_t(BKV) * DP);
+}
+
+// dQ for 64 * WGR q rows of one (batch, head), over all kv tiles of BKV
+// rows; warpgroup w owns q rows 64 w.., all share the K and V tiles.
+template <int DP, int BKV, int WGR>
+__global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int N, int M, int D,
+    int64_t q_sb, int64_t q_sn, int64_t q_sh,
+    int64_t k_sb, int64_t k_sm, int64_t k_sh,
+    int64_t v_sb, int64_t v_sm, int64_t v_sh,
+    int64_t d_sb, int64_t d_sn, int64_t d_sh,
+    float scale, float scale_log2, int vec) {
+  using namespace sd_sm90;
+  static_assert(DP % 16 == 0 && BKV % 16 == 0, "tile widths");
+  constexpr int BQ = 64 * WGR;
+  constexpr int NT = 128 * WGR;
+  constexpr uint32_t KV_TILE = BKV * DP * 2;
+
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sQ = smem_u32(smem_tc);
+  const uint32_t sdO = sQ + BQ * DP * 2;
+  const uint32_t sK = sdO + BQ * DP * 2;  // stage s at sK + s * KV_TILE
+  const uint32_t sV = sK + 2 * KV_TILE;
+
+  const int tid = threadIdx.x;
+  const int wr = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const bf16* db = dout + b * d_sb + h * d_sh;
+
+  const TileCopy<BKV, DP, NT> k_copy(k_sm, D, tid), v_copy(v_sm, D, tid);
+  TileCopy<BQ, DP, NT>(q_sn, D, tid).copy(sQ, qb + q0 * q_sn, N - q0, tid, vec);
+  TileCopy<BQ, DP, NT>(d_sn, D, tid).copy(sdO, db + q0 * d_sn, N - q0, tid, vec);
+  k_copy.copy(sK, kb, M, tid, vec);
+  v_copy.copy(sV, vb, M, tid, vec);
+  cp_async_commit();
+
+  const int row0 = q0 + 64 * wr + 16 * warp + (lane >> 2);
+  const float* lse_bh = lse + (int64_t(b) * H + h) * N;
+  const float* delta_bh = delta + (int64_t(b) * H + h) * N;
+  float neg_lse[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    neg_lse[r] = row < N ? -lse_bh[row] : -INFINITY;  // rows past N: P = 0
+    dl[r] = row < N ? delta_bh[row] : 0.f;
+  }
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const uint64_t q_desc = desc_k_major<DP>(sQ) + wr * 8 * DP;  // rows 64 wr..
+  const uint64_t do_desc = desc_k_major<DP>(sdO) + wr * 8 * DP;
+  const int n_tiles = (M + BKV - 1) / BKV;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      const int r0 = (j + 1) * BKV;
+      k_copy.copy(sK + (st ^ 1) * KV_TILE, kb + r0 * k_sm, M - r0, tid, vec);
+      v_copy.copy(sV + (st ^ 1) * KV_TILE, vb + r0 * v_sm, M - r0, tid, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, [64 x BKV] in f32
+    float s[BKV / 2], dp[BKV / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = dp[i] = 0.f;
+    const uint64_t k_desc = desc_k_major<DP>(sK + st * KV_TILE);
+    const uint64_t v_desc = desc_k_major<DP>(sV + st * KV_TILE);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) Wgmma<BKV>::ss(s, q_desc + 16 * kk, k_desc + 16 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) Wgmma<BKV>::ss(dp, do_desc + 16 * kk, v_desc + 16 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = (j + 1) * BKV > M;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int r = frag_row_half(i);
+      float p = exp2_ftz(fmaf(s[i], scale_log2, neg_lse[r]));
+      if (edge && j * BKV + frag_col(i, lane) >= M) p = 0.f;
+      s[i] = p * (dp[i] - dl[r]);  // dS
+    }
+    uint32_t da[BKV / 16][4];
+    to_a_frag(s, da);  // dS in bf16 before dS K
+
+    // dQ += dS K: K read MN-major (its rows are the product's depth)
+    const uint64_t kt_desc = desc_mn_major<DP>(sK + st * KV_TILE);
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) Wgmma<DP>::rs(acc, da[kk], kt_desc + 2 * DP * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();
+  }
+
+  const int64_t row_stride = int64_t(H) * D;
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int row = row0 + 8 * frag_row_half(i);
+    const int col = frag_col(i, lane);
+    if (row < N && col < D)
+      store_bf16_pair(dq + (int64_t(b) * N + row) * row_stride + int64_t(h) * D + col,
+                      acc[i] * scale, acc[i + 1] * scale, col + 1 < D);
+  }
+}
+
+template <int DP, int BQT, int WGR>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  // K, V [64 * WGR][DP] + Q, dO [2 stages][BQT][DP], bf16; lse, delta [2 stages][BQT], f32
+  return 2 * (2 * size_t(64) * WGR * DP + 4 * size_t(BQT) * DP) + 4 * 4 * size_t(BQT);
+}
+
+// dK and dV for 64 * WGR kv rows of one (batch, head), over all q tiles of
+// BQT rows; WGR x WGC warpgroups, (wr, wc) owning kv rows 64 wr.. and DP /
+// WGC columns of both, all sharing the Q and dO tiles.
+template <int DP, int BQT, int WGR, int WGC>
+__global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, int M, int D,
+    int64_t q_sb, int64_t q_sn, int64_t q_sh,
+    int64_t k_sb, int64_t k_sm, int64_t k_sh,
+    int64_t v_sb, int64_t v_sm, int64_t v_sh,
+    int64_t d_sb, int64_t d_sn, int64_t d_sh,
+    float scale, float scale_log2, int vec) {
+  using namespace sd_sm90;
+  static_assert(DP % 16 == 0 && DP % WGC == 0 && BQT % 16 == 0 && 2 * BQT <= 128 * WGR * WGC,
+                "tile widths");
+  constexpr int BKV = 64 * WGR;
+  constexpr int NT = 128 * WGR * WGC;
+  constexpr int DS = DP / WGC;
+  constexpr uint32_t Q_TILE = BQT * DP * 2;
+
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  const uint32_t sK = smem_u32(smem_tc);
+  const uint32_t sV = sK + BKV * DP * 2;
+  const uint32_t sQ = sV + BKV * DP * 2;     // stage s at sQ + s * Q_TILE
+  const uint32_t sdO = sQ + 2 * Q_TILE;
+  const uint32_t sStat = sdO + 2 * Q_TILE;   // [2 stages][lse BQT, delta BQT] f32
+  const float* stat = reinterpret_cast<const float*>(smem_tc + (sStat - sK));
+
+  const int tid = threadIdx.x;
+  const int wr = (tid >> 7) / WGC;
+  const int wc = (tid >> 7) % WGC;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int kv0 = blockIdx.x * BKV;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const bf16* db = dout + b * d_sb + h * d_sh;
+  const float* lse_bh = lse + (int64_t(b) * H + h) * N;
+  const float* delta_bh = delta + (int64_t(b) * H + h) * N;
+
+  const TileCopy<BQT, DP, NT> q_copy(q_sn, D, tid), do_copy(d_sn, D, tid);
+  auto load_q_tile = [&](int j, int st) {
+    const int r0 = j * BQT;
+    q_copy.copy(sQ + st * Q_TILE, qb + r0 * q_sn, N - r0, tid, vec);
+    do_copy.copy(sdO + st * Q_TILE, db + r0 * d_sn, N - r0, tid, vec);
+    if (tid < 2 * BQT) {
+      const int row = j * BQT + (tid % BQT);
+      const bool ok = row < N;
+      const float* src = tid < BQT ? lse_bh : delta_bh;
+      cp_async4(sStat + (st * 2 * BQT + tid) * 4, ok ? src + row : src, ok);
+    }
+  };
+
+  TileCopy<BKV, DP, NT>(k_sm, D, tid).copy(sK, kb + kv0 * k_sm, M - kv0, tid, vec);
+  TileCopy<BKV, DP, NT>(v_sm, D, tid).copy(sV, vb + kv0 * v_sm, M - kv0, tid, vec);
+  load_q_tile(0, 0);
+  cp_async_commit();
+
+  float acc_k[DS / 2], acc_v[DS / 2];
+#pragma unroll
+  for (int i = 0; i < DS / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint64_t k_desc = desc_k_major<DP>(sK) + wr * 8 * DP;  // kv rows 64 wr..
+  const uint64_t v_desc = desc_k_major<DP>(sV) + wr * 8 * DP;
+  const int n_tiles = (N + BQT - 1) / BQT;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_q_tile(j + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T, [64 kv x BQT q] in f32
+    float s[BQT / 2], dp[BQT / 2];
+#pragma unroll
+    for (int i = 0; i < BQT / 2; ++i) s[i] = dp[i] = 0.f;
+    const uint64_t q_desc = desc_k_major<DP>(sQ + st * Q_TILE);
+    const uint64_t do_desc = desc_k_major<DP>(sdO + st * Q_TILE);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) Wgmma<BQT>::ss(s, k_desc + 16 * kk, q_desc + 16 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) Wgmma<BQT>::ss(dp, v_desc + 16 * kk, do_desc + 16 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T; the columns are q rows, their lse and delta in shared memory
+    const float* lse_t = stat + st * 2 * BQT;
+    const float* delta_t = lse_t + BQT;
+    const bool edge = (j + 1) * BQT > N;
+#pragma unroll
+    for (int i = 0; i < BQT / 2; ++i) {
+      const int c = frag_col(i, lane);
+      float p = exp2_ftz(fmaf(s[i], scale_log2, -lse_t[c]));
+      if (edge && j * BQT + c >= N) p = 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - delta_t[c]);
+    }
+    uint32_t pa[BQT / 16][4], da[BQT / 16][4];
+    to_a_frag(s, pa);   // P^T in bf16 before P^T dO
+    to_a_frag(dp, da);  // dS^T in bf16 before dS^T Q
+
+    // dV += P^T dO and dK += dS^T Q: dO and Q read MN-major, this warpgroup's DS columns
+    const uint64_t dot_desc = desc_mn_major<DP>(sdO + st * Q_TILE) + wc * DS;
+    const uint64_t qt_desc = desc_mn_major<DP>(sQ + st * Q_TILE) + wc * DS;
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) Wgmma<DS>::rs(acc_v, pa[kk], dot_desc + 2 * DP * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) Wgmma<DS>::rs(acc_k, da[kk], qt_desc + 2 * DP * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    __syncthreads();
+  }
+
+  const int row0 = kv0 + 64 * wr + 16 * warp + (lane >> 2);
+  const int64_t row_stride = int64_t(H) * D;
+#pragma unroll
+  for (int i = 0; i < DS / 2; i += 2) {
+    const int row = row0 + 8 * frag_row_half(i);
+    const int col = wc * DS + frag_col(i, lane);
+    if (row < M && col < D) {
+      const int64_t off = (int64_t(b) * M + row) * row_stride + int64_t(h) * D + col;
+      store_bf16_pair(dk + off, acc_k[i] * scale, acc_k[i + 1] * scale, col + 1 < D);
+      store_bf16_pair(dv + off, acc_v[i], acc_v[i + 1], col + 1 < D);
+    }
+  }
+}
+
+template <int DP, int BKV, int QWGR, int BQT, int KVWGR, int WGC>
+int launch_split_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
+                       int H, int N, int M, int D, const long long* st, float scale,
+                       cudaStream_t stream, int* impl) {
+  constexpr size_t dq_smem = dq_wgmma_smem_bytes<DP, BKV, QWGR>();
+  constexpr size_t dkv_smem = dkv_wgmma_smem_bytes<DP, BQT, KVWGR>();
+  cudaError_t err = cudaFuncSetAttribute(split_dq_wgmma_kernel<DP, BKV, QWGR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(dq_smem));
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
+  if (err != cudaSuccess) return int(err);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dt = static_cast<const bf16*>(dout);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int vec = sd_sm90::rows_aligned(q, B, N, H, st[0], st[1], st[2]) &&
+                  sd_sm90::rows_aligned(k, B, M, H, st[3], st[4], st[5]) &&
+                  sd_sm90::rows_aligned(v, B, M, H, st[6], st[7], st[8]) &&
+                  sd_sm90::rows_aligned(dout, B, N, H, st[12], st[13], st[14]);
+  split_dq_wgmma_kernel<DP, BKV, QWGR>
+      <<<dim3((N + 64 * QWGR - 1) / (64 * QWGR), H, B), 128 * QWGR, dq_smem, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<bf16*>(dq), H, N, M, D, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale, scale_log2, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC>
+      <<<dim3((M + 64 * KVWGR - 1) / (64 * KVWGR), H, B), 128 * KVWGR * WGC, dkv_smem, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, M, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
+      scale_log2, vec);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *impl = 1;
+  return int(err);
+}
+
+int backward_split_wgmma(int D, const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                         void* dv, int B, int H, int N, int M, const long long* st, float scale,
+                         cudaStream_t stream, int* impl) {
+  const int64_t rows = int64_t(B) * H * N;
+  const int64_t blocks = (rows * 32 + 255) / 256;
+  split_delta_kernel<bf16><<<unsigned(blocks), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, H, N, D, st[9], st[10],
+      st[11], st[12], st[13], st[14], rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  // (DP, kv tile and row warpgroups of the dQ kernel, q tile, row and column
+  // warpgroups of the dK/dV kernel)
+#define SD_SPLIT_WGMMA_CASE(DP, BKV, QWGR, BQT, KVWGR, WGC)                                   \
+  if (D <= DP)                                                                              \
+    return launch_split_wgmma<DP, BKV, QWGR, BQT, KVWGR, WGC>(q, k, v, dout, lse, delta, dq, \
+                                                              dk, dv, B, H, N, M, D, st,     \
+                                                              scale, stream, impl);
+  SD_SPLIT_WGMMA_CASE(32, 64, 2, 64, 2, 1)
+  SD_SPLIT_WGMMA_CASE(48, 64, 2, 64, 2, 1)
+  SD_SPLIT_WGMMA_CASE(64, 64, 2, 64, 2, 1)
+  SD_SPLIT_WGMMA_CASE(80, 64, 2, 64, 2, 1)
+  SD_SPLIT_WGMMA_CASE(128, 32, 1, 32, 1, 2)
+  SD_SPLIT_WGMMA_CASE(160, 32, 1, 32, 1, 2)
+#undef SD_SPLIT_WGMMA_CASE
   return int(cudaErrorInvalidValue);
 }
 
@@ -259,15 +649,17 @@ int backward_split(int D, const void* q, const void* k, const void* v, const voi
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D <= 160. `strides` holds 15 element
-// strides: (batch, token, head) of q, k, v, o and do in that order. `delta` is
-// f32 [B, H, N] scratch; dq, dk and dv are the contiguous outputs. Returns the
-// first nonzero CUDA error code, 0 on success.
+// dtype: 0 = float32 (the FMA kernels), 1 = bfloat16 (the tensor-core
+// kernels); D <= 160. `strides` holds 15 element strides: (batch, token,
+// head) of q, k, v, o and do in that order. `delta` is f32 [B, H, N] scratch;
+// dq, dk and dv are the contiguous outputs. `impl` receives the kernels
+// launched, written by the launch once both succeeded: 0 = FMA, 1 = wgmma. Returns the first nonzero CUDA error code, 0
+// on success.
 int sd_flash_attention_backward_split(int dtype, const void* q, const void* k, const void* v,
                                       const void* o, const void* dout, const void* lse,
                                       void* delta, void* dq, void* dk, void* dv, int B, int H,
                                       int N, int M, int D, const long long* strides, float scale,
-                                      void* stream) {
+                                      void* stream, int* impl) {
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || D <= 0 || D > 160 || B > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -275,10 +667,10 @@ int sd_flash_attention_backward_split(int dtype, const void* q, const void* k, c
   float* de = static_cast<float*>(delta);
   if (dtype == 0)
     return backward_split<float>(D, q, k, v, o, dout, l, de, dq, dk, dv, B, H, N, M, strides,
-                                 scale, s);
+                                 scale, s, impl);
   if (dtype == 1)
-    return backward_split<__nv_bfloat16>(D, q, k, v, o, dout, l, de, dq, dk, dv, B, H, N, M,
-                                         strides, scale, s);
+    return backward_split_wgmma(D, q, k, v, o, dout, l, de, dq, dk, dv, B, H, N, M, strides,
+                                scale, s, impl);
   return int(cudaErrorInvalidValue);
 }
 

@@ -25,6 +25,16 @@ each source. The forward takes any D up to 512 and any kv length, the backward
 any D up to 160 (the UNet's widest head), strided q/k/v views included (the
 fused-QKV split hands them non-contiguous views).
 
+The dtype picks the implementation inside the forward and the split
+backward: bfloat16 runs on the tensor cores (``wgmma``, shared helpers in
+``csrc/attention_sm90.cuh``), float32 on FMAs (the f32 parity checks need
+full f32 products). Each launch records which one ran (``LAUNCHES.impls``,
+``SPLIT_BWD_LAUNCHES.impls``: ``"wgmma"`` or ``"fma"``, written by the
+C launch function once the kernel launched). The tensor-core kernels copy 16 bytes at a time where every
+row of q/k/v (and do) starts 16-byte aligned, as the UNet's and the VAE's
+views do, and element by element otherwise, so they take any head dim and
+view the FMA kernels take. K3 runs on FMAs in both dtypes.
+
 :func:`flash_attention_plain` is the forward in plain PyTorch (the JAX package's
 ``xla_attention`` math) and :func:`flash_attention_bwd_plain` the backward of
 both kernel sets (its ``xla_attention_bwd``). The wrappers take them only for
@@ -55,6 +65,13 @@ MAX_BWD_HEAD_DIM = 160  # the same for both backward sources
 KV_RESIDENT_MAX = 9216  # the JAX package's backward crossover, in kv tokens padded to 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_IMPLS = ("fma", "wgmma")  # the C entry points' `impl` codes, written by each successful launch
+
+
+def _impl(code: int, name: str) -> str:
+    if code not in (0, 1):
+        raise RuntimeError(f"{name}: the launch reported no kernel (impl {code})")
+    return _IMPLS[code]
 
 
 def flash_attention_plain(
@@ -107,6 +124,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_d: int, name: 
         raise ValueError(f"{name}: head dim {d} exceeds the kernel's {max_d}")
 
 
+def _check_wgmma(name: str, *tensors) -> None:
+    """The bf16 tensor-core kernels keep a tile's 128 rows of offsets in ints."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    for t in tensors:
+        if t.stride(1) >= 2 ** 24:
+            raise ValueError(f"{name}: bfloat16 token stride {t.stride(1)} is 2^24 elements or more")
+
+
 def _strides(*tensors) -> list:
     return [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
 
@@ -114,22 +140,24 @@ def _strides(*tensors) -> list:
 def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     """Launch the forward kernel -> (out, lse or None); lse is f32 [B, H, N]."""
     _check(q, k, v, MAX_HEAD_DIM, "flash_attention")
+    _check_wgmma("flash_attention", q, k, v)
     lib = native.load_library()
     b, n, h, d = q.shape
     m = k.shape[1]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    impl = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sd_flash_attention_forward(
             _DTYPE_CODES[q.dtype],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            b, h, n, m, d, *_strides(q, k, v, out), float(scale), stream,
+            b, h, n, m, d, *_strides(q, k, v, out), float(scale), stream, ctypes.byref(impl),
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
+    LAUNCHES.hit((b, n, m, h, d, str(q.dtype)), _impl(impl.value, "flash_attention"))
     return out, lse
 
 
@@ -189,6 +217,7 @@ def flash_attention_bwd_split(q, k, v, out, do, lse, scale: float):
     """Launch the split backward kernels (K4/K5) -> (dq, dk, dv), contiguous
     [B, L, H, D]; no atomics, so two launches on the same inputs agree bit for bit."""
     strides = _check_bwd(q, k, v, out, do, lse, "flash_attention_bwd_split")
+    _check_wgmma("flash_attention_bwd_split", q, k, v, out, do)
     lib = native.load_library()
     b, n, h, d = q.shape
     m = k.shape[1]
@@ -197,17 +226,18 @@ def flash_attention_bwd_split(q, k, v, out, do, lse, scale: float):
     dk = torch.empty((b, m, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    impl = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sd_flash_attention_backward_split(
             _DTYPE_CODES[q.dtype],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, n, m, d, strides, float(scale), stream,
+            b, h, n, m, d, strides, float(scale), stream, ctypes.byref(impl),
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_split kernel launch failed: CUDA error {rc}")
-    SPLIT_BWD_LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
+    SPLIT_BWD_LAUNCHES.hit((b, n, m, h, d, str(q.dtype)), _impl(impl.value, "flash_attention_bwd_split"))
     return dq, dk, dv
 
 

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -40,7 +40,10 @@ def import_triton():
 
 
 class LaunchCounter:
-    """Counts one kernel's launches, in all and by launch shape.
+    """Counts one kernel's launches, in all, by launch shape and, where a
+    source holds more than one implementation, by the one the launch ran
+    (the attention kernels: ``"wgmma"`` on the tensor cores for bf16,
+    ``"fma"`` for f32, as the C entry point reports it).
 
     A wrapper calls :meth:`hit` once per kernel launch, after the launch
     succeeded, and nowhere else: the plain CPU path does not count."""
@@ -49,14 +52,18 @@ class LaunchCounter:
         self.name = name
         self.count = 0
         self.shapes: Dict[Tuple, int] = collections.Counter()
+        self.impls: Dict[str, int] = collections.Counter()
 
-    def hit(self, key: Tuple) -> None:
+    def hit(self, key: Tuple, impl: Optional[str] = None) -> None:
         self.count += 1
         self.shapes[key] += 1
+        if impl is not None:
+            self.impls[impl] += 1
 
     def reset(self) -> None:
         self.count = 0
         self.shapes = collections.Counter()
+        self.impls = collections.Counter()
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -85,13 +92,13 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fn = lib.sd_flash_attention_forward
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [f, p]
+    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [f, p, ctypes.POINTER(i)]
     fn.restype = ctypes.c_int
     fn = lib.sd_flash_attention_backward
     fn.argtypes = [i] + [p] * 11 + [i] * 5 + [ctypes.POINTER(ll), f, p]
     fn.restype = ctypes.c_int
     fn = lib.sd_flash_attention_backward_split
-    fn.argtypes = [i] + [p] * 10 + [i] * 5 + [ctypes.POINTER(ll), f, p]
+    fn.argtypes = [i] + [p] * 10 + [i] * 5 + [ctypes.POINTER(ll), f, p, ctypes.POINTER(i)]
     fn.restype = ctypes.c_int
     fn = lib.sd_adam8bit_update
     fn.argtypes = [i] + [p] * 10 + [ll, i, i] + [f] * 7 + [p]

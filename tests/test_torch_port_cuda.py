@@ -19,6 +19,15 @@ update (K9) repeats its plain version's IEEE operations in the same order:
 updates at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp (rtol 2^-8)
 in bf16, at most one code in 10^4 one step apart (a value on a rounding
 boundary), dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere.
+
+bfloat16 attention runs on the tensor-core (wgmma) kernels and float32 on the
+FMA kernels; the bf16 tests check which one each launch reports and hold the
+wgmma kernels to the same 2e-2 (they round P and dS to bf16 before their
+products, where the TPU kernels do; the plain versions keep them f32), and
+to their rounding model (``tests/torch_attention_bf16_model.py``) within
+1e-2 of each output's own magnitude, one bf16 ulp. The row log-sum-exp of
+the bf16 forward is held to 1e-3 absolute (base-2 units): f32 sums of bf16
+products in another order.
 """
 
 import pytest
@@ -50,10 +59,14 @@ from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import (  # noqa: E402
     xla_group_norm,
     xla_group_norm_cat,
 )
+from torch_attention_bf16_model import model_backward, model_forward, own_scale_err  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": (1e-5, 5e-5), "bfloat16": (2e-2, 2e-2)}
 BWD_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# the bf16 kernels against their rounding model, of each output's own scale:
+# one bf16 ulp at the largest output (2^-8 to 2^-7 of it), and no more
+MODEL_TOL = 1e-2
 
 
 @pytest.fixture
@@ -134,6 +147,100 @@ def test_flash_attention_bwd_split_matches_plain_and_repeats_bit_for_bit(cuda, d
             assert got.shape == ref.shape and got.dtype == ref.dtype
             assert torch.equal(got, rep), (b, n, m, h, d)
             assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h, d)
+
+
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
+def test_bf16_forward_runs_the_tensor_core_kernel(cuda, d):
+    """The wgmma forward against its plain version: ragged q lengths (not a
+    multiple of the 64-row block), kv of 77 (cross-attention) and ragged kv
+    past one tile; the launch reports the tensor-core implementation."""
+    g = torch.Generator(device=cuda).manual_seed(10 + d)
+    for b, n, m, h in [(2, 200, 77, 2), (1, 130, 300, 2), (1, 33, 1000, 1)]:
+        q, k, v = (torch.randn(b, s, h, d, device=cuda, generator=g).bfloat16() for s in (n, m, m))
+        native.reset_counters()
+        out, lse = _forward_kernel(q, k, v, d ** -0.5, with_lse=True)
+        assert dict(native.COUNTERS["flash_attention"].impls) == {"wgmma": 1}
+        assert _rel_err(out, flash_attention_plain(q, k, v, d ** -0.5)) <= TOL["bfloat16"][0], (b, n, m, h, d)
+        s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * d ** -0.5
+        # lse2 = log2(sum exp2(s * log2 e)); f32 scores from bf16 inputs, summed in another order
+        assert (lse - torch.logsumexp(s, -1) * 1.4426950408889634).abs().max().item() <= 1e-3
+
+
+def test_bf16_forward_takes_strided_qkv_views(cuda):
+    """The fused-QKV split in bf16: 16-byte-aligned views with a contiguous
+    head dim go to the tensor-core kernel as they are."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(2, 100, 3 * 4 * 40, device=cuda, generator=g).bfloat16()
+    q, k, v = (t.view(2, 100, 4, 40) for t in qkv.split(160, dim=-1))
+    assert not q.is_contiguous()
+    native.reset_counters()
+    assert _rel_err(flash_attention(q, k, v), flash_attention_plain(q, k, v, 40 ** -0.5)) <= TOL["bfloat16"][0]
+    assert dict(native.COUNTERS["flash_attention"].impls) == {"wgmma": 1}
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_bf16_split_backward_runs_the_tensor_core_kernels(cuda, d):
+    """The wgmma split backward against its plain version at ragged q and kv
+    lengths (77, past one tile), bit-identical across two launches."""
+    g = torch.Generator(device=cuda).manual_seed(20 + d)
+    for b, n, m, h in [(2, 200, 77, 2), (1, 70, 300, 2), (1, 130, 1000, 1)]:
+        q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=g).bfloat16() for s in (n, m, m, n))
+        out, lse = _forward_kernel(q, k, v, d ** -0.5, with_lse=True)
+        native.reset_counters()
+        grads = flash_attention_bwd_split(q, k, v, out, do, lse, d ** -0.5)
+        again = flash_attention_bwd_split(q, k, v, out, do, lse, d ** -0.5)
+        assert dict(native.COUNTERS["flash_attention_bwd_split"].impls) == {"wgmma": 2}
+        for got, rep, ref in zip(grads, again, flash_attention_bwd_plain(q, k, v, do, d ** -0.5)):
+            assert got.shape == ref.shape and got.dtype == ref.dtype == torch.bfloat16
+            assert torch.equal(got, rep), (b, n, m, h, d)
+            assert _rel_err(got, ref) <= BWD_TOL["bfloat16"][0], (b, n, m, h, d)
+
+
+def test_dtype_picks_the_implementation(cuda):
+    """f32 runs the FMA kernels, bf16 the tensor-core ones, as each launch reports."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for dtype, impl in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+        q, k, v, do = (torch.randn(1, 96, 2, 40, device=cuda, generator=g).to(dtype) for _ in range(4))
+        native.reset_counters()
+        out, lse = _forward_kernel(q, k, v, 0.2, with_lse=True)
+        flash_attention_bwd_split(q, k, v, out, do, lse, 0.2)
+        assert dict(native.COUNTERS["flash_attention"].impls) == {impl: 1}
+        assert dict(native.COUNTERS["flash_attention_bwd_split"].impls) == {impl: 1}
+
+
+@pytest.mark.parametrize("d", [20, 36, 100])
+def test_bf16_kernels_take_any_head_dim_and_view(cuda, d):
+    """Head dims that are not a multiple of 8: contiguous multi-head tensors,
+    whose rows do not start 16-byte aligned (copied element by element), and
+    a view into a tensor padded to a multiple of 8 (16-byte copies that
+    zero-fill a short last chunk); also views 8 bytes past alignment, with
+    their own data and correlated (dO = Q, V = K). Each is held to the
+    rounding model of ``tests/torch_attention_bf16_model.py``, fed the
+    kernel's own output and lse, within ``MODEL_TOL``, and, where the data
+    are independent, to the plain versions within the chip's 2e-2."""
+    g = torch.Generator(device=cuda).manual_seed(30 + d)
+    pad = -(-d // 8) * 8
+    contiguous = [torch.randn(1, s, 3, d, device=cuda, generator=g).bfloat16() for s in (70, 130, 130, 70)]
+    padded = [torch.randn(2, s, 2, pad, device=cuda, generator=g).bfloat16()[..., :d] for s in (70, 130, 130, 70)]
+    shifted = [torch.randn(1, s, 2 * d + 4, device=cuda, generator=g).bfloat16()[..., 4:].view(1, s, 2, d)
+               for s in (70, 130, 130, 70)]
+    correlated = [shifted[0], shifted[1], shifted[1], shifted[0]]
+    scale = d ** -0.5
+    for q, k, v, do in (contiguous, padded, shifted, correlated):
+        out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
+        grads = flash_attention_bwd_split(q, k, v, out, do, lse, scale)
+        cq, ck, cv, cdo, cout, clse = (t.cpu() for t in (q, k, v, do, out, lse))
+        assert own_scale_err(cout, model_forward(cq, ck, cv, scale)[0]) <= MODEL_TOL, d
+        for got, want in zip(grads, model_backward(cq, ck, cv, cout, cdo, clse, scale)):
+            assert own_scale_err(got.cpu(), want) <= MODEL_TOL, d
+        if do is q:
+            # dP = Q K^T: dS = P (dP - delta) cancels, and delta = rowsum(dO * O)
+            # reads the bf16 O where the plain version sums P dP in f32 (a known
+            # departure, PERF.md open questions), so only the model holds here
+            continue
+        assert _rel_err(out, flash_attention_plain(q, k, v, scale)) <= TOL["bfloat16"][0], d
+        for got, ref in zip(grads, flash_attention_bwd_plain(q, k, v, do, scale)):
+            assert _rel_err(got, ref) <= BWD_TOL["bfloat16"][0], d
 
 
 def test_kv_past_the_crossover_runs_k1_and_the_split_backward(cuda):

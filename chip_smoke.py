@@ -16,9 +16,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
    optimizer that applies nothing): flash
    attention forward (K1, also at the kv > 9216 shapes of the TPU's K2),
    its fused backward (K3) and its split backward (K4/K5, at its own shapes
-   and at every K3 shape, K4's domain; launched twice, and the two results
-   must agree bit for bit), CUDA C++; GroupNorm (K6), its backward (K7, which
-   also serves the concat form's backward) and GroupNorm-concat (K8), Triton;
+   and at every K3 shape, K4's domain), CUDA C++, both backward routes
+   launched twice (their sums run in a fixed order: the two results must
+   agree bit for bit);
+   GroupNorm (K6), CUDA C++ on thread-block clusters, which must queue
+   exactly one device kernel per call (counted by torch.profiler); its
+   backward (K7, which also serves the concat form's backward) and
+   GroupNorm-concat (K8), Triton;
    the int8 Adam update (K9), CUDA C++, at each of the 49 parameter shapes of
    the SD-1.5 UNet in the port's layout (conv weights channels_last), from
    seeded non-zero state with step-3 bias corrections, gradient in float32
@@ -28,8 +32,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
    and the f32 peak. Then, as context, the whole optimizer step over the 686
    leaves: the f32 foreach ``AdamW._update`` and ``AdamW8bit._update``.
    In float32 (TF32 off) and bfloat16: the implementation each attention
-   record ran (``impl``, as the launch reported it: bfloat16 K1 and K4/K5 on
-   the tensor cores, ``wgmma``; float32 on FMAs, ``fma``; any other pairing
+   record ran (``impl``, as the launch reported it: bfloat16 K1, K3 and K4/K5
+   on the tensor cores, ``wgmma``; float32 on FMAs, ``fma``; any other pairing
    fails), max-abs error with its tolerance (of each output's max(1,
    max|plain|); bfloat16 attention of its own max|plain|, ``scale`` in the
    record); the kernel's, the plain version's and the library call's times (CUDA events,
@@ -40,12 +44,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
    plain attention versions hold f32 [B, H, N, M] scores; past
    2^30 elements they run one (batch, head) at a time (``plain_per_head`` in
    the record), the same per-row math.
+   Then (``correlated``) both bf16 backward routes at correlated views (dO =
+   Q, V = K, keys sharing a component of 3) at the 512px self-attention
+   shapes of head dims 40, 80 and 160, each output within 2e-2 of its own
+   max|plain|; and K3 against the split set at K3's shapes, with the route
+   ``backward_route`` takes there.
 3. unet_parity: one SD-1.5-size UNet forward (full widths, 64x64 latent) in
    float32 on the card with the kernels, against the same weights and inputs
    on the CPU through the plain path (a deliberate CPU reference).
 4. train_parity: one SD-1.5-size UNet forward and backward (32x32 latent,
    batch 1) in float32, card with the kernels vs CPU through the plain path:
-   the relative gradient error overall and of the worst tensor; then the
+   the relative gradient error overall and of the worst tensor (float32
+   keeps the JAX crossover, so this backward runs K3); then the
    training step's precision (bf16 autocast over the same f32 weights) vs
    f32 on the card: output drift and gradient drift.
 5. slice: ``pipeline.sample`` at 512x512, DDIM with CFG 7.5, bf16, seeded
@@ -64,19 +74,20 @@ Phases, each printing one JSON line; any failure exits nonzero:
 7. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
    synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
    (the default), two optimizer steps and one evaluation; checks a finite
-   loss, changed parameters and that its five kernels (all but the split
-   backward and K9) were launched by this run; samples/s, step ms p50, peak
-   memory and the optimizer state's bytes. The trainer is built where its
+   loss, changed parameters and that its five kernels (K1, the split
+   backward, K6, K7, K8: bfloat16 attention backward runs the split set at
+   every kv length, ``backward_route``) were launched by this run;
+   samples/s, step ms p50, peak memory and the optimizer state's bytes. The trainer is built where its
    phase runs, after every other phase's model and trainer is freed, so the
    peak (after ``reset_peak_memory_stats``) is this configuration's own.
    Then ``torch.profiler`` over one more accumulation window: device ms per
    micro step by kernel category and the device's idle share (the
    profiler's own cost included).
-8. hires_train: the same at 1024x1024, batch 1: the 16384-token
-   self-attention's backward runs the split kernels, the rest K3.
+8. hires_train: the same at 1024x1024, batch 1, the 16384-token
+   self-attention's backward included.
 9. lean_train: the same at 512x512, batch 16, with ``--use-8bit-adam
    --accum-dtype bf16 --remat-policy conv-save``: K9 must run once per
-   parameter leaf per optimizer step, and K1, K3, K6, K7, K8 run.
+   parameter leaf per optimizer step, and K1, the split set, K6, K7, K8 run.
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
@@ -119,6 +130,7 @@ HIRES_TRAIN_BATCH = 1
 LEAN_TRAIN_BATCH = 16
 LEAN_FLAGS = ("--use-8bit-adam", "--accum-dtype", "bf16", "--remat-policy", "conv-save")
 TRAIN_STEPS = 2   # optimizer steps of each train phase (x4 micro steps)
+KV_RESIDENT_MAX = 9216  # the JAX backward crossover, kv padded to 128: K3's domain
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TPU_KERNELS = {
@@ -131,7 +143,7 @@ TPU_KERNELS = {
                                   "stable_diffusion_pytorch_tpu/ops/flash_attention_bwd.py:51 _dq_kernel, "
                                   ":61 _dkv_kernel (K4); :355 _sbwd_stats_kernel, :406 _sbwd_dq_kernel, "
                                   ":443 _sbwd_dkv_kernel (K5)"),
-    "group_norm": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
+    "group_norm": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/group_norm.cu",
                    "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:44"),
     "group_norm_bwd": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:71"),
@@ -142,15 +154,22 @@ TPU_KERNELS = {
 }
 # the implementation each dtype must run, for the kernels whose sources hold two
 EXPECTED_IMPL = {name: {"float32": "fma", "bfloat16": "wgmma"}
-                 for name in ("flash_attention", "flash_attention_bwd_split")}
+                 for name in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_split")}
+# kernels whose sums run in a fixed order: a second launch on the same inputs must give the same bits
+REPEAT_IDENTICAL = ("flash_attention_bwd", "flash_attention_bwd_split")
+# kernels whose wrapper must queue exactly one device kernel per call
+ONE_LAUNCH = ("group_norm",)
 SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd", "group_norm_cat")  # at 512px
-HIRES_TRAIN_KERNELS = (*TRAIN_KERNELS, "flash_attention_bwd_split")
+# bf16 training: the attention backward routes to the split set at every kv
+# length (backward_route); f32 keeps the JAX crossover, so the f32 gradient
+# parity runs K3
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd", "group_norm_cat")
+F32_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd", "group_norm_cat")
 LEAN_TRAIN_KERNELS = (*TRAIN_KERNELS, "adam8bit_update")
 # (phase, image size, batch, extra flags, kernels its run must launch)
 TRAIN_PHASES = (
     ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
-    ("hires_train", HIRES, HIRES_TRAIN_BATCH, (), HIRES_TRAIN_KERNELS),
+    ("hires_train", HIRES, HIRES_TRAIN_BATCH, (), TRAIN_KERNELS),
     ("lean_train", 512, LEAN_TRAIN_BATCH, LEAN_FLAGS, LEAN_TRAIN_KERNELS),
 )
 # the SD-1.5 stack (models/presets.py) as training-CLI flags
@@ -215,6 +234,30 @@ def cuda_ms(fn, iters: int = 5, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_launches(fn, calls: int = 2, attempts: int = 4) -> float:
+    """The device kernels one ``fn()`` queues, counted by torch.profiler over
+    ``calls`` calls: the most any of up to ``attempts`` profiles saw. On the
+    H100 a profile now and then misses a kernel (2 of about 280 calls read
+    low), and none adds one, so the largest reading is the count; the
+    profiles stop once one sees a kernel a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    most = 0
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(e.count for e in prof.key_averages()
+                             if "cuda" in str(getattr(e, "device_type", "")).lower()
+                             and e.self_device_time_total > 0))
+        if most >= calls:
+            break
+    return most / calls
 
 
 def fill_zero_weights(module, generator) -> None:
@@ -570,15 +613,14 @@ def _adam_compare(out, ref):
 # Tolerances on max|kernel - plain| of each output, relative to max(1, max|plain|)
 # of that output (bf16 attention: to max|plain|, ``_own_scale_err``):
 # float32 -- another summation order over at most a few thousand terms (the
-# backward: sums over up to 4096 kv or 40960 map rows, and K3's dq is summed
-# with atomics in an order that changes between runs);
-# bfloat16 -- both sides round outputs (and attention's P) to bf16, whose
-# spacing is 2^-8 to 2^-7 of the magnitude, so a few ulps; a kv tile of 64
-# dropped at 16384 kv moves an attention output by ~3-6 % of its magnitude
-# (tests/test_torch_port_attention_bf16.py); K3's delta = rowsum(dO * O)
-# reads the bf16-rounded O where the plain version sums dP * P in f32. The
-# split backward (K4/K5) sums over up to 16384 rows without atomics; the same
-# limits as K3.
+# backward: sums over up to 4096 kv or 40960 map rows; K3 adds dQ's shares
+# over kv blocks in a fixed order, the split set sums it in one block);
+# bfloat16 -- both sides round outputs (and attention's P and dS) to bf16,
+# whose spacing is 2^-8 to 2^-7 of the magnitude, so a few ulps; a kv tile of
+# 64 dropped at 16384 kv moves an attention output by ~3-6 % of its magnitude
+# (tests/test_torch_port_attention_bf16.py). Both backward routes take delta
+# from the stats pass, an f32 sum of P * dP as the plain version's. The split
+# backward (K4/K5) sums over up to 16384 rows; the same limits as K3.
 TOLERANCE = {
     "flash_attention": {"float32": 1e-5, "bfloat16": 2e-2},
     "flash_attention_bwd": {"float32": 1e-4, "bfloat16": 2e-2},
@@ -609,8 +651,8 @@ def record_shapes(model, work: str):
     512x512 and at 1024x1024 and of the hires fix (a one-step base and a
     one-step refine), and one training micro step of each train phase's
     trainer (parameters untouched), each trainer built for its probe and
-    freed after it. The split backward is also held at every K3 shape (K4's
-    domain: ``SD_FLASH_BWD=split`` sends every length to it); K9 at every
+    freed after it. K3 is held at the backward shapes the JAX crossover sends
+    to it (kv up to 9216), which bf16 training runs on the split set; K9 at every
     parameter shape of the lean trainer's UNet. -> (shapes by kernel, the
     count of UNet leaves of each parameter shape)."""
     import collections
@@ -648,6 +690,10 @@ def record_shapes(model, work: str):
             leaf_shapes = collections.Counter(tuple(p.shape) for p in trainer.state.params)
         del trainer, probe, batch_in
         free_cuda()
+    # K3's shapes: the backward shapes the JAX crossover sends to it (bf16
+    # training now runs the split set at every length, backward_route)
+    shapes["flash_attention_bwd"] |= {k for k in shapes["flash_attention_bwd_split"]
+                                      if -(-k[2] // 128) * 128 <= KV_RESIDENT_MAX}
     shapes["flash_attention_bwd_split"] |= shapes["flash_attention_bwd"]
     shapes["adam8bit_update"] = set(leaf_shapes)
     return {name: sorted(v) for name, v in shapes.items()}, leaf_shapes
@@ -726,14 +772,16 @@ def phase_kernels(shapes: dict) -> dict:
                 ran = sorted(k for k, n in counter.impls.items() if n > before.get(k, 0))
                 impl = ran[0] if len(ran) == 1 else (ran or None)
                 ref = plain()
-                # the split backward has no atomics: a second launch must agree bit for bit
-                again = kernel() if name == "flash_attention_bwd_split" else out
+                # the attention backward sums in a fixed order: a second launch must agree bit for bit
+                again = kernel() if name in REPEAT_IDENTICAL else out
                 torch.cuda.synchronize()
                 err, rel, *detail = compare(out, ref) if compare else _max_err(out, ref)
                 record.update(detail[0] if detail else {})
                 identical = again is out or all(torch.equal(a, b) for a, b in zip(again, out))
                 tol = TOLERANCE[name][dname]
                 del out, ref, again
+                if name in ONE_LAUNCH:
+                    record["device_launches"] = device_launches(kernel)
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                 library_ms = None if library is None else cuda_ms(library)
                 bound_ms, bound_by = _bound(flops, nbytes, record.pop("peak", dname))
@@ -754,7 +802,8 @@ def phase_kernels(shapes: dict) -> dict:
                 want_impl = EXPECTED_IMPL.get(name, {}).get(dname)
                 if want_impl:
                     s["impl"][dname] = impl
-                if not (rel <= tol and identical and impl == want_impl):
+                if not (rel <= tol and identical and impl == want_impl
+                        and record.get("device_launches", 1) == 1):
                     failures.append(row)
                 del kernel, plain, library
             torch.cuda.empty_cache()
@@ -766,6 +815,61 @@ def phase_kernels(shapes: dict) -> dict:
           f"{ {k: len(shapes.get(k, [])) for k in TPU_KERNELS} }")
     check(not failures, f"kernel disagrees with its plain version: {failures}")
     return result
+
+
+# the self-attention shapes of 512px training, one batch element: head dims 40,
+# 80 and 160 at the UNet's levels 0-2 ([B, N, M, H, D])
+CORRELATED_SHAPES = ((1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80), (1, 256, 256, 8, 160))
+
+
+def phase_correlated(kernels: dict) -> dict:
+    """Both bf16 backward routes, K3 and the split set, at correlated views
+    (dO = Q, V = K) whose keys share one component of size 3: dS = P (dP -
+    delta) cancels hard there, and a delta from the bf16 O moves dQ by 0.12-0.17
+    of its scale (tests/test_torch_port_attention_bf16.py). Each output is
+    held to 2e-2 of its own max|plain|. Then K3 against the split set at K3's
+    main-path shapes (bf16 sums of phase 2) and the route ``backward_route``
+    takes there."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (
+        _forward_kernel,
+        backward_route,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_bwd_split,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows, failures = [], []
+    tol = TOLERANCE["flash_attention_bwd"]["bfloat16"]
+    for b, n, m, h, d in CORRELATED_SHAPES:
+        q = torch.randn(b, n, h, d, device="cuda", generator=gen).bfloat16()
+        shared = 3.0 * torch.randn(b, 1, h, d, device="cuda", generator=gen)
+        k = (shared + torch.randn(b, m, h, d, device="cuda", generator=gen)).bfloat16()
+        scale = d ** -0.5
+        out, lse = _forward_kernel(q, k, k, scale, with_lse=True)
+        ref = flash_attention_bwd_plain(q, k, k, q, scale)
+        for route, fn in (("fused", flash_attention_bwd), ("split", flash_attention_bwd_split)):
+            _, rel, detail = _own_scale_err(fn(q, k, k, out, q, lse, scale), ref)
+            row = {"route": route, "shape": [b, n, m, h, d], "rel_err": rel, "tol": tol, **detail}
+            rows.append(row)
+            if not rel <= tol:
+                failures.append(row)
+        del q, k, out, lse, ref
+    k3 = [r for r in kernels["shapes"] if r["k"] == "flash_attention_bwd" and r["dtype"] == "bfloat16"]
+    split = {tuple(r["shape"]): r for r in kernels["shapes"]
+             if r["k"] == "flash_attention_bwd_split" and r["dtype"] == "bfloat16"}
+    per_shape = [{"shape": r["shape"], "k3_ms": r["ms"], "split_ms": split[tuple(r["shape"])]["ms"],
+                  "route": backward_route(r["shape"][2], dtype=torch.bfloat16)} for r in k3]
+    res = {"phase": "correlated", "gpu": gpu_line(), "ok": not failures, "cases": rows,
+           "k3_ms_at_k3_shapes": sum(r["k3_ms"] for r in per_shape),
+           "split_ms_at_k3_shapes": sum(r["split_ms"] for r in per_shape),
+           "k3_faster_at": sum(r["k3_ms"] < r["split_ms"] for r in per_shape), "n_k3_shapes": len(per_shape),
+           "routes_at_k3_shapes": sorted({r["route"] for r in per_shape}), "per_shape": per_shape}
+    emit({k: v for k, v in res.items() if k != "per_shape"})
+    check(not failures, f"attention backward departs at correlated views: {failures}")
+    return res
 
 
 def phase_optimizer(leaf_shapes, kernels: dict) -> dict:
@@ -912,7 +1016,7 @@ def phase_train_parity(seed: int) -> dict:
         grads.append({n: p.grad.detach().cpu() for n, p in module.named_parameters()})
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = {k: native.COUNTERS[k].count for k in TRAIN_KERNELS}
+            launches = {k: native.COUNTERS[k].count for k in F32_TRAIN_KERNELS}
         else:
             cpu_s = time.perf_counter() - t0
     card, cpu = grads
@@ -1164,11 +1268,13 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
 PROFILE_CATEGORIES = [
     ("K9 int8 Adam", ("adam8bit",)),
     ("K1 flash attention fwd", ("fa_forward_kernel", "fa_forward_wgmma")),
+    ("attention bwd stats pass (K3, K4/K5)", ("bwd_stats_wgmma",)),
     ("K4/K5 split attention bwd", ("split_dq_kernel", "split_dkv_kernel", "split_delta_kernel",
                                    "split_dq_wgmma", "split_dkv_wgmma")),
-    ("K3 flash attention bwd", ("dkv_kernel", "delta_kernel", "cast_kernel<")),
+    ("K3 flash attention bwd", ("fused_bwd_wgmma", "dkv_kernel", "delta_kernel", "cast_kernel<")),
     ("K7 GroupNorm bwd", ("gn_bwd",)),
-    ("K6/K8 GroupNorm fwd", ("gn_partial_sums", "gn_finalize", "gn_normalize")),
+    ("K6 GroupNorm fwd", ("gn_fwd_cluster",)),
+    ("K8 GroupNorm-concat fwd", ("gn_partial_sums", "gn_finalize", "gn_normalize")),
     ("optimizer and accumulation (foreach)", ("multi_tensor_apply", "foreach")),
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -1302,6 +1408,7 @@ def main(argv=None) -> int:
     model = build_sd15("cuda", torch.bfloat16, SEED)
     shapes, leaf_shapes = record_shapes(model, work)
     kernels = phase_kernels(shapes)
+    correlated = phase_correlated(kernels)
     optimizer = phase_optimizer(leaf_shapes, kernels)
     parity = phase_unet_parity(SEED)
     train_parity = phase_train_parity(SEED)
@@ -1334,7 +1441,8 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"env": env, "shapes": shapes, "leaf_shapes": sorted((list(k), n) for k, n in leaf_shapes.items()),
-                       "kernels": kernels, "optimizer": optimizer, "unet_parity": parity,
+                       "kernels": kernels, "correlated": correlated, "optimizer": optimizer,
+                       "unet_parity": parity,
                        "flash_attention_launches_kv_past_9216": sum(
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
                        "train_parity": train_parity, "slice": slice_res, "hires": hires_res, **trains,

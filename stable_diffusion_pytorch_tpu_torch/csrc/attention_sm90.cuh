@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the bf16 tensor-core attention kernels:
 // the forward (csrc/flash_attention.cu, the port of the TPU kernels
 // `_fa_kernel` and `_fa_kernel_stream` of stable_diffusion_pytorch_tpu/ops/
-// flash_attention.py) and the split backward (csrc/flash_attention_bwd_split.cu,
-// the port of `_dq_kernel`, `_dkv_kernel`, `_sbwd_stats_kernel`,
-// `_sbwd_dq_kernel` and `_sbwd_dkv_kernel` of ops/flash_attention_bwd.py).
-// Plain PTX, no CUTLASS.
+// flash_attention.py), the fused backward (csrc/flash_attention_bwd.cu, the
+// port of `_fused_bwd_kernel` of ops/flash_attention_bwd.py) and the split
+// backward (csrc/flash_attention_bwd_split.cu, the port of `_dq_kernel`,
+// `_dkv_kernel`, `_sbwd_stats_kernel`, `_sbwd_dq_kernel` and
+// `_sbwd_dkv_kernel`). Plain PTX, no CUTLASS.
 //
 // What bounds those kernels on this card is arithmetic: the products (4 to 7
 // of 2*N*M*D FLOPs) and N*M exponentials, against O((N+M)*D) bytes. These
@@ -33,8 +34,10 @@
 //     a contiguous [B, L, 8, 20], is copied element by element instead.
 //   - `Wgmma<N>`: wgmma.mma_async m64nNk16, bf16 inputs, f32 accumulators;
 //     `ss` takes A and B from shared memory (both K-major), `rs` takes A from
-//     registers and B MN-major from shared memory. An asm string must be a
-//     literal, so each width has its own, operands written out.
+//     registers and B MN-major from shared memory; `WgmmaTT<N>::ss` takes
+//     both from shared memory MN-major (the transpose bits of A and B). An
+//     asm string must be a literal, so each width has its own, operands
+//     written out.
 //   - The accumulator fragment of m64nN: thread t of the warpgroup (warp w =
 //     t/32, lane l) holds element i at row 16w + l/4 + 8 * ((i/2) % 2) and
 //     column 8 * (i/4) + 2 * (l%4) + i%2. Columns 16k..16k+15 of an
@@ -242,8 +245,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+#define SD_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define SD_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
                  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SD_WGMMA_D8 SD_F8(0)
+#define SD_WGMMA_D12 SD_F8(0), SD_F4(8)
+#define SD_WGMMA_D20 SD_F8(0), SD_F8(8), SD_F4(16)
 #define SD_WGMMA_D16 SD_F8(0), SD_F8(8)
 #define SD_WGMMA_D24 SD_F8(0), SD_F8(8), SD_F8(16)
 #define SD_WGMMA_D32 SD_F8(0), SD_F8(8), SD_F8(16), SD_F8(24)
@@ -397,6 +404,95 @@ template <> struct Wgmma<256> {
         "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
         : SD_WGMMA_D128
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// D[64xN] = A[64x16] B[16xN] (+ D if scale_d) with A and B both MN-major in
+// shared memory (descriptors; wgmma's transpose bits for both): A's tile has
+// the product's depth as its rows and its 64 output rows as columns, as an
+// MN-major B tile has its N columns. The fused backward's dQ = dS K reads dS
+// from the dS^T tile this way, and K from its resident tile.
+template <int N> struct WgmmaTT;
+
+template <> struct WgmmaTT<16> {
+  __device__ static __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+        : SD_WGMMA_D8
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTT<24> {
+  __device__ static __forceinline__ void ss(float (&d)[12], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+        "}, %12, %13, p, 1, 1, 1, 1;\n}\n"
+        : SD_WGMMA_D12
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTT<32> {
+  __device__ static __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : SD_WGMMA_D16
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTT<40> {
+  __device__ static __forceinline__ void ss(float (&d)[20], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+        : SD_WGMMA_D20
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTT<64> {
+  __device__ static __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : SD_WGMMA_D32
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaTT<80> {
+  __device__ static __forceinline__ void ss(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, %40, %41, p, 1, 1, 1, 1;\n}\n"
+        : SD_WGMMA_D40
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 

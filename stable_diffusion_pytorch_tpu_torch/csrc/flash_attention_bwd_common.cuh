@@ -3,16 +3,35 @@
 // (csrc/flash_attention_bwd_split.cu, K4/K5). Both compute, per (batch, head),
 //   P  = exp2(Q K^T * scale * log2(e) - lse2)        (the forward's softmax)
 //   dV = P^T dO
-//   dP = dO V^T,  delta = rowsum(dO * O),  dS = P * (dP - delta)
+//   dP = dO V^T,  delta = rowsum(P * dP),  dS = P * (dP - delta)
 //   dQ = scale * dS K,  dK = scale * dS^T Q
 // in f32 from the forward's row log-sum-exp lse2 (base 2, csrc/flash_attention.cu).
+// delta = rowsum(P * dP) = rowsum(dO * O) in exact arithmetic. float32 takes
+// the cheap form, rowsum(dO * O) (`delta_rows`), since its O is exact to f32
+// rounding. bfloat16 takes the TPU kernels' form, an f32 sum of P * dP with S
+// and dP recomputed (`launch_bwd_stats_bf16`, in flash_attention_bwd_split.cu):
+// the stored O carries the forward's bf16 roundings, and where keys share a
+// large component that error, common to a row's dS, survives into dQ.
 //
 // Here: the tile sizes and thread layout (16 x 16 threads, 4-row micro-tiles),
-// the dtype conversions, `delta_rows` (one warp per row of delta) and
-// `dkv_body`: a block owns 64 kv rows, keeps their K and V in shared memory and
-// dK/dV in f32 registers, and loops over all q tiles. With WITH_DQ it also adds
-// the block's share of dQ for each q tile to an f32 buffer with atomicAdd (K3);
-// without, dQ is left to its own kernel (the split form).
+// the dtype conversions, `delta_rows` (one warp per row of delta), the ordered
+// dQ adds (`wait_turn`, `pass_turn`) and `dkv_body`: a block owns 64 kv rows,
+// keeps their K and V in shared memory and dK/dV in f32 registers, and loops
+// over all q tiles. With WITH_DQ it also adds the block's share of dQ for each
+// q tile to an f32 buffer, in kv-block order (K3); without, dQ is left to its
+// own kernel (the split form).
+//
+// The ordered adds: kv block j adds its dQ share of q tile t only after block
+// j - 1 has added its own, so every element of dQ is the same sum, in the same
+// order, on every run (no unordered atomics). A per-(batch, head, q tile) int32 counter,
+// zeroed by the caller, holds the index of the block whose turn it is; block 0
+// stores its share instead of adding, so the f32 buffer needs no zeroing. The
+// kv-block index is blockIdx.x, the fastest-varying part of the grid: blocks
+// are dispatched in increasing linear index, so block j - 1 of the same
+// (batch, head) was dispatched before block j, is resident or done when block
+// j waits, and never waits on block j itself (it waits only on lower indices).
+// The wait therefore always ends, and with neighbouring kv blocks running
+// side by side it is short.
 //
 // Layout: q/o/do [B, N, H, D] and k/v [B, M, H, D], each with its own
 // batch/token/head strides in elements and the head dim contiguous; dk, dv (and
@@ -23,6 +42,13 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+// bf16 delta = rowsum(P * dP) in f32, S and dP recomputed on the tensor cores
+// (defined in flash_attention_bwd_split.cu). `st` holds the 15 strides of the
+// C entry points (q, k, v, o, do); returns a CUDA error code.
+int launch_bwd_stats_bf16(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, float* delta, int B, int H, int N, int M, int D,
+                          const long long* st, float scale, cudaStream_t stream);
 
 namespace {
 
@@ -65,6 +91,37 @@ __device__ __forceinline__ void delta_rows(const T* __restrict__ o, const T* __r
   if (lane == 0) delta[row] = acc;
 }
 
+// Block `turn`'s turn at one ordered dQ add: thread 0 waits until the counter
+// reads `turn` (acquire), then the block goes on together.
+__device__ __forceinline__ void wait_turn(const int* sem, int turn) {
+  if (threadIdx.x == 0) {
+    int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(sem) : "memory");
+    } while (v != turn);
+  }
+  __syncthreads();
+}
+
+// After the block's adds: every thread's writes reach the device, then the
+// counter passes to `next` (release).
+__device__ __forceinline__ void pass_turn(int* sem, int next) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(sem), "r"(next) : "memory");
+}
+
+// dq_acc[i] = v for the first block in the order, += v for the others: a
+// reduction performed at the L2 (no round trip), after the previous block's
+// (its release and this block's acquire order them), rounded to nearest
+__device__ __forceinline__ void ordered_add(float* p, float v, bool first) {
+  if (first)
+    __stcg(p, v);
+  else
+    asm volatile("red.relaxed.gpu.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
+}
+
 template <int DP>
 constexpr size_t dkv_smem_bytes() {
   // Qt, dOt [DP][LDQ]; Kt, Vt [DP][LDK]; Ps, dSs [BQ][LDK]; lse, delta [BQ]
@@ -73,13 +130,14 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // The kv-outer loop, for a block of NT threads with dkv_smem_bytes<DP>() of
-// dynamic shared memory at `smem`. dq_acc is f32 [B, N, H, D] (used only WITH_DQ).
+// dynamic shared memory at `smem`. dq_acc is f32 [B, N, H, D] and dq_sem int32
+// [B, H, ceil(N / BQ)], zeroed (both used only WITH_DQ).
 template <typename T, int DP, bool WITH_DQ>
 __device__ __forceinline__ void dkv_body(
     float* smem,
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dq_acc, int* __restrict__ dq_sem, T* __restrict__ dk, T* __restrict__ dv,
     int H, int N, int M, int D,
     int64_t q_sb, int64_t q_sn, int64_t q_sh,
     int64_t k_sb, int64_t k_sm, int64_t k_sh,
@@ -223,6 +281,8 @@ __device__ __forceinline__ void dkv_body(
             dq[i][j] = fmaf(a[i].x, kk.x, fmaf(a[i].y, kk.y, fmaf(a[i].z, kk.z, fmaf(a[i].w, kk.w, dq[i][j]))));
         }
       }
+      int* sem = dq_sem + (int64_t(b) * H + h) * ((N + BQ - 1) / BQ) + q0 / BQ;
+      wait_turn(sem, blockIdx.x);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = q0 + ty * 4 + i;
@@ -230,9 +290,10 @@ __device__ __forceinline__ void dkv_body(
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           const int d = tx + 16 * j;
-          if (d < D) atomicAdd(&dq_bh[int64_t(r) * row_stride + d], dq[i][j] * scale);
+          if (d < D) ordered_add(&dq_bh[int64_t(r) * row_stride + d], dq[i][j] * scale, blockIdx.x == 0);
         }
       }
+      pass_turn(sem, blockIdx.x + 1);
     }
   }
 

@@ -11,14 +11,17 @@
 // Hopper no head's K/V is ever resident in shared memory, so one kernel set
 // computes what both compute, from the forward's row log-sum-exp (the algebra
 // is in flash_attention_bwd_common.cuh):
-//   1. stats, `split_delta_kernel`: delta = rowsum(dO * O), one warp per row.
-//      The TPU's `_sbwd_stats_kernel` also recomputes the row log-sum-exp,
-//      because the JAX forward keeps none; here the forward kernel
-//      (csrc/flash_attention.cu) writes lse2 and FlashAttention saves it, so
-//      the stats pass is delta alone. It reads O as stored; in bfloat16 that
-//      O is rounded, where the TPU kernels sum P * dP in f32, and where keys
-//      share a large component that rounding moves dQ well past the bf16
-//      tolerance (an open fault, PERF.md section 7).
+//   1. stats, delta. The TPU's `_sbwd_stats_kernel` also recomputes the row
+//      log-sum-exp, because the JAX forward keeps none; here the forward
+//      kernel (csrc/flash_attention.cu) writes lse2 and FlashAttention saves
+//      it, so the stats pass is delta alone. In bfloat16,
+//      `bwd_stats_wgmma_kernel` sums P * dP in f32 as the TPU kernels do,
+//      recomputing S and dP on the tensor cores with the dQ kernel's tiling
+//      (two products of 2*N*M*D FLOPs; `launch_bwd_stats_bf16`, which K3
+//      runs too). The stored bf16 O carries the forward's roundings, and
+//      where keys share a large component rowsum(dO * O) from it moved dQ
+//      by 0.12-0.17 of its scale. In float32, whose O is exact to f32
+//      rounding, `split_delta_kernel`: delta = rowsum(dO * O), one warp per row.
 //   2. a q-outer dQ kernel: a block owns 64 q rows and loops over all kv
 //      tiles; it recomputes S and dP, forms dS and accumulates dQ = scale *
 //      dS K in f32 registers, written once at the end. No atomics.
@@ -28,8 +31,9 @@
 // launches on the same inputs give bit-identical dQ, dK and dV.
 //
 // What bounds it on this card: seven products of 2*N*M*D FLOPs (S and dP in
-// both kernels, then dQ, dK and dV) against O((N+M)*D) bytes: arithmetic, far
-// above the ridge, with 2*N*M exponentials beside them.
+// both kernels, then dQ, dK and dV; nine with the bf16 stats pass) against
+// O((N+M)*D) bytes: arithmetic, far above the ridge, with 2*N*M
+// exponentials beside them (3*N*M in bf16).
 //
 // bfloat16, `split_dq_wgmma_kernel` and `split_dkv_wgmma_kernel`, on the
 // tensor cores (the building blocks are in attention_sm90.cuh). Each block
@@ -229,7 +233,7 @@ __global__ void __launch_bounds__(NT, 1) split_dkv_kernel(
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2) {
   extern __shared__ __align__(16) float smem[];
-  dkv_body<T, DP, false>(smem, q, k, v, dout, lse, delta, nullptr, dk, dv, H, N, M, D, q_sb,
+  dkv_body<T, DP, false>(smem, q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, H, N, M, D, q_sb,
                          q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm, v_sh, d_sb, d_sn, d_sh,
                          scale, scale_log2);
 }
@@ -291,18 +295,15 @@ int backward_split(int D, const void* q, const void* k, const void* v, const voi
 
 using sd_sm90::bf16;
 
-template <int DP, int BKV, int WGR>
-constexpr size_t dq_wgmma_smem_bytes() {
-  // Q, dO [64 * WGR][DP] + K, V [2 stages][BKV][DP], bf16
-  return 2 * (2 * size_t(64) * WGR * DP + 4 * size_t(BKV) * DP);
-}
-
-// dQ for 64 * WGR q rows of one (batch, head), over all kv tiles of BKV
-// rows; warpgroup w owns q rows 64 w.., all share the K and V tiles.
-template <int DP, int BKV, int WGR>
-__global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(
+// The q-outer loop over all kv tiles of BKV rows, for 64 * WGR q rows of one
+// (batch, head); warpgroup w owns q rows 64 w.., all share the K and V tiles.
+// STATS: the stats pass, delta = rowsum(P * dP) in f32 registers, written to
+// `delta`. Otherwise the dQ kernel: dQ = scale * dS K, with `delta` read.
+template <int DP, int BKV, int WGR, bool STATS>
+__device__ __forceinline__ void dq_wgmma_body(
+    uint8_t* smem_tc,
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
     bf16* __restrict__ dq, int H, int N, int M, int D,
     int64_t q_sb, int64_t q_sn, int64_t q_sh,
     int64_t k_sb, int64_t k_sm, int64_t k_sh,
@@ -315,7 +316,6 @@ __global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(
   constexpr int NT = 128 * WGR;
   constexpr uint32_t KV_TILE = BKV * DP * 2;
 
-  extern __shared__ __align__(128) uint8_t smem_tc[];
   const uint32_t sQ = smem_u32(smem_tc);
   const uint32_t sdO = sQ + BQ * DP * 2;
   const uint32_t sK = sdO + BQ * DP * 2;  // stage s at sK + s * KV_TILE
@@ -342,18 +342,19 @@ __global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(
 
   const int row0 = q0 + 64 * wr + 16 * warp + (lane >> 2);
   const float* lse_bh = lse + (int64_t(b) * H + h) * N;
-  const float* delta_bh = delta + (int64_t(b) * H + h) * N;
+  float* delta_bh = delta + (int64_t(b) * H + h) * N;
   float neg_lse[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     neg_lse[r] = row < N ? -lse_bh[row] : -INFINITY;  // rows past N: P = 0
-    dl[r] = row < N ? delta_bh[row] : 0.f;
+    dl[r] = (STATS || row >= N) ? 0.f : delta_bh[row];  // STATS: the running sum
   }
 
-  float acc[DP / 2];
+  constexpr int ACC = STATS ? 1 : DP / 2;
+  float acc[ACC];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
   const uint64_t q_desc = desc_k_major<DP>(sQ) + wr * 8 * DP;  // rows 64 wr..
   const uint64_t do_desc = desc_k_major<DP>(sdO) + wr * 8 * DP;
   const int n_tiles = (M + BKV - 1) / BKV;
@@ -391,38 +392,93 @@ __global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(
     fence_regs(dp);
 
     const bool edge = (j + 1) * BKV > M;
+    if constexpr (STATS) {
+      // delta += P * dP, P in f32 (the TPU kernels' sum); a fixed order per row
 #pragma unroll
-    for (int i = 0; i < BKV / 2; ++i) {
-      const int r = frag_row_half(i);
-      float p = exp2_ftz(fmaf(s[i], scale_log2, neg_lse[r]));
-      if (edge && j * BKV + frag_col(i, lane) >= M) p = 0.f;
-      s[i] = p * (dp[i] - dl[r]);  // dS
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int r = frag_row_half(i);
+        float p = exp2_ftz(fmaf(s[i], scale_log2, neg_lse[r]));
+        if (edge && j * BKV + frag_col(i, lane) >= M) p = 0.f;
+        dl[r] = fmaf(p, dp[i], dl[r]);
+      }
+      __syncthreads();
+      continue;
+    } else {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int r = frag_row_half(i);
+        float p = exp2_ftz(fmaf(s[i], scale_log2, neg_lse[r]));
+        if (edge && j * BKV + frag_col(i, lane) >= M) p = 0.f;
+        s[i] = p * (dp[i] - dl[r]);  // dS
+      }
+      uint32_t da[BKV / 16][4];
+      to_a_frag(s, da);  // dS in bf16 before dS K
+
+      // dQ += dS K: K read MN-major (its rows are the product's depth)
+      const uint64_t kt_desc = desc_mn_major<DP>(sK + st * KV_TILE);
+      fence_regs(acc);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) Wgmma<DP>::rs(acc, da[kk], kt_desc + 2 * DP * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncthreads();
     }
-    uint32_t da[BKV / 16][4];
-    to_a_frag(s, da);  // dS in bf16 before dS K
-
-    // dQ += dS K: K read MN-major (its rows are the product's depth)
-    const uint64_t kt_desc = desc_mn_major<DP>(sK + st * KV_TILE);
-    fence_regs(acc);
-    fence_regs(da);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) Wgmma<DP>::rs(acc, da[kk], kt_desc + 2 * DP * kk, 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    __syncthreads();
   }
 
-  const int64_t row_stride = int64_t(H) * D;
+  if constexpr (STATS) {
+    // the four lanes of a row hold its partial sums over their columns
 #pragma unroll
-  for (int i = 0; i < DP / 2; i += 2) {
-    const int row = row0 + 8 * frag_row_half(i);
-    const int col = frag_col(i, lane);
-    if (row < N && col < D)
-      store_bf16_pair(dq + (int64_t(b) * N + row) * row_stride + int64_t(h) * D + col,
-                      acc[i] * scale, acc[i + 1] * scale, col + 1 < D);
+    for (int r = 0; r < 2; ++r) {
+      const float total = quad_sum(dl[r]);
+      const int row = row0 + 8 * r;
+      if ((lane & 3) == 0 && row < N) delta_bh[row] = total;
+    }
+  } else {
+    const int64_t row_stride = int64_t(H) * D;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int row = row0 + 8 * frag_row_half(i);
+      const int col = frag_col(i, lane);
+      if (row < N && col < D)
+        store_bf16_pair(dq + (int64_t(b) * N + row) * row_stride + int64_t(h) * D + col,
+                        acc[i] * scale, acc[i + 1] * scale, col + 1 < D);
+    }
   }
+}
+
+template <int DP, int BKV, int WGR>
+constexpr size_t dq_wgmma_smem_bytes() {
+  // Q, dO [64 * WGR][DP] + K, V [2 stages][BKV][DP], bf16
+  return 2 * (2 * size_t(64) * WGR * DP + 4 * size_t(BKV) * DP);
+}
+
+#define SD_DQ_WGMMA_PARAMS                                                                    \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,        \
+      const bf16 *__restrict__ dout, const float *__restrict__ lse, float *__restrict__ delta, \
+      bf16 *__restrict__ dq, int H, int N, int M, int D, int64_t q_sb, int64_t q_sn,          \
+      int64_t q_sh, int64_t k_sb, int64_t k_sm, int64_t k_sh, int64_t v_sb, int64_t v_sm,     \
+      int64_t v_sh, int64_t d_sb, int64_t d_sn, int64_t d_sh, float scale, float scale_log2,  \
+      int vec
+#define SD_DQ_WGMMA_ARGS                                                                    \
+  q, k, v, dout, lse, delta, dq, H, N, M, D, q_sb, q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm, \
+      v_sh, d_sb, d_sn, d_sh, scale, scale_log2, vec
+
+// dQ for 64 * WGR q rows (the split set's dQ kernel)
+template <int DP, int BKV, int WGR>
+__global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(SD_DQ_WGMMA_PARAMS) {
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  dq_wgmma_body<DP, BKV, WGR, false>(smem_tc, SD_DQ_WGMMA_ARGS);
+}
+
+// delta = rowsum(P * dP) for 64 * WGR q rows (the bf16 stats pass of both
+// backward routes; `dq` unused)
+template <int DP, int BKV, int WGR>
+__global__ void __launch_bounds__(128 * WGR) bwd_stats_wgmma_kernel(SD_DQ_WGMMA_PARAMS) {
+  extern __shared__ __align__(128) uint8_t smem_tc[];
+  dq_wgmma_body<DP, BKV, WGR, true>(smem_tc, SD_DQ_WGMMA_ARGS);
 }
 
 template <int DP, int BQT, int WGR>
@@ -603,8 +659,9 @@ int launch_split_wgmma(const void* q, const void* k, const void* v, const void* 
                   sd_sm90::rows_aligned(dout, B, N, H, st[12], st[13], st[14]);
   split_dq_wgmma_kernel<DP, BKV, QWGR>
       <<<dim3((N + 64 * QWGR - 1) / (64 * QWGR), H, B), 128 * QWGR, dq_smem, stream>>>(
-      qt, kt, vt, dt, lse, delta, static_cast<bf16*>(dq), H, N, M, D, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale, scale_log2, vec);
+      qt, kt, vt, dt, lse, const_cast<float*>(delta), static_cast<bf16*>(dq), H, N, M, D, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
+      scale_log2, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC>
@@ -617,17 +674,50 @@ int launch_split_wgmma(const void* q, const void* k, const void* v, const void* 
   return int(err);
 }
 
+template <int DP, int BKV, int WGR>
+int launch_stats(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 float* delta, int B, int H, int N, int M, int D, const long long* st,
+                 float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_wgmma_smem_bytes<DP, BKV, WGR>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_stats_wgmma_kernel<DP, BKV, WGR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int vec = sd_sm90::rows_aligned(q, B, N, H, st[0], st[1], st[2]) &&
+                  sd_sm90::rows_aligned(k, B, M, H, st[3], st[4], st[5]) &&
+                  sd_sm90::rows_aligned(v, B, M, H, st[6], st[7], st[8]) &&
+                  sd_sm90::rows_aligned(dout, B, N, H, st[12], st[13], st[14]);
+  bwd_stats_wgmma_kernel<DP, BKV, WGR>
+      <<<dim3((N + 64 * WGR - 1) / (64 * WGR), H, B), 128 * WGR, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, nullptr, H, N, M, D, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
+      scale * 1.4426950408889634f, vec);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// The bf16 stats pass (declared in flash_attention_bwd_common.cuh): the dQ
+// kernel's tiling and loop, two products per tile (S and dP) and no third.
+int launch_bwd_stats_bf16(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, float* delta, int B, int H, int N, int M, int D,
+                          const long long* st, float scale, cudaStream_t stream) {
+#define SD_STATS_CASE(DP, BKV, WGR) \
+  if (D <= DP) return launch_stats<DP, BKV, WGR>(q, k, v, dout, lse, delta, B, H, N, M, D, st, scale, stream);
+  SD_STATS_CASE(32, 64, 2) SD_STATS_CASE(48, 64, 2) SD_STATS_CASE(64, 64, 2)
+  SD_STATS_CASE(80, 64, 2) SD_STATS_CASE(128, 32, 1) SD_STATS_CASE(160, 32, 1)
+#undef SD_STATS_CASE
+  return int(cudaErrorInvalidValue);
+}
+
+namespace {
+
 int backward_split_wgmma(int D, const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
                          void* dv, int B, int H, int N, int M, const long long* st, float scale,
                          cudaStream_t stream, int* impl) {
-  const int64_t rows = int64_t(B) * H * N;
-  const int64_t blocks = (rows * 32 + 255) / 256;
-  split_delta_kernel<bf16><<<unsigned(blocks), 256, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, H, N, D, st[9], st[10],
-      st[11], st[12], st[13], st[14], rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+  const int err = launch_bwd_stats_bf16(q, k, v, dout, lse, delta, B, H, N, M, D, st, scale, stream);
+  if (err != 0) return err;
   // (DP, kv tile and row warpgroups of the dQ kernel, q tile, row and column
   // warpgroups of the dK/dV kernel)
 #define SD_SPLIT_WGMMA_CASE(DP, BKV, QWGR, BQT, KVWGR, WGC)                                   \

@@ -9,31 +9,34 @@ Backward, two kernel sets, both CUDA C++:
 
 - fused, K3 (``csrc/flash_attention_bwd.cu``): replaces ``ops/flash_attention_bwd.py``
   ``_fused_bwd_kernel`` (``flash_attention_bwd_fused``, the JAX package's default);
-  kv-outer with dq added by atomics.
+  kv-outer, its dq shares added over kv blocks in a fixed order.
 - split, K4/K5 (``csrc/flash_attention_bwd_split.cu``): replaces ``_dq_kernel``
   and ``_dkv_kernel`` (``flash_attention_bwd``, ``SD_FLASH_BWD=split``) and
   ``_sbwd_stats_kernel``, ``_sbwd_dq_kernel`` and ``_sbwd_dkv_kernel``
   (``flash_attention_bwd_streaming``); a q-outer dq kernel and a kv-outer
-  dk/dv kernel, no atomics, the same result on every run.
+  dk/dv kernel. In bfloat16 both sets take delta from the split source's
+  stats pass, an f32 sum of P * dP (the TPU kernels' delta); float32 from
+  rowsum(dO * O). Both sum in a fixed order: the same result on every run.
 
-:func:`backward_route` picks between them by the JAX package's rule
-(``_flash_bwd``): the split kernels past the 9216-token crossover or under
-``SD_FLASH_BWD=split``, K3 otherwise. The crossover is the TPU's VMEM limit,
-kept as the selection rule until a measurement on the card moves it. All are
-built for sm_90a by ``ops/native.py``; their design notes are at the top of
-each source. The forward takes any D up to 512 and any kv length, the backward
-any D up to 160 (the UNet's widest head), strided q/k/v views included (the
-fused-QKV split hands them non-contiguous views).
+:func:`backward_route` picks between them: float32 by the JAX package's rule
+(``_flash_bwd``), the split kernels past the 9216-token crossover (the TPU's
+VMEM limit) or under ``SD_FLASH_BWD=split``, K3 otherwise; bfloat16 by an
+H100 measurement, the split kernels at every length. All are built for sm_90a
+by ``ops/native.py``; their design notes are at the top of each source. The
+forward takes any D up to 512 and any kv length, the backward any D up to
+160 (the UNet's widest head), strided q/k/v views included (the fused-QKV
+split hands them non-contiguous views).
 
-The dtype picks the implementation inside the forward and the split
-backward: bfloat16 runs on the tensor cores (``wgmma``, shared helpers in
+The dtype picks the implementation inside every kernel set: bfloat16 runs
+on the tensor cores (``wgmma``, shared helpers in
 ``csrc/attention_sm90.cuh``), float32 on FMAs (the f32 parity checks need
 full f32 products). Each launch records which one ran (``LAUNCHES.impls``,
-``SPLIT_BWD_LAUNCHES.impls``: ``"wgmma"`` or ``"fma"``, written by the
-C launch function once the kernel launched). The tensor-core kernels copy 16 bytes at a time where every
-row of q/k/v (and do) starts 16-byte aligned, as the UNet's and the VAE's
-views do, and element by element otherwise, so they take any head dim and
-view the FMA kernels take. K3 runs on FMAs in both dtypes.
+``BWD_LAUNCHES.impls``, ``SPLIT_BWD_LAUNCHES.impls``: ``"wgmma"`` or
+``"fma"``, written by the C launch function once the kernel launched). The
+tensor-core kernels copy 16 bytes at a time where every row of q/k/v (and
+do) starts 16-byte aligned, as the UNet's and the VAE's views do, and
+element by element otherwise, so they take any head dim and view the FMA
+kernels take.
 
 :func:`flash_attention_plain` is the forward in plain PyTorch (the JAX package's
 ``xla_attention`` math) and :func:`flash_attention_bwd_plain` the backward of
@@ -63,6 +66,7 @@ SPLIT_BWD_LAUNCHES = native.counter("flash_attention_bwd_split")
 MAX_HEAD_DIM = 512      # the largest padded head dim csrc/flash_attention.cu instantiates
 MAX_BWD_HEAD_DIM = 160  # the same for both backward sources
 KV_RESIDENT_MAX = 9216  # the JAX package's backward crossover, in kv tokens padded to 128
+DQ_TILE = 64            # q rows per K3 tile: one ordered-add counter per (batch, head, tile)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _IMPLS = ("fma", "wgmma")  # the C entry points' `impl` codes, written by each successful launch
@@ -161,11 +165,17 @@ def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def backward_route(kv_len: int, env: Mapping[str, str] = os.environ) -> str:
+def backward_route(kv_len: int, env: Mapping[str, str] = os.environ,
+                   dtype: torch.dtype = torch.float32) -> str:
     """``"split"`` (K4/K5) or ``"fused"`` (K3) for a backward over ``kv_len`` kv
-    tokens: the JAX package's ``_flash_bwd`` rule, split past the crossover
-    (kv padded to 128) or under ``SD_FLASH_BWD=split``, fused otherwise."""
-    if -(-kv_len // 128) * 128 > KV_RESIDENT_MAX or env.get("SD_FLASH_BWD") == "split":
+    tokens in ``dtype``. float32 takes the JAX package's ``_flash_bwd`` rule:
+    split past the crossover (kv padded to 128) or under ``SD_FLASH_BWD=split``,
+    fused otherwise. bfloat16 takes the split set at every length: on the H100
+    it ran K3's 23 main-path shapes about 1.4x faster than the tensor-core K3
+    (PERF.md, section 6), the measurement the contract asks for before the
+    crossover moves."""
+    if (dtype == torch.bfloat16 or -(-kv_len // 128) * 128 > KV_RESIDENT_MAX
+            or env.get("SD_FLASH_BWD") == "split"):
         return "split"
     return "fused"
 
@@ -187,35 +197,41 @@ def _check_bwd(q, k, v, out, do, lse, name: str):
 
 
 def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
-    """Launch the fused backward kernel (K3) -> (dq, dk, dv), contiguous [B, L, H, D]."""
+    """Launch the fused backward kernel (K3) -> (dq, dk, dv), contiguous
+    [B, L, H, D]; dQ is added in a fixed order, so two launches on the same
+    inputs agree bit for bit."""
     strides = _check_bwd(q, k, v, out, do, lse, "flash_attention_bwd")
+    _check_wgmma("flash_attention_bwd", q, k, v, out, do)
     lib = native.load_library()
     b, n, h, d = q.shape
     m = k.shape[1]
     dev = q.device
-    dq_acc = torch.zeros((b, n, h, d), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty((b, n, h, d), dtype=torch.float32, device=dev)  # written in full
+    dq_sem = torch.zeros(b * h * -(-n // DQ_TILE), dtype=torch.int32, device=dev)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, m, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    impl = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sd_flash_attention_backward(
             _DTYPE_CODES[q.dtype],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dq_sem.data_ptr(),
             None if dq is dq_acc else dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, n, m, d, strides, float(scale), stream,
+            b, h, n, m, d, strides, float(scale), stream, ctypes.byref(impl),
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
-    BWD_LAUNCHES.hit((b, n, m, h, d, str(q.dtype)))
+    BWD_LAUNCHES.hit((b, n, m, h, d, str(q.dtype)), _impl(impl.value, "flash_attention_bwd"))
     return dq, dk, dv
 
 
 def flash_attention_bwd_split(q, k, v, out, do, lse, scale: float):
     """Launch the split backward kernels (K4/K5) -> (dq, dk, dv), contiguous
-    [B, L, H, D]; no atomics, so two launches on the same inputs agree bit for bit."""
+    [B, L, H, D]; one thread sums each element in a fixed order, so two
+    launches on the same inputs agree bit for bit."""
     strides = _check_bwd(q, k, v, out, do, lse, "flash_attention_bwd_split")
     _check_wgmma("flash_attention_bwd_split", q, k, v, out, do)
     lib = native.load_library()
@@ -266,7 +282,7 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, do, ctx.scale)
         else:
-            split = backward_route(k.shape[1]) == "split"
+            split = backward_route(k.shape[1], dtype=q.dtype) == "split"
             bwd = flash_attention_bwd_split if split else flash_attention_bwd
             dq, dk, dv = bwd(q, k, v, out, do, lse, ctx.scale)
         return dq, dk, dv, None

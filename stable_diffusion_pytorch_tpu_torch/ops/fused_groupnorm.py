@@ -1,35 +1,42 @@
-"""GroupNorm(+SiLU) kernels for Hopper: wrappers around the Triton kernels, and
+"""GroupNorm(+SiLU) kernels for Hopper: the wrappers, their launch plan, and
 the autograd Functions that pair each forward with its backward.
 
 Replaces the Pallas TPU kernels ``stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py``
 ``_gn_kernel`` (launched from ``pallas_group_norm``), ``_gn_cat_kernel``
 (from ``pallas_group_norm_cat``) and ``_gn_bwd_kernel`` (from
-``pallas_group_norm_bwd``, the backward of ``_gn_kernel``). The kernels are in
-``ops/groupnorm_triton.py``. The JAX package has no kernel for the concat
-form's backward (its custom VJP differentiates ``xla_group_norm_cat``); here
-it runs the ``_gn_bwd_kernel`` port over the two parts with joint statistics,
-the way the concat forward reuses the forward's kernels.
+``pallas_group_norm_bwd``, the backward of ``_gn_kernel``):
+
+- K6, GroupNorm(+SiLU) forward: CUDA C++ ``csrc/group_norm.cu``, one launch
+  on thread-block clusters. A cluster of up to 16 CTAs owns a (batch
+  element, slice of whole groups), its CTAs split the rows, keep them in
+  shared memory where they fit, meet through distributed shared memory for
+  the group statistics, and write y once (the design is at the top of the
+  source). :func:`gn_launch_plan` chooses the slice width, the cluster size
+  and whether the rows stay on chip.
+- K8 (the concat form) and K7 (the backward, also the concat form's): Triton,
+  ``ops/groupnorm_triton.py``. The JAX package has no kernel for the concat
+  form's backward (its custom VJP differentiates ``xla_group_norm_cat``);
+  here it runs the ``_gn_bwd_kernel`` port over the two parts with joint
+  statistics, the way the concat forward reuses the forward's kernels.
 
 What bounds them on this card: no matrix product, about 10 FLOPs per element,
-so memory bandwidth. The forward's floor is one read of x for the statistics
-plus one read of x and one write of y for the normalize pass. The backward
-reads x and dy twice (partial sums, then dx) and writes dx once; it takes
-each group's mean and 1/std from the forward instead of recomputing them.
+so memory bandwidth. The forward's floor is one read of x and one write of y.
+The backward reads x and dy twice (partial sums, then dx) and writes dx once;
+it takes each group's mean and 1/std from the forward instead of recomputing
+them.
 
-What the design does about it, and what did not carry over from the TPU:
+The Triton kernels (K7, K8), and what did not carry over from the TPU:
 
 - The TPU kernel holds one whole batch element in VMEM (hence its 1.8 MB
-  gate). A Hopper block has at most 227 KB of shared memory, the UNet's
-  320 x 64^2 bf16 map is 2.6 MB, the VAE decoder normalizes 128 x 512^2 maps,
-  and one block per image would leave most of the 132 SMs idle. So the
-  statistics are split across many programs (per-channel partial sums over a
-  split of the rows, coalesced along channels), a small second kernel reduces
-  each group's partials to mean and 1/std, and a separate pass normalizes.
-  Nothing is held on chip across passes; the second read of x is the price.
+  gate). There, the statistics are split across many programs (per-channel
+  partial sums over a split of the rows, coalesced along channels), a small
+  second kernel reduces each group's partials to mean and 1/std (or S1, S2),
+  and a separate pass normalizes (or forms dx). Nothing is held on chip
+  across passes; the second read of x is the price.
 - Groups of 10 (320/32), 4 (128/32), 60 or 30 channels are no power of two and
   a group of the up-path concat straddles the boundary at channel 1280 (or
-  640). Statistics are kept per channel until ``gn_finalize``, which sums a
-  group's channel range regardless of which part each channel came from, so
+  640). Statistics are kept per channel until the finalize kernel, which sums
+  a group's channel range regardless of which part each channel came from, so
   joint statistics need no special case. The TPU's [C, G] membership-matrix
   trick was a lane-layout device and is not used.
 - The concat variant runs the partial-sum and normalize kernels once per part
@@ -37,14 +44,17 @@ What the design does about it, and what did not carry over from the TPU:
   is never stored.
 
 Every shape on the path is taken: any C, any number of groups that divides C,
-any spatial size. The plain versions are ``ops/groupnorm.py:xla_group_norm``,
-``xla_group_norm_cat`` and :func:`group_norm_bwd_plain`; the wrappers take
-them only for CPU tensors.
+any spatial size (K6: a slice of at most 256 vectors of up to 16 bytes,
+2048 bf16 channels). The plain versions are
+``ops/groupnorm.py:xla_group_norm``, ``xla_group_norm_cat`` and
+:func:`group_norm_bwd_plain`; the wrappers take them only for CPU tensors.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -69,6 +79,113 @@ def _next_pow2(n: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# K6's launch plan (csrc/group_norm.cu), tuned on the H100 over the model's
+# largest maps (PERF.md, section 6)
+GN_THREADS = 256            # per CTA
+GN_MAX_CLUSTER = 16         # CTAs per cluster (non-portable above 8)
+GN_FILL_CTAS = 128          # about one CTA per SM of the H100's 132: eight clusters of 16
+GN_RESIDENT_BYTES = 96 * 1024  # a CTA's rows kept in shared memory: two CTAs fit an SM
+GN_SMEM_MAX = 232448        # shared memory a block can use (227 KB)
+GN_MIN_ROWS = 16            # rows per CTA below which the cluster stops growing
+GN_SECTOR_BYTES = 32        # device memory moves whole 32-byte sectors
+
+
+class GnPlan(NamedTuple):
+    """One K6 launch: ``groups_per_slice`` whole groups per cluster, ``cluster``
+    CTAs splitting the ``rows`` of a batch element, ``rows_per_cta`` each,
+    loads of ``vec`` elements, the rows kept in shared memory (``resident``)
+    or read twice, and ``smem`` bytes of dynamic shared memory per CTA."""
+
+    groups_per_slice: int
+    n_slices: int
+    cluster: int
+    rows_per_cta: int
+    vec: int
+    resident: bool
+    smem: int
+
+
+def _divisors(n: int):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def gn_launch_plan(batch: int, rows: int, channels: int, groups: int, elem_bytes: int,
+                   align_bytes: int = 16) -> GnPlan:
+    """The launch plan of K6 for x [batch, rows, channels] of ``elem_bytes``
+    per element whose base address is a multiple of ``align_bytes``: a pure
+    function of the shape, which the tests check over the model's shapes.
+
+    Loads take the widest vector (up to 16 bytes) that divides the channels
+    and the alignment. A slice is a run of whole groups whose width that
+    vector divides; slices whose row segment fills whole 32-byte sectors are
+    preferred (narrower ones fetch each sector once per slice). The slice is
+    the widest (wider segments read better) that puts ``GN_FILL_CTAS`` CTAs
+    on the card at this batch with a cluster of at most 16 and keeps each
+    CTA's rows within ``GN_RESIDENT_BYTES`` of shared memory; else the widest
+    that fills the card, its rows streamed; else the narrowest, with the
+    largest cluster the rows allow. Measured on the H100 over the model's
+    largest maps, these beat narrower slices on more CTAs (PERF.md, section 6).
+    The CTAs of a cluster split the rows evenly (none is empty)."""
+    if channels % groups:
+        raise ValueError(f"channels {channels} not divisible by groups {groups}")
+    cpg = channels // groups
+    vec = max(v for v in (8, 4, 2, 1)
+              if v * elem_bytes <= min(16, align_bytes) and channels % v == 0)
+    slices = [g for g in _divisors(groups) if (g * cpg) % vec == 0 and g * cpg // vec <= GN_THREADS]
+    if not slices:
+        raise ValueError(f"group norm kernel: no slice of whole groups fits {GN_THREADS} loads "
+                         f"of {vec} elements ({channels} channels, {groups} groups)")
+    slices = [g for g in slices if g * cpg * elem_bytes >= GN_SECTOR_BYTES] or slices
+    cap = max(1, min(GN_MAX_CLUSTER, -(-rows // GN_MIN_ROWS)))
+
+    def to_fill(gps):  # the cluster that puts GN_FILL_CTAS CTAs on the card
+        return -(-GN_FILL_CTAS // (batch * (groups // gps)))
+
+    def to_fit(gps):  # the cluster that keeps a CTA's rows in shared memory
+        return -(-rows * gps * cpg * elem_bytes // GN_RESIDENT_BYTES)
+
+    widest = list(reversed(slices))
+    gps = next((g for g in widest if max(to_fill(g), to_fit(g)) <= cap), None)
+    if gps is not None:
+        cluster = max(to_fill(gps), to_fit(gps), 1)
+    else:
+        gps = next((g for g in widest if to_fill(g) <= cap), slices[0])
+        cluster = min(cap, max(to_fill(gps), 1))
+    width = gps * cpg
+    rows_per_cta = -(-rows // cluster)
+    cluster = -(-rows // rows_per_cta)
+    buf = rows_per_cta * width * elem_bytes
+    resident = buf <= GN_RESIDENT_BYTES
+    lanes = GN_THREADS // (width // vec)  # rows in flight in a CTA
+    smem = (-(-buf // 16) * 16 if resident else 0) + 2 * lanes * width * 4 + 4 * gps * 4
+    return GnPlan(gps, groups // gps, cluster, rows_per_cta, vec, resident, smem)
+
+
+def _launch_gn(x, scale, bias, num_groups, eps, apply_silu):
+    """K6 on channel-last x [B, ..., C] -> (out, mean, rstd), one launch."""
+    b, c = x.shape[0], x.shape[-1]
+    s = math.prod(x.shape[1:-1])
+    elem = x.element_size()
+    align = x.data_ptr() & -x.data_ptr()  # the largest power of two dividing the address
+    plan = gn_launch_plan(b, s, c, num_groups, elem, min(16, align))
+    out = torch.empty_like(x)
+    mean = torch.empty((b, num_groups), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    lib = native.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.sd_group_norm_forward(
+            0 if x.dtype == torch.float32 else 1, x.data_ptr(), out.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(), b, s, c, num_groups,
+            plan.groups_per_slice, plan.cluster, plan.rows_per_cta, plan.vec, int(plan.resident),
+            plan.smem, int(bool(apply_silu)), float(eps), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"group_norm kernel launch failed: CUDA error {rc} (plan {plan})")
+    return out, mean, rstd
 
 
 def _check(parts, scale, bias, num_groups) -> None:
@@ -100,9 +217,9 @@ def _tiling(widths, s: int):
     return block_s, block_c, _cdiv(s, rows_per_prog), rows_per_prog
 
 
-def _launch(parts, scale, bias, num_groups, eps, apply_silu):
-    """Run the three forward kernels over the channel concat of ``parts`` (1 or
-    2) -> (out, mean, rstd), the statistics f32 [B, G]."""
+def _launch_cat(parts, scale, bias, num_groups, eps, apply_silu):
+    """Run the three Triton forward kernels (K8) over the channel concat of
+    ``parts`` -> (out, mean, rstd), the statistics f32 [B, G]."""
     native.import_triton()
     from stable_diffusion_pytorch_tpu_torch.ops import groupnorm_triton as k
 
@@ -297,14 +414,14 @@ def _forward(x, s, scale, bias, num_groups, eps, apply_silu):
         if x.device.type == "cpu":
             return xla_group_norm(x, scale, bias, num_groups, eps, apply_silu), None, None
         _check([x], scale, bias, num_groups)
-        out, mean, rstd = _launch([x], scale, bias, num_groups, eps, apply_silu)
+        out, mean, rstd = _launch_gn(x, scale, bias, num_groups, eps, apply_silu)
         LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], num_groups,
                       bool(apply_silu), str(x.dtype)))
         return out, mean, rstd
     if x.device.type == "cpu" and s.device.type == "cpu":
         return xla_group_norm_cat(x, s, scale, bias, num_groups, eps, apply_silu), None, None
     _check([x, s], scale, bias, num_groups)
-    out, mean, rstd = _launch([x, s], scale, bias, num_groups, eps, apply_silu)
+    out, mean, rstd = _launch_cat([x, s], scale, bias, num_groups, eps, apply_silu)
     CAT_LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], s.shape[-1],
                       num_groups, bool(apply_silu), str(x.dtype)))
     return out, mean, rstd

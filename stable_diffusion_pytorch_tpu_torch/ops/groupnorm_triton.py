@@ -1,11 +1,12 @@
-"""Triton kernels for GroupNorm(+SiLU), its concat variant, and their backward.
+"""Triton kernels for GroupNorm(+SiLU)'s concat variant and the backward of both.
 
 This module imports ``triton`` at its top and is imported only by the
 launching functions in ``ops/fused_groupnorm.py``, at the first launch on a
-CUDA tensor; nothing else imports it.
+CUDA tensor; nothing else imports it. (The plain forward, K6, is CUDA C++:
+``csrc/group_norm.cu``.)
 
-Forward: three kernels serve both ``_gn_kernel`` and ``_gn_cat_kernel`` of the
-JAX package (see ``ops/fused_groupnorm.py`` for the design):
+Forward of the concat form, three kernels, the port of ``_gn_cat_kernel``
+of the JAX package (see ``ops/fused_groupnorm.py`` for the design):
 
 - ``gn_partial_sums``: per-channel partial sums and sums of squares over a
   split of the spatial rows, into [B, n_split, C_total] f32 buffers. A concat

@@ -95,10 +95,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 12 + [f, p, ctypes.POINTER(i)]
     fn.restype = ctypes.c_int
     fn = lib.sd_flash_attention_backward
-    fn.argtypes = [i] + [p] * 11 + [i] * 5 + [ctypes.POINTER(ll), f, p]
+    fn.argtypes = [i] + [p] * 12 + [i] * 5 + [ctypes.POINTER(ll), f, p, ctypes.POINTER(i)]
     fn.restype = ctypes.c_int
     fn = lib.sd_flash_attention_backward_split
     fn.argtypes = [i] + [p] * 10 + [i] * 5 + [ctypes.POINTER(ll), f, p, ctypes.POINTER(i)]
+    fn.restype = ctypes.c_int
+    fn = lib.sd_group_norm_forward
+    fn.argtypes = [i] + [p] * 6 + [i] * 9 + [ll, i, f, p]
     fn.restype = ctypes.c_int
     fn = lib.sd_adam8bit_update
     fn.argtypes = [i] + [p] * 10 + [ll, i, i] + [f] * 7 + [p]

@@ -9,12 +9,15 @@ repository's conftest (which imports jax) is skipped:
 Tolerances on max-abs error, relative to max(1, max|plain|): float32 1e-5 for
 attention and 5e-5 for GroupNorm (summation order); bfloat16 2e-2 (both sides
 round their outputs to bf16, spacing 2^-7 of the magnitude). The backward
-kernels: float32 5e-5 for attention (sums over up to 300 kv rows, and dq is
-summed with atomics in an order that changes between runs) and 1e-4 for
-GroupNorm (two reductions over the map); bfloat16 2e-2 as above (the kernel's
-delta = rowsum(dO * O) reads the bf16-rounded O, the plain version sums
-dP * P in f32). The split backward (K4/K5) is held to the same tolerances and,
-having no atomics, to bit-identical results from two launches. The int8 Adam
+kernels: float32 5e-5 for attention (sums over up to 300 kv rows in another
+order) and 1e-4 for GroupNorm (two reductions over the map); bfloat16 2e-2 as
+above. Both attention backward routes, K3 (dQ added over kv blocks in a fixed
+order) and the split set (K4/K5), sum in a fixed order and are also held to
+bit-identical results from two launches; in bf16 their delta is the stats
+pass's f32 sum of P * dP, so correlated inputs whose keys share a large
+component (dO = Q, V = K) are held to the plain version too. GroupNorm's
+forward (K6) is one launch per call, on the resident and the streaming plan
+(``gn_launch_plan``). The int8 Adam
 update (K9) repeats its plain version's IEEE operations in the same order:
 updates at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp (rtol 2^-8)
 in bf16, at most one code in 10^4 one step apart (a value on a rounding
@@ -53,6 +56,7 @@ from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E4
 from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E402
     fused_group_norm,
     fused_group_norm_cat,
+    gn_launch_plan,
     group_norm_bwd_plain,
 )
 from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import (  # noqa: E402
@@ -208,16 +212,17 @@ def test_dtype_picks_the_implementation(cuda):
         assert dict(native.COUNTERS["flash_attention_bwd_split"].impls) == {impl: 1}
 
 
-@pytest.mark.parametrize("d", [20, 36, 100])
+@pytest.mark.parametrize("d", [20, 33, 36, 100])
 def test_bf16_kernels_take_any_head_dim_and_view(cuda, d):
-    """Head dims that are not a multiple of 8: contiguous multi-head tensors,
+    """Head dims that are not a multiple of 8 (33: nor of 4, so K3 adds its dQ
+    shares one element at a time): contiguous multi-head tensors,
     whose rows do not start 16-byte aligned (copied element by element), and
     a view into a tensor padded to a multiple of 8 (16-byte copies that
     zero-fill a short last chunk); also views 8 bytes past alignment, with
     their own data and correlated (dO = Q, V = K). Each is held to the
     rounding model of ``tests/torch_attention_bf16_model.py``, fed the
-    kernel's own output and lse, within ``MODEL_TOL``, and, where the data
-    are independent, to the plain versions within the chip's 2e-2."""
+    kernel's own output and lse, within ``MODEL_TOL``, and to the plain
+    versions within the chip's 2e-2, on both backward routes."""
     g = torch.Generator(device=cuda).manual_seed(30 + d)
     pad = -(-d // 8) * 8
     contiguous = [torch.randn(1, s, 3, d, device=cuda, generator=g).bfloat16() for s in (70, 130, 130, 70)]
@@ -228,25 +233,23 @@ def test_bf16_kernels_take_any_head_dim_and_view(cuda, d):
     scale = d ** -0.5
     for q, k, v, do in (contiguous, padded, shifted, correlated):
         out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
-        grads = flash_attention_bwd_split(q, k, v, out, do, lse, scale)
         cq, ck, cv, cdo, cout, clse = (t.cpu() for t in (q, k, v, do, out, lse))
         assert own_scale_err(cout, model_forward(cq, ck, cv, scale)[0]) <= MODEL_TOL, d
-        for got, want in zip(grads, model_backward(cq, ck, cv, cout, cdo, clse, scale)):
-            assert own_scale_err(got.cpu(), want) <= MODEL_TOL, d
-        if do is q:
-            # dP = Q K^T: dS = P (dP - delta) cancels, and delta = rowsum(dO * O)
-            # reads the bf16 O where the plain version sums P dP in f32 (a known
-            # departure, PERF.md open questions), so only the model holds here
-            continue
         assert _rel_err(out, flash_attention_plain(q, k, v, scale)) <= TOL["bfloat16"][0], d
-        for got, ref in zip(grads, flash_attention_bwd_plain(q, k, v, do, scale)):
-            assert _rel_err(got, ref) <= BWD_TOL["bfloat16"][0], d
+        refs = flash_attention_bwd_plain(q, k, v, do, scale)
+        for bwd in (flash_attention_bwd_split, flash_attention_bwd):
+            grads = bwd(q, k, v, out, do, lse, scale)
+            for got, want in zip(grads, model_backward(cq, ck, cv, cout, cdo, clse, scale)):
+                assert own_scale_err(got.cpu(), want) <= MODEL_TOL, (bwd.__name__, d)
+            for got, ref in zip(grads, refs):
+                assert _rel_err(got, ref) <= BWD_TOL["bfloat16"][0], (bwd.__name__, d)
 
 
 def test_kv_past_the_crossover_runs_k1_and_the_split_backward(cuda):
     """K1 and the Function at 10000 kv tokens (past the 9216 crossover): the
     backward routes to the split kernels."""
     assert backward_route(10000) == "split" and backward_route(4096) == "fused"
+    assert backward_route(4096, dtype=torch.bfloat16) == "split"
     g = torch.Generator(device=cuda).manual_seed(7)
     q = torch.randn(1, 96, 2, 40, device=cuda, generator=g)
     kv = torch.randn(1, 10000, 2, 80, device=cuda, generator=g)
@@ -331,7 +334,8 @@ def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
 
 def test_train_step_on_cuda_runs_the_backward_kernels(cuda, tmp_path):
     """A tiny UNet train step on the card in bf16 over f32 parameters: finite
-    loss, every parameter updated, K1/K3/K6/K7/K8 launched."""
+    loss, every parameter updated, K1, the split backward (bf16's route at
+    every kv length) and K6/K7/K8 launched."""
     from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, DDPMConfig, UnetConfig
     from stable_diffusion_pytorch_tpu_torch.models.build import build_models
     from stable_diffusion_pytorch_tpu_torch.trainers.optim import AdamW, build_lr_schedule
@@ -362,8 +366,8 @@ def test_train_step_on_cuda_runs_the_backward_kernels(cuda, tmp_path):
     unchanged = [n for (n, _), a, b in zip(model.unet.named_parameters(), before, params) if torch.equal(a, b)]
     assert not unchanged, unchanged
     counts = {k: c.count for k, c in native.COUNTERS.items()}
-    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd",
-                                       "group_norm_cat")), counts
+    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd_split", "group_norm",
+                                       "group_norm_bwd", "group_norm_cat")), counts
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -433,5 +437,100 @@ def test_lean_train_step_on_cuda_runs_k9_per_leaf(cuda):
     assert not unchanged, unchanged
     counts = {k: c.count for k, c in native.COUNTERS.items()}
     assert counts["adam8bit_update"] == len(params), counts
-    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd",
-                                       "group_norm_cat")), counts
+    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd_split", "group_norm",
+                                       "group_norm_bwd", "group_norm_cat")), counts
+
+
+def _shared_key_views(g, n, m, h, d, dev):
+    """dO = Q, V = K, keys sharing one component of size 3 (as in
+    ``tests/test_torch_port_attention_bf16.py``): dS = P (dP - delta) cancels
+    hard, and dQ = scale * dS K cancels the shared component exactly."""
+    q = torch.randn(1, n, h, d, device=dev, generator=g).bfloat16()
+    shared = 3.0 * torch.randn(1, 1, h, d, device=dev, generator=g)
+    k = (shared + torch.randn(1, m, h, d, device=dev, generator=g)).bfloat16()
+    return q, k, k, q
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_both_backward_routes_hold_correlated_views(cuda, d):
+    """K3 and the split set at keys sharing a component of 3 (dO = Q, V = K):
+    with the stats pass's f32 delta both stay within the bf16 tolerance of
+    the plain version, of each output's own scale, and run wgmma."""
+    g = torch.Generator(device=cuda).manual_seed(40 + d)
+    for n, m in [(128, 1024), (70, 300)]:
+        q, k, v, do = _shared_key_views(g, n, m, 2, d, cuda)
+        scale = d ** -0.5
+        out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
+        refs = flash_attention_bwd_plain(q, k, v, do, scale)
+        native.reset_counters()
+        for bwd in (flash_attention_bwd, flash_attention_bwd_split):
+            for got, ref in zip(bwd(q, k, v, out, do, lse, scale), refs):
+                assert own_scale_err(got, ref) <= BWD_TOL["bfloat16"][0], (bwd.__name__, n, m, d)
+        assert dict(native.COUNTERS["flash_attention_bwd"].impls) == {"wgmma": 1}
+        assert dict(native.COUNTERS["flash_attention_bwd_split"].impls) == {"wgmma": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_repeats_bit_for_bit(cuda, dtype):
+    """K3 adds dQ over kv blocks in a fixed order (no unordered atomics): two launches
+    on the same inputs give the same bits, at several kv blocks, ragged q and
+    kv lengths and every head-dim tiling; f32 runs the FMA kernel, bf16 wgmma."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(50)
+    for b, n, m, h, d in [(2, 200, 77, 2, 40), (1, 130, 1000, 2, 80), (1, 300, 700, 1, 160), (1, 64, 4096, 2, 40)]:
+        q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=g).to(dt) for s in (n, m, m, n))
+        out, lse = _forward_kernel(q, k, v, d ** -0.5, with_lse=True)
+        native.reset_counters()
+        grads = flash_attention_bwd(q, k, v, out, do, lse, d ** -0.5)
+        again = flash_attention_bwd(q, k, v, out, do, lse, d ** -0.5)
+        want = "fma" if dtype == "float32" else "wgmma"
+        assert dict(native.COUNTERS["flash_attention_bwd"].impls) == {want: 2}
+        for got, rep, ref in zip(grads, again, flash_attention_bwd_plain(q, k, v, do, d ** -0.5)):
+            assert torch.equal(got, rep), (b, n, m, h, d)
+            assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h, d)
+
+
+def _device_kernels(fn, attempts=4):
+    """{kernel name: launches} of the device work ``fn()`` queues, by
+    torch.profiler: the fullest of up to ``attempts`` profiles (a profile
+    now and then misses a kernel and never adds one), stopping at the first
+    that saw any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = {}
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if "cuda" in str(getattr(e, "device_type", "")).lower() and e.self_device_time_total > 0}
+        if sum(kernels.values()) > sum(best.values()):
+            best = kernels
+        if best:
+            break
+    return best
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_is_one_cluster_launch(cuda, dtype):
+    """K6 against its plain version on a resident plan (the rows stay in
+    shared memory) and a streaming one (read twice), with and without SiLU,
+    the statistics matching the plain version's; each call is one launch."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(60)
+    elem = torch.empty((), dtype=dt).element_size()
+    for shape, groups, resident in [((1, 4096, 320), 32, True), ((1, 300000, 64), 32, False),
+                                    ((3, 7, 5, 40), 8, True)]:
+        plan = gn_launch_plan(shape[0], shape[1] * (shape[2] if len(shape) == 4 else 1), shape[-1], groups, elem)
+        assert plan.resident == resident, plan
+        c = shape[-1]
+        x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.5).to(dt)
+        w, bias = 1 + 0.3 * torch.randn(c, device=cuda, generator=g), 0.3 * torch.randn(c, device=cuda, generator=g)
+        for silu in (False, True):
+            native.reset_counters()
+            kernels = _device_kernels(lambda: fused_group_norm(x, w, bias, groups, 1e-5, silu))
+            assert len(kernels) == 1 and "gn_fwd_cluster" in next(iter(kernels)), kernels
+            assert next(iter(kernels.values())) == 1 and native.COUNTERS["group_norm"].count == 1
+            out = fused_group_norm(x, w, bias, groups, 1e-5, silu)
+            assert _rel_err(out, xla_group_norm(x, w, bias, groups, 1e-5, silu)) <= TOL[dtype][1], (shape, silu)

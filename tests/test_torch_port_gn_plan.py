@@ -1,0 +1,98 @@
+"""K6's launch plan (``ops/fused_groupnorm.py:gn_launch_plan``) over every
+GroupNorm shape of the SD-1.5 UNet and VAE at 512px and 1024px.
+
+The plan is a pure function of the shape; the kernel (``csrc/group_norm.cu``)
+runs only on the card. The shapes here are a superset of the model's: every
+channel count a GroupNorm of the UNet sees (its levels' widths and the up
+path's concatenations) at every UNet level, and the VAE's widths at every
+VAE level, at the sampling batches (1, 2 with CFG) and the training ones (4,
+16), in bfloat16 and float32. No jax needed.
+"""
+
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E402
+    GN_FILL_CTAS,
+    GN_MAX_CLUSTER,
+    GN_MIN_ROWS,
+    GN_RESIDENT_BYTES,
+    GN_SMEM_MAX,
+    GN_THREADS,
+    gn_launch_plan,
+)
+
+GROUPS = 32
+UNET_CHANNELS = (320, 640, 960, 1280, 1920, 2560)
+VAE_CHANNELS = (128, 256, 512)
+
+
+def sd15_group_norm_shapes():
+    """(rows, channels) of the SD-1.5 UNet (latent side image/8, four levels)
+    and VAE (image side down to image/8) at 512px and 1024px."""
+    shapes = set()
+    for image in (512, 1024):
+        for level in range(4):
+            side = image // 8 >> level
+            shapes |= {(side * side, c) for c in UNET_CHANNELS}
+            side = image >> level
+            shapes |= {(side * side, c) for c in VAE_CHANNELS}
+    return sorted(shapes)
+
+
+def _most_slices(channels, vec, elem):
+    """Slices of the narrowest plan a batch of one may take: whole groups whose
+    width the vector divides and, where any does, that fill 32-byte sectors."""
+    cpg = channels // GROUPS
+    valid = [g for g in range(1, GROUPS + 1) if GROUPS % g == 0 and (g * cpg) % vec == 0]
+    full = [g for g in valid if g * cpg * elem >= 32]
+    return GROUPS // min(full or valid)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("batch", [1, 2, 4, 16])
+def test_plan_over_the_model_shapes(batch, elem):
+    for rows, channels in sd15_group_norm_shapes():
+        p = gn_launch_plan(batch, rows, channels, GROUPS, elem)
+        cpg = channels // GROUPS
+        width = p.groups_per_slice * cpg
+        where = (batch, rows, channels, elem, p)
+        # no group straddles a slice: slices are runs of whole groups that tile the channels
+        assert p.groups_per_slice * p.n_slices == GROUPS, where
+        assert width % p.vec == 0 and channels % p.vec == 0 and p.vec * elem <= 16, where
+        assert width // p.vec <= GN_THREADS, where
+        # the cluster: at most 16 CTAs, splitting the rows with none empty
+        assert 1 <= p.cluster <= GN_MAX_CLUSTER, where
+        assert p.cluster * p.rows_per_cta >= rows > (p.cluster - 1) * p.rows_per_cta, where
+        # shared memory within a block's 227 KB, the rows only where they fit
+        assert p.smem <= GN_SMEM_MAX, where
+        assert p.resident == (p.rows_per_cta * width * elem <= GN_RESIDENT_BYTES), where
+        if batch == 1:
+            # a batch of one fills the card where the shape allows it: the
+            # narrowest slice that fills whole sectors and the largest cluster
+            # bound what a plan may do
+            cap = max(1, min(GN_MAX_CLUSTER, math.ceil(rows / GN_MIN_ROWS)))
+            most = _most_slices(channels, p.vec, elem) * cap
+            assert p.n_slices * p.cluster >= min(GN_FILL_CTAS, most), where
+
+
+def test_plan_keeps_the_1024px_unet_map_on_chip_and_streams_the_vae_decoder():
+    """The UNet's 1024px level 0 (16384 x 320) stays in shared memory at batch
+    1 on about one CTA per SM (eight clusters of 16); the VAE decoder's 512^2 x 128 map (64 MB per
+    image in bf16) does not fit any cluster and streams."""
+    p = gn_launch_plan(1, 128 * 128, 320, GROUPS, 2)
+    assert p.resident and p.n_slices * p.cluster >= 128 and p.cluster == GN_MAX_CLUSTER, p
+    p = gn_launch_plan(1, 512 * 512, 128, GROUPS, 2)
+    assert not p.resident and p.n_slices * p.cluster >= 128, p
+
+
+def test_plan_narrows_the_vector_to_the_alignment_and_the_channels():
+    assert gn_launch_plan(1, 64, 320, GROUPS, 2).vec == 8
+    assert gn_launch_plan(1, 64, 320, GROUPS, 2, align_bytes=4).vec == 2
+    assert gn_launch_plan(2, 17, 20, 4, 2).vec == 4  # 20 channels: 8 does not divide them
+    assert gn_launch_plan(2, 17, 20, 4, 4).vec == 4
+    with pytest.raises(ValueError):
+        gn_launch_plan(1, 64, 100, 32, 2)  # 32 groups do not divide 100 channels

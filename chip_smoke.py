@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
-1. env: the card (``nvidia-smi`` name and power limit), torch/CUDA/Triton
+1. env: the card (``nvidia-smi`` name and power limit), torch/CUDA
    versions, and the time to build the CUDA kernels from ``csrc/``.
 2. kernels: every ported kernel against its plain PyTorch version on the card,
    at every distinct shape the main paths launch, recorded from a one-step run
@@ -19,10 +19,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
    and at every K3 shape, K4's domain), CUDA C++, both backward routes
    launched twice (their sums run in a fixed order: the two results must
    agree bit for bit);
-   GroupNorm (K6), CUDA C++ on thread-block clusters, which must queue
-   exactly one device kernel per call (counted by torch.profiler); its
-   backward (K7, which also serves the concat form's backward) and
-   GroupNorm-concat (K8), Triton;
+   GroupNorm (K6), GroupNorm-concat (K8) and their backward (K7, which also
+   serves the concat form's backward), CUDA C++ on thread-block clusters,
+   each of which must queue exactly one device kernel per call (counted by
+   torch.profiler) and, K7 and K8, give the same bits from two launches;
+   their bfloat16 records also hold ``graph_ms``, the device time of a call
+   read from a replayed CUDA graph of 10 calls (the eager ``ms`` of a small
+   call is the wrapper's host time);
    the int8 Adam update (K9), CUDA C++, at each of the 49 parameter shapes of
    the SD-1.5 UNet in the port's layout (conv weights channels_last), from
    seeded non-zero state with step-3 bias corrections, gradient in float32
@@ -145,9 +148,9 @@ TPU_KERNELS = {
                                   ":443 _sbwd_dkv_kernel (K5)"),
     "group_norm": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/group_norm.cu",
                    "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:44"),
-    "group_norm_bwd": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
+    "group_norm_bwd": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/group_norm_bwd.cu",
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:71"),
-    "group_norm_cat": ("triton", "stable_diffusion_pytorch_tpu_torch/ops/groupnorm_triton.py",
+    "group_norm_cat": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/group_norm.cu",
                        "stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py:187"),
     "adam8bit_update": ("cuda", "stable_diffusion_pytorch_tpu_torch/csrc/adam8bit_update.cu",
                         "stable_diffusion_pytorch_tpu/ops/adam8bit_update.py:98 _kernel (pallas_call :188)"),
@@ -156,9 +159,11 @@ TPU_KERNELS = {
 EXPECTED_IMPL = {name: {"float32": "fma", "bfloat16": "wgmma"}
                  for name in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_split")}
 # kernels whose sums run in a fixed order: a second launch on the same inputs must give the same bits
-REPEAT_IDENTICAL = ("flash_attention_bwd", "flash_attention_bwd_split")
-# kernels whose wrapper must queue exactly one device kernel per call
-ONE_LAUNCH = ("group_norm",)
+REPEAT_IDENTICAL = ("flash_attention_bwd", "flash_attention_bwd_split", "group_norm_cat", "group_norm_bwd")
+# kernels whose wrapper must queue exactly one device kernel per call; their
+# bf16 device time is also read from a CUDA graph of calls (``graph_ms``),
+# apart from the host time of an eager call
+ONE_LAUNCH = ("group_norm", "group_norm_cat", "group_norm_bwd")
 SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
 # bf16 training: the attention backward routes to the split set at every kv
 # length (backward_route); f32 keeps the JAX crossover, so the f32 gradient
@@ -233,6 +238,38 @@ def cuda_ms(fn, iters: int = 5, repeats: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 10, repeats: int = 5) -> float:
+    """Device time of one ``fn()``: a CUDA graph of ``calls`` calls (captured
+    after 3 warm-up calls on a side stream), the median over ``repeats``
+    replays of the replay's CUDA-event time over ``calls``. No host work
+    between the kernels, so a small call reads its device time, not the
+    wrapper's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
     return statistics.median(times)
 
 
@@ -332,14 +369,13 @@ def phase_env() -> dict:
     from stable_diffusion_pytorch_tpu_torch.ops import adam8bit_update, flash_attention, fused_groupnorm  # noqa: F401
     from stable_diffusion_pytorch_tpu_torch.ops import native
 
-    triton = native.import_triton()
     t0 = time.perf_counter()
     native.load_library()
     build_s = time.perf_counter() - t0
     info = {
         "phase": "env", "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
         "python": sys.version.split()[0], "torch": torch.__version__, "cuda": torch.version.cuda,
-        "triton": triton.__version__, "cuda_build_s": build_s,
+        "cuda_build_s": build_s,
     }
     emit(info)
     return info
@@ -777,11 +813,13 @@ def phase_kernels(shapes: dict) -> dict:
                 torch.cuda.synchronize()
                 err, rel, *detail = compare(out, ref) if compare else _max_err(out, ref)
                 record.update(detail[0] if detail else {})
-                identical = again is out or all(torch.equal(a, b) for a, b in zip(again, out))
+                identical = again is out or all(torch.equal(a, b) for a, b in zip(_flat([again]), _flat([out])))
                 tol = TOLERANCE[name][dname]
                 del out, ref, again
                 if name in ONE_LAUNCH:
                     record["device_launches"] = device_launches(kernel)
+                    if dname == "bfloat16":
+                        record["graph_ms"] = graph_ms(kernel)
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                 library_ms = None if library is None else cuda_ms(library)
                 bound_ms, bound_by = _bound(flops, nbytes, record.pop("peak", dname))
@@ -799,6 +837,8 @@ def phase_kernels(shapes: dict) -> dict:
                     s["bound_ms_bf16"] += bound_ms
                     s["ops_bound_ms_bf16" if bound_by == "operations" else "bytes_bound_ms_bf16"] += bound_ms
                     s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
+                    if "graph_ms" in record:
+                        s["graph_ms_bf16"] = s.get("graph_ms_bf16", 0.0) + record["graph_ms"]
                 want_impl = EXPECTED_IMPL.get(name, {}).get(dname)
                 if want_impl:
                     s["impl"][dname] = impl
@@ -1272,9 +1312,9 @@ PROFILE_CATEGORIES = [
     ("K4/K5 split attention bwd", ("split_dq_kernel", "split_dkv_kernel", "split_delta_kernel",
                                    "split_dq_wgmma", "split_dkv_wgmma")),
     ("K3 flash attention bwd", ("fused_bwd_wgmma", "dkv_kernel", "delta_kernel", "cast_kernel<")),
-    ("K7 GroupNorm bwd", ("gn_bwd",)),
+    ("K7 GroupNorm bwd", ("gn_bwd_cluster",)),
     ("K6 GroupNorm fwd", ("gn_fwd_cluster",)),
-    ("K8 GroupNorm-concat fwd", ("gn_partial_sums", "gn_finalize", "gn_normalize")),
+    ("K8 GroupNorm-concat fwd", ("gn_cat_cluster",)),
     ("optimizer and accumulation (foreach)", ("multi_tensor_apply", "foreach")),
     ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),

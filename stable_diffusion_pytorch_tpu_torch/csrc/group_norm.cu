@@ -1,11 +1,15 @@
 // GroupNorm(+SiLU) forward for Hopper (sm_90a) in one launch on thread-block
-// clusters, CUDA C++ with a plain C interface.
+// clusters, CUDA C++ with a plain C interface: the plain form (K6) and the
+// concat form (K8), two kernels on one body.
 //
-// Replaces the Pallas TPU kernel stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py
-// `_gn_kernel` (launched from `pallas_group_norm`): y = (x - mean) * rstd *
-// gamma + beta, SiLU optional, over channels-last x [B, S, C] with per-(batch,
-// group) statistics in f32, var = E[x^2] - mean^2 (the JAX kernel's formula),
-// and the statistics written out as f32 [B, G] for the backward (K7).
+// Replaces the Pallas TPU kernels stable_diffusion_pytorch_tpu/ops/fused_groupnorm.py
+// `_gn_kernel` (launched from `pallas_group_norm`; K6) and `_gn_cat_kernel`
+// (from `pallas_group_norm_cat`; K8): y = (x - mean) * rstd * gamma + beta,
+// SiLU optional, over channels-last x [B, S, C] with per-(batch, group)
+// statistics in f32, var = E[x^2] - mean^2 (the JAX kernel's formula), and
+// the statistics written out as f32 [B, G] for the backward (K7). K8's x is
+// the virtual concat of two parts [B, S, C0] and [B, S, C1] along channels,
+// never stored: the output is [B, S, C0 + C1].
 //
 // What bounds it on this card: about 10 FLOPs per element, so bytes; the least
 // it can move is one read of x and one write of y.
@@ -42,51 +46,40 @@
 // cluster sizes; a plan that the card cannot schedule fails the launch, and
 // the wrapper raises.
 //
-// Layout: x and y [B, S, C] contiguous (channels last), gamma and beta f32
-// [C]. The input's row stride `ld_in` and the output's `ld_out` are separate
-// parameters, and the slice's first input channel is computed apart from its
-// first output channel, so that a second input part (the concat form, K8,
-// which still runs its Triton kernels) can be given its own pointer and
-// width without changing the loops.
+// The concat form (K8) runs the same loops: each thread's vector column lies
+// wholly in one part (the plan's vector width divides C0 and C1 and suits
+// both pointers), so the thread picks that part's base pointer and row stride
+// once (`part_col`); the output's row stride is C0 + C1. A group that
+// straddles the parts needs no special case: sums run per channel, then per
+// group, in shared memory. Its kernel has its own name
+// (`gn_cat_cluster_kernel`) so that a profile tells it from K6's.
+//
+// Layout: x (each part) and y contiguous (channels last), gamma and beta f32
+// [C].
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "group_norm_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int GN_NT = 256;    // threads per CTA
-constexpr int GN_SMEM_MAX = 232448;  // shared memory a block can use (227 KB)
+using namespace sd_gn;
+
 constexpr int GN_UNROLL = 8;  // rows a thread loads before it uses any: the loads in flight
-
-__device__ __forceinline__ float raw_to_f32(uint16_t u) { return __uint_as_float(uint32_t(u) << 16); }
-__device__ __forceinline__ float raw_to_f32(uint32_t u) { return __uint_as_float(u); }
-template <typename RAW> __device__ __forceinline__ RAW f32_to_raw(float x);
-template <> __device__ __forceinline__ uint16_t f32_to_raw<uint16_t>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-template <> __device__ __forceinline__ uint32_t f32_to_raw<uint32_t>(float x) { return __float_as_uint(x); }
-
-// VEC elements of one row, loaded and stored as one access of up to 16 bytes
-template <typename RAW, int VEC>
-struct alignas(sizeof(RAW) * VEC) Pack {
-  RAW v[VEC];
-};
 
 // Grid (cluster, n_slices, B), cluster (cluster, 1, 1): blockIdx.x is the
 // CTA's rank in its cluster, blockIdx.y the slice, blockIdx.z the batch
-// element. RAW is the element's bits (uint16_t bf16, uint32_t f32).
-template <typename RAW, int VEC>
-__global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
-    const RAW* __restrict__ x, RAW* __restrict__ y, float* __restrict__ mean_out,
-    float* __restrict__ rstd_out, const float* __restrict__ gamma, const float* __restrict__ beta,
-    int S, int ld_in, int ld_out, int G, int cpg, int gps, int rows_per_cta, int resident,
+// element. RAW is the element's bits (uint16_t bf16, uint32_t f32). TWO: x is
+// the concat of the parts x0 [B, S, c0] and x1 [B, S, c1]; else x0 [B, S, c0].
+template <typename RAW, int VEC, bool TWO>
+__device__ __forceinline__ void gn_fwd_body(
+    const RAW* __restrict__ x0, const RAW* __restrict__ x1, int c0, int c1, RAW* __restrict__ y,
+    float* __restrict__ mean_out, float* __restrict__ rstd_out, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int S, int G, int cpg, int gps, int rows_per_cta, int resident,
     int silu, float eps) {
   using P = Pack<RAW, VEC>;
   cg::cluster_group cluster = cg::this_cluster();
+  const int ld_out = c0 + c1;
   const int W = gps * cpg;  // slice channels
   const int V = W / VEC;    // vectors per row
   const int RP = GN_NT / V; // rows in flight per pass of the CTA (plan: V <= GN_NT)
@@ -99,9 +92,9 @@ __global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
   const int b = blockIdx.z;
   const int r0 = rank * rows_per_cta;
   const int r1 = min(S, r0 + rows_per_cta);
-  const int g0 = slice * gps;           // the slice's first group
-  const int c_in = g0 * cpg + vc * VEC;  // this thread's first input channel
-  const int c_out = g0 * cpg + vc * VEC;
+  const int g0 = slice * gps;             // the slice's first group
+  const int c_out = g0 * cpg + vc * VEC;  // this thread's first channel of the (concat) map
+  const PartCol<const RAW> in = part_col<TWO>(x0, x1, c0, c1, c_out);
 
   extern __shared__ __align__(16) uint8_t smem_gn[];
   // [resident rows x W] RAW, then red_s, red_q [RP][W] f32, part [2][gps], stats [2][gps]
@@ -112,7 +105,7 @@ __global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
   float* part = red_q + RP * W;   // [sum gps][sum of squares gps] of this CTA
   float* stats = part + 2 * gps;  // [mean gps][rstd gps] of the cluster
 
-  const RAW* xb = x + int64_t(b) * S * ld_in;
+  const RAW* xb = in.base + int64_t(b) * S * in.ld + in.col;
   RAW* yb = y + int64_t(b) * S * ld_out;
 
   // pass 1: per-channel sums of x and x^2 over this thread's rows, in row order
@@ -125,7 +118,7 @@ __global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
       P p[GN_UNROLL];
 #pragma unroll
       for (int u = 0; u < GN_UNROLL; ++u)
-        if (r + u * RP < r1) p[u] = *reinterpret_cast<const P*>(xb + int64_t(r + u * RP) * ld_in + c_in);
+        if (r + u * RP < r1) p[u] = *reinterpret_cast<const P*>(xb + int64_t(r + u * RP) * in.ld);
 #pragma unroll
       for (int u = 0; u < GN_UNROLL; ++u) {
         if (r + u * RP >= r1) break;
@@ -206,7 +199,7 @@ __global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
     for (int u = 0; u < GN_UNROLL; ++u)
       if (r + u * RP < r1)
         p[u] = resident ? *reinterpret_cast<const P*>(buf + (r + u * RP - r0) * W + vc * VEC)
-                        : *reinterpret_cast<const P*>(xb + int64_t(r + u * RP) * ld_in + c_in);
+                        : *reinterpret_cast<const P*>(xb + int64_t(r + u * RP) * in.ld);
 #pragma unroll
     for (int u = 0; u < GN_UNROLL; ++u) {
       if (r + u * RP >= r1) break;
@@ -222,36 +215,47 @@ __global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
   }
 }
 
+// K6: GroupNorm of x [B, S, C]
 template <typename RAW, int VEC>
-int launch_gn(const void* x, void* y, float* mean, float* rstd, const float* gamma,
-              const float* beta, int B, int S, int C, int G, int gps, int cluster,
-              int rows_per_cta, int resident, size_t smem, int silu, float eps,
+__global__ void __launch_bounds__(GN_NT) gn_fwd_cluster_kernel(
+    const RAW* __restrict__ x, RAW* __restrict__ y, float* __restrict__ mean_out,
+    float* __restrict__ rstd_out, const float* __restrict__ gamma, const float* __restrict__ beta,
+    int S, int C, int G, int cpg, int gps, int rows_per_cta, int resident, int silu, float eps) {
+  gn_fwd_body<RAW, VEC, false>(x, x, C, 0, y, mean_out, rstd_out, gamma, beta, S, G, cpg, gps,
+                               rows_per_cta, resident, silu, eps);
+}
+
+// K8: GroupNorm of the virtual concat(x0 [B, S, c0], x1 [B, S, c1]) into y [B, S, c0 + c1]
+template <typename RAW, int VEC>
+__global__ void __launch_bounds__(GN_NT) gn_cat_cluster_kernel(
+    const RAW* __restrict__ x0, const RAW* __restrict__ x1, int c0, int c1, RAW* __restrict__ y,
+    float* __restrict__ mean_out, float* __restrict__ rstd_out, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int S, int G, int cpg, int gps, int rows_per_cta, int resident,
+    int silu, float eps) {
+  gn_fwd_body<RAW, VEC, true>(x0, x1, c0, c1, y, mean_out, rstd_out, gamma, beta, S, G, cpg, gps,
+                              rows_per_cta, resident, silu, eps);
+}
+
+template <typename RAW, int VEC>
+int launch_gn(const void* x0, const void* x1, void* y, float* mean, float* rstd,
+              const float* gamma, const float* beta, int B, int S, int c0, int c1, int G, int gps,
+              int cluster, int rows_per_cta, int resident, size_t smem, int silu, float eps,
               cudaStream_t stream) {
-  auto kernel = gn_fwd_cluster_kernel<RAW, VEC>;
-  static bool configured = false;  // once per instantiation: it sits on every call's host path
-  cudaError_t err;
-  if (!configured) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return int(err);
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GN_SMEM_MAX);
-    if (err != cudaSuccess) return int(err);
-    configured = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, G / gps, B);
-  cfg.blockDim = dim3(GN_NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const RAW*>(x), static_cast<RAW*>(y), mean,
-                           rstd, gamma, beta, S, C, C, G, C / G, gps, rows_per_cta, resident,
-                           silu, eps);
+  static bool configured_k6 = false, configured_k8 = false;
+  cudaError_t err = c1 ? configure_once(gn_cat_cluster_kernel<RAW, VEC>, configured_k8)
+                       : configure_once(gn_fwd_cluster_kernel<RAW, VEC>, configured_k6);
+  if (err != cudaSuccess) return int(err);
+  ClusterLaunch launch(cluster, G / gps, B, smem, stream);
+  const int cpg = (c0 + c1) / G;
+  const RAW* p0 = static_cast<const RAW*>(x0);
+  RAW* out = static_cast<RAW*>(y);
+  if (c1)
+    err = cudaLaunchKernelEx(&launch.cfg, gn_cat_cluster_kernel<RAW, VEC>, p0, static_cast<const RAW*>(x1),
+                             c0, c1, out, mean, rstd, gamma, beta, S, G, cpg, gps, rows_per_cta,
+                             resident, silu, eps);
+  else
+    err = cudaLaunchKernelEx(&launch.cfg, gn_fwd_cluster_kernel<RAW, VEC>, p0, out, mean, rstd, gamma,
+                             beta, S, c0, G, cpg, gps, rows_per_cta, resident, silu, eps);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
@@ -260,29 +264,33 @@ int launch_gn(const void* x, void* y, float* mean, float* rstd, const float* gam
 
 extern "C" {
 
-// GroupNorm(+SiLU) of x [B, S, C] (dtype 0 = float32, 1 = bfloat16) into y,
-// with mean and rstd f32 [B, G], gamma/beta f32 [C]; the launch plan (groups
-// per slice, cluster size, rows per CTA, vector width in elements, whether
-// the rows stay in shared memory, and the dynamic shared memory in bytes)
-// comes from `gn_launch_plan` in ops/fused_groupnorm.py. Returns the first
-// nonzero CUDA error code, 0 on success.
-int sd_group_norm_forward(int dtype, const void* x, void* y, void* mean, void* rstd,
-                          const void* gamma, const void* beta, int B, int S, int C, int G,
-                          int gps, int cluster, int rows_per_cta, int vec, int resident,
-                          long long smem, int silu, float eps, void* stream) {
-  if (B <= 0 || S <= 0 || C <= 0 || G <= 0 || C % G || G % gps || cluster < 1 || cluster > 16 ||
-      B > 65535 || G / gps > 65535 || rows_per_cta <= 0 || (gps * (C / G)) % vec ||
-      (gps * (C / G)) / vec > GN_NT || smem > GN_SMEM_MAX)
+// GroupNorm(+SiLU) of x0 [B, S, C0] (K6; x1 null, C1 = 0) or of the concat of
+// x0 and x1 [B, S, C1] along channels (K8) (dtype 0 = float32, 1 = bfloat16)
+// into y [B, S, C0 + C1], with mean and rstd f32 [B, G], gamma/beta f32
+// [C0 + C1]; the launch plan (groups per slice, cluster size, rows per CTA,
+// vector width in elements, whether the rows stay in shared memory, and the
+// dynamic shared memory in bytes) comes from `gn_launch_plan` in
+// ops/fused_groupnorm.py. Returns the first nonzero CUDA error code, 0 on
+// success.
+int sd_group_norm_forward(int dtype, const void* x0, const void* x1, void* y, void* mean,
+                          void* rstd, const void* gamma, const void* beta, int B, int S, int C0,
+                          int C1, int G, int gps, int cluster, int rows_per_cta, int vec,
+                          int resident, long long smem, int silu, float eps, void* stream) {
+  const int C = C0 + C1;
+  if (B <= 0 || S <= 0 || C0 <= 0 || C1 < 0 || (C1 > 0) != (x1 != nullptr) || G <= 0 || C % G ||
+      G % gps || cluster < 1 || cluster > 16 || B > 65535 || G / gps > 65535 || rows_per_cta <= 0 ||
+      vec <= 0 || C0 % vec || C1 % vec || (gps * (C / G)) % vec || (gps * (C / G)) / vec > GN_NT ||
+      smem > GN_SMEM_MAX)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mean);
   float* r = static_cast<float*>(rstd);
   const float* w = static_cast<const float*>(gamma);
   const float* bb = static_cast<const float*>(beta);
-#define SD_GN_CASE(RAW, V)                                                                      \
-  if (vec == V)                                                                                 \
-    return launch_gn<RAW, V>(x, y, m, r, w, bb, B, S, C, G, gps, cluster, rows_per_cta, resident, \
-                             size_t(smem), silu, eps, s);
+#define SD_GN_CASE(RAW, V)                                                                         \
+  if (vec == V)                                                                                    \
+    return launch_gn<RAW, V>(x0, x1, y, m, r, w, bb, B, S, C0, C1, G, gps, cluster, rows_per_cta,  \
+                             resident, size_t(smem), silu, eps, s);
   if (dtype == 1) {
     SD_GN_CASE(uint16_t, 8) SD_GN_CASE(uint16_t, 4) SD_GN_CASE(uint16_t, 2) SD_GN_CASE(uint16_t, 1)
   } else if (dtype == 0) {

@@ -4,8 +4,8 @@ The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use (never at import), from the sources in the checkout, into ``build/``
-at the repository root, keyed by a hash of the sources so an edit rebuilds. Triton's kernel cache goes under ``build/`` too. Nothing here falls
-back: a missing ``nvcc`` or a failed build raises.
+at the repository root, keyed by a hash of the sources so an edit rebuilds.
+Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,20 +23,11 @@ from typing import Dict, Optional, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-TRITON_CACHE_DIR = BUILD_DIR / "triton"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 ]
-
-
-def import_triton():
-    """Import triton with its kernel cache under ``build/`` (not ``$HOME``)."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
-    import triton
-
-    return triton
 
 
 class LaunchCounter:
@@ -101,7 +92,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [i] + [p] * 10 + [i] * 5 + [ctypes.POINTER(ll), f, p, ctypes.POINTER(i)]
     fn.restype = ctypes.c_int
     fn = lib.sd_group_norm_forward
-    fn.argtypes = [i] + [p] * 6 + [i] * 9 + [ll, i, f, p]
+    fn.argtypes = [i] + [p] * 7 + [i] * 10 + [ll, i, f, p]
+    fn.restype = ctypes.c_int
+    fn = lib.sd_group_norm_backward
+    fn.argtypes = [i] + [p] * 13 + [i] * 10 + [ll, i, p]
     fn.restype = ctypes.c_int
     fn = lib.sd_adam8bit_update
     fn.argtypes = [i] + [p] * 10 + [ll, i, i] + [f] * 7 + [p]

@@ -22,8 +22,7 @@ TINY = (
     "--autoencoder-channels-list 16,32 --groups 8 --noise-steps 50 --device cpu"
 ).split()
 
-# Blocks jax and flax, imports every module of the port (the Triton kernel
-# module needs triton, which only the CUDA path imports), runs the CLI.
+# Blocks jax and flax, imports every module of the port, runs the CLI.
 _NO_JAX = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -32,8 +31,7 @@ import torch
 torch.set_num_threads(2)
 import stable_diffusion_pytorch_tpu_torch as pkg
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    if not info.name.endswith("groupnorm_triton"):
-        importlib.import_module(info.name)
+    importlib.import_module(info.name)
 from stable_diffusion_pytorch_tpu_torch.scripts.txt2img import main
 main(sys.argv[1:])
 assert not any(m == "jax" or m.startswith(("jax.", "flax")) for m in sys.modules if sys.modules[m] is not None)

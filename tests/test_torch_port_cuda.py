@@ -16,8 +16,9 @@ order) and the split set (K4/K5), sum in a fixed order and are also held to
 bit-identical results from two launches; in bf16 their delta is the stats
 pass's f32 sum of P * dP, so correlated inputs whose keys share a large
 component (dO = Q, V = K) are held to the plain version too. GroupNorm's
-forward (K6) is one launch per call, on the resident and the streaming plan
-(``gn_launch_plan``). The int8 Adam
+forward (K6), its concat form (K8) and its backward (K7) are each one device
+kernel per call, on resident and streaming plans (``gn_launch_plan``); K7
+and K8 also give the same bits from two launches. The int8 Adam
 update (K9) repeats its plain version's IEEE operations in the same order:
 updates at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp (rtol 2^-8)
 in bf16, at most one code in 10^4 one step apart (a value on a rounding
@@ -32,6 +33,8 @@ to their rounding model (``tests/torch_attention_bf16_model.py``) within
 the bf16 forward is held to 1e-3 absolute (base-2 units): f32 sums of bf16
 products in another order.
 """
+
+import functools
 
 import pytest
 
@@ -54,9 +57,11 @@ from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E4
     flash_attention_plain,
 )
 from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E402
+    _forward,
     fused_group_norm,
     fused_group_norm_cat,
     gn_launch_plan,
+    group_norm_bwd,
     group_norm_bwd_plain,
 )
 from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import (  # noqa: E402
@@ -287,11 +292,16 @@ def test_flash_attention_function_gradients(cuda):
 def test_group_norm_bwd_matches_plain(cuda, dtype):
     """K7 through the Functions (single and concat, straddling group) against
     the plain backward, and the concat's gradients against autograd through
-    the plain concat forward."""
+    the plain concat forward, on resident plans and a streaming one (x and dy
+    read twice); two launches on the same inputs give the same bits."""
     dt = getattr(torch, dtype)
+    elem = torch.empty((), dtype=dt).element_size()
     g = torch.Generator(device=cuda).manual_seed(5)
-    for shape, groups in [((2, 64, 960), 32), ((1, 8, 8, 128), 32), ((2, 17, 40), 8)]:
+    kinds = set()
+    for shape, groups in [((2, 64, 960), 32), ((1, 8, 8, 128), 32), ((2, 17, 40), 8), ((1, 70000, 64), 32)]:
         c = shape[-1]
+        rows = shape[1] * (shape[2] if len(shape) == 4 else 1)
+        kinds.add(gn_launch_plan(shape[0], rows, c, groups, elem, inputs=2).resident)
         x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.5).to(dt)
         w, bias = 1 + 0.3 * torch.randn(c, device=cuda, generator=g), 0.3 * torch.randn(c, device=cuda, generator=g)
         dy = torch.randn(*shape, device=cuda, generator=g).to(dt)
@@ -309,6 +319,12 @@ def test_group_norm_bwd_matches_plain(cuda, dtype):
             xla_group_norm_cat(*refs, groups, 1e-5, silu).backward(dy.float())
             for t, ref in zip(leaves, refs):
                 assert _rel_err(t.grad, ref.grad) <= BWD_TOL[dtype][1], (shape, silu, "cat")
+            for ps in ([x], parts):
+                _, mean, rstd = _forward(ps[0], ps[1] if len(ps) > 1 else None, w, bias, groups, 1e-5, silu)
+                first = group_norm_bwd(ps, dy, w, bias, mean, rstd, groups, 1e-5, silu)
+                again = group_norm_bwd(ps, dy, w, bias, mean, rstd, groups, 1e-5, silu)
+                assert all(torch.equal(a, b) for a, b in zip((*first[0], *first[1:]), (*again[0], *again[1:])))
+    assert kinds == {True, False}, kinds
 
 
 def test_cuda_tensors_count_launches_and_reject_bad_input(cuda):
@@ -494,11 +510,13 @@ def _device_kernels(fn, attempts=4):
     """{kernel name: launches} of the device work ``fn()`` queues, by
     torch.profiler: the fullest of up to ``attempts`` profiles (a profile
     now and then misses a kernel and never adds one), stopping at the first
-    that saw any."""
+    that saw any. The wrappers' launch counts are set to 0 before each
+    attempt, so they count the calls of the profile kept."""
     from torch.profiler import ProfilerActivity, profile
 
     best = {}
     for _ in range(attempts):
+        native.reset_counters()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
@@ -534,3 +552,49 @@ def test_group_norm_is_one_cluster_launch(cuda, dtype):
             assert next(iter(kernels.values())) == 1 and native.COUNTERS["group_norm"].count == 1
             out = fused_group_norm(x, w, bias, groups, 1e-5, silu)
             assert _rel_err(out, xla_group_norm(x, w, bias, groups, 1e-5, silu)) <= TOL[dtype][1], (shape, silu)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_cat_and_bwd_are_one_cluster_launch(cuda, dtype):
+    """K8 (the concat forward) and K7 (the backward, of one part and of two)
+    against their plain versions on resident and streaming plans, with groups
+    that straddle the parts (1280 + 640 in 32 groups: group 21 spans channels
+    1260-1319); each call is one device kernel of its own name, and a repeat
+    gives the same bits."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(70)
+    elem = torch.empty((), dtype=dt).element_size()
+    kinds = {"cat": set(), "bwd": set()}
+    for b, rows, c1, c2, groups in [(2, 1024, 640, 320, 32), (2, 64, 1280, 640, 32), (1, 300000, 32, 32, 32),
+                                    (1, 4096, 640, 320, 32), (3, 35, 26, 14, 8)]:
+        c = c1 + c2
+        kinds["cat"].add(gn_launch_plan(b, rows, c, groups, elem, split=c1).resident)
+        kinds["bwd"].add(gn_launch_plan(b, rows, c, groups, elem, split=c1, inputs=2).resident)
+        x = (torch.randn(b, rows, c1, device=cuda, generator=g) * 2 + 0.5).to(dt)
+        s = (torch.randn(b, rows, c2, device=cuda, generator=g) * 3 - 1.0).to(dt)
+        w, bias = 1 + 0.3 * torch.randn(c, device=cuda, generator=g), 0.3 * torch.randn(c, device=cuda, generator=g)
+        dy = torch.randn(b, rows, c, device=cuda, generator=g).to(dt)
+        for silu in (False, True):
+            where = (b, rows, c1, c2, groups, silu)
+            out = fused_group_norm_cat(x, s, w, bias, groups, 1e-5, silu)
+            assert torch.equal(out, fused_group_norm_cat(x, s, w, bias, groups, 1e-5, silu)), where
+            ref = xla_group_norm_cat(x, s, w, bias, groups, 1e-5, silu)
+            assert _rel_err(out, ref) <= TOL[dtype][1], where
+            native.reset_counters()
+            kernels = _device_kernels(lambda: fused_group_norm_cat(x, s, w, bias, groups, 1e-5, silu))
+            assert len(kernels) == 1 and "gn_cat_cluster" in next(iter(kernels)), kernels
+            assert next(iter(kernels.values())) == 1 and native.COUNTERS["group_norm_cat"].count == 1
+            for parts in ([x, s], [torch.cat([x, s], dim=-1)]):
+                _, mean, rstd = _forward(parts[0], parts[1] if len(parts) > 1 else None, w, bias, groups, 1e-5, silu)
+                call = functools.partial(group_norm_bwd, parts, dy, w, bias, mean, rstd, groups, 1e-5, silu)
+                got, again = call(), call()
+                flat = (*got[0], *got[1:])
+                assert all(torch.equal(a, b) for a, b in zip(flat, (*again[0], *again[1:]))), where
+                want = group_norm_bwd_plain(parts, dy, w, bias, groups, 1e-5, silu)
+                for o, r in zip(flat, (*want[0], *want[1:])):
+                    assert _rel_err(o, r) <= BWD_TOL[dtype][1], (where, len(parts))
+                native.reset_counters()
+                kernels = _device_kernels(call)
+                assert len(kernels) == 1 and "gn_bwd_cluster" in next(iter(kernels)), kernels
+                assert next(iter(kernels.values())) == 1 and native.COUNTERS["group_norm_bwd"].count == 1
+    assert kinds == {"cat": {True, False}, "bwd": {True, False}}, kinds

@@ -1,12 +1,14 @@
-"""K6's launch plan (``ops/fused_groupnorm.py:gn_launch_plan``) over every
-GroupNorm shape of the SD-1.5 UNet and VAE at 512px and 1024px.
+"""The launch plan (``ops/fused_groupnorm.py:gn_launch_plan``) of K6, K8 (the
+concat form) and K7 (the backward) over every GroupNorm shape of the SD-1.5
+UNet and VAE at 512px and 1024px.
 
-The plan is a pure function of the shape; the kernel (``csrc/group_norm.cu``)
-runs only on the card. The shapes here are a superset of the model's: every
-channel count a GroupNorm of the UNet sees (its levels' widths and the up
-path's concatenations) at every UNet level, and the VAE's widths at every
-VAE level, at the sampling batches (1, 2 with CFG) and the training ones (4,
-16), in bfloat16 and float32. No jax needed.
+The plan is a pure function of the shape; the kernels (``csrc/group_norm.cu``,
+``csrc/group_norm_bwd.cu``) run only on the card. The shapes here are a
+superset of the model's: every channel count a GroupNorm of the UNet sees (its
+levels' widths and the up path's concatenations) at every UNet level, and the
+VAE's widths at every VAE level, at the sampling batches (1, 2 with CFG) and
+the training ones (4, 16), in bfloat16 and float32; the concat form and the
+backward over the up path's part widths. No jax needed.
 """
 
 import math
@@ -16,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E402
+    GN_BWD_MAX_VECS,
     GN_FILL_CTAS,
     GN_MAX_CLUSTER,
     GN_MIN_ROWS,
@@ -28,6 +31,9 @@ from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import (  # noqa: E4
 GROUPS = 32
 UNET_CHANNELS = (320, 640, 960, 1280, 1920, 2560)
 VAE_CHANNELS = (128, 256, 512)
+# the up path's skip concatenations (current, skip): 1280 + 640 and 640 + 320
+# in 32 groups have a group across the boundary (channels 1260-1319, 630-659)
+CONCAT_PARTS = ((1280, 1280), (1280, 640), (640, 640), (640, 320), (320, 320))
 
 
 def sd15_group_norm_shapes():
@@ -96,3 +102,53 @@ def test_plan_narrows_the_vector_to_the_alignment_and_the_channels():
     assert gn_launch_plan(2, 17, 20, 4, 4).vec == 4
     with pytest.raises(ValueError):
         gn_launch_plan(1, 64, 100, 32, 2)  # 32 groups do not divide 100 channels
+
+
+def sd15_concat_shapes():
+    """(rows, C0, C1) of the SD-1.5 UNet's concat GroupNorms at 512px and 1024px."""
+    return sorted({((image // 8 >> level) ** 2, c0, c1)
+                   for image in (512, 1024) for level in range(4) for c0, c1 in CONCAT_PARTS})
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4, 16])
+@pytest.mark.parametrize("kind", ["cat", "bwd_cat", "bwd"])
+def test_concat_and_backward_plans_over_the_model_shapes(kind, batch, elem):
+    """K8's plan (two parts) and K7's (x and dy in shared memory together; one
+    part or two): the vector divides both parts, so every vector column lies
+    in one part; a group across the boundary stays whole within its slice;
+    the backward's slices stay narrow where the groups allow; the resident
+    budget holds both inputs; clusters of at most 16 CTAs, none empty; shared
+    memory within a block's 227 KB."""
+    inputs = 1 if kind == "cat" else 2
+    shapes = [(r, c, 0) for r, c in sd15_group_norm_shapes()] if kind == "bwd" else sd15_concat_shapes()
+    for rows, c0, c1 in shapes:
+        c = c0 + c1
+        p = gn_launch_plan(batch, rows, c, GROUPS, elem, 16, c0 if c1 else 0, inputs)
+        cpg = c // GROUPS
+        width = p.groups_per_slice * cpg
+        where = (kind, batch, rows, c0, c1, elem, p)
+        assert c0 % p.vec == 0 and c1 % p.vec == 0 and p.vec * elem <= 16, where
+        if c1:
+            firsts = range(0, c, p.vec)  # every vector column of every slice
+            assert all((cc < c0) == (cc + p.vec - 1 < c0) for cc in firsts), where
+            if c0 % cpg:
+                g = c0 // cpg  # the group across the boundary
+                assert g * cpg // width == ((g + 1) * cpg - 1) // width, where
+        assert p.groups_per_slice * p.n_slices == GROUPS and width // p.vec <= GN_THREADS, where
+        if inputs == 2 and any(GROUPS % g == 0 and (g * cpg) % p.vec == 0 and g * cpg // p.vec <= GN_BWD_MAX_VECS
+                               for g in range(1, GROUPS + 1)):
+            assert width // p.vec <= GN_BWD_MAX_VECS, where
+        assert 1 <= p.cluster <= GN_MAX_CLUSTER, where
+        assert p.cluster * p.rows_per_cta >= rows > (p.cluster - 1) * p.rows_per_cta, where
+        assert p.smem <= GN_SMEM_MAX, where
+        assert p.resident == (inputs * p.rows_per_cta * width * elem <= GN_RESIDENT_BYTES), where
+
+
+def test_plan_fills_the_resident_budget_exactly():
+    """A cluster is sized by the rows a CTA can hold, so a map that fits in
+    shared memory at the largest cluster is not streamed for a rounding: the
+    1920-channel concat at 32x32 (batch 16), forward and backward."""
+    for inputs in (1, 2):
+        p = gn_launch_plan(16, 1024, 1920, GROUPS, 2, 16, 1280, inputs)
+        assert p.resident and p.rows_per_cta * p.groups_per_slice * 60 * 2 * inputs <= GN_RESIDENT_BYTES, p

@@ -97,8 +97,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.sd_group_norm_backward
     fn.argtypes = [i] + [p] * 13 + [i] * 10 + [ll, i, p]
     fn.restype = ctypes.c_int
-    fn = lib.sd_adam8bit_update
-    fn.argtypes = [i] + [p] * 10 + [ll, i, i] + [f] * 7 + [p]
+    fn = lib.sd_adam8bit_step
+    fn.argtypes = [i, p, p, ll, p, p, p] + [f] * 7 + [i, p]
     fn.restype = ctypes.c_int
 
 

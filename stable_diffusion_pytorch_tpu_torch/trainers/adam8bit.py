@@ -4,15 +4,16 @@
 first moment is stored as int8 codes of ``mu`` and the second as int8 codes of
 ``sqrt(nu)``, each with f32 absmax scales per block of ``block_size`` (256)
 along the parameter's output channel; the update math is f32. The codes, the
-blocked layout and the leaf update are in ``ops/adam8bit_update.py``
-(:func:`quantize`, :func:`dequantize`, and K9, the CUDA kernel the update
-launches for every leaf on the card).
+blocked layout and the step are in ``ops/adam8bit_update.py``
+(:func:`quantize`, :func:`dequantize`, and K9, the CUDA kernel that runs the
+whole optimizer step on the card in one launch).
 
 :class:`AdamW8bit` composes as the JAX chain does (``trainers/optim.py``
 ``build_optimizer``): ``fused_accumulate(as_fused_apply(chain(
 clip_by_global_norm(c), scale_by_adam_8bit, add_decayed_weights(wd),
 scale_by_learning_rate(lr))), k, acc_dtype)``, and without accumulation the
-chain alone. Per leaf, in this order:
+chain alone. Per leaf, in this order (on the card all of it inside K9, one
+launch over every leaf, the state and the parameters updated in place):
 
 - the clip, ``optax.clip_by_global_norm``'s own order (optax 0.2.6):
   ``g`` when ``||g|| < c``, else ``(g / ||g||) * c``, in the gradient's dtype
@@ -22,7 +23,7 @@ chain alone. Per leaf, in this order:
   dtype and the requantized moments;
 - ``u + wd * p``, times ``-lr``, added to ``p`` (``apply_updates``), in f32.
 
-The parameter apply is not fused into K9 yet. The accumulation is shared with
+On the card the update itself never reaches device memory. The accumulation is shared with
 :class:`~stable_diffusion_pytorch_tpu_torch.trainers.optim.AdamW`
 (:class:`~stable_diffusion_pytorch_tpu_torch.trainers.optim.Accumulating`).
 The ZeRO-sharded use of the kernel (per shard) is not ported.
@@ -34,7 +35,7 @@ from typing import Dict, List
 
 import torch
 
-from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import adam8bit_update, zeros_state
+from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import Adam8bitStep, zeros_state
 from stable_diffusion_pytorch_tpu_torch.trainers.optim import Accumulating
 
 
@@ -43,28 +44,20 @@ class AdamW8bit(Accumulating):
 
     State: ``count``, and per parameter ``mu`` and ``nu`` as (int8 codes in
     the parameter's shape, f32 scales ``[nb, *shape[1:]]``); ``nu`` holds
-    ``sqrt(nu)``. ``step`` replaces the code and scale tensors of each leaf."""
+    ``sqrt(nu)``. ``step`` updates the code and scale tensors in place, so
+    their pointers, and the kernel's leaf table (built here on CUDA
+    parameters), stay as they are."""
 
     def __init__(self, params: List[torch.Tensor], schedule, block_size: int = 256, **kw):
         super().__init__(params, schedule, **kw)
         self.block_size = block_size
         self.mu = [zeros_state(p, block_size) for p in self.params]
         self.nu = [zeros_state(p, block_size) for p in self.params]
+        self._step = Adam8bitStep(self.params, self.mu, self.nu, block_size)
 
     def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
         count_inc, bc1, bc2, lr = self._scalars()
-        if self.max_grad_norm is not None:
-            c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
-            keep = norm < c
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            if self.max_grad_norm is not None:
-                g = torch.where(keep, g, (g / norm.to(g.dtype)) * c.to(g.dtype))
-            upd, self.mu[i], self.nu[i] = adam8bit_update(
-                g, self.mu[i], self.nu[i], bc1, bc2, self.b1, self.b2, self.eps, self.block_size)
-            t = p * self.weight_decay  # add_decayed_weights: u + wd * p, in f32
-            t.add_(upd)
-            t.mul_(-lr)  # scale_by_learning_rate
-            p.add_(t)  # apply_updates
+        self._step(grads, norm, bc1, bc2, lr, self.b1, self.b2, self.eps, self.weight_decay, self.max_grad_norm)
         self.count = count_inc
 
     def layout(self) -> Dict:

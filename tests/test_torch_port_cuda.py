@@ -20,9 +20,12 @@ forward (K6), its concat form (K8) and its backward (K7) are each one device
 kernel per call, on resident and streaming plans (``gn_launch_plan``); K7
 and K8 also give the same bits from two launches. The int8 Adam
 update (K9) repeats its plain version's IEEE operations in the same order:
-updates at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp (rtol 2^-8)
-in bf16, at most one code in 10^4 one step apart (a value on a rounding
-boundary), dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere.
+one leaf's update at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp
+(rtol 2^-8) in bf16, at most one code in 10^4 one step apart (a value on a
+rounding boundary), dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere;
+the whole step (clip, K9 and apply in one launch over every leaf) gives
+``adam8bit_step_plain``'s parameters, codes and scales bit for bit, with one
+device kernel per step.
 
 bfloat16 attention runs on the tensor-core (wgmma) kernels and float32 on the
 FMA kernels; the bf16 tests check which one each launch reports and hold the
@@ -42,6 +45,9 @@ torch = pytest.importorskip("torch")
 
 from stable_diffusion_pytorch_tpu_torch.ops import native  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import (  # noqa: E402
+    Adam8bitStep,
+    adam8bit_plan,
+    adam8bit_step_plain,
     adam8bit_update,
     adam8bit_update_plain,
     dequantize,
@@ -417,7 +423,8 @@ def test_adam8bit_update_matches_plain(cuda, dtype):
 def test_lean_train_step_on_cuda_runs_k9_per_leaf(cuda):
     """A tiny UNet accumulated over 2 micro steps with int8 Adam, a bf16
     accumulator and conv-save remat on the card: finite loss, every parameter
-    updated, K9 launched once per leaf, the UNet kernels launched."""
+    updated, K9 launched once for the optimizer step (every leaf, the clip
+    and the apply in the launch), the UNet kernels launched."""
     from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, DDPMConfig, UnetConfig
     from stable_diffusion_pytorch_tpu_torch.models.build import build_models
     from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit
@@ -452,9 +459,100 @@ def test_lean_train_step_on_cuda_runs_k9_per_leaf(cuda):
     unchanged = [n for (n, _), a, b in zip(model.unet.named_parameters(), before, params) if torch.equal(a, b)]
     assert not unchanged, unchanged
     counts = {k: c.count for k, c in native.COUNTERS.items()}
-    assert counts["adam8bit_update"] == len(params), counts
+    assert counts["adam8bit_update"] == 1, counts
     assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd_split", "group_norm",
                                        "group_norm_bwd", "group_norm_cat")), counts
+
+
+# leaves of every kind of work item (adam8bit_plan): 1-D on the row mapping
+# (one sub-blocked, one tall block), column runs of 32, 16, 8 and 512 columns
+# (a channels_last conv among them; 33 columns end in a run of one), and two
+# blocks too tall to hold, which recompute (a 2-D leaf and a 1-D one)
+ADAM_STEP_SHAPES = [(1280,), (960,), (1280, 40), (320, 64, 3, 3), (640, 96), (4, 320, 3, 3), (640, 33), (2000, 64),
+                    (9000,)]
+
+
+def _adam_step_leaves(dev, dtype, seed):
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    params, grads, mu, nu = [], [], [], []
+    for shape in ADAM_STEP_SHAPES:
+        fmt = torch.channels_last if len(shape) == 4 else torch.contiguous_format
+
+        def t(scale):
+            return (torch.randn(shape, device=dev, generator=g_) * scale).contiguous(memory_format=fmt)
+
+        params.append(t(0.3))
+        grads.append(t(0.02).to(dtype).contiguous(memory_format=fmt))
+        for store, x in ((mu, t(0.01)), (nu, t(1e-4).abs().sqrt())):
+            q, sc = quantize(x, 256)
+            store.append((q.contiguous(memory_format=fmt), sc.contiguous(memory_format=fmt)))
+    return params, grads, mu, nu
+
+
+def _copies(params, mu, nu):
+    return [p.clone() for p in params], [tuple(x.clone() for x in m) for m in mu], [tuple(x.clone() for x in n)
+                                                                                    for n in nu]
+
+
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adam8bit_step_matches_plain_bit_for_bit(cuda, dtype, clip):
+    """The fused step (clip, K9, apply; one launch) against adam8bit_step_plain
+    on the card, from non-zero state at step 3, twice in a row: parameters,
+    codes and scales equal bit for bit, one device kernel a step."""
+    from stable_diffusion_pytorch_tpu_torch.trainers.optim import global_norm
+
+    params, grads, mu, nu = _adam_step_leaves(cuda, getattr(torch, dtype), 3)
+    plan = adam8bit_plan([p.shape for p in params], 256)
+    assert {leaf.one_pass for leaf in plan.leaves} == {True, False}
+    norm = global_norm(grads)
+    max_norm = float(norm) * (0.5 if clip else 2.0)
+    bc = [(float(torch.tensor(1 - b1 ** k)), float(torch.tensor(1 - 0.999 ** k))) for b1, k in ((0.9, 3), (0.9, 4))]
+    fused, plain = _copies(params, mu, nu), _copies(params, mu, nu)
+    step = Adam8bitStep(*fused, 256)
+    table = step._table
+    native.reset_counters()
+    for bc1, bc2 in bc:
+        step(grads, norm, bc1, bc2, 1e-3, weight_decay=0.1, max_grad_norm=max_norm)
+        adam8bit_step_plain(*plain[:1], grads, *plain[1:], norm, bc1, bc2, 1e-3, 0.9, 0.999, 1e-8, 0.1, max_norm, 256)
+    torch.cuda.synchronize()
+    assert step._table is table  # built once: the state was updated in place
+    assert native.COUNTERS["adam8bit_update"].count == 2
+    for name, a, b in (("params", fused[0], plain[0]), ("mu", fused[1], plain[1]), ("nu", fused[2], plain[2])):
+        for shape, x, y in zip(ADAM_STEP_SHAPES, a, b):
+            for u, v in ([(x, y)] if name == "params" else zip(x, y)):
+                assert torch.equal(u, v), (name, shape, (u.float() - v.float()).abs().max().item())
+    assert not torch.equal(fused[0][0], params[0])
+    kernels = _device_kernels(lambda: step(grads, norm, *bc[0], 1e-3, weight_decay=0.1, max_grad_norm=max_norm))
+    launched = {k: n for k, n in kernels.items() if not k.startswith("Memcpy")}  # the step's one upload aside
+    assert len(launched) == 1 and "adam8bit_step_kernel" in next(iter(launched)), kernels
+    assert sum(launched.values()) == 1 == native.COUNTERS["adam8bit_update"].count, kernels
+
+
+def test_adam8bit_step_rejects_what_its_table_does_not_describe(cuda):
+    params, grads, mu, nu = _adam_step_leaves(cuda, torch.float32, 4)
+    step = Adam8bitStep(params, mu, nu, 256)
+    norm = torch.ones((), device=cuda)
+    native.reset_counters()
+    bad_grads = [
+        [g.cpu() if i == 2 else g for i, g in enumerate(grads)],                 # mixed devices
+        [g.bfloat16() if i == 1 else g for i, g in enumerate(grads)],            # mixed dtypes
+        [g.contiguous() if g.dim() == 4 else g for g in grads],                  # another layout
+        [g.half() for g in grads],                                               # not f32 or bf16
+        grads[:-1],                                                              # a leaf short
+    ]
+    for bad in bad_grads:
+        with pytest.raises((TypeError, ValueError)):
+            step(bad, norm, 0.1, 0.01, 1e-3, max_grad_norm=1.0)
+    with pytest.raises(ValueError):
+        step(grads, norm.double(), 0.1, 0.01, 1e-3, max_grad_norm=1.0)  # the norm not f32
+    with pytest.raises(ValueError):
+        Adam8bitStep(params, [(q.float(), s) if i == 0 else (q, s) for i, (q, s) in enumerate(mu)], nu, 256)
+    with pytest.raises(ValueError):
+        Adam8bitStep(params, mu, [(q, s.cpu()) if i == 3 else (q, s) for i, (q, s) in enumerate(nu)], 256)
+    assert native.COUNTERS["adam8bit_update"].count == 0
+    step(grads, norm, 0.1, 0.01, 1e-3, max_grad_norm=1.0)
+    assert native.COUNTERS["adam8bit_update"].count == 1
 
 
 def _shared_key_views(g, n, m, h, d, dev):

@@ -11,14 +11,16 @@ Phases, each printing one JSON line; any failure exits nonzero:
    at every distinct shape the main paths launch, recorded from a one-step run
    of each (the 512x512 txt2img slice; 1024x1024 txt2img; the hires fix's
    refine; one micro step of SD-1.5 training at 512x512, batch 4, at
-   1024x1024, batch 1, and of the lean configuration at 512x512, batch 16,
-   each trainer built for its probe and freed after it, taken with an
-   optimizer that applies nothing): flash
+   1024x1024, batch 1, of the lean configuration at 512x512, batch 16, and
+   of the SD-1.5 VAE's training at 256x256, batch 4, each trainer built for
+   its probe and freed after it, taken with an optimizer that applies
+   nothing; and ``EXTRA_BWD_SHAPES``: the 512px VAE bottleneck's backward,
+   [1,4096,4096,1,512], and the f32 VAE parity's on K3): flash
    attention forward (K1, also at the kv > 9216 shapes of the TPU's K2),
    its fused backward (K3) and its split backward (K4/K5, at its own shapes
    and at every K3 shape, K4's domain), CUDA C++, both backward routes
    launched twice (their sums run in a fixed order: the two results must
-   agree bit for bit);
+   agree bit for bit), the VAE's single head of 512 included;
    GroupNorm (K6), GroupNorm-concat (K8) and their backward (K7, which also
    serves the concat form's backward), CUDA C++ on thread-block clusters,
    each of which must queue exactly one device kernel per call (counted by
@@ -68,6 +70,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    keeps the JAX crossover, so this backward runs K3); then the
    training step's precision (bf16 autocast over the same f32 weights) vs
    f32 on the card: output drift and gradient drift.
+4b. vae_train_parity: one SD-1.5 VAE train step (``make_vae_train_step``) in
+   float32 at 64x64, batch 1, the posterior noise handed in, card (K1, K3 at
+   the bottleneck's heads of 512 and 128, K6, K7) vs CPU through the plain
+   path: the loss and its parts within 1e-5 relative, the gradients within
+   the limits of phase 4; K3 must have run at head dim 512.
 5. slice: ``pipeline.sample`` at 512x512, DDIM with CFG 7.5, bf16, seeded
    random weights; checks the decoded image is [B, 512, 512, 3] and finite and
    that each forward kernel was launched by this run; seconds per step and
@@ -99,13 +106,19 @@ Phases, each printing one JSON line; any failure exits nonzero:
    --accum-dtype bf16 --remat-policy conv-save``: K9 must run once per
    optimizer step (every leaf in one launch), and K1, the split set, K6, K7,
    K8 run.
+9b. vae_train: the autoencoder trainer (``scripts/train_autoencoder.py:
+   build_trainer``) at the SD-1.5 VAE's width, 256x256, batch 4, accumulation 4,
+   bf16 over f32 parameters, AdamW, two optimizer steps and one evaluation
+   (at ``(step + 1) % log_interval``): finite losses, changed parameters,
+   K1, the split set (the bottleneck's head of 512 in the backward), K6 and
+   K7 launched; then its profile as phase 7's.
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9 (each run with the counts set
+the summary, ``launches`` counts phases 5 to 9b (each run with the counts set
 to 0 just before it; the split is in the JSON record); ``max_abs_err``,
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
@@ -142,6 +155,13 @@ HIRES_TRAIN_BATCH = 1
 LEAN_TRAIN_BATCH = 16
 LEAN_FLAGS = ("--use-8bit-adam", "--accum-dtype", "bf16", "--remat-policy", "conv-save")
 TRAIN_STEPS = 2   # optimizer steps of each train phase (x4 micro steps)
+VAE_TRAIN = 256   # image side of the VAE training run: a 32x32 latent, its bottleneck [4, 1024, 1024, 1, 512]
+VAE_TRAIN_BATCH = 4
+VAE_PARITY = 64   # image side of the f32 VAE gradient parity: its bottleneck [1, 64, 64, 1, 512] runs K3
+# backward shapes no probe run reaches, held in phase 2 all the same ([B, N, M, H, D]):
+# the VAE bottleneck of 512px VAE training (batch 1), on bf16's split set; the f32 parity's two heads on K3
+EXTRA_BWD_SHAPES = {"flash_attention_bwd_split": {(1, 4096, 4096, 1, 512)},
+                    "flash_attention_bwd": {(1, 64, 64, 1, 512), (1, 64, 64, 1, 128)}}
 KV_RESIDENT_MAX = 9216  # the JAX backward crossover, kv padded to 128: K3's domain
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -180,6 +200,9 @@ SLICE_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd", "group_norm_cat")
 F32_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd", "group_norm_cat")
 LEAN_TRAIN_KERNELS = (*TRAIN_KERNELS, "adam8bit_update")
+# the VAE has no skip concat (no K8); f32 keeps the crossover, so its parity runs K3
+VAE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd")
+VAE_F32_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd")
 # (phase, image size, batch, extra flags, kernels its run must launch)
 TRAIN_PHASES = (
     ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
@@ -196,6 +219,8 @@ TINY_FLAGS = (
     "--channels-list 32,64 --n-heads 4 --time-emb-dim 64 --n-layers 1 "
     "--autoencoder-channels-list 16,32 --groups 8"
 ).split()
+# the SD-1.5 VAE (models/presets.py:sd15_autoencoder_config) as training-CLI flags
+SD15_VAE_FLAGS = "--autoencoder-channels-list 128,256,512,512 --autoencoder-num-res-blocks 2 --groups 32".split()
 
 
 class SmokeFailure(Exception):
@@ -360,6 +385,25 @@ def build_sd15_trainer(work: str, resolution: int, batch: int, flags=()):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     fill_zero_weights(trainer.model.unet, gen)
     fill_zero_weights(trainer.model.autoencoder, gen)
+    return trainer
+
+
+def build_sd15_vae_trainer(work: str, resolution: int, batch: int):
+    """The autoencoder training entry point's trainer at the SD-1.5 VAE's width."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_autoencoder import build_trainer
+
+    shutil.rmtree(work, ignore_errors=True)
+    trainer = build_trainer(train_argv(
+        work, *SD15_VAE_FLAGS, "--resolution", str(resolution), "--train-batch-size", str(batch),
+        "--eval-batch-size", str(batch), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
+        "--learning-rate", "1e-4", "--max-train-samples", str(16 * batch), "--max-val-samples", str(batch),
+        "--max-test-samples", "2", "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
+    ))
+    fill_zero_weights(trainer.vae, torch.Generator(device="cuda").manual_seed(SEED + 1))
     return trainer
 
 
@@ -796,11 +840,13 @@ def record_shapes(model, work: str):
     """The distinct launch shapes of each kernel: one-step runs of txt2img at
     512x512 and at 1024x1024 and of the hires fix (a one-step base and a
     one-step refine), and one training micro step of each train phase's
-    trainer (parameters untouched), each trainer built for its probe and
-    freed after it. K3 is held at the backward shapes the JAX crossover sends
-    to it (kv up to 9216), which bf16 training runs on the split set; K9 at every
-    parameter shape of the lean trainer's UNet. -> (shapes by kernel, the
-    count of UNet leaves of each parameter shape)."""
+    trainer and of the VAE trainer (parameters untouched), each trainer built
+    for its probe and freed after it. K3 is held at the backward shapes the
+    JAX crossover sends to it (kv up to 9216), which bf16 training runs on the
+    split set, and at the f32 VAE parity's; the split set also at the 512px
+    VAE bottleneck (``EXTRA_BWD_SHAPES``); K9 at every parameter shape of the
+    lean trainer's UNet. -> (shapes by kernel, the count of UNet leaves of
+    each parameter shape)."""
     import collections
 
     import torch
@@ -836,10 +882,19 @@ def record_shapes(model, work: str):
             leaf_shapes = collections.Counter(tuple(p.shape) for p in trainer.state.params)
         del trainer, probe, batch_in
         free_cuda()
+    trainer = build_sd15_vae_trainer(f"{work}_vae_train_probe", VAE_TRAIN, VAE_TRAIN_BATCH)
+    batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
+    probe = TrainState(trainer.vae, _NoUpdate())
+    trainer._train(probe, batch_in, trainer._eps(batch_in, step_generator("cuda", 9)))
+    collect()
+    del trainer, probe, batch_in
+    free_cuda()
     # K3's shapes: the backward shapes the JAX crossover sends to it (bf16
     # training now runs the split set at every length, backward_route)
     shapes["flash_attention_bwd"] |= {k for k in shapes["flash_attention_bwd_split"]
                                       if -(-k[2] // 128) * 128 <= KV_RESIDENT_MAX}
+    for name, extra in EXTRA_BWD_SHAPES.items():
+        shapes[name] |= extra
     shapes["flash_attention_bwd_split"] |= shapes["flash_attention_bwd"]
     shapes["adam8bit_update"] = set(leaf_shapes)
     return {name: sorted(v) for name, v in shapes.items()}, leaf_shapes
@@ -874,7 +929,8 @@ def _flat(xs):
 
 def _attention_groups(rows, shapes) -> dict:
     """bf16 sums of K1 at kv <= 9216 and at the K2 shapes, and of the split
-    backward at K3's shapes (K4's domain) and at its own."""
+    backward at the VAE's head dim 512, at K3's other shapes (K4's domain)
+    and at its own."""
     k3 = {tuple(k) for k in shapes.get("flash_attention_bwd", [])}
     groups = {}
     for row in rows:
@@ -882,6 +938,8 @@ def _attention_groups(rows, shapes) -> dict:
             continue
         if row["k"] == "flash_attention":
             name = "flash_attention kv>9216" if row["shape"][2] > 9216 else "flash_attention kv<=9216"
+        elif row["k"] == "flash_attention_bwd_split" and row["shape"][4] > 160:
+            name = "flash_attention_bwd_split at D 512 (VAE)"
         elif row["k"] == "flash_attention_bwd_split":
             name = f"flash_attention_bwd_split at {'K3' if tuple(row['shape']) in k3 else 'its own'} shapes"
         else:
@@ -1233,6 +1291,89 @@ def phase_train_parity(seed: int) -> dict:
     return res
 
 
+class _KeepGrads:
+    """An optimizer that keeps a CPU copy of the gradients it is handed and applies nothing."""
+
+    def step(self, grads):
+        import torch
+
+        self.grads = [g.detach().cpu() for g in grads]
+        return False, torch.zeros(())
+
+
+# the f32 VAE step, card vs CPU: the loss and its parts are f32 sums over the
+# image and the latent in another order; 1e-5 relative
+VAE_LOSS_REL_LIMIT = 1e-5
+
+
+def phase_vae_train_parity(seed: int) -> dict:
+    """The SD-1.5 VAE's train step in float32 at 64x64, batch 1, the
+    posterior noise handed in: loss, its parts and every gradient on the card
+    (K1, K3 at the bottleneck's heads of 512 and 128, K6, K7; TF32 off)
+    against the same weights on the CPU through the plain path."""
+    import copy
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.models.build import build_autoencoder
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState, make_vae_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vae = build_autoencoder(presets.sd15_autoencoder_config(), device="cuda", seed=seed)
+    fill_zero_weights(vae, torch.Generator(device="cuda").manual_seed(seed + 1))
+    cpu_vae = copy.deepcopy(vae).cpu()
+    g = torch.Generator().manual_seed(seed + 3)
+    img = torch.rand(1, VAE_PARITY, VAE_PARITY, 3, generator=g) * 2 - 1
+    f = vae.downsample_factor
+    eps = torch.randn(1, VAE_PARITY // f, VAE_PARITY // f, vae.latent_channels, generator=g)
+    metrics, grads = [], []
+    for module, dev in ((vae, "cuda"), (cpu_vae, "cpu")):
+        train_step, _ = make_vae_train_step(module, kl_weight=1.0)
+        state = TrainState(module, _KeepGrads())
+        native.reset_counters()
+        t0 = time.perf_counter()
+        m = train_step(state, {"pixel_values": img.to(dev)}, eps.to(dev))
+        metrics.append({k: float(v) for k, v in m.items() if k != "grad_norm"})
+        grads.append(dict(zip(state.names, state.optimizer.grads)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: native.COUNTERS[k].count for k in VAE_F32_KERNELS}
+            bwd_shapes = sorted(k[:-1] for k in native.COUNTERS["flash_attention_bwd"].shapes)
+        else:
+            cpu_s = time.perf_counter() - t0
+    card, cpu = grads
+    loss_rel = {k: abs(metrics[0][k] - metrics[1][k]) / max(abs(metrics[1][k]), 1e-30) for k in metrics[1]}
+    rel = math.sqrt(sum(((card[n] - cpu[n]).double() ** 2).sum().item() for n in cpu)
+                    / sum((cpu[n].double() ** 2).sum().item() for n in cpu))
+    per_tensor = {n: ((card[n] - cpu[n]).norm() / cpu[n].norm().clamp(min=1e-30)).item() for n in cpu}
+    worst = max(per_tensor, key=per_tensor.get)
+    res = {"phase": "vae_train_parity", "cpu_reference": True, "image": [1, VAE_PARITY, VAE_PARITY, 3],
+           "n_tensors": len(cpu), "card": metrics[0], "cpu": metrics[1], "loss_rel_err": loss_rel,
+           "loss_limit": VAE_LOSS_REL_LIMIT, "grad_rel_err": rel, "limit": GRAD_REL_LIMIT, "worst_tensor": worst,
+           "worst_tensor_rel_err": per_tensor[worst], "tensor_limit": GRAD_TENSOR_REL_LIMIT,
+           "cuda_launches": launches, "k3_shapes": bwd_shapes, "cpu_step_s": cpu_s,
+           "all_finite": all(bool(torch.isfinite(v).all()) for v in card.values())
+           and all(math.isfinite(v) for v in metrics[0].values())}
+    res["ok"] = (res["all_finite"] and max(loss_rel.values()) <= VAE_LOSS_REL_LIMIT and rel <= GRAD_REL_LIMIT
+                 and per_tensor[worst] <= GRAD_TENSOR_REL_LIMIT and all(launches.values())
+                 and [1, 64, 64, 1, 512] in [list(k) for k in bwd_shapes])
+    emit(res)
+    check(res["all_finite"], "non-finite VAE loss or gradient on CUDA")
+    check(all(launches.values()), f"a kernel was not launched by the f32 VAE step on CUDA: {launches}")
+    check([1, 64, 64, 1, 512] in [list(k) for k in bwd_shapes], f"K3 never ran at head dim 512: {bwd_shapes}")
+    check(max(loss_rel.values()) <= VAE_LOSS_REL_LIMIT,
+          f"f32 VAE loss CUDA vs CPU relative error {loss_rel} > {VAE_LOSS_REL_LIMIT}")
+    check(rel <= GRAD_REL_LIMIT, f"f32 VAE gradient CUDA vs CPU relative error {rel} > {GRAD_REL_LIMIT}")
+    check(per_tensor[worst] <= GRAD_TENSOR_REL_LIMIT,
+          f"f32 VAE gradient of {worst}: relative error {per_tensor[worst]} > {GRAD_TENSOR_REL_LIMIT}")
+    del vae, cpu_vae, grads
+    torch.cuda.empty_cache()
+    return res
+
+
 # --------------------------------------------------------------------------- #
 # phase 5: the txt2img slice; phases 6-7: training and the checkpoint round trip
 # --------------------------------------------------------------------------- #
@@ -1420,7 +1561,8 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
         "samples_per_s": batch / timer.percentile(50), "total_s": total_s,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "allocated_at_start_gb": allocated_before_gb,
         "optimizer": type(state.optimizer).__name__, "optimizer_layout": state.optimizer.layout(),
-        "optimizer_state_bytes": state.optimizer.state_bytes(), "remat": trainer.model.unet.remat,
+        "optimizer_state_bytes": state.optimizer.state_bytes(),
+        "remat": trainer.model.unet.remat if hasattr(trainer, "model") else None,
     }
     k9_want = TRAIN_STEPS if "adam8bit_update" in required else 0  # one launch per optimizer step
     res["ok"] = (res["finite"] and len(train_recs) == TRAIN_STEPS and len(eval_recs) == 1
@@ -1587,6 +1729,7 @@ def main(argv=None) -> int:
     optimizer = phase_optimizer(leaf_shapes, kernels)
     parity = phase_unet_parity(SEED)
     train_parity = phase_train_parity(SEED)
+    vae_parity = phase_vae_train_parity(SEED)
     slice_res = phase_slice(model, STEPS, NUM_IMAGES)
     hires_res = phase_hires(model, STEPS)
     del model
@@ -1597,6 +1740,11 @@ def main(argv=None) -> int:
         trains[name] = phase_train(trainer, name, size, batch, required, free_cuda())
         del trainer
         free_cuda()
+    trainer = build_sd15_vae_trainer(f"{work}_vae_train", VAE_TRAIN, VAE_TRAIN_BATCH)
+    trains["vae_train"] = phase_train(trainer, "vae_train", VAE_TRAIN, VAE_TRAIN_BATCH, VAE_TRAIN_KERNELS,
+                                      free_cuda())
+    del trainer
+    free_cuda()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
@@ -1620,7 +1768,8 @@ def main(argv=None) -> int:
                        "unet_parity": parity,
                        "flash_attention_launches_kv_past_9216": sum(
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
-                       "train_parity": train_parity, "slice": slice_res, "hires": hires_res, **trains,
+                       "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
+                       "hires": hires_res, **trains,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

@@ -268,6 +268,19 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 template <int N> struct Wgmma;
 
+template <> struct Wgmma<16> {
+  // D[64x16] = A[64x16] B[16x16] (+ D if scale_d); A and B K-major in shared memory (descriptors)
+  __device__ static __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : SD_WGMMA_D8
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 template <> struct Wgmma<32> {
   // D[64x32] = A[64x16] B[16x32] (+ D if scale_d); A and B K-major in shared memory (descriptors)
   __device__ static __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {

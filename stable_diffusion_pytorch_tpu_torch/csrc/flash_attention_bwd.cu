@@ -65,7 +65,14 @@
 // 16 x 16 thread layout with 4-row micro-tiles, Q, dO, K and V transposed;
 // 204 KB at DP = 160) with delta = rowsum(dO * O) and the same ordered dQ
 // adds: the f32 parity checks need full f32 products, and its O is exact to
-// f32 rounding.
+// f32 rounding. The VAE's 512-wide head (DP = 512) splits the output columns
+// over four blocks of 128 and sums S and dP in 128-column chunks (171 KB;
+// flash_attention_bwd_common.cuh); each part keeps its own ordered adds.
+// bf16 past D 160 (the VAE's head of 512, off every path: bf16 routes to the
+// split set) takes `launch_fused_bwd_wgmma_d512`: the split set's DP 512
+// dK/dV kernel (K and V resident, 16-row q tiles, two blocks per 64 kv rows)
+// that also forms its dQ share, dQ^T = K^T dS^T on wgmma with dS^T staged in
+// shared memory, and adds it in kv-block order per (16-row q tile, part).
 //
 // Layout: q/o/do [B, N, H, D] and k/v [B, M, H, D], each with its own
 // batch/token/head strides in elements and the head dim contiguous; dk, dv and
@@ -84,7 +91,7 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
   delta_rows<T>(o, dout, delta, H, N, D, o_sb, o_sn, o_sh, d_sb, d_sn, d_sh, rows);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int CH>
 __global__ void __launch_bounds__(NT, 1) dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -96,9 +103,9 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2) {
   extern __shared__ __align__(16) float smem[];
-  dkv_body<T, DP, true>(smem, q, k, v, dout, lse, delta, dq_acc, dq_sem, dk, dv, H, N, M, D, q_sb,
-                        q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm, v_sh, d_sb, d_sn, d_sh, scale,
-                        scale_log2);
+  dkv_body<T, DP, true, CH>(smem, q, k, v, dout, lse, delta, dq_acc, dq_sem, dk, dv, H, N, M, D,
+                            q_sb, q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm, v_sh, d_sb, d_sn, d_sh,
+                            scale, scale_log2);
 }
 
 template <typename T>
@@ -108,16 +115,17 @@ __global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst, 
     dst[i] = from_f32<T>(src[i]);
 }
 
-template <int DP>
+template <int DP, int CH>
 int launch_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                const float* delta, float* dq_acc, int* dq_sem, float* dk, float* dv, int B, int H,
                int N, int M, int D, const long long* st, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<DP>();
+  constexpr size_t smem = dkv_smem_bytes<CH>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<float, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      dkv_kernel<float, DP, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((M + BK - 1) / BK, H, B);  // kv blocks fastest: the order of the dQ adds
-  dkv_kernel<float, DP><<<grid, NT, smem, stream>>>(
+  // kv blocks (each DP / CH column parts, those fastest) fastest: the order of the dQ adds
+  dim3 grid((M + BK - 1) / BK * (DP / CH), H, B);
+  dkv_kernel<float, DP, CH><<<grid, NT, smem, stream>>>(
       q, k, v, dout, lse, delta, dq_acc, dq_sem, dk, dv, H, N, M, D, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
       scale * 1.4426950408889634f);
@@ -142,13 +150,14 @@ int backward_f32(int D, const void* q, const void* k, const void* v, const void*
   float* dkt = static_cast<float*>(dk);
   float* dvt = static_cast<float*>(dv);
   int rc = int(cudaErrorInvalidValue);
-#define SD_BWD_CASE(DP)                                                                       \
-  if (D <= DP) {                                                                              \
-    rc = launch_dkv<DP>(qt, kt, vt, dt, lse, delta, dq, dq_sem, dkt, dvt, B, H, N, M, D, st,  \
-                        scale, stream);                                                       \
+  // (DP, column chunk)
+#define SD_BWD_CASE(DP, CH)                                                                       \
+  if (D <= DP) {                                                                                  \
+    rc = launch_dkv<DP, CH>(qt, kt, vt, dt, lse, delta, dq, dq_sem, dkt, dvt, B, H, N, M, D, st,  \
+                            scale, stream);                                                       \
   } else
-  SD_BWD_CASE(32) SD_BWD_CASE(48) SD_BWD_CASE(64) SD_BWD_CASE(80) SD_BWD_CASE(96)
-  SD_BWD_CASE(128) SD_BWD_CASE(160) {}
+  SD_BWD_CASE(32, 32) SD_BWD_CASE(48, 48) SD_BWD_CASE(64, 64) SD_BWD_CASE(80, 80)
+  SD_BWD_CASE(96, 96) SD_BWD_CASE(128, 128) SD_BWD_CASE(160, 160) SD_BWD_CASE(512, 128) {}
 #undef SD_BWD_CASE
   if (rc == 0) *impl = 0;
   return rc;
@@ -440,7 +449,10 @@ int backward_bf16(int D, const void* q, const void* k, const void* v, const void
                                           B, H, N, M, D, st, scale, stream);                  \
   } else
   SD_FUSED_CASE(32, 2, 1) SD_FUSED_CASE(48, 2, 1) SD_FUSED_CASE(64, 2, 1) SD_FUSED_CASE(80, 2, 1)
-  SD_FUSED_CASE(128, 1, 2) SD_FUSED_CASE(160, 1, 2) {}
+  SD_FUSED_CASE(128, 1, 2) SD_FUSED_CASE(160, 1, 2) if (D <= 512) {
+    rc = launch_fused_bwd_wgmma_d512(q, k, v, dout, lse, delta, dq_acc, dq_sem, dk, dv, B, H, N, M,
+                                     D, st, scale, stream);
+  }
 #undef SD_FUSED_CASE
   if (rc != 0) return rc;
 
@@ -456,11 +468,12 @@ int backward_bf16(int D, const void* q, const void* k, const void* v, const void
 
 extern "C" {
 
-// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel);
-// D <= 160. `strides` holds 15 element strides: (batch, token, head) of q, k,
-// v, o and do in that order. `delta` is f32 [B, H, N] scratch; `dq_acc` is
-// f32 [B, N, H, D], written in full (no zeroing needed); `dq_sem` is int32
-// [B, H, ceil(N / 64)], zeroed by the caller; `dq` is null when dq_acc is
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// kernel); D <= 512. `strides` holds 15 element strides: (batch, token, head)
+// of q, k, v, o and do in that order. `delta` is f32 [B, H, N] scratch;
+// `dq_acc` is f32 [B, N, H, D], written in full (no zeroing needed); `dq_sem`
+// is int32, B * H * ceil(N / 16) * 4 counters (one per q tile and column
+// part, enough for every kernel's tiling), zeroed by the caller; `dq` is null when dq_acc is
 // itself the output (f32), else the bf16 output. `impl` receives the kernel
 // launched, written once every launch succeeded: 0 = FMA, 1 = wgmma. Returns
 // the first nonzero CUDA error code, 0 on success.
@@ -469,7 +482,7 @@ int sd_flash_attention_backward(int dtype, const void* q, const void* k, const v
                                 void* dq_acc, void* dq_sem, void* dq, void* dk, void* dv, int B,
                                 int H, int N, int M, int D, const long long* strides, float scale,
                                 void* stream, int* impl) {
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || D <= 0 || D > 160 || B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || D <= 0 || D > 512 || B > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);

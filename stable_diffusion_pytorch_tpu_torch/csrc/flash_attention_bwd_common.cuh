@@ -19,17 +19,24 @@
 // keeps their K and V in shared memory and dK/dV in f32 registers, and loops
 // over all q tiles. With WITH_DQ it also adds the block's share of dQ for each
 // q tile to an f32 buffer, in kv-block order (K3); without, dQ is left to its
-// own kernel (the split form).
+// own kernel (the split form). Past DP 160 (the VAE's 512-wide head) the f32
+// tiles and accumulators of a whole head would not fit, so a block takes 128
+// of the output columns and recomputes S and dP over the whole head dim in
+// 128-column chunks, K and V reloaded per q tile (`load_chunk_t`): the four
+// blocks of 64 rows do the two score products four times (K3: 22 N M D
+// FLOPs where one block would do 10).
 //
 // The ordered adds: kv block j adds its dQ share of q tile t only after block
 // j - 1 has added its own, so every element of dQ is the same sum, in the same
-// order, on every run (no unordered atomics). A per-(batch, head, q tile) int32 counter,
-// zeroed by the caller, holds the index of the block whose turn it is; block 0
-// stores its share instead of adding, so the f32 buffer needs no zeroing. The
-// kv-block index is blockIdx.x, the fastest-varying part of the grid: blocks
+// order, on every run (no unordered atomics). A per-(batch, head, q tile,
+// column part) int32 counter, zeroed by the caller, holds the index of the
+// block whose turn it is; block 0 stores its share instead of adding, so the
+// f32 buffer needs no zeroing. The kv-block index is blockIdx.x (over the
+// parts, which vary fastest), the fastest-varying part of the grid: blocks
 // are dispatched in increasing linear index, so block j - 1 of the same
-// (batch, head) was dispatched before block j, is resident or done when block
-// j waits, and never waits on block j itself (it waits only on lower indices).
+// (batch, head, part) was dispatched before block j, is resident or done when
+// block j waits, and never waits on block j itself (it waits only on lower
+// indices).
 // The wait therefore always ends, and with neighbouring kv blocks running
 // side by side it is short.
 //
@@ -49,6 +56,15 @@
 int launch_bwd_stats_bf16(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, float* delta, int B, int H, int N, int M, int D,
                           const long long* st, float scale, cudaStream_t stream);
+
+// K3 in bfloat16 past D 160, up to 512: the split set's dK/dV kernel at DP 512
+// adding each block's dQ share in kv-block order (defined in
+// flash_attention_bwd_split.cu); `dq_acc` f32 [B, N, H, D], `dq_sem` B * H *
+// ceil(N / 16) * 2 zeroed int32 counters. Returns a CUDA error code.
+int launch_fused_bwd_wgmma_d512(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, float* dq_acc, int* dq_sem,
+                                void* dk, void* dv, int B, int H, int N, int M, int D,
+                                const long long* st, float scale, cudaStream_t stream);
 
 namespace {
 
@@ -122,17 +138,64 @@ __device__ __forceinline__ void ordered_add(float* p, float v, bool first) {
     asm volatile("red.relaxed.gpu.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
 }
 
-template <int DP>
+// The f32 FMA kernels take the head dim in chunks of CH columns (CH = DP up
+// to DP 160; 128 at DP 512, where whole f32 tiles would not fit shared
+// memory): S and dP are summed over the chunks, and a block owns one chunk's
+// worth of the output columns (part `blockIdx.x % (DP / CH)`), recomputing S
+// and dP over the whole head dim for it. The chunks are visited with the
+// block's own last, so that its Q, dO, K and V columns stay in shared memory
+// for the products that follow.
+template <int CH>
 constexpr size_t dkv_smem_bytes() {
-  // Qt, dOt [DP][LDQ]; Kt, Vt [DP][LDK]; Ps, dSs [BQ][LDK]; lse, delta [BQ]
+  // Qt, dOt [CH][LDQ]; Kt, Vt [CH][LDK]; Ps, dSs [BQ][LDK]; lse, delta [BQ]
   return sizeof(float) *
-         (2 * size_t(DP) * LDQ + 2 * size_t(DP) * LDK + 2 * size_t(BQ) * LDK + 2 * BQ);
+         (2 * size_t(CH) * LDQ + 2 * size_t(CH) * LDK + 2 * size_t(BQ) * LDK + 2 * BQ);
 }
 
-// The kv-outer loop, for a block of NT threads with dkv_smem_bytes<DP>() of
+// S += Q K^T and dP += dO V^T over one chunk of CH head-dim columns, from the
+// transposed tiles: q rows ty*4+i, kv columns tx*4+j
+template <int CH>
+__device__ __forceinline__ void score_chunk(float (&s)[4][4], float (&dp)[4][4], const float* Qt,
+                                            const float* dOt, const float* Kt, const float* Vt,
+                                            int tx, int ty) {
+#pragma unroll 4
+  for (int d = 0; d < CH; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LDQ + ty * 4]);
+    const float4 g = *reinterpret_cast<const float4*>(&dOt[d * LDQ + ty * 4]);
+    const float4 c = *reinterpret_cast<const float4*>(&Kt[d * LDK + tx * 4]);
+    const float4 e = *reinterpret_cast<const float4*>(&Vt[d * LDK + tx * 4]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float gv[4] = {g.x, g.y, g.z, g.w};
+    const float cv[4] = {c.x, c.y, c.z, c.w};
+    const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+        dp[i][j] = fmaf(gv[i], ev[j], dp[i][j]);
+      }
+  }
+}
+
+// rows r0.. (at most R of them, `rows` inside the matrix) of one chunk of
+// columns c0..c0+CH of a [L, D] row-major view (row stride `ld`), transposed
+// into dst [CH][LDT] as f32; zero past the matrix and past D
+template <typename T, int R, int CH, int LDT>
+__device__ __forceinline__ void load_chunk_t(float* dst, const T* __restrict__ src, int64_t ld,
+                                             int rows, int c0, int D) {
+  for (int idx = threadIdx.x; idx < R * CH; idx += NT) {
+    const int r = idx / CH, d = idx % CH;
+    const bool ok = (r < rows) && (c0 + d < D);
+    dst[d * LDT + r] = ok ? to_f32(src[int64_t(r) * ld + c0 + d]) : 0.f;
+  }
+}
+
+// The kv-outer loop, for a block of NT threads with dkv_smem_bytes<CH>() of
 // dynamic shared memory at `smem`. dq_acc is f32 [B, N, H, D] and dq_sem int32
-// [B, H, ceil(N / BQ)], zeroed (both used only WITH_DQ).
-template <typename T, int DP, bool WITH_DQ>
+// [B, H, ceil(N / BQ), DP / CH], zeroed (both used only WITH_DQ). The grid's x
+// is (kv block, part), the part fastest.
+template <typename T, int DP, bool WITH_DQ, int CH = DP>
 __device__ __forceinline__ void dkv_body(
     float* smem,
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -144,14 +207,15 @@ __device__ __forceinline__ void dkv_body(
     int64_t v_sb, int64_t v_sm, int64_t v_sh,
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2) {
-  static_assert(DP % 16 == 0, "padded head dim must be a multiple of 16");
-  constexpr int DJ = DP / 16;  // head-dim columns per thread
+  static_assert(CH % 16 == 0 && DP % CH == 0, "chunks of 16-column multiples");
+  constexpr int NCH = DP / CH;  // column parts, one a block
+  constexpr int DJ = CH / 16;   // output columns per thread
 
-  float* Qt = smem;               // [DP][LDQ]  q tile, transposed
-  float* dOt = Qt + DP * LDQ;     // [DP][LDQ]  do tile, transposed
-  float* Kt = dOt + DP * LDQ;     // [DP][LDK]  this block's k rows, transposed
-  float* Vt = Kt + DP * LDK;      // [DP][LDK]  this block's v rows, transposed
-  float* Ps = Vt + DP * LDK;      // [BQ][LDK]  P of the current q tile
+  float* Qt = smem;               // [CH][LDQ]  q tile, transposed (one chunk)
+  float* dOt = Qt + CH * LDQ;     // [CH][LDQ]  do tile, transposed
+  float* Kt = dOt + CH * LDQ;     // [CH][LDK]  this block's k rows, transposed
+  float* Vt = Kt + CH * LDK;      // [CH][LDK]  this block's v rows, transposed
+  float* Ps = Vt + CH * LDK;      // [BQ][LDK]  P of the current q tile
   float* dSs = Ps + BQ * LDK;     // [BQ][LDK]  dS of the current q tile
   float* lse_s = dSs + BQ * LDK;  // [BQ]
   float* delta_s = lse_s + BQ;    // [BQ]
@@ -159,23 +223,24 @@ __device__ __forceinline__ void dkv_body(
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BK;
+  const int part = blockIdx.x % NCH;
+  const int kvb = blockIdx.x / NCH;  // the kv block: the order of the dQ adds
+  const int k0 = kvb * BK;
+  const int c0 = part * CH;          // this block's output columns c0..c0+CH
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
   const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const T* kb = k + b * k_sb + h * k_sh + k0 * k_sm;
+  const T* vb = v + b * v_sb + h * v_sh + k0 * v_sm;
   const T* db = dout + b * d_sb + h * d_sh;
   const float* lse_bh = lse + (int64_t(b) * H + h) * N;
   const float* delta_bh = delta + (int64_t(b) * H + h) * N;
   const int64_t row_stride = int64_t(H) * D;  // of the contiguous [B, L, H, D] outputs
 
-  for (int idx = tid; idx < BK * DP; idx += NT) {
-    const int c = idx / DP, d = idx % DP;
-    const bool ok = (k0 + c < M) && (d < D);
-    Kt[d * LDK + c] = ok ? to_f32(kb[int64_t(k0 + c) * k_sm + d]) : 0.f;
-    Vt[d * LDK + c] = ok ? to_f32(vb[int64_t(k0 + c) * v_sm + d]) : 0.f;
+  if constexpr (NCH == 1) {  // K and V stay resident
+    load_chunk_t<T, BK, CH, LDK>(Kt, kb, k_sm, M - k0, 0, D);
+    load_chunk_t<T, BK, CH, LDK>(Vt, vb, v_sm, M - k0, 0, D);
   }
 
   float acc_dk[4][DJ], acc_dv[4][DJ];
@@ -185,43 +250,29 @@ __device__ __forceinline__ void dkv_body(
     for (int j = 0; j < DJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
   for (int q0 = 0; q0 < N; q0 += BQ) {
-    __syncthreads();  // the previous tile's reads of Qt/dOt/Ps/dSs are done
-    for (int idx = tid; idx < BQ * DP; idx += NT) {
-      const int r = idx / DP, d = idx % DP;
-      const bool ok = (q0 + r < N) && (d < D);
-      Qt[d * LDQ + r] = ok ? to_f32(qb[int64_t(q0 + r) * q_sn + d]) : 0.f;
-      dOt[d * LDQ + r] = ok ? to_f32(db[int64_t(q0 + r) * d_sn + d]) : 0.f;
-    }
-    if (tid < BQ) {
-      const int r = q0 + tid;
-      lse_s[tid] = r < N ? lse_bh[r] : INFINITY;  // rows past N: P = 0
-      delta_s[tid] = r < N ? delta_bh[r] : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: q rows ty*4+i, kv columns tx*4+j
+    // S = Q K^T and dP = dO V^T over the whole head dim: q rows ty*4+i, kv
+    // columns tx*4+j
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LDQ + ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&dOt[d * LDQ + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&Kt[d * LDK + tx * 4]);
-      const float4 e = *reinterpret_cast<const float4*>(&Vt[d * LDK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-      const float ev[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], ev[j], dp[i][j]);
-        }
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c = (part + 1 + ci) % NCH;  // this block's own chunk last
+      __syncthreads();  // the previous reads of the tiles are done
+      load_chunk_t<T, BQ, CH, LDQ>(Qt, qb + int64_t(q0) * q_sn, q_sn, N - q0, c * CH, D);
+      load_chunk_t<T, BQ, CH, LDQ>(dOt, db + int64_t(q0) * d_sn, d_sn, N - q0, c * CH, D);
+      if constexpr (NCH > 1) {
+        load_chunk_t<T, BK, CH, LDK>(Kt, kb, k_sm, M - k0, c * CH, D);
+        load_chunk_t<T, BK, CH, LDK>(Vt, vb, v_sm, M - k0, c * CH, D);
+      }
+      if (ci == 0 && tid < BQ) {
+        const int r = q0 + tid;
+        lse_s[tid] = r < N ? lse_bh[r] : INFINITY;  // rows past N: P = 0
+        delta_s[tid] = r < N ? delta_bh[r] : 0.f;
+      }
+      __syncthreads();
+      score_chunk<CH>(s, dp, Qt, dOt, Kt, Vt, tx, ty);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -240,7 +291,8 @@ __device__ __forceinline__ void dkv_body(
     }
     __syncthreads();
 
-    // dV += P^T dO and dK += dS^T Q: kv rows ty*4+i, head-dim columns tx+16j
+    // dV += P^T dO and dK += dS^T Q on this block's columns: kv rows ty*4+i,
+    // columns c0 + tx+16j
     const int qn = min(BQ, N - q0);
     for (int r = 0; r < qn; ++r) {
       const float4 pv = *reinterpret_cast<const float4*>(&Ps[r * LDK + ty * 4]);
@@ -261,8 +313,9 @@ __device__ __forceinline__ void dkv_body(
     }
 
     if constexpr (WITH_DQ) {
-      // this block's share of dQ = scale * dS K: q rows ty*4+i, columns tx+16j
-      float* dq_bh = dq_acc + int64_t(b) * N * row_stride + int64_t(h) * D;
+      // this block's share of dQ = scale * dS K on its columns: q rows
+      // ty*4+i, columns c0 + tx+16j
+      float* dq_bh = dq_acc + int64_t(b) * N * row_stride + int64_t(h) * D + c0;
       float dq[4][DJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -281,8 +334,8 @@ __device__ __forceinline__ void dkv_body(
             dq[i][j] = fmaf(a[i].x, kk.x, fmaf(a[i].y, kk.y, fmaf(a[i].z, kk.z, fmaf(a[i].w, kk.w, dq[i][j]))));
         }
       }
-      int* sem = dq_sem + (int64_t(b) * H + h) * ((N + BQ - 1) / BQ) + q0 / BQ;
-      wait_turn(sem, blockIdx.x);
+      int* sem = dq_sem + ((int64_t(b) * H + h) * ((N + BQ - 1) / BQ) + q0 / BQ) * NCH + part;
+      wait_turn(sem, kvb);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = q0 + ty * 4 + i;
@@ -290,10 +343,10 @@ __device__ __forceinline__ void dkv_body(
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           const int d = tx + 16 * j;
-          if (d < D) ordered_add(&dq_bh[int64_t(r) * row_stride + d], dq[i][j] * scale, blockIdx.x == 0);
+          if (c0 + d < D) ordered_add(&dq_bh[int64_t(r) * row_stride + d], dq[i][j] * scale, kvb == 0);
         }
       }
-      pass_turn(sem, blockIdx.x + 1);
+      pass_turn(sem, kvb + 1);
     }
   }
 
@@ -301,11 +354,11 @@ __device__ __forceinline__ void dkv_body(
   for (int i = 0; i < 4; ++i) {
     const int c = k0 + ty * 4 + i;
     if (c >= M) continue;
-    const int64_t base = (int64_t(b) * M + c) * row_stride + int64_t(h) * D;
+    const int64_t base = (int64_t(b) * M + c) * row_stride + int64_t(h) * D + c0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) {
+      if (c0 + d < D) {
         dk[base + d] = from_f32<T>(acc_dk[i][j] * scale);
         dv[base + d] = from_f32<T>(acc_dv[i][j]);
       }

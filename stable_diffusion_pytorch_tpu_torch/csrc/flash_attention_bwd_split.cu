@@ -58,14 +58,30 @@
 //     dP^T (cheaper than an exchange through shared memory with a barrier per
 //     tile), with 32-row q tiles; the dQ kernel takes 32-row kv tiles and
 //     one warpgroup per block there. Shared memory stays at or under 81 KB
-//     at every DP, so two blocks fit an SM where registers allow.
+//     at every DP up to 160, so two blocks fit an SM where registers allow.
+//   - DP = 512 (the VAE's single head): a [64 x 512] bf16 operand tile is 64
+//     KB, so every kernel keeps one 64-row tile of its outer operands resident
+//     (Q and dO, or K and V: 128 KB) and streams 16-row tiles of the others
+//     through the two stages (192 KB in all, one block an SM), S and dP on
+//     m64n16 products. The f32 accumulators are split by columns: the dQ
+//     kernel's two warpgroups take 256 dQ columns each, and the dK/dV kernel
+//     runs two blocks per 64 kv rows, each of two warpgroups taking 128
+//     columns of dK and dV (64 + 64 accumulator registers a thread). Every
+//     warpgroup recomputes S and dP over the whole head dim for its columns
+//     (as the forward does at D 512): the dQ kernel does its two score
+//     products twice, the dK/dV kernel four times: 34 N M D FLOPs with the
+//     stats pass where one pass over the columns would take 18. Not made
+//     fast yet: the 16-row tiles and the redundant score products.
 //
 // float32 keeps the FMA kernels, `split_dq_kernel` and `split_dkv_kernel`
-// (`dkv_body`, the loop K3 runs), unchanged: the f32 parity checks (1e-4
-// against the plain version, the UNet's gradients on the card against the
+// (`dkv_body`, the loop K3 runs): the f32 parity checks (1e-4 against the
+// plain version, the UNet's and the VAE's gradients on the card against the
 // CPU) need full f32 products; TF32 keeps about three decimal digits. They
 // use the 16 x 16 thread layout and 4-row micro-tiles with Q, dO, K and V
-// transposed in shared memory (191 KB at DP = 160, one block per SM).
+// transposed in shared memory (191 KB at DP = 160, one block per SM). At DP
+// = 512 each block takes 128 output columns and sums S and dP over 128-column
+// chunks (flash_attention_bwd_common.cuh), four blocks per 64 rows: 38 N M D
+// FLOPs where one block per 64 rows would do 14.
 //
 // Layout: q/o/do [B, N, H, D] and k/v [B, M, H, D], each with its own
 // batch/token/head strides in elements and the head dim contiguous; dq, dk and
@@ -85,13 +101,16 @@ __global__ void split_delta_kernel(const T* __restrict__ o, const T* __restrict_
   delta_rows<T>(o, dout, delta, H, N, D, o_sb, o_sn, o_sh, d_sb, d_sn, d_sh, rows);
 }
 
-template <int DP>
+template <int CH>
 constexpr size_t dq_smem_bytes() {
-  // Qt, dOt [DP][LDQ]; Kt, Vt [DP][LDK]; dSs [BQ][LDK]
-  return sizeof(float) * (2 * size_t(DP) * LDQ + 2 * size_t(DP) * LDK + size_t(BQ) * LDK);
+  // Qt, dOt [CH][LDQ]; Kt, Vt [CH][LDK]; dSs [BQ][LDK]
+  return sizeof(float) * (2 * size_t(CH) * LDQ + 2 * size_t(CH) * LDK + size_t(BQ) * LDK);
 }
 
-template <typename T, int DP>
+// dQ for 64 q rows and CH of its columns (part blockIdx.x % (DP / CH), the
+// parts fastest), S and dP summed over the head dim in CH-column chunks
+// (flash_attention_bwd_common.cuh); CH = DP: one part, Q and dO resident.
+template <typename T, int DP, int CH>
 __global__ void __launch_bounds__(NT, 1) split_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -101,35 +120,36 @@ __global__ void __launch_bounds__(NT, 1) split_dq_kernel(
     int64_t v_sb, int64_t v_sm, int64_t v_sh,
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2) {
-  static_assert(DP % 16 == 0, "padded head dim must be a multiple of 16");
-  constexpr int DJ = DP / 16;  // head-dim columns per thread
+  static_assert(CH % 16 == 0 && DP % CH == 0, "chunks of 16-column multiples");
+  constexpr int NCH = DP / CH;  // column parts, one a block
+  constexpr int DJ = CH / 16;   // head-dim columns per thread
 
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;            // [DP][LDQ]  this block's q rows, transposed
-  float* dOt = Qt + DP * LDQ;  // [DP][LDQ]  this block's do rows, transposed
-  float* Kt = dOt + DP * LDQ;  // [DP][LDK]  k tile, transposed
-  float* Vt = Kt + DP * LDK;   // [DP][LDK]  v tile, transposed
-  float* dSs = Vt + DP * LDK;  // [BQ][LDK]  dS of the current kv tile
+  float* Qt = smem;            // [CH][LDQ]  this block's q rows, transposed (one chunk)
+  float* dOt = Qt + CH * LDQ;  // [CH][LDQ]  this block's do rows, transposed
+  float* Kt = dOt + CH * LDQ;  // [CH][LDK]  k tile, transposed
+  float* Vt = Kt + CH * LDK;   // [CH][LDK]  v tile, transposed
+  float* dSs = Vt + CH * LDK;  // [BQ][LDK]  dS of the current kv tile
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
+  const int part = blockIdx.x % NCH;
+  const int q0 = blockIdx.x / NCH * BQ;
+  const int c0 = part * CH;  // this block's output columns c0..c0+CH
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* qb = q + b * q_sb + h * q_sh;
+  const T* qb = q + b * q_sb + h * q_sh + q0 * q_sn;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
-  const T* db = dout + b * d_sb + h * d_sh;
+  const T* db = dout + b * d_sb + h * d_sh + q0 * d_sn;
   const float* lse_bh = lse + (int64_t(b) * H + h) * N;
   const float* delta_bh = delta + (int64_t(b) * H + h) * N;
 
-  for (int idx = tid; idx < BQ * DP; idx += NT) {
-    const int r = idx / DP, d = idx % DP;
-    const bool ok = (q0 + r < N) && (d < D);
-    Qt[d * LDQ + r] = ok ? to_f32(qb[int64_t(q0 + r) * q_sn + d]) : 0.f;
-    dOt[d * LDQ + r] = ok ? to_f32(db[int64_t(q0 + r) * d_sn + d]) : 0.f;
+  if constexpr (NCH == 1) {  // Q and dO stay resident
+    load_chunk_t<T, BQ, CH, LDQ>(Qt, qb, q_sn, N - q0, 0, D);
+    load_chunk_t<T, BQ, CH, LDQ>(dOt, db, d_sn, N - q0, 0, D);
   }
   float lr[4], dl[4];
 #pragma unroll
@@ -146,38 +166,24 @@ __global__ void __launch_bounds__(NT, 1) split_dq_kernel(
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < M; k0 += BK) {
-    __syncthreads();  // Qt/dOt are written; the previous tile's reads of Kt/dSs are done
-    for (int idx = tid; idx < BK * DP; idx += NT) {
-      const int c = idx / DP, d = idx % DP;
-      const bool ok = (k0 + c < M) && (d < D);
-      Kt[d * LDK + c] = ok ? to_f32(kb[int64_t(k0 + c) * k_sm + d]) : 0.f;
-      Vt[d * LDK + c] = ok ? to_f32(vb[int64_t(k0 + c) * v_sm + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: q rows ty*4+i, kv columns tx*4+j
+    // S = Q K^T and dP = dO V^T over the whole head dim: q rows ty*4+i, kv
+    // columns tx*4+j
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LDQ + ty * 4]);
-      const float4 g = *reinterpret_cast<const float4*>(&dOt[d * LDQ + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&Kt[d * LDK + tx * 4]);
-      const float4 e = *reinterpret_cast<const float4*>(&Vt[d * LDK + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-      const float ev[4] = {e.x, e.y, e.z, e.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], ev[j], dp[i][j]);
-        }
+    for (int ci = 0; ci < NCH; ++ci) {
+      const int c = (part + 1 + ci) % NCH;  // this block's own chunk last
+      __syncthreads();  // the previous reads of the tiles are done
+      if constexpr (NCH > 1) {
+        load_chunk_t<T, BQ, CH, LDQ>(Qt, qb, q_sn, N - q0, c * CH, D);
+        load_chunk_t<T, BQ, CH, LDQ>(dOt, db, d_sn, N - q0, c * CH, D);
+      }
+      load_chunk_t<T, BK, CH, LDK>(Kt, kb + int64_t(k0) * k_sm, k_sm, M - k0, c * CH, D);
+      load_chunk_t<T, BK, CH, LDK>(Vt, vb + int64_t(k0) * v_sm, v_sm, M - k0, c * CH, D);
+      __syncthreads();
+      score_chunk<CH>(s, dp, Qt, dOt, Kt, Vt, tx, ty);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -191,8 +197,8 @@ __global__ void __launch_bounds__(NT, 1) split_dq_kernel(
     }
     __syncthreads();
 
-    // dQ += dS K: q rows ty*4+i, head-dim columns tx+16j; masked kv columns
-    // hold dS = 0 and K = 0
+    // dQ += dS K on this block's columns: q rows ty*4+i, columns c0 +
+    // tx+16j; masked kv columns hold dS = 0 and K = 0
     for (int c = 0; c < BK; c += 4) {
       float4 a[4];
 #pragma unroll
@@ -213,16 +219,16 @@ __global__ void __launch_bounds__(NT, 1) split_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= N) continue;
-    T* out = dq + (int64_t(b) * N + r) * row_stride + int64_t(h) * D;
+    T* out = dq + (int64_t(b) * N + r) * row_stride + int64_t(h) * D + c0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) out[d] = from_f32<T>(acc[i][j] * scale);
+      if (c0 + d < D) out[d] = from_f32<T>(acc[i][j] * scale);
     }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int CH>
 __global__ void __launch_bounds__(NT, 1) split_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
@@ -233,34 +239,35 @@ __global__ void __launch_bounds__(NT, 1) split_dkv_kernel(
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2) {
   extern __shared__ __align__(16) float smem[];
-  dkv_body<T, DP, false>(smem, q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, H, N, M, D, q_sb,
-                         q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm, v_sh, d_sb, d_sn, d_sh,
-                         scale, scale_log2);
+  dkv_body<T, DP, false, CH>(smem, q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, H, N, M, D,
+                             q_sb, q_sn, q_sh, k_sb, k_sm, k_sh, v_sb, v_sm, v_sh, d_sb, d_sn, d_sh,
+                             scale, scale_log2);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int CH>
 int launch_split(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* dq, void* dk, void* dv, int B, int H, int N, int M,
                  int D, const long long* st, float scale, cudaStream_t stream, int* impl) {
-  constexpr size_t dq_smem = dq_smem_bytes<DP>();
-  constexpr size_t dkv_smem = dkv_smem_bytes<DP>();
+  constexpr size_t dq_smem = dq_smem_bytes<CH>();
+  constexpr size_t dkv_smem = dkv_smem_bytes<CH>();
+  constexpr int parts = DP / CH;
   cudaError_t err = cudaFuncSetAttribute(
-      split_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(dq_smem));
+      split_dq_kernel<T, DP, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(dq_smem));
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(
-      split_dkv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
+      split_dkv_kernel<T, DP, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
   if (err != cudaSuccess) return int(err);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dt = static_cast<const T*>(dout);
   const float scale_log2 = scale * 1.4426950408889634f;
-  split_dq_kernel<T, DP><<<dim3((N + BQ - 1) / BQ, H, B), NT, dq_smem, stream>>>(
+  split_dq_kernel<T, DP, CH><<<dim3((N + BQ - 1) / BQ * parts, H, B), NT, dq_smem, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), H, N, M, D, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  split_dkv_kernel<T, DP><<<dim3((M + BK - 1) / BK, H, B), NT, dkv_smem, stream>>>(
+  split_dkv_kernel<T, DP, CH><<<dim3((M + BK - 1) / BK * parts, H, B), NT, dkv_smem, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, N, M, D, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
       scale_log2);
@@ -281,12 +288,13 @@ int backward_split(int D, const void* q, const void* k, const void* v, const voi
       st[11], st[12], st[13], st[14], rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-#define SD_SPLIT_CASE(DP)                                                                    \
-  if (D <= DP)                                                                               \
-    return launch_split<T, DP>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, st,     \
-                               scale, stream, impl);
-  SD_SPLIT_CASE(32) SD_SPLIT_CASE(48) SD_SPLIT_CASE(64) SD_SPLIT_CASE(80) SD_SPLIT_CASE(96)
-  SD_SPLIT_CASE(128) SD_SPLIT_CASE(160)
+  // (DP, column chunk)
+#define SD_SPLIT_CASE(DP, CH)                                                                    \
+  if (D <= DP)                                                                                   \
+    return launch_split<T, DP, CH>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, st,     \
+                                   scale, stream, impl);
+  SD_SPLIT_CASE(32, 32) SD_SPLIT_CASE(48, 48) SD_SPLIT_CASE(64, 64) SD_SPLIT_CASE(80, 80)
+  SD_SPLIT_CASE(96, 96) SD_SPLIT_CASE(128, 128) SD_SPLIT_CASE(160, 160) SD_SPLIT_CASE(512, 128)
 #undef SD_SPLIT_CASE
   return int(cudaErrorInvalidValue);
 }
@@ -296,10 +304,12 @@ int backward_split(int D, const void* q, const void* k, const void* v, const voi
 using sd_sm90::bf16;
 
 // The q-outer loop over all kv tiles of BKV rows, for 64 * WGR q rows of one
-// (batch, head); warpgroup w owns q rows 64 w.., all share the K and V tiles.
-// STATS: the stats pass, delta = rowsum(P * dP) in f32 registers, written to
-// `delta`. Otherwise the dQ kernel: dQ = scale * dS K, with `delta` read.
-template <int DP, int BKV, int WGR, bool STATS>
+// (batch, head); WGR x WGC warpgroups, (wr, wc) owning q rows 64 wr.. and DP
+// / WGC columns of dQ, all sharing the K and V tiles (each of a row's WGC
+// warpgroups computes the same S and dP). STATS: the stats pass, delta =
+// rowsum(P * dP) in f32 registers, written to `delta` (WGC = 1). Otherwise
+// the dQ kernel: dQ = scale * dS K, with `delta` read.
+template <int DP, int BKV, int WGR, int WGC, bool STATS>
 __device__ __forceinline__ void dq_wgmma_body(
     uint8_t* smem_tc,
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -311,9 +321,11 @@ __device__ __forceinline__ void dq_wgmma_body(
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2, int vec) {
   using namespace sd_sm90;
-  static_assert(DP % 16 == 0 && BKV % 16 == 0, "tile widths");
+  static_assert(DP % 16 == 0 && BKV % 16 == 0 && DP % (16 * WGC) == 0 && (!STATS || WGC == 1),
+                "tile widths");
   constexpr int BQ = 64 * WGR;
-  constexpr int NT = 128 * WGR;
+  constexpr int NT = 128 * WGR * WGC;
+  constexpr int DS = DP / WGC;  // dQ columns of a warpgroup
   constexpr uint32_t KV_TILE = BKV * DP * 2;
 
   const uint32_t sQ = smem_u32(smem_tc);
@@ -322,7 +334,8 @@ __device__ __forceinline__ void dq_wgmma_body(
   const uint32_t sV = sK + 2 * KV_TILE;
 
   const int tid = threadIdx.x;
-  const int wr = tid >> 7;
+  const int wr = (tid >> 7) / WGC;
+  const int wc = (tid >> 7) % WGC;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int q0 = blockIdx.x * BQ;
@@ -351,7 +364,7 @@ __device__ __forceinline__ void dq_wgmma_body(
     dl[r] = (STATS || row >= N) ? 0.f : delta_bh[row];  // STATS: the running sum
   }
 
-  constexpr int ACC = STATS ? 1 : DP / 2;
+  constexpr int ACC = STATS ? 1 : DS / 2;
   float acc[ACC];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
@@ -414,13 +427,14 @@ __device__ __forceinline__ void dq_wgmma_body(
       uint32_t da[BKV / 16][4];
       to_a_frag(s, da);  // dS in bf16 before dS K
 
-      // dQ += dS K: K read MN-major (its rows are the product's depth)
-      const uint64_t kt_desc = desc_mn_major<DP>(sK + st * KV_TILE);
+      // dQ += dS K: K read MN-major (its rows are the product's depth), this
+      // warpgroup's DS columns
+      const uint64_t kt_desc = desc_mn_major<DP>(sK + st * KV_TILE) + wc * DS;
       fence_regs(acc);
       fence_regs(da);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) Wgmma<DP>::rs(acc, da[kk], kt_desc + 2 * DP * kk, 1);
+      for (int kk = 0; kk < BKV / 16; ++kk) Wgmma<DS>::rs(acc, da[kk], kt_desc + 2 * DP * kk, 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -439,9 +453,9 @@ __device__ __forceinline__ void dq_wgmma_body(
   } else {
     const int64_t row_stride = int64_t(H) * D;
 #pragma unroll
-    for (int i = 0; i < DP / 2; i += 2) {
+    for (int i = 0; i < DS / 2; i += 2) {
       const int row = row0 + 8 * frag_row_half(i);
-      const int col = frag_col(i, lane);
+      const int col = wc * DS + frag_col(i, lane);
       if (row < N && col < D)
         store_bf16_pair(dq + (int64_t(b) * N + row) * row_stride + int64_t(h) * D + col,
                         acc[i] * scale, acc[i + 1] * scale, col + 1 < D);
@@ -467,10 +481,10 @@ constexpr size_t dq_wgmma_smem_bytes() {
       v_sh, d_sb, d_sn, d_sh, scale, scale_log2, vec
 
 // dQ for 64 * WGR q rows (the split set's dQ kernel)
-template <int DP, int BKV, int WGR>
-__global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(SD_DQ_WGMMA_PARAMS) {
+template <int DP, int BKV, int WGR, int WGC>
+__global__ void __launch_bounds__(128 * WGR * WGC) split_dq_wgmma_kernel(SD_DQ_WGMMA_PARAMS) {
   extern __shared__ __align__(128) uint8_t smem_tc[];
-  dq_wgmma_body<DP, BKV, WGR, false>(smem_tc, SD_DQ_WGMMA_ARGS);
+  dq_wgmma_body<DP, BKV, WGR, WGC, false>(smem_tc, SD_DQ_WGMMA_ARGS);
 }
 
 // delta = rowsum(P * dP) for 64 * WGR q rows (the bf16 stats pass of both
@@ -478,22 +492,34 @@ __global__ void __launch_bounds__(128 * WGR) split_dq_wgmma_kernel(SD_DQ_WGMMA_P
 template <int DP, int BKV, int WGR>
 __global__ void __launch_bounds__(128 * WGR) bwd_stats_wgmma_kernel(SD_DQ_WGMMA_PARAMS) {
   extern __shared__ __align__(128) uint8_t smem_tc[];
-  dq_wgmma_body<DP, BKV, WGR, true>(smem_tc, SD_DQ_WGMMA_ARGS);
+  dq_wgmma_body<DP, BKV, WGR, 1, true>(smem_tc, SD_DQ_WGMMA_ARGS);
 }
 
-template <int DP, int BQT, int WGR>
+template <int DP, int BQT, int WGR, int NPART = 1, bool WITH_DQ = false>
 constexpr size_t dkv_wgmma_smem_bytes() {
-  // K, V [64 * WGR][DP] + Q, dO [2 stages][BQT][DP], bf16; lse, delta [2 stages][BQT], f32
-  return 2 * (2 * size_t(64) * WGR * DP + 4 * size_t(BQT) * DP) + 4 * 4 * size_t(BQT);
+  // K, V [64 * WGR][DP] + Q, dO [2 stages][BQT][DP], bf16; lse, delta [2 stages][BQT], f32;
+  // WITH_DQ: dS^T [64 * WGR][BQT] bf16 and the dQ share [BQT][DP / NPART + 4] f32
+  return 2 * (2 * size_t(64) * WGR * DP + 4 * size_t(BQT) * DP) + 4 * 4 * size_t(BQT) +
+         (WITH_DQ ? 2 * size_t(64) * WGR * BQT + 4 * size_t(BQT) * (DP / NPART + 4) : 0);
 }
 
-// dK and dV for 64 * WGR kv rows of one (batch, head), over all q tiles of
-// BQT rows; WGR x WGC warpgroups, (wr, wc) owning kv rows 64 wr.. and DP /
-// WGC columns of both, all sharing the Q and dO tiles.
-template <int DP, int BQT, int WGR, int WGC>
+// dK and dV for 64 * WGR kv rows of one (batch, head) and DP / NPART of their
+// columns (part blockIdx.x % NPART, the parts fastest), over all q tiles of
+// BQT rows; WGR x WGC warpgroups, (wr, wc) owning kv rows 64 wr.. and DS =
+// DP / (NPART * WGC) columns of both, all sharing the Q and dO tiles (each
+// computes S^T and dP^T over the whole head dim for its columns).
+// WITH_DQ (K3's bfloat16 kernel past D 160, WGR = 1): also the block's share
+// of dQ on its part's columns, dQ^T = K^T dS^T (K and dS^T both read
+// MN-major, so the product's 64 rows are head-dim columns and its N the
+// BQT q rows), each warpgroup DS columns; staged in shared memory and added
+// to the f32 buffer `dq_acc` at the block's turn, in kv-block order, under
+// one counter per (batch, head, q tile of BQT, part) in `dq_sem` (the
+// ordered adds of flash_attention_bwd_common.cuh).
+template <int DP, int BQT, int WGR, int WGC, int NPART, bool WITH_DQ = false>
 __global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq_acc, int* __restrict__ dq_sem,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, int M, int D,
     int64_t q_sb, int64_t q_sn, int64_t q_sh,
     int64_t k_sb, int64_t k_sm, int64_t k_sh,
@@ -501,11 +527,14 @@ __global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
     int64_t d_sb, int64_t d_sn, int64_t d_sh,
     float scale, float scale_log2, int vec) {
   using namespace sd_sm90;
-  static_assert(DP % 16 == 0 && DP % WGC == 0 && BQT % 16 == 0 && 2 * BQT <= 128 * WGR * WGC,
+  static_assert(DP % (16 * WGC * NPART) == 0 && BQT % 16 == 0 && 2 * BQT <= 128 * WGR * WGC,
                 "tile widths");
+  static_assert(!WITH_DQ || (WGR == 1 && DP % (64 * WGC * NPART) == 0), "dQ share tiles of 64 columns");
   constexpr int BKV = 64 * WGR;
   constexpr int NT = 128 * WGR * WGC;
-  constexpr int DS = DP / WGC;
+  constexpr int DS = DP / (WGC * NPART);
+  constexpr int DPART = DP / NPART;  // the columns of a block
+  constexpr int LDS = DPART + 4;     // f32 row stride of the staged dQ share
   constexpr uint32_t Q_TILE = BQT * DP * 2;
 
   extern __shared__ __align__(128) uint8_t smem_tc[];
@@ -513,15 +542,20 @@ __global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
   const uint32_t sV = sK + BKV * DP * 2;
   const uint32_t sQ = sV + BKV * DP * 2;     // stage s at sQ + s * Q_TILE
   const uint32_t sdO = sQ + 2 * Q_TILE;
-  const uint32_t sStat = sdO + 2 * Q_TILE;   // [2 stages][lse BQT, delta BQT] f32
+  const uint32_t sDS = sdO + 2 * Q_TILE;     // WITH_DQ: dS^T [BKV kv rows][BQT q columns] bf16
+  const uint32_t sStat = sDS + (WITH_DQ ? BKV * BQT * 2 : 0);  // [2 stages][lse BQT, delta BQT] f32
   const float* stat = reinterpret_cast<const float*>(smem_tc + (sStat - sK));
+  float* shares = reinterpret_cast<float*>(smem_tc + (sStat - sK) + 4 * 4 * BQT);  // [BQT][LDS]
 
   const int tid = threadIdx.x;
   const int wr = (tid >> 7) / WGC;
-  const int wc = (tid >> 7) % WGC;
+  const int wcl = (tid >> 7) % WGC;
+  const int part = blockIdx.x % NPART;
+  const int wc = wcl + part * WGC;  // this warpgroup's column slice
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
-  const int kv0 = blockIdx.x * BKV;
+  const int kvb = blockIdx.x / NPART;  // the kv block: the order of the dQ adds
+  const int kv0 = kvb * BKV;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bf16* qb = q + b * q_sb + h * q_sh;
@@ -600,7 +634,27 @@ __global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
     }
     uint32_t pa[BQT / 16][4], da[BQT / 16][4];
     to_a_frag(s, pa);   // P^T in bf16 before P^T dO
-    to_a_frag(dp, da);  // dS^T in bf16 before dS^T Q
+    to_a_frag(dp, da);  // dS^T in bf16 before dS^T Q (and K^T dS^T)
+
+    if constexpr (WITH_DQ) {
+      // dS^T to shared memory in the core-matrix tiling of BQT columns:
+      // da[kk][r] holds kv row 16 warp + lane/4 + 8 (r % 2) and the q columns
+      // 16 kk + 8 (r / 2) + 2 (lane % 4) and the next, one 4-byte word; the
+      // block's warpgroups hold the same values, the first writes them
+      if (wcl == 0) {
+#pragma unroll
+        for (int kk = 0; kk < BQT / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = 16 * warp + (lane >> 2) + 8 * (r & 1);
+            const int col = 16 * kk + 8 * (r >> 1) + 2 * (lane & 3);
+            const uint32_t addr =
+                sDS + ((row >> 3) * (BQT / 8) + (col >> 3)) * 128 + (row & 7) * 16 + (col & 7) * 2;
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(da[kk][r]) : "memory");
+          }
+        fence_proxy_async();
+      }
+    }
 
     // dV += P^T dO and dK += dS^T Q: dO and Q read MN-major, this warpgroup's DS columns
     const uint64_t dot_desc = desc_mn_major<DP>(sdO + st * Q_TILE) + wc * DS;
@@ -615,10 +669,59 @@ __global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
 #pragma unroll
     for (int kk = 0; kk < BQT / 16; ++kk) Wgmma<DS>::rs(acc_k, da[kk], qt_desc + 2 * DP * kk, 1);
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc_v);
-    fence_regs(acc_k);
-    __syncthreads();
+
+    if constexpr (WITH_DQ) {
+      __syncthreads();  // the whole dS^T tile is in shared memory
+      // this warpgroup's DS columns of the share, transposed: DS / 64 tiles
+      // of [64 head-dim columns x BQT q rows] over the block's BKV kv rows
+      float dqs[DS / 64][BQT / 2];
+      const uint64_t ds_desc = desc_mn_major<BQT>(sDS);
+      const uint64_t kt_desc = desc_mn_major<DP>(sK) + wc * DS;
+#pragma unroll
+      for (int mt = 0; mt < DS / 64; ++mt) {
+#pragma unroll
+        for (int i = 0; i < BQT / 2; ++i) dqs[mt][i] = 0.f;
+        fence_regs(dqs[mt]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < DS / 64; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          WgmmaTT<BQT>::ss(dqs[mt], kt_desc + 64 * mt + 2 * DP * kk, ds_desc + 2 * BQT * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // pa and da stay live until here: the dV/dK products read them asynchronously
+      fence_regs(pa);
+      fence_regs(da);
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+#pragma unroll
+      for (int mt = 0; mt < DS / 64; ++mt) {
+        fence_regs(dqs[mt]);
+#pragma unroll
+        for (int i = 0; i < BQT / 2; ++i) {
+          const int col = wcl * DS + 64 * mt + 16 * warp + (lane >> 2) + 8 * frag_row_half(i);
+          shares[frag_col(i, lane) * LDS + col] = dqs[mt][i] * scale;
+        }
+      }
+      // at this block's turn, the share added to dQ's f32 buffer on the part's columns
+      int* sem = dq_sem + ((int64_t(b) * H + h) * n_tiles + j) * NPART + part;
+      wait_turn(sem, kvb);  // its barrier also orders the shares' writes
+      const int rows = min(BQT, N - j * BQT);
+      const int cols = min(DPART, D - part * DPART);
+      float* out = dq_acc + (int64_t(b) * N + j * BQT) * int64_t(H) * D + int64_t(h) * D + part * DPART;
+      for (int i = tid; i < rows * cols; i += NT) {
+        const int r = i / cols, c = i % cols;
+        ordered_add(out + r * int64_t(H) * D + c, shares[r * LDS + c], kvb == 0);
+      }
+      pass_turn(sem, kvb + 1);  // its barrier also ends the tile
+    } else {
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      __syncthreads();
+    }
   }
 
   const int row0 = kv0 + 64 * wr + 16 * warp + (lane >> 2);
@@ -635,17 +738,17 @@ __global__ void __launch_bounds__(128 * WGR * WGC) split_dkv_wgmma_kernel(
   }
 }
 
-template <int DP, int BKV, int QWGR, int BQT, int KVWGR, int WGC>
+template <int DP, int BKV, int QWGR, int QWGC, int BQT, int KVWGR, int WGC, int NPART>
 int launch_split_wgmma(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
                        int H, int N, int M, int D, const long long* st, float scale,
                        cudaStream_t stream, int* impl) {
   constexpr size_t dq_smem = dq_wgmma_smem_bytes<DP, BKV, QWGR>();
   constexpr size_t dkv_smem = dkv_wgmma_smem_bytes<DP, BQT, KVWGR>();
-  cudaError_t err = cudaFuncSetAttribute(split_dq_wgmma_kernel<DP, BKV, QWGR>,
+  cudaError_t err = cudaFuncSetAttribute(split_dq_wgmma_kernel<DP, BKV, QWGR, QWGC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(dq_smem));
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC>,
+  err = cudaFuncSetAttribute(split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC, NPART>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(dkv_smem));
   if (err != cudaSuccess) return int(err);
   const bf16* qt = static_cast<const bf16*>(q);
@@ -657,18 +760,18 @@ int launch_split_wgmma(const void* q, const void* k, const void* v, const void* 
                   sd_sm90::rows_aligned(k, B, M, H, st[3], st[4], st[5]) &&
                   sd_sm90::rows_aligned(v, B, M, H, st[6], st[7], st[8]) &&
                   sd_sm90::rows_aligned(dout, B, N, H, st[12], st[13], st[14]);
-  split_dq_wgmma_kernel<DP, BKV, QWGR>
-      <<<dim3((N + 64 * QWGR - 1) / (64 * QWGR), H, B), 128 * QWGR, dq_smem, stream>>>(
+  split_dq_wgmma_kernel<DP, BKV, QWGR, QWGC>
+      <<<dim3((N + 64 * QWGR - 1) / (64 * QWGR), H, B), 128 * QWGR * QWGC, dq_smem, stream>>>(
       qt, kt, vt, dt, lse, const_cast<float*>(delta), static_cast<bf16*>(dq), H, N, M, D, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
       scale_log2, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC>
-      <<<dim3((M + 64 * KVWGR - 1) / (64 * KVWGR), H, B), 128 * KVWGR * WGC, dkv_smem, stream>>>(
-      qt, kt, vt, dt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, M, D,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14], scale,
-      scale_log2, vec);
+  split_dkv_wgmma_kernel<DP, BQT, KVWGR, WGC, NPART>
+      <<<dim3((M + 64 * KVWGR - 1) / (64 * KVWGR) * NPART, H, B), 128 * KVWGR * WGC, dkv_smem, stream>>>(
+      qt, kt, vt, dt, lse, delta, nullptr, nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
+      N, M, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13], st[14],
+      scale, scale_log2, vec);
   err = cudaGetLastError();
   if (err == cudaSuccess) *impl = 1;
   return int(err);
@@ -706,8 +809,37 @@ int launch_bwd_stats_bf16(const void* q, const void* k, const void* v, const voi
   if (D <= DP) return launch_stats<DP, BKV, WGR>(q, k, v, dout, lse, delta, B, H, N, M, D, st, scale, stream);
   SD_STATS_CASE(32, 64, 2) SD_STATS_CASE(48, 64, 2) SD_STATS_CASE(64, 64, 2)
   SD_STATS_CASE(80, 64, 2) SD_STATS_CASE(128, 32, 1) SD_STATS_CASE(160, 32, 1)
+  SD_STATS_CASE(512, 16, 1)
 #undef SD_STATS_CASE
   return int(cudaErrorInvalidValue);
+}
+
+// K3's bfloat16 kernel past D 160 (declared in flash_attention_bwd_common.cuh):
+// the split set's dK/dV kernel at DP 512 (two blocks of two warpgroups per
+// 64 kv rows, 16-row q tiles), each block also adding its share of dQ on its
+// 256 columns to the f32 buffer `dq_acc` in kv-block order; `dq_sem` holds
+// B * H * ceil(N / 16) * 2 zeroed counters. Returns a CUDA error code.
+int launch_fused_bwd_wgmma_d512(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, float* dq_acc, int* dq_sem,
+                                void* dk, void* dv, int B, int H, int N, int M, int D,
+                                const long long* st, float scale, cudaStream_t stream) {
+  constexpr int DP = 512, BQT = 16, WGC = 2, NPART = 2;
+  constexpr size_t smem = dkv_wgmma_smem_bytes<DP, BQT, 1, NPART, true>();
+  cudaError_t err = cudaFuncSetAttribute(split_dkv_wgmma_kernel<DP, BQT, 1, WGC, NPART, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int vec = sd_sm90::rows_aligned(q, B, N, H, st[0], st[1], st[2]) &&
+                  sd_sm90::rows_aligned(k, B, M, H, st[3], st[4], st[5]) &&
+                  sd_sm90::rows_aligned(v, B, M, H, st[6], st[7], st[8]) &&
+                  sd_sm90::rows_aligned(dout, B, N, H, st[12], st[13], st[14]);
+  // kv blocks (their parts fastest) fastest: the order of the dQ adds
+  split_dkv_wgmma_kernel<DP, BQT, 1, WGC, NPART, true>
+      <<<dim3((M + 63) / 64 * NPART, H, B), 128 * WGC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, dq_acc, dq_sem, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, N, M, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[12], st[13], st[14], scale, scale * 1.4426950408889634f, vec);
+  return int(cudaGetLastError());
 }
 
 namespace {
@@ -718,19 +850,19 @@ int backward_split_wgmma(int D, const void* q, const void* k, const void* v, con
                          cudaStream_t stream, int* impl) {
   const int err = launch_bwd_stats_bf16(q, k, v, dout, lse, delta, B, H, N, M, D, st, scale, stream);
   if (err != 0) return err;
-  // (DP, kv tile and row warpgroups of the dQ kernel, q tile, row and column
-  // warpgroups of the dK/dV kernel)
-#define SD_SPLIT_WGMMA_CASE(DP, BKV, QWGR, BQT, KVWGR, WGC)                                   \
-  if (D <= DP)                                                                              \
-    return launch_split_wgmma<DP, BKV, QWGR, BQT, KVWGR, WGC>(q, k, v, dout, lse, delta, dq, \
-                                                              dk, dv, B, H, N, M, D, st,     \
-                                                              scale, stream, impl);
-  SD_SPLIT_WGMMA_CASE(32, 64, 2, 64, 2, 1)
-  SD_SPLIT_WGMMA_CASE(48, 64, 2, 64, 2, 1)
-  SD_SPLIT_WGMMA_CASE(64, 64, 2, 64, 2, 1)
-  SD_SPLIT_WGMMA_CASE(80, 64, 2, 64, 2, 1)
-  SD_SPLIT_WGMMA_CASE(128, 32, 1, 32, 1, 2)
-  SD_SPLIT_WGMMA_CASE(160, 32, 1, 32, 1, 2)
+  // (DP; kv tile, row and column warpgroups of the dQ kernel; q tile, row and
+  // column warpgroups and column parts (blocks) of the dK/dV kernel)
+#define SD_SPLIT_WGMMA_CASE(DP, BKV, QWGR, QWGC, BQT, KVWGR, WGC, NPART)                        \
+  if (D <= DP)                                                                                \
+    return launch_split_wgmma<DP, BKV, QWGR, QWGC, BQT, KVWGR, WGC, NPART>(                   \
+        q, k, v, dout, lse, delta, dq, dk, dv, B, H, N, M, D, st, scale, stream, impl);
+  SD_SPLIT_WGMMA_CASE(32, 64, 2, 1, 64, 2, 1, 1)
+  SD_SPLIT_WGMMA_CASE(48, 64, 2, 1, 64, 2, 1, 1)
+  SD_SPLIT_WGMMA_CASE(64, 64, 2, 1, 64, 2, 1, 1)
+  SD_SPLIT_WGMMA_CASE(80, 64, 2, 1, 64, 2, 1, 1)
+  SD_SPLIT_WGMMA_CASE(128, 32, 1, 1, 32, 1, 2, 1)
+  SD_SPLIT_WGMMA_CASE(160, 32, 1, 1, 32, 1, 2, 1)
+  SD_SPLIT_WGMMA_CASE(512, 16, 1, 2, 16, 1, 2, 2)
 #undef SD_SPLIT_WGMMA_CASE
   return int(cudaErrorInvalidValue);
 }
@@ -740,7 +872,7 @@ int backward_split_wgmma(int D, const void* q, const void* k, const void* v, con
 extern "C" {
 
 // dtype: 0 = float32 (the FMA kernels), 1 = bfloat16 (the tensor-core
-// kernels); D <= 160. `strides` holds 15 element strides: (batch, token,
+// kernels); D <= 512. `strides` holds 15 element strides: (batch, token,
 // head) of q, k, v, o and do in that order. `delta` is f32 [B, H, N] scratch;
 // dq, dk and dv are the contiguous outputs. `impl` receives the kernels
 // launched, written by the launch once both succeeded: 0 = FMA, 1 = wgmma. Returns the first nonzero CUDA error code, 0
@@ -750,7 +882,7 @@ int sd_flash_attention_backward_split(int dtype, const void* q, const void* k, c
                                       void* delta, void* dq, void* dk, void* dv, int B, int H,
                                       int N, int M, int D, const long long* strides, float scale,
                                       void* stream, int* impl) {
-  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || D <= 0 || D > 160 || B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || N <= 0 || M <= 0 || D <= 0 || D > 512 || B > 65535 || H > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);

@@ -5,10 +5,13 @@ Kept reference quirks: the decoder walks the channel list in reverse from
 bottleneck's single-head attention is not residual. Names follow the reference
 torch VAE (``encoder.down.{i}.0``, ``decoder.up.{i}.1.0.conv``, ...). The
 encoder returns the posterior (:class:`GaussianDistribution`) the UNet trainer
-samples latents from; text-to-image runs only ``decode``.
+samples latents from; text-to-image runs only ``decode``; the autoencoder
+trainer runs the whole pass, :meth:`AutoEncoderKL.forward`.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -120,3 +123,20 @@ class AutoEncoderKL(nn.Module):
             raise ValueError(f"latent has {latent.shape[-1]} channels, expected {self.latent_channels}")
         dtype = self.post_quant_conv.weight.dtype
         return self.decoder(self.post_quant_conv(latent.to(dtype)))
+
+    def forward(
+        self,
+        img: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        eps: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, GaussianDistribution]:
+        """encode -> sample -> decode (the JAX ``__call__`` with a sample key):
+        -> (reconstruction, posterior). The latent is a posterior sample with
+        noise ``eps`` (or drawn from ``generator``) when either is given, its
+        mode otherwise."""
+        posterior = self.encode(img)
+        if generator is None and eps is None:
+            z = posterior.mode()
+        else:
+            z = posterior.sample(generator, eps)
+        return self.decode(z), posterior

@@ -16,6 +16,9 @@ parameters and the trainer computes in the compute dtype under
 ``torch.autocast``, the counterpart of Flax's ``dtype=bf16`` over
 ``param_dtype=f32``; CLIP and the VAE are frozen and cast as for inference.
 
+The autoencoder trainer builds the VAE alone (:func:`build_autoencoder`), with
+f32 trainable parameters as the UNet has for its trainer.
+
 Entry points run on the card: ``device`` defaults to ``"cuda"``, and without a
 CUDA device only an explicit ``"cpu"`` runs (:func:`require_device`).
 """
@@ -103,6 +106,23 @@ def prepare_for_training(module: nn.Module) -> nn.Module:
     0.1) never drops anything in training there, and not here either."""
     module.to(dtype=torch.float32, memory_format=torch.channels_last)
     return module.eval().requires_grad_(True)
+
+
+def build_autoencoder(
+    vae_cfg: AutoencoderConfig,
+    compat: Optional[CompatConfig] = None,
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> AutoEncoderKL:
+    """The VAE alone for training (the autoencoder trainer): f32 trainable
+    parameters on ``device``, seeded as :func:`build_models` seeds it."""
+    compat = compat.resolved() if compat is not None else CompatConfig()
+    device = require_device(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    with device:
+        vae = AutoEncoderKL(vae_cfg, bottleneck_default_groups=compat.bottleneck_default_groups)
+    init_weights(vae, generator)
+    return prepare_for_training(vae)
 
 
 def build_models(

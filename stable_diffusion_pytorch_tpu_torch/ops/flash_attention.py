@@ -23,9 +23,9 @@ Backward, two kernel sets, both CUDA C++:
 VMEM limit) or under ``SD_FLASH_BWD=split``, K3 otherwise; bfloat16 by an
 H100 measurement, the split kernels at every length. All are built for sm_90a
 by ``ops/native.py``; their design notes are at the top of each source. The
-forward takes any D up to 512 and any kv length, the backward any D up to
-160 (the UNet's widest head), strided q/k/v views included (the fused-QKV
-split hands them non-contiguous views).
+forward and both backward sets take any D up to 512 (the VAE's single head;
+the UNet's widest is 160) and any kv length, strided q/k/v views included
+(the fused-QKV split hands them non-contiguous views).
 
 The dtype picks the implementation inside every kernel set: bfloat16 runs
 on the tensor cores (``wgmma``, shared helpers in
@@ -64,9 +64,11 @@ LAUNCHES = native.counter("flash_attention")
 BWD_LAUNCHES = native.counter("flash_attention_bwd")
 SPLIT_BWD_LAUNCHES = native.counter("flash_attention_bwd_split")
 MAX_HEAD_DIM = 512      # the largest padded head dim csrc/flash_attention.cu instantiates
-MAX_BWD_HEAD_DIM = 160  # the same for both backward sources
+MAX_BWD_HEAD_DIM = 512  # the same for both backward sources
 KV_RESIDENT_MAX = 9216  # the JAX package's backward crossover, in kv tokens padded to 128
-DQ_TILE = 64            # q rows per K3 tile: one ordered-add counter per (batch, head, tile)
+# K3's ordered dQ adds take one counter per (batch, head, q tile, column part):
+DQ_TILE = 16            # the fewest q rows of a K3 tile (bf16 at D 512; 64 elsewhere)
+DQ_PARTS = 4            # the most column parts of the head dim (f32 at D 512)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _IMPLS = ("fma", "wgmma")  # the C entry points' `impl` codes, written by each successful launch
@@ -99,11 +101,8 @@ def flash_attention_bwd_plain(
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_d: int, name: str) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(
-            f"{name}: q, k, v must share one CUDA device "
-            f"(got {q.device}, {k.device}, {v.device})"
-        )
+    """Raise on what the kernels do not take: the shape and head dim first, so
+    a head dim past ``max_d`` is named on any device, then the device."""
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"{name} takes float32 or bfloat16 q/k/v of one dtype "
@@ -126,6 +125,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_d: int, name: 
         raise ValueError(f"{name}: the head dim of q, k, v must be contiguous")
     if d > max_d:
         raise ValueError(f"{name}: head dim {d} exceeds the kernel's {max_d}")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(
+            f"{name}: q, k, v must share one CUDA device "
+            f"(got {q.device}, {k.device}, {v.device})"
+        )
 
 
 def _check_wgmma(name: str, *tensors) -> None:
@@ -207,7 +211,7 @@ def flash_attention_bwd(q, k, v, out, do, lse, scale: float):
     m = k.shape[1]
     dev = q.device
     dq_acc = torch.empty((b, n, h, d), dtype=torch.float32, device=dev)  # written in full
-    dq_sem = torch.zeros(b * h * -(-n // DQ_TILE), dtype=torch.int32, device=dev)
+    dq_sem = torch.zeros(b * h * -(-n // DQ_TILE) * DQ_PARTS, dtype=torch.int32, device=dev)
     dq = dq_acc if q.dtype == torch.float32 else torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, m, h, d), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)

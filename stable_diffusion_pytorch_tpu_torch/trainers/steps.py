@@ -1,6 +1,7 @@
-"""The UNet train and eval steps (port of trainers/steps.py:make_unet_train_step).
+"""The train and eval steps of the UNet and of the KL-VAE (port of
+trainers/steps.py: ``make_unet_train_step``, ``make_vae_train_step``).
 
-One step: frozen VAE encode and posterior sample, q-sample, frozen CLIP encode
+One UNet step: frozen VAE encode and posterior sample, q-sample, frozen CLIP encode
 with empty-prompt dropout, the UNet forward and backward, the f32 MSE to the
 noise, clip-by-global-norm and AdamW (``trainers/optim.py``), and the EMA
 shadow update. The UNet keeps f32 parameters; on a CUDA device with a bf16
@@ -15,6 +16,11 @@ noise, the diffusion noise, the timesteps, the dropout uniforms, the offset
 noise and the input perturbation. ``jax.random`` cannot be reproduced, so a
 parity test draws them in JAX (``steps.py`` splits the step key seven ways)
 and hands them in.
+
+One VAE step: the whole VAE (encode, posterior sample, decode) forward and
+backward on trainable f32 parameters under the same autocast, the f32 MSE of
+the reconstruction plus ``kl_weight`` times the KL, then the same optimizer
+and EMA update. Its one draw, the posterior noise, is handed in as ``eps``.
 """
 
 from __future__ import annotations
@@ -29,14 +35,15 @@ from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
 
 
 class TrainState:
-    """The trainable UNet's parameters (held by the module), the optimizer
-    state, the micro-step count and the optional EMA shadow parameters."""
+    """The trainable module's parameters (held by the module: the UNet, or
+    the VAE of the autoencoder trainer), the optimizer state, the micro-step
+    count and the optional EMA shadow parameters."""
 
-    def __init__(self, unet: torch.nn.Module, optimizer, with_ema: bool = False):
+    def __init__(self, module: torch.nn.Module, optimizer, with_ema: bool = False):
         self.step = 0
-        self.unet = unet
-        self.names = [n for n, p in unet.named_parameters() if p.requires_grad]
-        self.params: List[torch.Tensor] = [p for p in unet.parameters() if p.requires_grad]
+        self.module = module
+        self.names = [n for n, p in module.named_parameters() if p.requires_grad]
+        self.params: List[torch.Tensor] = [p for p in module.parameters() if p.requires_grad]
         self.optimizer = optimizer
         with torch.no_grad():
             self.ema_params = [p.detach().clone() for p in self.params] if with_ema else None
@@ -54,7 +61,7 @@ class TrainState:
         if (state["ema_params"] is None) != (self.ema_params is None):
             raise ValueError("checkpoint EMA parameters do not match this run's --ema-decay")
         if sorted(state["params"]) != sorted(self.names):
-            raise ValueError("checkpoint parameters do not match this UNet's parameters")
+            raise ValueError("checkpoint parameters do not match this module's parameters")
         self.step = int(state["step"])
         for i, name in enumerate(self.names):
             self.params[i].copy_(state["params"][name])
@@ -96,6 +103,24 @@ def _ema_update(ema_params, params, decay: float) -> None:
         return
     torch._foreach_mul_(ema_params, decay)
     torch._foreach_add_(ema_params, params, alpha=1.0 - decay)
+
+
+def _apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float) -> torch.Tensor:
+    """Backward from ``loss``, hand the gradients to ``state.optimizer.step``,
+    move the EMA when that applied an update, count the micro step -> the
+    gradients' global norm."""
+    for p in state.params:
+        p.grad = None
+    loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+    applied, grad_norm = state.optimizer.step(grads)
+    for p in state.params:
+        p.grad = None
+    with torch.no_grad():
+        # the EMA moves only when the optimizer applied an update
+        _ema_update(state.ema_params, state.params, ema_decay if applied else 1.0)
+    state.step += 1
+    return grad_norm
 
 
 def make_unet_train_step(
@@ -165,22 +190,54 @@ def make_unet_train_step(
         return torch.mean((pred.float() - noise.float()) ** 2)
 
     def train_step(state: TrainState, batch, uncond_ids, draws):
-        for p in state.params:
-            p.grad = None
         loss = loss_fn(batch, uncond_ids, draws)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
-        applied, grad_norm = state.optimizer.step(grads)
-        for p in state.params:
-            p.grad = None
-        with torch.no_grad():
-            # the EMA moves only when the optimizer applied an update
-            _ema_update(state.ema_params, state.params, ema_decay if applied else 1.0)
-        state.step += 1
+        grad_norm = _apply_gradients(state, loss, ema_decay)
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     @torch.no_grad()
     def eval_step(batch, uncond_ids, draws):
         return loss_fn(batch, uncond_ids, draws)
+
+    return train_step, eval_step
+
+
+def make_vae_train_step(
+    vae: torch.nn.Module,
+    compute_dtype: torch.dtype = torch.float32,
+    kl_weight: float = 1.0,
+    kl_per_example0: bool = False,
+    ema_decay: float = 0.0,
+) -> Tuple[Callable, Callable]:
+    """Build (train_step, eval_step) for KL-VAE training.
+
+    train_step(state, batch, eps) -> {"loss", "grad_norm", "recon_loss", "kl_loss"}
+    eval_step(batch, eps) -> loss
+
+    ``batch``: {"pixel_values": [B, H, W, 3] in [-1, 1]} on the VAE's device;
+    ``eps``: the posterior noise, [B, H/f, W/f, latent_channels]. The loss is
+    the f32 MSE(img, recon) + ``kl_weight`` * KL, the KL the batch mean of the
+    per-example sums, or example 0's under ``kl_per_example0`` (the
+    reference's bug, ``CompatConfig.kl_per_example0``)."""
+    device = next(vae.parameters()).device
+    autocast = device.type == "cuda" and compute_dtype != torch.float32
+
+    def loss_fn(batch, eps):
+        img = batch["pixel_values"]
+        with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
+            recon, posterior = vae(img, eps=eps)
+        recon_loss = torch.mean((img.float() - recon.float()) ** 2)
+        kl = posterior.kl()
+        kl_loss = kl[0] if kl_per_example0 else kl.mean()
+        return recon_loss + kl_weight * kl_loss, recon_loss, kl_loss
+
+    def train_step(state: TrainState, batch, eps):
+        loss, recon_loss, kl_loss = loss_fn(batch, eps)
+        grad_norm = _apply_gradients(state, loss, ema_decay)
+        return {"loss": loss.detach(), "grad_norm": grad_norm, "recon_loss": recon_loss.detach(),
+                "kl_loss": kl_loss.detach()}
+
+    @torch.no_grad()
+    def eval_step(batch, eps):
+        return loss_fn(batch, eps)[0]
 
     return train_step, eval_step

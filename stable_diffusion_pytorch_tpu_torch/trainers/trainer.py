@@ -1,12 +1,15 @@
-"""Trainer core on one device and the UNet trainer (port of trainers/trainer.py).
+"""Trainer core on one device, the UNet trainer and the autoencoder (KL-VAE)
+trainer (port of trainers/trainer.py).
 
 The loop keeps the JAX package's semantics: ``train_batch_size`` per device,
 ``global_step`` counting optimizer steps (``gradient_accumulation_steps``
 micro steps each), ``checkpoint-{step}`` saves every ``checkpointing_steps``
 (or per epoch), ``latest`` resume with the reference's replay arithmetic
 (skipping the micro batches already seen in the resumed epoch), evaluation
-every ``log_interval`` optimizer steps before the termination check, and the
-JSONL metrics stream (train loss, lr, samples/s, step timing).
+every ``log_interval`` optimizer steps before the termination check (the
+autoencoder trainer one step earlier, at ``(step + 1) % log_interval``, as
+the JAX package's does), and the JSONL metrics stream (train loss, lr,
+samples/s, step timing).
 
 Random draws: micro step ``m`` takes its draws from a ``torch.Generator``
 seeded with ``SeedSequence([0, seed, m])`` (evaluation batch ``i``:
@@ -36,10 +39,11 @@ from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_optimizer, l
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
     TrainState,
     make_unet_train_step,
+    make_vae_train_step,
     sample_draws,
 )
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import CheckpointManager, resume_train_state_math
-from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader
+from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, detransform
 from stable_diffusion_pytorch_tpu_torch.utils.profiling import StepTimer
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker, get_logger
 
@@ -90,6 +94,7 @@ class Trainer:
     Subclasses build the state and steps in ``_build``."""
 
     run_name = "trainer"
+    eval_cadence_offset = 0  # evaluate when (global_step + offset) % log_interval == 0
 
     def __init__(self, cfg, train_dataset, eval_dataset, logger=None, device="cuda"):
         if train_dataset is None:
@@ -253,7 +258,8 @@ class Trainer:
 
                 # evaluation runs before the termination check, so a last step
                 # on the cadence is still evaluated
-                if sync and global_step > 0 and cfg.train.log_interval > 0 and global_step % cfg.train.log_interval == 0:
+                if (sync and global_step > 0 and cfg.train.log_interval > 0
+                        and (global_step + self.eval_cadence_offset) % cfg.train.log_interval == 0):
                     self.evaluate(global_step)
 
                 if global_step >= max_train_steps:
@@ -338,3 +344,59 @@ class UNetTrainer(Trainer):
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, self.uncond_ids, self._draws(batch, generator))
+
+
+class AutoencoderTrainer(Trainer):
+    """KL-VAE training: the whole VAE trainable, loss MSE + ``kl_weight`` * KL,
+    with the reference's loss fixed by default (the batch-mean KL; example
+    0's under ``CompatConfig.kl_per_example0``). The VAE must hold f32
+    trainable parameters (``models/build.py:build_autoencoder``); it
+    computes in the run's dtype under autocast. ``--remat-policy`` is a UNet
+    option and does not apply here."""
+
+    run_name = "train_autoencoder"
+    eval_cadence_offset = 1  # (global_step + 1) % log_interval, as the JAX package's VAE trainer
+
+    def __init__(self, vae, cfg, train_dataset, eval_dataset, test_images=None, logger=None, compat=None,
+                 device="cuda"):
+        self.vae = vae
+        self.compat = compat
+        self.test_images = list(test_images or [])
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device)
+
+    def _build(self) -> None:
+        cfg, vae = self.cfg, self.vae
+        if next(vae.parameters()).dtype != torch.float32 or not next(vae.parameters()).requires_grad:
+            raise ValueError("the VAE must hold f32 trainable parameters: build_autoencoder(..., device)")
+        optimizer = build_optimizer(
+            [p for p in vae.parameters() if p.requires_grad], cfg.optim,
+            max_train_steps=cfg.train.max_train_steps,
+            gradient_accumulation_steps=cfg.train.gradient_accumulation_steps,
+        )
+        self.state = TrainState(vae, optimizer, with_ema=cfg.train.ema_decay > 0)
+        self._train, self._eval = make_vae_train_step(
+            vae, compute_dtype=self.dtype, kl_weight=float(cfg.model.autoencoder.kl_weight),
+            kl_per_example0=bool(self.compat and self.compat.kl_per_example0), ema_decay=cfg.train.ema_decay,
+        )
+
+    def _eps(self, batch, generator) -> torch.Tensor:
+        """The posterior noise of one step, [B, H/f, W/f, latent_channels] f32."""
+        b, h, w, _ = batch["pixel_values"].shape
+        f = self.vae.downsample_factor
+        return torch.randn((b, h // f, w // f, self.vae.latent_channels), generator=generator, device=self.device)
+
+    def _train_step(self, batch, generator):
+        return self._train(self.state, batch, self._eps(batch, generator))
+
+    def _eval_step(self, batch, generator):
+        return self._eval(batch, self._eps(batch, generator))
+
+    @torch.no_grad()
+    def recon(self, image: np.ndarray) -> np.ndarray:
+        """Reconstruct one [-1, 1] HWC image (a posterior sample from a
+        generator seeded 0) -> HWC uint8."""
+        batch = {"pixel_values": torch.as_tensor(np.asarray(image, np.float32), device=self.device)[None]}
+        autocast = self.device.type == "cuda" and self.dtype != torch.float32
+        with torch.autocast(self.device.type, dtype=self.dtype, enabled=autocast):
+            recon, _ = self.vae(batch["pixel_values"], eps=self._eps(batch, step_generator(self.device, 0)))
+        return detransform(recon.float().cpu().numpy())

@@ -7,8 +7,8 @@ sampling path reads ``cfg_formula``, ``flipped_time_embedding`` and
 ``bottleneck_default_groups``; the UNet trainer reads ``train_with_cfg``,
 ``cfg_formula`` and ``reference_compat`` (whole-batch CFG dropout).
 ``ascending_sample_loop`` and ``uniform_init_noise`` belong to samplers not
-ported yet and raise there; ``kl_per_example0`` belongs to the autoencoder
-trainer, not ported yet.
+ported yet and raise there; the autoencoder trainer reads ``kl_per_example0``
+(and the VAE ``bottleneck_default_groups``).
 """
 
 from dataclasses import dataclass, field

@@ -278,6 +278,14 @@ def get_dataset(args: DatasetConfig, split: str = "train", tokenizer=None, logge
     return SyntheticTextImageDataset(args, split, tokenizer, sizes[split])
 
 
+def sample_test_image(args: DatasetConfig, split: str, tokenizer, logger=None, num: int = 10) -> List[np.ndarray]:
+    """``num`` [-1, 1] HWC f32 images of ``split``, rows drawn with a numpy
+    generator seeded 0 (the JAX package's ``sample_test_image``: the same rows)."""
+    test_data = get_dataset(args, split=split, tokenizer=tokenizer, logger=logger)
+    rng = np.random.default_rng(0)
+    return [test_data[int(rng.integers(0, len(test_data)))]["pixel_values"] for _ in range(num)]
+
+
 class DataLoader:
     """Deterministic batcher with fixed shapes (drop_last), optionally with a
     prefetch thread.

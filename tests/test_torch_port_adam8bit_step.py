@@ -5,7 +5,7 @@
   from a UNet built on the ``meta`` device: every element lies in exactly one
   work item and is walked by exactly one thread, each quantization block is
   owned by one item, every 1-D leaf takes the row mapping, every leaf one
-  pass within 64 KB of shared memory.
+  pass within 64 KB of shared memory; the same over the SD-1.5 VAE's 240.
 - ``adam8bit_step_plain`` against the per-leaf loop ``AdamW8bit._update`` ran
   before the step was fused (clip, one-leaf update, apply, the state
   replaced), f32 and bf16 gradients, the clip active and not: parameters,
@@ -26,6 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stable_diffusion_pytorch_tpu_torch.models import presets  # noqa: E402
+from stable_diffusion_pytorch_tpu_torch.models.autoencoder import AutoEncoderKL  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.ops import adam8bit_update as k9  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit  # noqa: E402
@@ -95,6 +96,29 @@ def test_plan_covers_the_sd15_leaves_once():
     for block, cols in kinds:  # every row of every column walked by exactly one thread
         for rows in _thread_rows(block, cols).values():
             assert sorted(rows) == list(range(block)), (block, cols)
+
+
+def test_plan_covers_the_sd15_vae_leaves_once():
+    """``--use-8bit-adam`` in the autoencoder trainer: the plan over the
+    SD-1.5 VAE's 240 leaves (its 3- and 8-row output convs, the 1x1 quant
+    convs, 128- and 256-row blocks) covers each quantization block once in
+    one pass, and every column-mapped item's rows are walked once."""
+    with torch.device("meta"):
+        vae = AutoEncoderKL(presets.sd15_autoencoder_config())
+    shapes = [tuple(p.shape) for p in vae.parameters()]
+    plan = k9.adam8bit_plan(shapes, 256)
+    assert len(shapes) == len(plan.leaves) == 240
+    assert sum(int(np.prod(s)) for s in shapes) == 72_094_951
+    for i, (shape, leaf) in enumerate(zip(shapes, plan.leaves)):
+        assert (leaf.o, leaf.r, leaf.block, leaf.nb) == k9.blocked_layout(shape, 256)
+        assert (_coverage(plan, i) == 1).all(), shape
+        assert leaf.one_pass and leaf.block * leaf.cols <= plan.smem_elems, shape
+        if len(shape) == 1:
+            assert leaf.mapping == "row" and leaf.cols == 1, shape
+        if leaf.mapping == "column":
+            for rows in _thread_rows(leaf.block, leaf.cols).values():
+                assert sorted(rows) == list(range(leaf.block)), shape
+    assert not (plan.items[:, 3] & k9.RECOMPUTE).any()
 
 
 def test_plan_recomputes_blocks_too_tall_to_hold():

@@ -193,7 +193,7 @@ def test_bf16_forward_takes_strided_qkv_views(cuda):
     assert dict(native.COUNTERS["flash_attention"].impls) == {"wgmma": 1}
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
 def test_bf16_split_backward_runs_the_tensor_core_kernels(cuda, d):
     """The wgmma split backward against its plain version at ragged q and kv
     lengths (77, past one tile), bit-identical across two launches."""
@@ -565,7 +565,7 @@ def _shared_key_views(g, n, m, h, d, dev):
     return q, k, k, q
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
 def test_both_backward_routes_hold_correlated_views(cuda, d):
     """K3 and the split set at keys sharing a component of 3 (dO = Q, V = K):
     with the stats pass's f32 delta both stay within the bf16 tolerance of
@@ -602,6 +602,80 @@ def test_k3_repeats_bit_for_bit(cuda, dtype):
         for got, rep, ref in zip(grads, again, flash_attention_bwd_plain(q, k, v, do, d ** -0.5)):
             assert torch.equal(got, rep), (b, n, m, h, d)
             assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_at_the_vae_training_shapes(cuda, dtype):
+    """K6 and K7 at the SD-1.5 VAE's training maps: 4 channels a group at the
+    256px top level (streamed), 16 at the 32x32 bottleneck, and 2 groups of
+    256 channels (the first bottleneck ResBlock under
+    ``bottleneck_default_groups``), with SiLU, against the plain versions;
+    one launch each, two backward launches bit-identical."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(80)
+    for shape, groups in [((4, 65536, 128), 32), ((4, 1024, 512), 32), ((4, 1024, 512), 2), ((1, 64, 512), 2)]:
+        c = shape[-1]
+        x = (torch.randn(*shape, device=cuda, generator=g) * 2 + 0.5).to(dt)
+        w, bias = 1 + 0.3 * torch.randn(c, device=cuda, generator=g), 0.3 * torch.randn(c, device=cuda, generator=g)
+        dy = torch.randn(*shape, device=cuda, generator=g).to(dt)
+        native.reset_counters()
+        out, mean, rstd = _forward(x, None, w, bias, groups, 1e-5, True)
+        assert _rel_err(out, xla_group_norm(x, w, bias, groups, 1e-5, True)) <= TOL[dtype][1], (shape, groups)
+        first = group_norm_bwd([x], dy, w, bias, mean, rstd, groups, 1e-5, True)
+        again = group_norm_bwd([x], dy, w, bias, mean, rstd, groups, 1e-5, True)
+        (dx_ref,), dw_ref, db_ref = group_norm_bwd_plain([x], dy, w, bias, groups, 1e-5, True)
+        for got, rep, ref in zip((first[0][0], *first[1:]), (again[0][0], *again[1:]), (dx_ref, dw_ref, db_ref)):
+            assert torch.equal(got, rep), (shape, groups)
+            assert _rel_err(got, ref) <= BWD_TOL[dtype][1], (shape, groups)
+        assert native.COUNTERS["group_norm"].count == 1 and native.COUNTERS["group_norm_bwd"].count == 2
+
+
+@pytest.mark.parametrize("route", ["split", "fused"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_d512_backward_matches_plain_and_repeats_bit_for_bit(cuda, dtype, route):
+    """The VAE's single 512-wide head on both backward routes: each output
+    against the plain version, two launches bit-identical (the column parts
+    of K3's kernels each keep their ordered dQ adds), at one kv tile, ragged
+    q and kv lengths and several kv blocks; f32 runs FMA, bf16 wgmma."""
+    dt = getattr(torch, dtype)
+    bwd = flash_attention_bwd_split if route == "split" else flash_attention_bwd
+    name = "flash_attention_bwd_split" if route == "split" else "flash_attention_bwd"
+    g = torch.Generator(device=cuda).manual_seed(70)
+    for b, n, m, h in [(1, 64, 64, 1), (2, 200, 77, 1), (1, 130, 300, 2)]:
+        q, k, v, do = (torch.randn(b, s, h, 512, device=cuda, generator=g).to(dt) for s in (n, m, m, n))
+        out, lse = _forward_kernel(q, k, v, 512 ** -0.5, with_lse=True)
+        native.reset_counters()
+        grads = bwd(q, k, v, out, do, lse, 512 ** -0.5)
+        again = bwd(q, k, v, out, do, lse, 512 ** -0.5)
+        assert dict(native.COUNTERS[name].impls) == {"fma" if dtype == "float32" else "wgmma": 2}
+        for got, rep, ref in zip(grads, again, flash_attention_bwd_plain(q, k, v, do, 512 ** -0.5)):
+            assert got.shape == ref.shape and got.dtype == ref.dtype
+            assert torch.equal(got, rep), (b, n, m, h)
+            assert _rel_err(got, ref) <= BWD_TOL[dtype][0], (b, n, m, h)
+
+
+def test_autoencoder_trainer_micro_step_on_cuda(cuda, tmp_path):
+    """One micro step of the autoencoder trainer on the card (tiny VAE, bf16
+    over f32 parameters): finite loss and parts, and K1, the split backward
+    (the bottleneck's single head) and K6/K7 launched."""
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_autoencoder import build_trainer
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    trainer = build_trainer([
+        "--device", "cuda", "--dataset", "synthetic", "--resolution", "32", "--train-batch-size", "2",
+        "--eval-batch-size", "2", "--max-train-samples", "4", "--max-val-samples", "2", "--max-test-samples", "2",
+        "--autoencoder-channels-list", "16,32", "--groups", "8", "--ckpt-dir", str(tmp_path / "ckpt"),
+        "--logging-dir", str(tmp_path / "logs"), "--dataloader-num-workers", "0",
+    ])
+    batch = trainer._place_batch(next(iter(trainer.train_loader)))
+    native.reset_counters()
+    metrics = trainer._train_step(batch, step_generator(cuda, 0, 0, 0))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in metrics.values()), metrics
+    assert sorted(metrics) == ["grad_norm", "kl_loss", "loss", "recon_loss"]
+    counts = {k: c.count for k, c in native.COUNTERS.items()}
+    assert all(counts[k] > 0 for k in ("flash_attention", "flash_attention_bwd_split", "group_norm",
+                                       "group_norm_bwd")), counts
 
 
 def _device_kernels(fn, attempts=4):

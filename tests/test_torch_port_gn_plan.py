@@ -152,3 +152,28 @@ def test_plan_fills_the_resident_budget_exactly():
     for inputs in (1, 2):
         p = gn_launch_plan(16, 1024, 1920, GROUPS, 2, 16, 1280, inputs)
         assert p.resident and p.rows_per_cta * p.groups_per_slice * 60 * 2 * inputs <= GN_RESIDENT_BYTES, p
+
+
+@pytest.mark.parametrize("inputs", [1, 2], ids=["forward", "backward"])
+@pytest.mark.parametrize("groups", [32, 2], ids=["groups32", "bottleneck_default_groups"])
+def test_plan_over_the_vae_training_shapes(groups, inputs):
+    """The SD-1.5 VAE's training maps at 256px (image side 256 down to 32,
+    128-512 channels: 4 to 16 channels a group, the 32x32 bottleneck
+    included) and at the f32 parity's 64px, batches 1 and 4; with 2 groups,
+    the first bottleneck ResBlock's under ``bottleneck_default_groups`` (256
+    channels a group at 512). The same invariants as at the UNet's shapes."""
+    for batch, image in ((4, 256), (1, 64)):
+        for level in range(4):
+            rows = (image >> level) ** 2
+            for channels in VAE_CHANNELS:
+                for elem in (2, 4):
+                    p = gn_launch_plan(batch, rows, channels, groups, elem, 16, 0, inputs)
+                    width = p.groups_per_slice * channels // groups
+                    where = (batch, rows, channels, groups, elem, inputs, p)
+                    assert p.groups_per_slice * p.n_slices == groups, where
+                    assert width % p.vec == 0 and channels % p.vec == 0 and p.vec * elem <= 16, where
+                    assert width // p.vec <= GN_THREADS, where
+                    assert 1 <= p.cluster <= GN_MAX_CLUSTER, where
+                    assert p.cluster * p.rows_per_cta >= rows > (p.cluster - 1) * p.rows_per_cta, where
+                    assert p.smem <= GN_SMEM_MAX, where
+                    assert p.resident == (inputs * p.rows_per_cta * width * elem <= GN_RESIDENT_BYTES), where

@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
 2. kernels: every ported kernel against its plain PyTorch version on the card,
    at every distinct shape the main paths launch, recorded from a one-step run
    of each (the 512x512 txt2img slice; 1024x1024 txt2img; the hires fix's
-   refine; one micro step of SD-1.5 training at 512x512, batch 4, at
+   refine; the server's buckets of 2 and 4 requests at 512x512, UNet batch 4
+   and 8 with CFG; one micro step of SD-1.5 training at 512x512, batch 4, at
    1024x1024, batch 1, of the lean configuration at 512x512, batch 16, and
    of the SD-1.5 VAE's training at 256x256, batch 4, each trainer built for
    its probe and freed after it, taken with an optimizer that applies
@@ -88,6 +89,24 @@ Phases, each printing one JSON line; any failure exits nonzero:
    difference between the tiled and the whole decode (no limit: the JAX
    package calls tiled decode an approximation); ``torch.profiler`` over two
    1024x1024 DDIM steps: device ms per step by kernel category.
+6b. samplers: ``pipeline.sample`` at 512x512, batch 1, CFG 7.5, 10 steps,
+   once per sampler (ddim, ddpm, dpmpp, euler, euler_a, heun, dpmpp_sde),
+   the four sigma-space ones also on Karras spacing, dpmpp with
+   v-prediction and trailing spacing on the zero-terminal-SNR schedule, and
+   dpmpp with guidance rescale 0.7: each decodes to a finite [1,512,512,3],
+   launches K1, K6 and K8, and calls the UNet once a step (heun twice, once
+   on its last step); seconds per step of each loop alone.
+6c. serve: the port's HTTP server (``scripts/serve.py``, ``build_service``
+   at SD-1.5 width, 512x512, ``--max-batch 4``, 10 DDIM steps) in process on
+   127.0.0.1: /healthz lists the seven samplers; four solo requests, then the
+   same four at once (fewer than 4 batches; requests/s, solo p50, the
+   co-batched PNGs' gap to the solo ones in uint8 levels); one request per
+   sampler; the async route; /reload of a perturbed UNet checkpoint (a new,
+   repeatable image; a missing path is a 400 and serving goes on). Any other
+   answer fails the phase. Before it, on the model alone, a bucket row
+   against its solo render (``_bucket_vs_solo``): the UNet call within 2e-2
+   of scale in bf16, the float32 image within 2e-2; the bf16 image's gap
+   recorded beside the loop's own sensitivity to x_T moved by a bf16 ulp.
 7. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
    synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
    (the default), two optimizer steps and one evaluation; checks a finite
@@ -118,9 +137,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9b (each run with the counts set
-to 0 just before it; the split is in the JSON record); ``max_abs_err``,
-``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
+the summary, ``launches`` counts phases 5 to 9b, 6b and 6c included (each
+run with the counts set to 0 just before it; the split is in the JSON
+record); ``max_abs_err``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
 the whole step's one launch over the 686 leaves with a bfloat16 gradient,
 the lean path's, and the clip active); ``impl`` is the implementation each
@@ -158,6 +177,23 @@ TRAIN_STEPS = 2   # optimizer steps of each train phase (x4 micro steps)
 VAE_TRAIN = 256   # image side of the VAE training run: a 32x32 latent, its bottleneck [4, 1024, 1024, 1, 512]
 VAE_TRAIN_BATCH = 4
 VAE_PARITY = 64   # image side of the f32 VAE gradient parity: its bottleneck [1, 64, 64, 1, 512] runs K3
+# the samplers phase: (run, pipeline.sample arguments), 512x512, batch 1, CFG 7.5,
+# STEPS steps; "zt" runs on the zero-terminal-SNR schedule
+SAMPLER_RUNS = (
+    ("ddim", {"sampler": "ddim"}), ("ddpm", {"sampler": "ddpm"}), ("dpmpp", {"sampler": "dpmpp"}),
+    ("euler", {"sampler": "euler"}), ("euler_a", {"sampler": "euler_a"}), ("heun", {"sampler": "heun"}),
+    ("dpmpp_sde", {"sampler": "dpmpp_sde"}),
+    ("euler_karras", {"sampler": "euler", "karras": True}), ("euler_a_karras", {"sampler": "euler_a", "karras": True}),
+    ("heun_karras", {"sampler": "heun", "karras": True}),
+    ("dpmpp_sde_karras", {"sampler": "dpmpp_sde", "karras": True}),
+    ("dpmpp_v_trailing_zt", {"sampler": "dpmpp", "prediction_type": "v_prediction", "timestep_spacing": "trailing"}),
+    ("dpmpp_guidance_rescale", {"sampler": "dpmpp", "guidance_rescale": 0.7}),
+)
+SERVE_MAX_BATCH = 4
+SERVE_BUCKETS = (1, 2, 4)  # the power-of-two batches the server pads a group to
+SERVE_SEEDS = (11, 12, 13, 14)
+SERVE_WINDOW_MS = 100      # the batcher's window: the burst's four requests land in it
+SERVE_PROMPT = "a photograph of an astronaut riding a horse"
 # backward shapes no probe run reaches, held in phase 2 all the same ([B, N, M, H, D]):
 # the VAE bottleneck of 512px VAE training (batch 1), on bf16's split set; the f32 parity's two heads on K3
 EXTRA_BWD_SHAPES = {"flash_attention_bwd_split": {(1, 4096, 4096, 1, 512)},
@@ -838,10 +874,12 @@ class _NoUpdate:
 
 def record_shapes(model, work: str):
     """The distinct launch shapes of each kernel: one-step runs of txt2img at
-    512x512 and at 1024x1024 and of the hires fix (a one-step base and a
-    one-step refine), and one training micro step of each train phase's
-    trainer and of the VAE trainer (parameters untouched), each trainer built
-    for its probe and freed after it. K3 is held at the backward shapes the
+    512x512 and at 1024x1024, of the hires fix (a one-step base and a
+    one-step refine) and of the server's buckets of 2 and 4 requests at
+    512x512 (the samplers phase runs the slice's shapes), and one training
+    micro step of each train phase's trainer and of the VAE trainer
+    (parameters untouched), each trainer built for its probe and freed
+    after it. K3 is held at the backward shapes the
     JAX crossover sends to it (kv up to 9216), which bf16 training runs on the
     split set, and at the f32 VAE parity's; the split set also at the 512px
     VAE bottleneck (``EXTRA_BWD_SHAPES``); K9 at every parameter shape of the
@@ -870,6 +908,11 @@ def record_shapes(model, work: str):
                             (HIRES_BASE, {"hires_scale": 2.0, "hires_strength": 0.6, "vae_tile": HIRES_TILE})):
             pipeline.sample(model, image_size=size, prompt="a photo of a cat", time_steps=1,
                             guidance_scale=7.5, save_dir=None, num_images=NUM_IMAGES, seed=0, **hires)
+            collect()
+        # the server's larger buckets (1 is the slice's): UNet batch 4 and 8 with CFG
+        for bucket in SERVE_BUCKETS[1:]:
+            pipeline.sample(model, image_size=512, prompt=["a photo of a cat"] * bucket, time_steps=1,
+                            guidance_scale=7.5, save_dir=None, seed=list(range(bucket)))
             collect()
     leaf_shapes = None
     for name, size, batch, flags, _required in TRAIN_PHASES:
@@ -1409,7 +1452,7 @@ def phase_slice(model, steps: int, num_images: int) -> dict:
         noise = torch.randn(model.latent_shape(num_images, 512), device="cuda", dtype=model.dtype)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps)
+        model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps, sampler="ddim")
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
 
@@ -1485,9 +1528,9 @@ def phase_hires(model, steps: int) -> dict:
         ctx = model.encode_prompts([prompt])
         gen = torch.Generator(device="cuda").manual_seed(7)
         noise = torch.randn(model.latent_shape(1, HIRES), device="cuda", generator=gen).to(model.dtype)
-        _, loop_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps))
+        _, loop_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps, sampler="ddim"))
         noise = torch.randn(model.latent_shape(1, HIRES_BASE), device="cuda", generator=gen).to(model.dtype)
-        x0, base_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps))
+        x0, base_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=steps, sampler="ddim"))
         x1, refine_s = _timed(lambda: pipeline.hires_refine(
             model, x0, ctx, guidance_scale=7.5, sampler="ddim", time_steps=steps, hires_scale=2.0,
             hires_strength=0.6, generator=torch.Generator().manual_seed(8)))
@@ -1495,7 +1538,8 @@ def phase_hires(model, steps: int) -> dict:
         whole, whole_s = _timed(lambda: model.decode_latent(x1))
         tile_diff = (tiled.float() - whole.float()).abs().max().item()
         noise = torch.randn(model.latent_shape(1, HIRES), device="cuda", generator=gen).to(model.dtype)
-        profile = profile_device(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=2), 2, "step")
+        profile = profile_device(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=2, sampler="ddim"),
+                                 2, "step")
     refine_steps = max(min(round(steps * 0.6), steps), 1)
     a, b = runs["txt2img_1024"], runs["hires_fix"]
     res = {
@@ -1518,6 +1562,330 @@ def phase_hires(model, steps: int) -> dict:
     for run in runs.values():
         check(all(run["launches"][k] > 0 for k in SLICE_KERNELS), f"a kernel was not launched: {run['launches']}")
     check(bool(torch.isfinite(tiled).all() and torch.isfinite(whole).all()), "non-finite staged decode")
+    return res
+
+
+def phase_samplers(model, steps: int) -> dict:
+    """``pipeline.sample`` once per run of ``SAMPLER_RUNS`` at 512x512, batch
+    1, CFG 7.5: each decodes to a finite [1, 512, 512, 3] and launches K1, K6
+    and K8 (counts set to 0 before each run, read after it); the UNet runs
+    once a step (heun: twice, but once on its last step). Then each loop alone
+    (not counted), for seconds per step."""
+    import dataclasses
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+    from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    zt = LatentDiffusion(model.unet, model.autoencoder, model.text_encoder,
+                         make_schedule(dataclasses.replace(presets.sd15_ddpm_config(), zero_terminal_snr=True)),
+                         compat=model.compat, compute_dtype=model.dtype)
+    decoded, calls = [], [0]
+    hooks = [model.autoencoder.decoder.register_forward_hook(lambda m, i, o: decoded.append(o.detach())),
+             model.unet.register_forward_pre_hook(lambda m, i: calls.__setitem__(0, calls[0] + 1))]
+    prompt = "a photograph of an astronaut riding a horse"
+    runs = {}
+    try:
+        with torch.inference_mode():
+            ctx = model.encode_prompts([prompt])
+            for name, kw in SAMPLER_RUNS:
+                m = zt if name.endswith("_zt") else model
+                decoded.clear()
+                calls[0] = 0
+                native.reset_counters()
+                images, total_s = _timed(lambda: pipeline.sample(
+                    m, image_size=512, prompt=prompt, time_steps=steps, guidance_scale=7.5, save_dir=None,
+                    seed=42, **kw))
+                launches, unet_calls = launch_counts(), calls[0]
+                noise = torch.randn(m.latent_shape(1, 512), device="cuda", dtype=m.dtype,
+                                    generator=torch.Generator(device="cuda").manual_seed(7))
+                _, loop_s = _timed(lambda: m.sample(noise, ctx, guidance_scale=7.5, time_steps=steps,
+                                                    generator=torch.Generator().manual_seed(8), **kw))
+                runs[name] = {
+                    **kw, "launches": launches, "unet_calls": unet_calls,
+                    "decoded_shape": list(decoded[0].shape), "finite": bool(torch.isfinite(decoded[0]).all()),
+                    "image_shape": list(images[0].shape), "total_s": total_s, "s_per_step": loop_s / steps,
+                }
+    finally:
+        for h in hooks:
+            h.remove()
+    res = {"phase": "samplers", "gpu": gpu_line(), "steps": steps, "guidance_scale": 7.5, "image_size": 512,
+           "dtype": str(model.dtype), "runs": runs}
+    emit(res)
+    for name, run in runs.items():
+        want_calls = 2 * steps - 1 if run["sampler"] == "heun" else steps
+        check(run["decoded_shape"] == [1, 512, 512, 3] and run["finite"] and run["image_shape"] == [512, 512, 3],
+              f"sampler run {name}: decoded {run['decoded_shape']}, finite {run['finite']}")
+        check(all(run["launches"][k] > 0 for k in SLICE_KERNELS), f"sampler run {name}: a kernel was not launched: "
+              f"{run['launches']}")
+        check(run["unet_calls"] == want_calls, f"sampler run {name}: {run['unet_calls']} UNet calls, want {want_calls}")
+    return res
+
+
+def _png_pixels(data: bytes):
+    """HWC uint8 pixels of a PNG with filter-0 rows (what the port's
+    ``encode_png`` writes)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"not a PNG: {data[:40]!r}")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    w, h, _, color = header[:4]
+    channels = {0: 1, 2: 3, 6: 4}[color]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    check(not rows[:, 0].any(), "PNG rows use a filter")
+    return rows[:, 1:].reshape(h, w, channels)
+
+
+def _bucket_vs_solo(model, steps: int) -> dict:
+    """How far a row of a server bucket (4 requests, per-row seeds, UNet
+    batch 8 with CFG) lies from the same request rendered alone (UNet batch
+    2), as a share of the solo output's max|.|: (a) the UNet call at the
+    loop's first timestep, its uncond and cond rows (the quantity the bf16
+    drift bar of 2e-2 holds), and their CFG combination at 7.5, which scales
+    a difference of the two rows by 7.5; (b) the decoded image after
+    ``steps`` DDIM steps; and, beside them, (c) the decoded gap of the solo
+    render when its x_T is scaled by 1 + 2^-7 (one or two bf16 ulps): the
+    loop's own sensitivity to a rounding-sized change, which (b) inherits
+    from (a)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import cfg_combine
+
+    n, dtype = len(SERVE_SEEDS), model.dtype
+    decoded = []
+    hook = model.autoencoder.decoder.register_forward_hook(lambda m, i, o: decoded.append(o.detach().float()))
+    try:
+        with torch.inference_mode():
+            x = torch.cat([torch.randn(model.latent_shape(1, 512), generator=torch.Generator().manual_seed(s))
+                           for s in SERVE_SEEDS]).to("cuda", dtype)
+            ctx = model.encode_prompts([SERVE_PROMPT]).to(dtype)
+            unc = model.encode_uncond(1, "").to(dtype)
+            t0 = 1000 - 1000 // steps
+
+            def unet(rows):  # the CFG-doubled call [uncond, cond], as the loop makes it
+                b = rows.shape[0]
+                return model.unet(torch.cat([rows, rows]), torch.full((2 * b,), t0, dtype=torch.int32, device="cuda"),
+                                  torch.cat([unc.expand(b, -1, -1), ctx.expand(b, -1, -1)])).float()
+
+            bucket_out = unet(x)
+            solo_out = [unet(x[i:i + 1]) for i in range(n)]
+            kw = dict(image_size=512, time_steps=steps, guidance_scale=7.5, save_dir=None, sampler="ddim")
+            pipeline.sample(model, prompt=[SERVE_PROMPT] * n, seed=list(SERVE_SEEDS), **kw)
+            bucket = decoded.pop()
+            solo = []
+            for s in SERVE_SEEDS:
+                pipeline.sample(model, prompt=[SERVE_PROMPT], seed=[s], **kw)
+                solo.append(decoded.pop()[0])
+            nudged = (x[:1].float() * (1 + 2 ** -7)).to(dtype)
+            for x_T in (x[:1], nudged):
+                model.decode_latent(model.sample(x_T, ctx, guidance_scale=7.5, time_steps=steps, sampler="ddim"))
+            nudge_gap = (decoded[1] - decoded[0]).abs().max().item()
+    finally:
+        hook.remove()
+    out_scale = max(o.abs().max().item() for o in solo_out)
+    out_gap = max(max((bucket_out[i] - solo_out[i][0]).abs().max().item(),
+                      (bucket_out[n + i] - solo_out[i][1]).abs().max().item()) for i in range(n))
+    cfg = [cfg_combine(o[:1], o[1:], 7.5) for o in solo_out]
+    cfg_gap = max((cfg_combine(bucket_out[i], bucket_out[n + i], 7.5) - cfg[i][0]).abs().max().item()
+                  for i in range(n))
+    cfg_scale = max(c.abs().max().item() for c in cfg)
+    scale = max(img.abs().max().item() for img in solo)
+    gap = max((bucket[i] - solo[i]).abs().max().item() for i in range(n))
+    return {"dtype": str(dtype), "unet_call_timestep": t0, "unet_call_max_abs": out_gap, "unet_call_scale": out_scale,
+            "unet_call_share": out_gap / out_scale, "cfg_combined_share": cfg_gap / cfg_scale,
+            "decoded_max_abs": gap, "decoded_scale": scale,
+            "decoded_share": gap / scale, "nudged_x_T_decoded_share": nudge_gap / scale}
+
+
+def phase_serve(work: str, steps: int) -> dict:
+    """The port's server (``scripts/serve.py``: ``build_service`` at SD-1.5
+    width, 512x512 default, ``--max-batch 4``, seed 0 with the zero layers
+    filled as ``build_sd15`` fills them) behind a ``ThreadingHTTPServer`` on
+    127.0.0.1, in process. First, not counted, ``_bucket_vs_solo`` on a
+    float32 build of the same weights and on the server's bf16 model: a
+    bucket row's UNet call must lie within 2e-2 of scale of its solo call
+    in bf16 (the bf16 drift bar), and its float32 image within 2e-2 of its
+    solo render; the bf16 images' gap is recorded beside the loop's own
+    sensitivity (10 DDIM steps with CFG 7.5 on random weights carry a
+    rounding-sized change in x_T to ~0.7 of the image's scale). Then, counts set to 0: /healthz; four solo
+    requests, the same four at once from four threads (fewer than 4 batches;
+    the gap of the PNGs in uint8 levels); one request per sampler; the async
+    route (submit, /progress, /result); /reload of a perturbed UNet in the
+    trainer's checkpoint format (another image, the same bytes on a repeat;
+    a missing path is a 400 and serving goes on). Any other status fails the
+    phase."""
+    import shutil
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.scripts import serve
+    from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
+
+    shutil.rmtree(work, ignore_errors=True)
+    f32 = build_sd15("cuda", torch.float32, SEED)
+    gap_f32 = _bucket_vs_solo(f32, steps)
+    del f32
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    service, cfg = serve.build_service([
+        *SD15_FLAGS, "--device", "cuda", "--seed", str(SEED), "--mixed-precision", "bf16",
+        "--max-batch", str(SERVE_MAX_BATCH), "--default-image-size", "512", "--default-steps", str(steps),
+        "--batch-window-ms", str(SERVE_WINDOW_MS)])
+    model = service.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for m in (model.unet, model.autoencoder):
+        fill_zero_weights(m, gen)
+
+    # the bucket-vs-solo gaps on the model alone, before the server takes requests
+    gap_bf16 = _bucket_vs_solo(model, steps)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    statuses = []
+
+    def call(path, payload=None, want=200):
+        req = urllib.request.Request(base + path, data=None if payload is None else json.dumps(payload).encode(),
+                                     method="GET" if payload is None else "POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                status, body = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read()
+        statuses.append((path, status, want))
+        check(status == want, f"{path} {payload}: status {status}, want {want}: {body[:300]!r}")
+        return body, time.perf_counter() - t0
+
+    def health():
+        return json.loads(call("/healthz")[0])
+
+    try:
+        torch.cuda.synchronize()
+        native.reset_counters()
+        t_phase = time.perf_counter()
+        samplers = health()["samplers"]
+        check(samplers == ["ddim", "ddpm", "dpmpp", "euler", "euler_a", "heun", "dpmpp_sde"],
+              f"/healthz samplers {samplers}")
+        solo_png, solo_s = {}, []
+        for s in SERVE_SEEDS:
+            solo_png[s], dt = call("/txt2img", {"prompt": SERVE_PROMPT, "seed": s})
+            solo_s.append(dt)
+        before = health()
+        burst, errors = {}, []
+
+        def worker(s):
+            try:
+                burst[s] = call("/txt2img", {"prompt": SERVE_PROMPT, "seed": s})[0]
+            except Exception as exc:  # noqa: BLE001 — collected, and the phase fails on it below
+                errors.append(f"seed {s}: {exc}")
+
+        threads = [threading.Thread(target=worker, args=(s,)) for s in SERVE_SEEDS]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t0
+        check(not errors and len(burst) == len(SERVE_SEEDS), f"burst requests failed: {errors}")
+        after = health()
+        burst_batches = after["batches_run"] - before["batches_run"]
+        gaps = {s: int(np.abs(_png_pixels(burst[s]).astype(np.int16) - _png_pixels(solo_png[s])).max())
+                for s in SERVE_SEEDS}
+        per_sampler = {}
+        for sampler in samplers:
+            body, dt = call("/txt2img", {"prompt": SERVE_PROMPT, "seed": 21, "sampler": sampler})
+            per_sampler[sampler] = {"s": dt, "shape": list(_png_pixels(body).shape)}
+        rid = json.loads(call("/txt2img_async", {"prompt": SERVE_PROMPT, "seed": 31}, want=202)[0])["request_id"]
+        states, deadline = [], time.time() + 600
+        while time.time() < deadline:
+            info = json.loads(call(f"/progress/{rid}")[0])
+            states.append(info["state"])
+            check(info["state"] in ("queued", "running", "done"), f"/progress: {info}")
+            if info["state"] == "done":
+                break
+            time.sleep(0.02)
+        check(states[-1] == "done", f"async request not done: {states[-10:]}")
+        async_shape = list(_png_pixels(call(f"/result/{rid}")[0]).shape)
+        # /reload: a perturbed UNet saved as the trainer saves it
+        req = {"prompt": SERVE_PROMPT, "seed": 41}
+        before_png = call("/txt2img", req)[0]
+        g = torch.Generator().manual_seed(5)
+        params = {}
+        for n, p in model.unet.named_parameters():
+            cpu = p.detach().float().cpu()
+            params[n] = (cpu + 0.02 * cpu.std().nan_to_num() * torch.randn(cpu.shape, generator=g)).to(p.dtype)
+        ckpt = os.path.join(work, "ckpt", "checkpoint-1")
+        save_checkpoint(ckpt, {"step": 1, "params": params, "opt_state": {}, "ema_params": None, "epoch": None})
+        del params
+        reload_info = json.loads(call("/reload", {"unet_checkpoint": os.path.join(work, "ckpt")})[0])
+        after_png = call("/txt2img", req)[0]
+        repeat_png = call("/txt2img", req)[0]
+        call("/reload", {"unet_checkpoint": os.path.join(work, "missing")}, want=400)
+        still_png = call("/txt2img", req)[0]
+        final = health()
+        phase_s = time.perf_counter() - t_phase
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
+        thread.join(timeout=60)
+    byte_identical = all(burst[s] == solo_png[s] for s in SERVE_SEEDS)
+    res = {
+        "phase": "serve", "gpu": gpu_line(), "image_size": 512, "steps": steps, "guidance_scale": 7.5,
+        "max_batch": SERVE_MAX_BATCH, "batch_window_ms": SERVE_WINDOW_MS, "dtype": str(model.dtype),
+        "solo_s": solo_s, "solo_p50_s": statistics.median(solo_s),
+        "burst_requests": len(SERVE_SEEDS), "burst_s": burst_s, "burst_requests_per_s": len(SERVE_SEEDS) / burst_s,
+        "burst_batches": burst_batches, "batched_vs_solo_byte_identical": byte_identical,
+        "batched_vs_solo_max_uint8_levels": max(gaps.values()), "batched_vs_solo_uint8_levels": gaps,
+        "bucket_vs_solo_bf16": gap_bf16, "bucket_vs_solo_f32": gap_f32,
+        "per_sampler": per_sampler, "async_states": sorted(set(states)), "async_image_shape": async_shape,
+        "reload": reload_info, "reload_changed_image": after_png != before_png,
+        "reload_repeat_identical": repeat_png == after_png, "serving_after_bad_reload": still_png == after_png,
+        "requests_served": final["requests_served"], "batches_run": final["batches_run"], "reloads": final["reloads"],
+        "requests": len(statuses), "phase_s": phase_s, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    del service, model
+    emit(res)
+    check(burst_batches < len(SERVE_SEEDS), f"the burst ran {burst_batches} batches for {len(SERVE_SEEDS)} requests")
+    check(byte_identical or gap_bf16["unet_call_share"] <= 2e-2,
+          f"a bucket row's UNet call is {gap_bf16['unet_call_share']:.3g} of scale from its solo call (bf16)")
+    check(gap_f32["decoded_share"] <= 2e-2,
+          f"a bucket row's float32 image is {gap_f32['decoded_share']:.3g} of scale from its solo render")
+    check(all(v["shape"] == [512, 512, 3] for v in per_sampler.values()) and async_shape == [512, 512, 3],
+          f"image shapes {per_sampler} {async_shape}")
+    check(reload_info["status"] == "reloaded" and reload_info["checkpoint"].endswith("checkpoint-1")
+          and final["reloads"] == 1, f"/reload answered {reload_info}, reloads {final['reloads']}")
+    check(res["reload_changed_image"] and res["reload_repeat_identical"] and res["serving_after_bad_reload"],
+          "the hot swap did not give a new, repeatable image, or serving stopped after a bad reload")
+    check(all(launches[k] > 0 for k in SLICE_KERNELS), f"a kernel was not launched by the serve phase: {launches}")
     return res
 
 
@@ -1732,7 +2100,10 @@ def main(argv=None) -> int:
     vae_parity = phase_vae_train_parity(SEED)
     slice_res = phase_slice(model, STEPS, NUM_IMAGES)
     hires_res = phase_hires(model, STEPS)
+    samplers_res = phase_samplers(model, STEPS)
     del model
+    free_cuda()
+    serve_res = phase_serve(os.path.join(REPO, "build", "chip_smoke_serve"), STEPS)
     free_cuda()
     trains = {}
     for name, size, batch, flags, required in TRAIN_PHASES:
@@ -1748,6 +2119,7 @@ def main(argv=None) -> int:
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
+                 *(r["launches"] for r in samplers_res["runs"].values()), serve_res["launches"],
                  *(r["launches"] for r in trains.values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
@@ -1769,7 +2141,7 @@ def main(argv=None) -> int:
                        "flash_attention_launches_kv_past_9216": sum(
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
-                       "hires": hires_res, **trains,
+                       "hires": hires_res, "samplers": samplers_res, "serve": serve_res, **trains,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

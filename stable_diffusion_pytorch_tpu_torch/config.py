@@ -338,16 +338,21 @@ def _extra_data_classes() -> List[Type[BaseConfig]]:
     return [CompatConfig, ParallelConfig]
 
 
-def load_config(argv: Optional[List[str]] = None, parser_hook=None) -> Tuple[argparse.Namespace, ConfigNode]:
+def load_config(
+    argv: Optional[List[str]] = None,
+    extra_data_classes: Optional[List[Type[BaseConfig]]] = None,
+    parser_hook=None,
+) -> Tuple[argparse.Namespace, ConfigNode]:
     """Parse CLI flags into (args, cfg) with the JAX package's flags and nested
     layout: ``cfg.{log,train,optim,dataset,checkpoint,compat,parallel}`` and
-    ``cfg.model.{unet,autoencoder,clip,ddpm}``.
+    ``cfg.model.{unet,autoencoder,clip,ddpm}``; ``extra_data_classes`` add an
+    entry point's own groups (the server's ``cfg.serve``), as in the JAX package.
 
     ``--config-file preset.json`` loads a JSON dict of {field_name: value}
     defaults applied below explicit CLI flags (a path; the JAX package's preset
     directory is not searched). ``parser_hook(parser)`` may add entry-point
     flags (the port's ``--device``)."""
-    base_dcs, extra_dcs = _train_data_classes(), _extra_data_classes()
+    base_dcs, extra_dcs = _train_data_classes(), _extra_data_classes() + list(extra_data_classes or [])
     model_dcs = [UnetConfig, AutoencoderConfig, ClipConfig, DDPMConfig]
     parser = argparse.ArgumentParser(description="stable_diffusion_pytorch_tpu_torch: stable diffusion in PyTorch")
     parser.add_argument("--config-file", type=str, default=None,

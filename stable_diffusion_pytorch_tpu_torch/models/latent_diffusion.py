@@ -2,9 +2,14 @@
 
 The JAX package runs the reverse loop as one ``lax.scan``; here it is a Python
 loop that runs the UNet once per step on the CFG-doubled batch [uncond, cond].
-Only the DDIM sampler is ported, with ``strength`` (the hires fix's partial
-schedule) and tiled VAE decode; ddpm, dpmpp and the sigma-space samplers,
-ControlNet, DeepCache, prompt weighting and long prompts wait for later work.
+Every sampler of the JAX package is ported: the discrete ``ddim``, ``ddpm``
+and ``dpmpp`` (DPM-Solver++ 2M) and the sigma-space ``euler``, ``euler_a``,
+``heun`` and ``dpmpp_sde``, optionally on Karras spacing, with v-prediction,
+trailing spacing on zero-terminal-SNR schedules, guidance rescale,
+``strength`` (the hires fix's partial schedule) and tiled VAE decode. Each
+step's scalars come from the CPU schedule tables on the host, so the loop
+never reads a device value. ControlNet, DeepCache, inpainting, prompt
+weighting and long prompts wait for later work (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import torch
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
 from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
 
-SAMPLERS = ("ddim",)
+SIGMA_SPACE_SAMPLERS = ("euler", "euler_a", "heun", "dpmpp_sde")
+SAMPLERS = ("ddim", "ddpm", "dpmpp") + SIGMA_SPACE_SAMPLERS
 
 
 def cfg_combine(
@@ -30,9 +36,24 @@ def cfg_combine(
     return eps_uncond + guidance_scale * (eps_cond - eps_uncond)
 
 
-def make_pred_noise_fn(unet, guidance_scale: float = 1.0, reference_cfg_formula: bool = False):
+def rescale_cfg(combined: torch.Tensor, cond: torch.Tensor, phi: float) -> torch.Tensor:
+    """Guidance rescale (Lin et al. 2023 §3.4): the CFG output's per-sample std
+    brought back to the conditional prediction's, blended by ``phi``; in
+    float32, with the population std (``jnp.std``'s ddof 0)."""
+    dims = tuple(range(1, combined.dim()))
+    c32 = combined.float()
+    std_cond = cond.float().std(dim=dims, keepdim=True, correction=0)
+    std_cfg = c32.std(dim=dims, keepdim=True, correction=0)
+    rescaled = c32 * (std_cond / torch.clamp(std_cfg, min=1e-8))
+    return (phi * rescaled + (1.0 - phi) * c32).to(combined.dtype)
+
+
+def make_pred_noise_fn(unet, guidance_scale: float = 1.0, reference_cfg_formula: bool = False,
+                       guidance_rescale: float = 0.0):
     """``f(x_t [B,h,w,c], t [B], context [B,S,D], uncond [B,S,D] | None) -> eps``.
-    With guidance > 1 the UNet runs once on the doubled batch [uncond, cond]."""
+    With guidance > 1 the UNet runs once on the doubled batch [uncond, cond];
+    ``guidance_rescale > 0`` applies :func:`rescale_cfg` to the model output
+    (eps, or v for a v-prediction model)."""
     do_cfg = guidance_scale > 1.0
 
     def pred_noise(x_t, t, context_emb, uncond_emb=None):
@@ -44,9 +65,33 @@ def make_pred_noise_fn(unet, guidance_scale: float = 1.0, reference_cfg_formula:
             torch.cat([x_t, x_t]), torch.cat([t, t]), torch.cat([uncond_emb, context_emb])
         )
         eps_uncond, eps_cond = eps.chunk(2)
-        return cfg_combine(eps_uncond, eps_cond, guidance_scale, reference_cfg_formula)
+        out = cfg_combine(eps_uncond, eps_cond, guidance_scale, reference_cfg_formula)
+        if guidance_rescale > 0.0:
+            out = rescale_cfg(out, eps_cond, guidance_rescale)
+        return out
 
     return pred_noise
+
+
+def _noise_source(generator: Optional[torch.Generator], noise: Optional[Sequence[torch.Tensor]]):
+    """``draw(i, shape, like)``: step i's noise in ``like``'s dtype on its
+    device: ``noise[i]`` when a sequence is given (the parity tests pass the
+    JAX loop's draws), else float32 drawn on the CPU from ``generator``."""
+
+    def draw(i: int, shape, like: torch.Tensor) -> torch.Tensor:
+        n = noise[i] if noise is not None else torch.randn(shape, generator=generator, dtype=torch.float32)
+        return n.to(device=like.device, dtype=like.dtype)
+
+    return draw
+
+
+def _truncate(ts: list, num_steps: int, strength: float) -> list:
+    """The final ``round(num_steps * strength)`` steps (at least one), Python's
+    ``round`` (halves to even), as the JAX package."""
+    if strength >= 1.0:
+        return ts
+    keep = max(min(round(num_steps * strength), num_steps), 1)
+    return ts[num_steps - keep:]
 
 
 def make_sample_fn(
@@ -56,34 +101,179 @@ def make_sample_fn(
     sampler: str = "ddim",
     guidance_scale: float = 7.5,
     eta: float = 0.0,
+    repeat_noise: bool = False,
+    scale_factor: float = 1.0,
     reference_cfg_formula: bool = False,
+    ascending_loop: bool = False,
+    leading_timesteps: bool = False,
     strength: float = 1.0,
+    inpaint: bool = False,
+    karras: bool = False,
+    prediction_type: str = "epsilon",
+    timestep_spacing: str = "even",
+    guidance_rescale: float = 0.0,
+    deep_cache_interval: int = 0,
 ) -> Callable:
-    """Reverse loop ``f(x_T, context_emb, uncond_emb, generator=None) -> x_0``.
+    """Reverse loop ``f(x_T, context_emb, uncond_emb, generator=None, noise=None) -> x_0``.
 
-    ``strength < 1`` runs only the final ``round(num_steps * strength)`` steps
-    (at least one) of the subsequence; the caller q-samples its latents to the
-    first of them, exposed as ``.start_timestep`` (the JAX package's rule,
-    Python's ``round``, halves to even)."""
+    Discrete ``ddim``/``ddpm``/``dpmpp`` step the trained grid; sigma-space
+    ``euler``/``euler_a``/``heun``/``dpmpp_sde`` integrate the probability-flow
+    ODE/SDE (:func:`_make_sigma_sample_fn`). DDIM/DDPM/DPM++ take the evenly
+    spaced descending subsequence (``trailing``: from T-1), ``leading_timesteps``
+    the reference's raw steps S-1..0, and ``ascending_loop`` its reversed
+    order. ``strength < 1`` runs only the final ``round(num_steps * strength)``
+    steps; the caller q-samples its latents to the first of them, exposed as
+    ``.start_timestep``. Stochastic steps draw float32 noise on the CPU from
+    ``generator``, or take step i's from ``noise[i]``. The ``ValueError``s are
+    the JAX package's; DeepCache and inpainting raise ``NotImplementedError``."""
     if sampler not in SAMPLERS:
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet (have {SAMPLERS})")
-    if num_steps == schedule.noise_steps:
-        ts = sched_lib.leading_timesteps(num_steps)
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if prediction_type not in ("epsilon", "v_prediction"):
+        raise ValueError(f"unknown prediction_type {prediction_type!r}")
+    if timestep_spacing not in ("even", "trailing"):
+        raise ValueError(f"unknown timestep_spacing {timestep_spacing!r}")
+    # a zero-terminal-SNR schedule has sigma = inf at its terminal step, and
+    # eps-prediction cannot recover x0 there (divide by sqrt(alpha_bar) = 0)
+    terminal_zero = bool(schedule.alphas_cumprod[-1] <= 0.0)
+    if terminal_zero and sampler in SIGMA_SPACE_SAMPLERS:
+        raise ValueError(
+            "zero-terminal-SNR schedules have sigma=inf at the terminal step; "
+            "use a discrete sampler (ddim/ddpm/dpmpp)"
+        )
+    if terminal_zero and timestep_spacing == "trailing" and prediction_type == "epsilon":
+        raise ValueError(
+            "trailing spacing on a zero-terminal-SNR schedule starts at "
+            "SNR 0, where eps-prediction is undefined; train and sample with "
+            "--prediction-type v_prediction"
+        )
+    if deep_cache_interval > 1 or inpaint:
+        raise NotImplementedError(
+            "DeepCache and inpainting are not ported yet (ROADMAP Queue 1 item 16)")
+    pred_noise = make_pred_noise_fn(unet, guidance_scale, reference_cfg_formula, guidance_rescale)
+    if sampler in SIGMA_SPACE_SAMPLERS:
+        return _make_sigma_sample_fn(pred_noise, schedule, num_steps, sampler, eta, strength, karras,
+                                     prediction_type, timestep_spacing)
+
+    if leading_timesteps or num_steps == schedule.noise_steps:
+        ts = sched_lib.leading_timesteps(min(num_steps, schedule.noise_steps))
+    elif timestep_spacing == "trailing":
+        ts = sched_lib.trailing_timesteps(schedule.noise_steps, num_steps)
     else:
         ts = sched_lib.spaced_timesteps(schedule.noise_steps, num_steps)
-    if strength < 1.0:
-        keep = max(min(round(num_steps * strength), num_steps), 1)
-        ts = ts[num_steps - keep:]
-    ts_prev = ts[1:] + [-1]
-    pred_noise = make_pred_noise_fn(unet, guidance_scale, reference_cfg_formula)
+    ts = _truncate(ts, num_steps, strength)
+    # the target of each step (-1: the clean endpoint) and the step before it
+    # (noise_steps marks DPM++'s first step)
+    steps = list(zip(ts, ts[1:] + [-1], [schedule.noise_steps] + ts[:-1]))
+    if ascending_loop:  # reference quirk: iterate the schedule in ascending-t order
+        steps = steps[::-1]
 
-    def sample(x_T, context_emb, uncond_emb, generator: Optional[torch.Generator] = None):
-        x = x_T
+    def sample(x_T, context_emb, uncond_emb, generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None):
+        draw = _noise_source(generator, noise)
+        x, x0_prev = x_T, torch.zeros_like(x_T)
         bsz = x.shape[0]
-        for t, t_prev in zip(ts, ts_prev):
+        noise_shape = ((1,) + tuple(x.shape[1:])) if repeat_noise else tuple(x.shape)
+        for i, (t, t_prev, t_last) in enumerate(steps):
             t_batch = torch.full((bsz,), t, dtype=torch.int32, device=x.device)
             eps = pred_noise(x, t_batch, context_emb, uncond_emb)
-            x, _ = sched_lib.ddim_step(schedule, eps, x, t, t_prev, eta, generator)
+            x0_v = None
+            if prediction_type == "v_prediction":
+                alpha, sigma_vp = sched_lib.alpha_sigma_at(schedule, t)
+                v = eps
+                eps = sched_lib.eps_from_v(x, v, alpha, sigma_vp)
+                # finite even at alpha_bar = 0 (a zero-terminal-SNR schedule's
+                # trailing first step), where the eps-derived x0 is 0 * inf
+                x0_v = sched_lib.x0_from_v(x, v, alpha, sigma_vp)
+            if sampler == "ddim":
+                step_noise = draw(i, x.shape, x) if eta > 0.0 and t_prev >= 0 else None
+                x, x0 = sched_lib.ddim_step(schedule, eps, x, t, t_prev, eta, noise=step_noise, x0=x0_v)
+            elif sampler == "dpmpp":
+                x, x0 = sched_lib.dpmpp_2m_step(schedule, eps, x, t, t_prev, x0_prev, t_last, x0=x0_v)
+            else:
+                step_noise = draw(i, noise_shape, x) if t > 0 else None
+                x, x0 = sched_lib.ddpm_step(schedule, eps, x, t, step_noise, repeat_noise=repeat_noise,
+                                            scale_factor=scale_factor, x0=x0_v)
+            x0_prev = x0
+        return x
+
+    sample.start_timestep = steps[0][0]
+    return sample
+
+
+def _make_sigma_sample_fn(pred_noise, schedule: DiffusionSchedule, num_steps: int, sampler: str, eta: float,
+                          strength: float, karras: bool, prediction_type: str, timestep_spacing: str) -> Callable:
+    """The sigma-space reverse loop. ``x_T`` keeps the discrete samplers'
+    convention, the VP latent at the first timestep, and enters sigma space as
+    ``x_T * sqrt(1 + sigma_0^2)`` (1/sqrt(abar) = sqrt(1 + sigma^2)); the
+    terminal sigma is 0, where sigma space is VP space again. The UNet sees
+    fractional timesteps (float32 ``t_batch``); euler_a and dpmpp_sde take eta
+    1 when it is 0; heun's last step (sigma_next = 0) is first order. Every
+    sigma, timestep and coefficient is computed on the host before the loop."""
+    if timestep_spacing == "trailing":
+        ts = sched_lib.trailing_timesteps(schedule.noise_steps, num_steps)
+    else:
+        ts = sched_lib.spaced_timesteps(schedule.noise_steps, num_steps)
+    ts = _truncate(ts, num_steps, strength)
+    tab = sched_lib.vp_sigmas(schedule)
+    if karras:
+        sigmas = sched_lib.karras_sigmas(tab[ts[-1]], tab[ts[0]], len(ts))
+    else:
+        sigmas = tab[torch.tensor(ts)]
+    sigmas = torch.cat([sigmas, torch.zeros(1)])
+    eff_eta = eta if eta > 0.0 else 1.0
+
+    def at(sigma: torch.Tensor):
+        """(sigma, t(sigma) as a float, c_in = 1/sqrt(1 + sigma^2)) for one UNet call."""
+        return sigma, float(sched_lib.t_from_sigma(schedule, sigma)), 1.0 / torch.sqrt(1.0 + sigma ** 2)
+
+    plan = []
+    for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
+        step = {"sigma": sigma, "sigma_next": sigma_next, "call": at(sigma)}
+        if sampler == "euler_a":
+            step["down"], step["up"] = sched_lib.ancestral_sigmas(sigma, sigma_next, eff_eta)
+        if sampler == "heun" and sigma_next > 0.0:
+            step["call2"] = at(torch.clamp(sigma_next, min=1e-8))
+        plan.append(step)
+
+    def sample(x_T, context_emb, uncond_emb, generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None):
+        draw = _noise_source(generator, noise)
+        dtype, bsz = x_T.dtype, x_T.shape[0]
+
+        def eval_eps(x_k, call):
+            """One denoiser call: sigma-space x -> eps of the VP-space model."""
+            sigma, t, c_in = call
+            x_vp = x_k * c_in.to(dtype)
+            out = pred_noise(x_vp, torch.full((bsz,), t, dtype=torch.float32, device=x_k.device),
+                             context_emb, uncond_emb)
+            if prediction_type == "v_prediction":  # at sigma: alpha = c_in, sigma_vp = sigma * alpha
+                out = sched_lib.eps_from_v(x_vp, out, c_in, sigma * c_in)
+            return out
+
+        x = x_T * torch.sqrt(1.0 + sigmas[0] ** 2).to(dtype)
+        d_prev, h_last = torch.zeros_like(x), torch.tensor(0.0)
+        for i, step in enumerate(plan):
+            sigma, sigma_next = step["sigma"], step["sigma_next"]
+            eps = eval_eps(x, step["call"])
+            if sampler == "euler":
+                x = sched_lib.euler_step(x, eps, sigma, sigma_next)
+            elif sampler == "euler_a":
+                x_next = sched_lib.euler_step(x, eps, sigma, step["down"])
+                if step["up"] > 0.0:
+                    x_next = x_next + step["up"].to(dtype) * draw(i, x.shape, x)
+                x = x_next
+            elif sampler == "heun":
+                x_e = sched_lib.euler_step(x, eps, sigma, sigma_next)
+                if "call2" in step:  # second order, except on the last step
+                    eps2 = eval_eps(x_e, step["call2"])
+                    x_e = sched_lib.euler_step(x, 0.5 * (eps + eps2), sigma, sigma_next)
+                x = x_e
+            else:  # dpmpp_sde
+                denoised = x - sigma.to(dtype) * eps
+                step_noise = draw(i, x.shape, x) if sigma_next > 0.0 else None
+                x, h_last = sched_lib.dpmpp_2m_sde_step(x, denoised, d_prev, sigma, sigma_next, h_last,
+                                                        step_noise, eff_eta)
+                d_prev = denoised
         return x
 
     sample.start_timestep = ts[0]
@@ -136,24 +326,40 @@ class LatentDiffusion:
         noised_sample: torch.Tensor,
         context_emb: torch.Tensor,
         guidance_scale: float = 7.5,
+        repeat_noise: bool = False,
+        scale_factor: float = 1.0,
         time_steps: Optional[int] = None,
-        sampler: str = "ddim",
+        sampler: str = "ddpm",
         eta: float = 0.0,
         generator: Optional[torch.Generator] = None,
         negative_prompt: str = "",
+        karras: bool = False,
+        prediction_type: str = "epsilon",
+        timestep_spacing: str = "even",
+        guidance_rescale: float = 0.0,
     ) -> torch.Tensor:
-        """Reverse loop x_T -> x_0 on the UNet's device."""
-        num_steps = time_steps or self.noise_scheduler.noise_steps
+        """Reverse loop x_T -> x_0 on the UNet's device. The default sampler is
+        DDPM over the full schedule, as the reference's and the JAX package's;
+        any of ``SAMPLERS`` may be named. Stochastic samplers draw from
+        ``generator`` (seed 0 when None, as the JAX package's key)."""
+        compat = self.compat
         fn = make_sample_fn(
-            self.unet, self.noise_scheduler, num_steps, sampler=sampler,
-            guidance_scale=guidance_scale, eta=eta,
-            reference_cfg_formula=bool(self.compat and self.compat.cfg_formula),
+            self.unet, self.noise_scheduler, time_steps or self.noise_scheduler.noise_steps, sampler=sampler,
+            guidance_scale=guidance_scale, eta=eta, repeat_noise=repeat_noise, scale_factor=scale_factor,
+            karras=karras, prediction_type=prediction_type, timestep_spacing=timestep_spacing,
+            guidance_rescale=guidance_rescale,
+            reference_cfg_formula=bool(compat and compat.cfg_formula),
+            ascending_loop=bool(compat and compat.ascending_sample_loop),
+            # the reference's few-step quirk applies only when a step count is given
+            leading_timesteps=bool(compat and compat.ascending_sample_loop and time_steps),
         )
         if guidance_scale > 1.0:
             uncond = self.encode_uncond(noised_sample.shape[0], negative_prompt)
         else:
             uncond = torch.zeros_like(context_emb)
         uncond = self.align_uncond(uncond.to(context_emb.dtype), context_emb)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         return fn(noised_sample, context_emb, uncond, generator)
 
     @torch.no_grad()

@@ -1,10 +1,13 @@
 """Text-to-image sampling (port of stable_diffusion_pytorch_tpu/pipeline.py:sample).
 
 ``sample``: tokenize and CLIP-encode the prompts and the uncond prompt, draw
-the init noise from a seeded ``torch.Generator``, run DDIM with classifier-free
-guidance (the UNet runs once per step on the doubled batch), optionally the
-two-stage hires fix (:func:`hires_refine`), VAE-decode (whole or tiled) and
-write PNGs. ControlNet, DeepCache, img2img and inpainting are not ported yet.
+the init noise from seeded ``torch.Generator``s (one per row when the seed is
+a list, as the server batches requests), run any sampler of
+``models/latent_diffusion.py`` with classifier-free guidance (the UNet runs
+once per step on the doubled batch), optionally the two-stage hires fix
+(:func:`hires_refine`), VAE-decode (whole or tiled) and write PNGs.
+ControlNet, DeepCache, img2img and inpainting are not ported yet (ROADMAP
+Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from stable_diffusion_pytorch_tpu_torch.utils.data import detransform, to_img
 @dataclass
 class SamplingConfig(BaseConfig):
     """The txt2img flags of the JAX package's ``SamplingConfig`` that the port
-    serves (same names and defaults; ``--sampler`` lists the ported samplers)."""
+    serves (same names, defaults and help)."""
 
     prompt: str = field(default="a cat", metadata={"help": "text prompt to sample."})
     negative_prompt: str = field(
@@ -36,15 +39,63 @@ class SamplingConfig(BaseConfig):
     sampling_steps: int = field(default=50, metadata={"help": "number of denoising steps."})
     sampler: str = field(
         default="ddim",
-        metadata={"help": "sampling algorithm.", "choices": list(SAMPLERS)},
+        metadata={
+            "help": "sampling algorithm (dpmpp = DPM-Solver++ 2M, ~20 steps for "
+            "DDIM-50 quality; euler/euler_a/heun/dpmpp_sde are sigma-space "
+            "k-diffusion-style samplers).",
+            "choices": list(SAMPLERS),
+        },
+    )
+    karras: bool = field(
+        default=False,
+        metadata={"help": "use Karras sigma spacing for the sigma-space samplers."},
+    )
+    prediction_type: str = field(
+        default="epsilon",
+        metadata={
+            "help": "what the UNet predicts: epsilon or v_prediction "
+            "(SD-2.x-style; must match how the checkpoint was trained).",
+            "choices": ["epsilon", "v_prediction"],
+        },
+    )
+    timestep_spacing: str = field(
+        default="even",
+        metadata={
+            "help": "few-step subsequence spacing: even (ends at t=0 side) or "
+            "trailing (starts at t=T-1; required for zero-terminal-SNR "
+            "checkpoints, Lin et al. 2023).",
+            "choices": ["even", "trailing"],
+        },
+    )
+    guidance_rescale: float = field(
+        default=0.0,
+        metadata={
+            "help": "CFG std-rescale factor phi (Lin et al. 2023 §3.4); 0 "
+            "disables, 0.7 is the paper's recommendation for zero-SNR "
+            "checkpoints at high guidance."
+        },
     )
     eta: float = field(
         default=0.0,
-        metadata={"help": "DDIM eta (0 = deterministic)."},
+        metadata={
+            "help": "DDIM eta (0 = deterministic); noise scale for euler_a/"
+            "dpmpp_sde (0 means their default of 1)."
+        },
     )
     num_images: int = field(default=1, metadata={"help": "batch of images to sample."})
+    scale_factor: float = field(default=1.0, metadata={"help": "noise temperature for DDPM."})
+    repeat_noise: bool = field(
+        default=False, metadata={"help": "share posterior noise across the batch."}
+    )
     output_dir: str = field(default="output", metadata={"help": "directory for saved PNGs."})
     output_name: str = field(default="txt2img", metadata={"help": "basename for saved PNGs."})
+    unet_checkpoint: Optional[str] = field(
+        default=None,
+        metadata={
+            "help": "Trainer checkpoint (checkpoint-N dir, or a ckpt dir with "
+            "'latest' resolution) to load UNet weights from; EMA preferred."
+        },
+    )
     hires_scale: float = field(
         default=0.0,
         metadata={
@@ -87,6 +138,7 @@ def hires_refine(
     model: LatentDiffusion, x0: torch.Tensor, context_emb: torch.Tensor, *, guidance_scale: float,
     sampler: str, time_steps: int, hires_scale: float, hires_strength: float, negative_prompt: str = "",
     eta: float = 0.0, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None,
+    prediction_type: str = "epsilon", timestep_spacing: str = "even", guidance_rescale: float = 0.0,
 ) -> torch.Tensor:
     """Stage 2 of the hires fix (the JAX package's ``_hires_refine``): upscale
     the latent, q-sample it to the first step of the final ``hires_strength``
@@ -98,7 +150,9 @@ def hires_refine(
     dtype = model.dtype
     x_up = upscale_latent(x0, hires_scale).to(dtype)
     fn = make_sample_fn(model.unet, model.noise_scheduler, time_steps, sampler=sampler,
-                        guidance_scale=guidance_scale, eta=eta, strength=hires_strength)
+                        guidance_scale=guidance_scale, eta=eta, strength=hires_strength,
+                        prediction_type=prediction_type, timestep_spacing=timestep_spacing,
+                        guidance_rescale=guidance_rescale)
     if noise is None:
         noise = torch.randn(x_up.shape, generator=generator, dtype=torch.float32)
     noise = noise.to(device=x_up.device, dtype=dtype)
@@ -118,13 +172,19 @@ def sample(
     prompt: Union[str, Sequence[str]] = "",
     time_steps: int = 50,
     guidance_scale: float = 7.5,
+    scale_factor: float = 1.0,
     save_dir: Optional[str] = "output",
     sampler: str = "ddim",
     eta: float = 0.0,
     num_images: int = 1,
-    seed: int = 42,
+    repeat_noise: bool = False,
+    seed: Union[int, Sequence[int]] = 42,
     name: str = "txt2img",
     negative_prompt: str = "",
+    karras: bool = False,
+    prediction_type: str = "epsilon",
+    timestep_spacing: str = "even",
+    guidance_rescale: float = 0.0,
     hires_scale: float = 0.0,
     hires_strength: float = 0.6,
     vae_tile: int = 0,
@@ -133,8 +193,15 @@ def sample(
 
     ``prompt`` may be a list (then ``num_images = len(prompt)``). The init
     noise [B, h, w, 4] is drawn in float32 on the CPU from
-    ``torch.Generator().manual_seed(seed)`` and moved to the model's device, so
-    a seed gives the same noise on every device.
+    ``torch.Generator().manual_seed(seed)`` (U[0, 1) under the compat switch
+    ``uniform_init_noise``) and moved to the model's device, so a seed gives
+    the same noise on every device; the sampling loop draws on from the same
+    generator. ``seed`` may be a list, one per row (batched serving): each row
+    draws its init noise from its own generator, and the loop draws from the
+    first row's (the JAX package keeps the first row's loop key), so a
+    request's image does not depend on its batch mates (for the stochastic
+    samplers, only as the batch's first row); on the CPU it is the solo
+    render's bytes.
 
     ``hires_scale > 1`` enables the two-stage hires fix: sample at
     ``image_size``, upscale the latent by the factor, then refine the final
@@ -147,22 +214,33 @@ def sample(
     else:
         prompts = [prompt] * num_images
 
-    generator = torch.Generator().manual_seed(int(seed))
     shape = model.latent_shape(num_images, image_size)
-    noise = torch.randn(shape, generator=generator, dtype=torch.float32)
+    draw = torch.rand if (model.compat is not None and model.compat.uniform_init_noise) else torch.randn
+    if isinstance(seed, (list, tuple)):
+        if len(seed) != num_images:
+            raise ValueError(f"{len(seed)} seeds for {num_images} images: one seed per image")
+        generators = [torch.Generator().manual_seed(int(s)) for s in seed]
+        noise = torch.cat([draw((1,) + tuple(shape[1:]), generator=g, dtype=torch.float32) for g in generators])
+        generator = generators[0]
+    else:
+        generator = torch.Generator().manual_seed(int(seed))
+        noise = draw(shape, generator=generator, dtype=torch.float32)
     noise = noise.to(device=model.device, dtype=model.dtype)
 
     context_emb = model.encode_prompts(prompts).to(model.dtype)
+    guidance = dict(prediction_type=prediction_type, timestep_spacing=timestep_spacing,
+                    guidance_rescale=guidance_rescale)
     x_0 = model.sample(
-        noise, context_emb, guidance_scale=guidance_scale, time_steps=time_steps,
-        sampler=sampler, eta=eta, generator=generator, negative_prompt=negative_prompt,
+        noise, context_emb, guidance_scale=guidance_scale, repeat_noise=repeat_noise, scale_factor=scale_factor,
+        time_steps=time_steps, sampler=sampler, eta=eta, generator=generator, negative_prompt=negative_prompt,
+        karras=karras, **guidance,
     )
     if hires_scale > 1.0:
         x_0 = hires_refine(
             model, x_0, context_emb, guidance_scale=guidance_scale,
             sampler=sampler if sampler in ("ddim", "ddpm", "dpmpp") else "ddim",
             time_steps=time_steps, hires_scale=hires_scale, hires_strength=hires_strength,
-            negative_prompt=negative_prompt, eta=eta, generator=generator,
+            negative_prompt=negative_prompt, eta=eta, generator=generator, **guidance,
         )
     images = model.decode_latent(x_0, tile=vae_tile or None).float().cpu().numpy()
 

@@ -4,7 +4,9 @@
         --prompt "a cat" --image-size 512 --sampling-steps 50 --guidance-scale 7.5 \\
         --channels-list 320,640,1280,1280 ...
 
-Flag names are the JAX CLI's for the ported subset: the sampling flags, the
+Flag names are the JAX CLI's for the ported subset: the sampling flags (every
+sampler, Karras spacing, v-prediction, trailing spacing, guidance rescale,
+``--unet-checkpoint`` from one of the port's trainer checkpoints), the
 model-size flags of the UNet/VAE/CLIP/DDPM config groups, the compat switches
 the slice reads, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``.
 ``--device`` (default ``cuda``; without a card the run stops unless given
@@ -27,6 +29,7 @@ from stable_diffusion_pytorch_tpu_torch.config import (
 )
 from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
 from stable_diffusion_pytorch_tpu_torch.pipeline import SamplingConfig, sample
+from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_unet_for_inference
 from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
 logger = logging.getLogger("txt2img")
@@ -64,6 +67,8 @@ def main(argv=None) -> None:
         compat=cfg[CompatConfig], dtype=dtype, device=args.device, seed=args.seed,
     )
     s = cfg[SamplingConfig]
+    if s.unet_checkpoint:
+        logger.info(f"loaded trained UNet weights from {load_unet_for_inference(model.unet, s.unet_checkpoint)}")
     logger.info(
         f"sampling {s.num_images} image(s) for prompt={s.prompt!r} ({s.sampler}, "
         f"{s.sampling_steps} steps, cfg={args.guidance_scale}) on {args.device} in {dtype}"
@@ -71,9 +76,11 @@ def main(argv=None) -> None:
     start = time.perf_counter()
     sample(
         model, image_size=s.image_size, prompt=s.prompt, time_steps=s.sampling_steps,
-        guidance_scale=args.guidance_scale, save_dir=s.output_dir, sampler=s.sampler,
-        eta=s.eta, num_images=s.num_images, seed=args.seed, name=s.output_name,
-        negative_prompt=s.negative_prompt, hires_scale=s.hires_scale,
+        guidance_scale=args.guidance_scale, scale_factor=s.scale_factor, save_dir=s.output_dir,
+        sampler=s.sampler, eta=s.eta, num_images=s.num_images, repeat_noise=s.repeat_noise, seed=args.seed,
+        name=s.output_name, negative_prompt=s.negative_prompt, karras=s.karras,
+        prediction_type=s.prediction_type, timestep_spacing=s.timestep_spacing,
+        guidance_rescale=s.guidance_rescale, hires_scale=s.hires_scale,
         hires_strength=s.hires_strength, vae_tile=s.vae_tile,
     )
     logger.info(f"saved to {s.output_dir}/ in {time.perf_counter() - start:.2f} s")

@@ -58,6 +58,37 @@ def load_checkpoint(path: str, map_location: Any = "cpu") -> dict:
     return torch.load(os.path.join(path, STATE_FILE), map_location=map_location, weights_only=True)
 
 
+def load_params_for_inference(path: str, map_location: Any = "cpu") -> dict:
+    """The model's parameters from a trainer checkpoint, by name, for
+    sampling: the EMA weights when the checkpoint carries them (runs with
+    ``--ema-decay > 0``), else the trained ones."""
+    state = load_checkpoint(path, map_location)
+    return state["ema_params"] or state["params"]
+
+
+def resolve_checkpoint(path: str) -> str:
+    """A ``checkpoint-N`` or ``epoch_N`` directory as given; any other
+    directory resolves to its newest ``checkpoint-N`` (when it has one)."""
+    if os.path.isdir(path) and not os.path.basename(path).startswith(("checkpoint", "epoch")):
+        return find_latest_checkpoint(path) or path
+    return path
+
+
+@torch.no_grad()
+def load_unet_for_inference(unet: torch.nn.Module, path: str) -> str:
+    """Copy a UNet trainer checkpoint's weights (EMA preferred) into ``unet``
+    in place, in its dtype and on its device; -> the checkpoint loaded. A
+    checkpoint of another module, or of other widths, raises before any
+    weight is copied, so a failed load leaves ``unet`` as it was."""
+    path = resolve_checkpoint(path)
+    params, live = load_params_for_inference(path), unet.state_dict()
+    wrong = sorted(set(params) ^ set(live)) or [n for n, t in params.items() if t.shape != live[n].shape]
+    if wrong:
+        raise ValueError(f"{path} does not hold this UNet's parameters: {wrong[:5]} ...")
+    unet.load_state_dict(params, strict=True)
+    return path
+
+
 class CheckpointManager:
     """Save and resume with keep_last_only pruning (the reference's train_unet.py:390-407)."""
 

@@ -3,12 +3,13 @@
 The whole ``CompatConfig`` of the JAX package, with the same field names,
 defaults and help: the correct math by default, each reference quirk behind a
 flag, ``--reference-compat`` flipping all of them (``resolved()``). The
-sampling path reads ``cfg_formula``, ``flipped_time_embedding`` and
+sampling path reads ``cfg_formula``, ``ascending_sample_loop`` (the loop in
+ascending t over the reference's leading few-step schedule),
+``uniform_init_noise`` (U[0, 1) init noise), ``flipped_time_embedding`` and
 ``bottleneck_default_groups``; the UNet trainer reads ``train_with_cfg``,
-``cfg_formula`` and ``reference_compat`` (whole-batch CFG dropout).
-``ascending_sample_loop`` and ``uniform_init_noise`` belong to samplers not
-ported yet and raise there; the autoencoder trainer reads ``kl_per_example0``
-(and the VAE ``bottleneck_default_groups``).
+``cfg_formula`` and ``reference_compat`` (whole-batch CFG dropout); the
+autoencoder trainer reads ``kl_per_example0`` (and the VAE
+``bottleneck_default_groups``).
 """
 
 from dataclasses import dataclass, field

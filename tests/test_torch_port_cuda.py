@@ -770,3 +770,52 @@ def test_group_norm_cat_and_bwd_are_one_cluster_launch(cuda, dtype):
                 assert len(kernels) == 1 and "gn_bwd_cluster" in next(iter(kernels)), kernels
                 assert next(iter(kernels.values())) == 1 and native.COUNTERS["group_norm_bwd"].count == 1
     assert kinds == {"cat": {True, False}, "bwd": {True, False}}, kinds
+
+
+def test_serve_path_on_cuda_launches_the_sampling_kernels(cuda):
+    """The server on the card at a tiny width: every sampler answers a PNG
+    over HTTP, two concurrent requests share a batch, and the sampling
+    kernels (K1, K6, K8) were launched by the batcher thread."""
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from stable_diffusion_pytorch_tpu_torch.scripts import serve
+
+    service, _ = serve.build_service([
+        "--channels-list", "32,64", "--n-heads", "4", "--time-emb-dim", "64", "--n-layers", "1",
+        "--autoencoder-channels-list", "16,32", "--groups", "8", "--noise-steps", "50",
+        "--default-image-size", "32", "--default-steps", "3", "--max-batch", "4", "--batch-window-ms", "300",
+        "--device", "cuda"])
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/txt2img"
+
+    def post(payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read()
+
+    try:
+        native.reset_counters()
+        for sampler in serve.SAMPLERS:
+            status, body = post({"prompt": "a cat", "seed": 1, "sampler": sampler})
+            assert status == 200 and body[:4] == b"\x89PNG", sampler
+        before = service.batches_run
+        results = []
+        threads = [threading.Thread(target=lambda s=s: results.append(post({"prompt": "a dog", "seed": s})))
+                   for s in (1, 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert len(results) == 2 and all(status == 200 for status, _ in results)
+        assert service.batches_run - before == 1
+        counts = {k: c.count for k, c in native.COUNTERS.items()}
+        assert all(counts[k] > 0 for k in ("flash_attention", "group_norm", "group_norm_cat")), counts
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()

@@ -131,6 +131,8 @@ def test_ddim_cfg_five_steps_and_decode_match_jax(models):
 
 
 def test_unported_sampler_raises(models):
+    """Every JAX sampler is ported; an unknown one raises ``ValueError``, as
+    JAX's ``make_sample_fn`` does."""
     _, port_model = models
-    with pytest.raises(NotImplementedError):
-        port_model.sample(torch.zeros(1, 8, 8, 4), torch.zeros(1, 77, 32), time_steps=2, sampler="ddpm")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        port_model.sample(torch.zeros(1, 8, 8, 4), torch.zeros(1, 77, 32), time_steps=2, sampler="bogus")

@@ -38,7 +38,7 @@ from stable_diffusion_pytorch_tpu_torch.models import build as port_build  # noq
 from stable_diffusion_pytorch_tpu_torch.models import presets  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.parallel import args as port_parallel  # noqa: E402
-from stable_diffusion_pytorch_tpu_torch.scripts import train_autoencoder, train_unet, txt2img  # noqa: E402
+from stable_diffusion_pytorch_tpu_torch.scripts import serve, train_autoencoder, train_unet, txt2img  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.trainers import args as port_args  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.utils import compat as port_compat  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.utils import data as port_data  # noqa: E402
@@ -198,6 +198,8 @@ def test_entry_points_run_on_cuda_unless_given_the_cpu(monkeypatch, capsys):
         train_unet.main(["--dataset", "synthetic", *TINY_MODEL])
     with pytest.raises(SystemExit, match="--device cpu"):
         train_autoencoder.main(["--dataset", "synthetic", *TINY_MODEL])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        serve.main(["--port", "0", *TINY_MODEL])
     cfgs = (presets.reference_unet_config(), port_config.AutoencoderConfig(), port_config.ClipConfig(model_dir=None),
             port_config.DDPMConfig())
     with pytest.raises(RuntimeError, match="--device cpu"):

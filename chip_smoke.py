@@ -107,6 +107,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
    against its solo render (``_bucket_vs_solo``): the UNet call within 2e-2
    of scale in bf16, the float32 image within 2e-2; the bf16 image's gap
    recorded beside the loop's own sensitivity to x_T moved by a bf16 ulp.
+6d. features (run before 6c, on the slice's model): the sampling-side
+   features at 512x512, batch 1, CFG 7.5, bf16, 10 DDIM steps, each through
+   the pipeline entry point and each decoded to a finite [1,512,512,3] with
+   K1, K6 and K8 launched: a plain
+   run (the counts' baseline); a weighted prompt of two 77-token chunks
+   (context [1,154,768], K1 at kv 154); img2img at strength 0.75; inpaint
+   with a half mask (the kept half of the last latent is the encoded init,
+   bit for bit); DeepCache at interval 3 (each UNet call's K1 is the full
+   call's or, on a cached step, the level-0 blocks', both from the block
+   plans, ``feature_plans``); one ControlNet, then two, zero convs filled
+   (K1 and K6 a step above the plain run's by the plan's encoder count
+   times the nets; another image); txt2img on the same seeded model with a
+   rank-8 LoRA merged into its f32 weights before the cast (another image);
+   a textual-inversion prompt loaded from a checkpoint in the port's layout.
+   Each run's s/step is CUDA-event time from its first model call to the
+   VAE decode, over its UNet calls.
 7. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
    synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
    (the default), two optimizer steps and one evaluation; checks a finite
@@ -137,7 +153,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9b, 6b and 6c included (each
+the summary, ``launches`` counts phases 5 to 9b, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
 record); ``max_abs_err``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
@@ -189,6 +205,8 @@ SAMPLER_RUNS = (
     ("dpmpp_v_trailing_zt", {"sampler": "dpmpp", "prediction_type": "v_prediction", "timestep_spacing": "trailing"}),
     ("dpmpp_guidance_rescale", {"sampler": "dpmpp", "guidance_rescale": 0.7}),
 )
+DEEP_CACHE_INTERVAL = 3  # the features phase's DeepCache: the trunk refreshed on steps 0, 3, 6, 9
+LORA_RANK = 8
 SERVE_MAX_BATCH = 4
 SERVE_BUCKETS = (1, 2, 4)  # the power-of-two batches the server pads a group to
 SERVE_SEEDS = (11, 12, 13, 14)
@@ -381,7 +399,9 @@ def fill_zero_weights(module, generator) -> None:
                 p.normal_(0.0, 0.5 * p[0].numel() ** -0.5, generator=generator)
 
 
-def build_sd15(device, dtype, seed: int):
+def build_sd15(device, dtype, seed: int, lora=None):
+    """The SD-1.5 stack from ``seed``, zero layers filled; ``lora`` =
+    (factors, scale) merged into the UNet's f32 weights before the cast."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
@@ -390,7 +410,7 @@ def build_sd15(device, dtype, seed: int):
 
     model = build_models(
         presets.sd15_unet_config(), presets.sd15_autoencoder_config(), ClipConfig(model_dir=None),
-        presets.sd15_ddpm_config(), dtype=dtype, device=device, seed=seed,
+        presets.sd15_ddpm_config(), dtype=dtype, device=device, seed=seed, lora=lora,
     )
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     for m in (model.unet, model.autoencoder):
@@ -875,8 +895,10 @@ class _NoUpdate:
 def record_shapes(model, work: str):
     """The distinct launch shapes of each kernel: one-step runs of txt2img at
     512x512 and at 1024x1024, of the hires fix (a one-step base and a
-    one-step refine) and of the server's buckets of 2 and 4 requests at
-    512x512 (the samplers phase runs the slice's shapes), and one training
+    one-step refine), of the server's buckets of 2 and 4 requests at
+    512x512 (the samplers phase runs the slice's shapes), of a weighted
+    2-chunk prompt and of img2img at 512x512 (the features phase's new
+    shapes: K1 at kv 154, the VAE encoder), and one training
     micro step of each train phase's trainer and of the VAE trainer
     (parameters untouched), each trainer built for its probe and freed
     after it. K3 is held at the backward shapes the
@@ -914,6 +936,15 @@ def record_shapes(model, work: str):
             pipeline.sample(model, image_size=512, prompt=["a photo of a cat"] * bucket, time_steps=1,
                             guidance_scale=7.5, save_dir=None, seed=list(range(bucket)))
             collect()
+        # the features' own shapes: K1 at kv 154 (a 2-chunk prompt), the VAE
+        # encoder's (img2img; inpaint's are the same; ControlNet and DeepCache
+        # run the UNet's)
+        pipeline.sample(model, image_size=512, prompt=weighted_long_prompt(model), time_steps=1, guidance_scale=7.5,
+                        save_dir=None)
+        collect()
+        pipeline.img2img(model, smoke_image(1), prompt="a photo of a cat", strength=1.0, image_size=512,
+                         time_steps=1, guidance_scale=7.5, save_dir=None)
+        collect()
     leaf_shapes = None
     for name, size, batch, flags, _required in TRAIN_PHASES:
         trainer = build_sd15_trainer(f"{work}_{name}_probe", size, batch, flags)
@@ -1626,6 +1657,247 @@ def phase_samplers(model, steps: int) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 6d: the sampling-side features
+# --------------------------------------------------------------------------- #
+
+
+def weighted_long_prompt(model) -> str:
+    """An emphasis prompt whose body needs two 75-token windows (by the
+    model's tokenizer): its context is [1, 154, 768]."""
+    words = "a (photograph:1.3) of an astronaut riding a ((white)) horse on the [moon]".split()
+    prompt, i = "", 0
+    while len(model.text_encoder._weighted_body(prompt)[0]) <= 90:
+        prompt, i = f"{prompt} {words[i % len(words)]}".strip(), i + 1
+    return prompt
+
+
+def smoke_image(seed: int, size: int = 512):
+    """A seeded smooth uint8 RGB image: the init image and the control hint."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.stack([np.sin(6.28 * (a * xx + b * yy) + c) for a, b, c in rng.uniform(0.5, 3.0, (3, 3))], -1)
+    return ((img + 1.0) * 127.5).astype(np.uint8)
+
+
+def feature_plans(unet_cfg) -> dict:
+    """Launches worked out from the block plans: K1 (flash_attention), K6
+    (group_norm) and K8 (group_norm_cat) of one full UNet call, of one
+    DeepCache call on the cached trunk (the level-0 blocks and the out
+    head), and of one ControlNet call (the encoder copy)."""
+    from stable_diffusion_pytorch_tpu_torch.models.unet import plan_input_blocks, plan_output_blocks
+
+    ch = list(unet_cfg.channels_list)
+    in_plan, skips, mid_ch, _, attn_mult = plan_input_blocks(ch[0], ch, unet_cfg.num_res_blocks,
+                                                             unet_cfg.attention_resolutions)
+    out_plan, _ = plan_output_blocks(ch, unet_cfg.num_res_blocks, unet_cfg.attention_resolutions, skips, mid_ch,
+                                     attn_mult)
+    attn = 2 * unet_cfg.n_layers  # self and cross attention per transformer block
+
+    def count(ins, outs, mid: bool, head: bool):
+        k = {"flash_attention": 0, "group_norm": 0, "group_norm_cat": 0}
+        for block in ins:  # ("res", in, out, attn) or ("down", ch)
+            if block[0] == "res":
+                k["group_norm"] += 2 + bool(block[3])
+                k["flash_attention"] += attn * bool(block[3])
+        for block in outs:  # ("res", in + skip, out, attn, upsample): the first norm is K8
+            k["group_norm_cat"] += 1
+            k["group_norm"] += 1 + bool(block[3])
+            k["flash_attention"] += attn * bool(block[3])
+        if mid:  # ResBlock, transformer, ResBlock
+            k["group_norm"] += 5
+            k["flash_attention"] += attn
+        k["group_norm"] += bool(head)
+        return k
+
+    n0, n_shallow = unet_cfg.num_res_blocks, unet_cfg.num_res_blocks + 1
+    return {"unet_call": count(in_plan, out_plan, True, True),
+            "deep_cache_call": count(in_plan[:n0], out_plan[-n_shallow:], False, True),
+            "controlnet_call": count(in_plan, [], True, False)}
+
+
+def _feature_run(model, name: str, fn, nets=()) -> dict:
+    """One feature run: counts set to 0 before ``fn()``, read after it; CUDA
+    events at each UNet (and ControlNet) call and at the VAE decode give
+    s/step (first model call to the decode, over the UNet calls) and each
+    UNet call's launches (K1, K6, K8, from one call's start to the next)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    kernels = ("flash_attention", "group_norm", "group_norm_cat")
+    marks, decoded, latents = [], [], []
+
+    def mark(kind):
+        def hook(module, args, kwargs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((kind, ev, {k: native.COUNTERS[k].count for k in kernels}))
+        return hook
+
+    hooks = [model.unet.register_forward_pre_hook(mark("unet")),
+             model.autoencoder.post_quant_conv.register_forward_pre_hook(
+                 lambda m, a: latents.append(a[0].detach())),
+             model.autoencoder.decoder.register_forward_pre_hook(mark("decode")),
+             model.autoencoder.decoder.register_forward_hook(lambda m, a, o: decoded.append(o.detach()))]
+    hooks += [net.register_forward_pre_hook(mark("controlnet")) for net in nets]
+    try:
+        torch.cuda.synchronize()
+        native.reset_counters()
+        with torch.inference_mode():
+            out, total_s = _timed(fn)
+        launches = launch_counts()
+        kv = sorted({key[2] for key in native.COUNTERS["flash_attention"].shapes})
+    finally:
+        for h in hooks:
+            h.remove()
+    unet_marks = [i for i, m in enumerate(marks) if m[0] == "unet"]
+    end = next(i for i, m in enumerate(marks) if m[0] == "decode")
+    per_call = []
+    for j, i in enumerate(unet_marks):
+        nxt = unet_marks[j + 1] if j + 1 < len(unet_marks) else end
+        # a ControlNet call before the next UNet call belongs to the next step
+        nxt = next((k for k in range(i + 1, nxt) if marks[k][0] == "controlnet"), nxt)
+        per_call.append({k: marks[nxt][2][k] - marks[i][2][k] for k in kernels})
+    loop_ms = marks[0][1].elapsed_time(marks[end][1])
+    img = decoded[-1]
+    return {"run": name, "launches": launches, "unet_calls": len(unet_marks), "per_unet_call": per_call,
+            "flash_kv_lengths": kv, "decoded_shape": list(img.shape), "finite": bool(torch.isfinite(img).all()),
+            "total_s": total_s, "s_per_step": loop_ms / 1e3 / len(unet_marks), "_image": img.float(),
+            "_latent": latents[-1], "_out": out}
+
+
+def phase_features(model, steps: int, work: str) -> dict:
+    """The sampling-side features at SD-1.5 width, 512x512, bf16, CFG 7.5,
+    ``steps`` DDIM steps, each through the entry point a user calls and each
+    decoded to a finite [1, 512, 512, 3]: a plain run (the baseline of the
+    counts); a weighted 2-chunk prompt (context [1, 154, 768], K1 at kv 154);
+    img2img at strength 0.75; inpaint with a half mask (the kept half of the
+    last latent is the encoded init, bit for bit); DeepCache at interval 3
+    (a cached step launches the level-0 blocks' K1, worked out from the
+    plan); ControlNet with one net and with two, zero convs filled (K1 and
+    K6 per step above the plain run's by the encoder's count from
+    ``plan_input_blocks``, times the nets; another image); txt2img on a model
+    built with a rank-8 LoRA merged into its f32 weights (another image);
+    and a textual-inversion prompt loaded from a checkpoint in the port's
+    layout (its sentinel ids in the prompt)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.models.build import build_controlnet
+    from stable_diffusion_pytorch_tpu_torch.models.lora import init_lora
+    from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
+
+    prompt = "a photograph of an astronaut riding a horse"
+    kw = dict(image_size=512, time_steps=steps, guidance_scale=7.5, save_dir=None, seed=42)
+    plans = feature_plans(presets.sd15_unet_config())
+    init, hint = smoke_image(1), smoke_image(2)
+    mask = np.zeros((512, 512), np.uint8)
+    mask[:, :256] = 255  # repaint the left half
+    runs = {}
+
+    def run(name, fn, nets=()):
+        runs[name] = _feature_run(model, name, fn, nets)
+        return runs[name]
+
+    run("plain", lambda: pipeline.sample(model, prompt=prompt, **kw))
+    long_prompt = weighted_long_prompt(model)
+    with torch.inference_mode():
+        ctx_shape = list(model.encode_prompts([long_prompt]).shape)
+    run("weighted_long", lambda: pipeline.sample(model, prompt=long_prompt, **kw))
+    run("img2img", lambda: pipeline.img2img(model, init, prompt=prompt, strength=0.75, image_size=512,
+                                            time_steps=steps, guidance_scale=7.5, save_dir=None, seed=42))
+    inits = []
+    real_init = pipeline._init_latents
+    pipeline._init_latents = lambda *a: inits.append(real_init(*a)) or inits[-1]
+    try:
+        run("inpaint", lambda: pipeline.inpaint(model, init, mask, prompt=prompt, image_size=512, time_steps=steps,
+                                                guidance_scale=7.5, save_dir=None, seed=42))
+    finally:
+        pipeline._init_latents = real_init
+    run("deep_cache", lambda: pipeline.sample(model, prompt=prompt, deep_cache_interval=DEEP_CACHE_INTERVAL, **kw))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    nets = [build_controlnet(presets.sd15_unet_config(), presets.sd15_autoencoder_config(), dtype=model.dtype,
+                             device="cuda", seed=SEED + 3 + i) for i in range(2)]
+    for net in nets:
+        fill_zero_weights(net, gen)
+    for n in (1, 2):
+        model.attach_controlnet(nets[:n])
+        hints = hint if n == 1 else [hint, smoke_image(3)]
+        run(f"controlnet_{n}", lambda: pipeline.sample(model, prompt=prompt, control_image=hints, control_scale=0.8,
+                                                       **kw), nets[:n])
+    model.controlnet = None
+    del nets
+    # textual inversion from a checkpoint in the port's layout
+    ti_dir = os.path.join(work, "ti")
+    vectors = torch.randn(2, 768, generator=torch.Generator().manual_seed(SEED + 5)) * 0.02
+    save_checkpoint(os.path.join(ti_dir, "checkpoint-1"), {"step": 1, "params": {"ti": vectors}, "ema_params": None})
+    with open(os.path.join(ti_dir, "textual_inversion.json"), "w") as f:
+        _json.dump({"placeholder_token": "<smoke-token>", "num_vectors": 2}, f)
+    token = model.text_encoder.load_textual_inversion(ti_dir)
+    ti_prompt = f"a photograph of {token} riding a horse"
+    ti_ids = model.text_encoder.tokenize([ti_prompt]).input_ids
+    run("textual_inversion", lambda: pipeline.sample(model, prompt=ti_prompt, **kw))
+    model.text_encoder._ti = None
+    # txt2img on the same seeded model with a rank-8 LoRA merged before the cast
+    shapes = {n: t for n, t in model.unet.state_dict().items()}
+    lora = {k: torch.randn(v.shape, device="cuda", generator=gen) * 0.02
+            for k, v in init_lora(shapes, LORA_RANK, "attn", gen).items()}
+    del shapes
+    lora_model = build_sd15("cuda", model.dtype, SEED, lora=(lora, 1.0))
+    runs["lora"] = _feature_run(lora_model, "lora", lambda: pipeline.sample(lora_model, prompt=prompt, **kw))
+    del lora_model, lora
+    free_cuda()
+
+    plain = runs["plain"]
+    per_step = lambda r, k: (r["launches"][k] - plain["launches"][k]) / steps  # noqa: E731
+    m = mask[None, :, :, None] == 0
+    keep = torch.from_numpy(np.ascontiguousarray(m[:, ::8, ::8])).cuda().expand_as(inits[0])
+    refresh = [i % DEEP_CACHE_INTERVAL == 0 for i in range(steps)]
+    dc_calls = runs["deep_cache"]["per_unet_call"]
+    checks = {
+        "weighted_long_context": ctx_shape == [1, 154, 768] and 154 in runs["weighted_long"]["flash_kv_lengths"],
+        "inpaint_kept_half_is_the_init": bool(torch.equal(runs["inpaint"]["_latent"][keep], inits[0][keep])),
+        "deep_cache_cached_step_k1": all(c["flash_attention"] == plans["deep_cache_call" if not r else "unet_call"]
+                                         ["flash_attention"] for c, r in zip(dc_calls, refresh)),
+        "textual_inversion_ids": int((np.asarray(ti_ids) >= 49408).sum()) == 2,
+    }
+    for n in (1, 2):
+        r = runs[f"controlnet_{n}"]
+        checks[f"controlnet_{n}_k1_per_step"] = per_step(r, "flash_attention") == n * plans["controlnet_call"][
+            "flash_attention"]
+        checks[f"controlnet_{n}_k6_per_step"] = per_step(r, "group_norm") == n * plans["controlnet_call"]["group_norm"]
+    diff = {name: (runs[name]["_image"] - plain["_image"]).abs().max().item()
+            for name in ("controlnet_1", "controlnet_2", "lora", "deep_cache", "textual_inversion")}
+    checks["controlnet_changes_the_image"] = diff["controlnet_1"] > 0 and diff["controlnet_2"] > 0
+    checks["lora_changes_the_image"] = diff["lora"] > 0
+    records = {name: {k: v for k, v in r.items() if not k.startswith("_")} for name, r in runs.items()}
+    for name in ("controlnet_1", "controlnet_2"):
+        n = int(name[-1])
+        records[name]["per_step_above_plain"] = {k: per_step(runs[name], k) for k in
+                                                 ("flash_attention", "group_norm", "group_norm_cat")}
+        records[name]["per_step_plan"] = {k: n * v for k, v in plans["controlnet_call"].items()}
+    records["deep_cache"]["interval"] = DEEP_CACHE_INTERVAL
+    records["deep_cache"]["cached_step_plan"] = plans["deep_cache_call"]
+    records["weighted_long"]["context_shape"] = ctx_shape
+    res = {"phase": "features", "gpu": gpu_line(), "steps": steps, "guidance_scale": 7.5, "image_size": 512,
+           "dtype": str(model.dtype), "plans": plans, "checks": checks, "max_abs_vs_plain": diff, "runs": records}
+    emit(res)
+    for name, r in runs.items():
+        check(r["decoded_shape"] == [1, 512, 512, 3] and r["finite"],
+              f"feature run {name}: decoded {r['decoded_shape']}, finite {r['finite']}")
+        check(all(r["launches"][k] > 0 for k in SLICE_KERNELS), f"feature run {name}: a kernel was not launched: "
+              f"{r['launches']}")
+    check(all(checks.values()), f"feature checks failed: {checks}")
+    return res
+
+
 def _png_pixels(data: bytes):
     """HWC uint8 pixels of a PNG with filter-0 rows (what the port's
     ``encode_png`` writes)."""
@@ -2101,6 +2373,7 @@ def main(argv=None) -> int:
     slice_res = phase_slice(model, STEPS, NUM_IMAGES)
     hires_res = phase_hires(model, STEPS)
     samplers_res = phase_samplers(model, STEPS)
+    features_res = phase_features(model, STEPS, os.path.join(REPO, "build", "chip_smoke_features"))
     del model
     free_cuda()
     serve_res = phase_serve(os.path.join(REPO, "build", "chip_smoke_serve"), STEPS)
@@ -2119,7 +2392,8 @@ def main(argv=None) -> int:
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
-                 *(r["launches"] for r in samplers_res["runs"].values()), serve_res["launches"],
+                 *(r["launches"] for r in samplers_res["runs"].values()),
+                 *(r["launches"] for r in features_res["runs"].values()), serve_res["launches"],
                  *(r["launches"] for r in trains.values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
@@ -2141,7 +2415,8 @@ def main(argv=None) -> int:
                        "flash_attention_launches_kv_past_9216": sum(
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
-                       "hires": hires_res, "samplers": samplers_res, "serve": serve_res, **trains,
+                       "hires": hires_res, "samplers": samplers_res, "features": features_res,
+                       "serve": serve_res, **trains,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

@@ -19,13 +19,18 @@ parameters and the trainer computes in the compute dtype under
 The autoencoder trainer builds the VAE alone (:func:`build_autoencoder`), with
 f32 trainable parameters as the UNet has for its trainer.
 
+A LoRA (``models/lora.py``) given to :func:`build_models` is merged into the
+UNet's f32 weights before the cast, and :func:`load_unet_weights` merges one
+into a trained checkpoint's f32 weights before the copy; :func:`load_controlnets`
+builds ControlNets to match the UNet and loads their checkpoints.
+
 Entry points run on the card: ``device`` defaults to ``"cuda"``, and without a
 CUDA device only an explicit ``"cpu"`` runs (:func:`require_device`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -39,9 +44,16 @@ from stable_diffusion_pytorch_tpu_torch.config import (
 from stable_diffusion_pytorch_tpu_torch.models.autoencoder import AutoEncoderKL
 from stable_diffusion_pytorch_tpu_torch.models.blocks import GroupNorm, ResBlock, SpatialTransformer
 from stable_diffusion_pytorch_tpu_torch.models.clip import CLIPModel, CLIPTextTransformer
+from stable_diffusion_pytorch_tpu_torch.models.controlnet import ControlNet
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+from stable_diffusion_pytorch_tpu_torch.models.lora import merge_lora
 from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
 from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
+from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import (
+    check_unet_params,
+    load_params_for_inference,
+    resolve_checkpoint,
+)
 from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
 _DTYPES = {"no": torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.bfloat16}
@@ -136,11 +148,13 @@ def build_models(
     seed: int = 0,
     for_training: bool = False,
     remat: str = "none",
+    lora: Optional[Tuple[Dict[str, torch.Tensor], float]] = None,
 ) -> LatentDiffusion:
     """Schedule + UNet + CLIP + VAE on ``device``, seeded. ``dtype`` is the
     compute dtype: every module is cast to it for inference; with
     ``for_training`` the UNet keeps f32 trainable parameters instead.
-    ``remat`` is the UNet's per-block remat policy (``--remat-policy``)."""
+    ``remat`` is the UNet's per-block remat policy (``--remat-policy``).
+    ``lora`` = (factors, scale) is merged into the UNet's f32 weights first."""
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -155,6 +169,8 @@ def build_models(
         text = CLIPTextTransformer(max_positions=clip_cfg.max_seq_len)
     for module in (unet, vae, text):
         init_weights(module, generator)
+        if lora is not None and module is unet:
+            unet.load_state_dict(merge_lora(unet.state_dict(), *lora), strict=True)
         if for_training and module is unet:
             prepare_for_training(module)
         else:
@@ -163,3 +179,60 @@ def build_models(
         unet, vae, CLIPModel(clip_cfg, text), make_schedule(ddpm_cfg), compat=compat,
         compute_dtype=dtype,
     )
+
+
+@torch.no_grad()
+def load_unet_weights(unet: UNetModel, path: str, lora: Optional[str] = None, lora_scale: float = 1.0) -> str:
+    """Copy a UNet trainer checkpoint's weights (EMA preferred) into ``unet``
+    in place, in its dtype and on its device, with the LoRA checkpoint
+    ``lora`` merged into the checkpoint's float32 weights first; -> the
+    checkpoint loaded. A checkpoint that is not this UNet's, or a LoRA that
+    does not fit it, raises before any weight is copied, so a failed load
+    leaves ``unet`` as it was."""
+    path = resolve_checkpoint(path)
+    params = load_params_for_inference(path)
+    check_unet_params(unet, params, path)
+    if lora:
+        params = merge_lora(params, load_params_for_inference(resolve_checkpoint(lora)), lora_scale)
+    unet.load_state_dict(params, strict=True)
+    return path
+
+
+def build_controlnet(
+    unet_cfg: UnetConfig,
+    vae_cfg: AutoencoderConfig,
+    compat: Optional[CompatConfig] = None,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> ControlNet:
+    """A ControlNet matching the UNet of ``unet_cfg`` (its hint reaches the
+    latent resolution through one stride-2 conv per VAE level), seeded as
+    :func:`build_models` seeds, zero convs at zero, cast for inference."""
+    compat = compat.resolved() if compat is not None else CompatConfig()
+    device = require_device(device)
+    with device:
+        net = ControlNet(vae_cfg.latent_channels, vae_cfg.groups, unet_cfg,
+                         hint_downsamples=len(vae_cfg.autoencoder_channels_list) - 1,
+                         flipped_time_embedding=compat.flipped_time_embedding)
+    init_weights(net, torch.Generator(device=device).manual_seed(seed))
+    return cast_for_inference(net.zero_init(), dtype)
+
+
+@torch.no_grad()
+def load_controlnets(
+    paths: Sequence[str],
+    unet_cfg: UnetConfig,
+    vae_cfg: AutoencoderConfig,
+    compat: Optional[CompatConfig] = None,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+) -> list:
+    """One ControlNet per checkpoint (the port's layout, ``models/controlnet.py``;
+    EMA weights preferred), each loaded by name with ``strict=True``."""
+    nets = []
+    for path in paths:
+        net = build_controlnet(unet_cfg, vae_cfg, compat, dtype, device)
+        net.load_state_dict(load_params_for_inference(resolve_checkpoint(path)), strict=True)
+        nets.append(net)
+    return nets

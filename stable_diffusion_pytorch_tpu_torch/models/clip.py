@@ -10,20 +10,37 @@ Tokenizer resolution: the CLIP BPE of ``models/bpe.py`` (the port's copy of
 the JAX package's numpy-only tokenizer) with staged ``{model_dir}/tokenizer/vocab.json`` + merges, else its
 offline byte-level vocabulary. The HF tokenizer the JAX package tries first is
 not used (``transformers`` is not a dependency of the port).
+
+Prompt weighting and long prompts (the JAX package's ``clip.py:411-559``):
+``tokenize_weighted`` parses ``(word:1.3)`` emphasis (``prompt_weighting.py``)
+fragment by fragment, ``tokenize_chunked`` cuts a prompt of any length into
+K windows of BOS + 75 body tokens + EOS, and ``encode_text(token_weights=)``
+applies the weights with the "original mean" rescale in float32.
+
+Textual inversion (inference): ``load_textual_inversion`` reads the port's
+checkpoint layout, a ``train_state.pt`` written by
+``utils/checkpoint.py:save_checkpoint`` whose ``params`` (or ``ema_params``)
+is ``{"ti": [K, 768]}``, with the JAX package's ``textual_inversion.json``
+sidecar (``placeholder_token``, ``num_vectors``) beside it; a port of the
+textual-inversion trainer writes exactly this. The placeholder tokenizes to
+K sentinel ids past the vocabulary, where the tower injects the vectors.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
-from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer
+from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer, TokenizerOutput
+from stable_diffusion_pytorch_tpu_torch.models.prompt_weighting import parse_weighted_prompt
 from stable_diffusion_pytorch_tpu_torch.ops.attention import xla_attention
+from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_params_for_inference, resolve_checkpoint
 
 BOS_TOKEN_ID = 49406
 EOS_TOKEN_ID = 49407
@@ -111,12 +128,29 @@ class CLIPTextTransformer(nn.Module):
         max_positions: int = 77,
     ):
         super().__init__()
+        self.vocab_size = vocab_size
+        self.d_model = d_model
         self.text_model = _TextModel(vocab_size, d_model, n_layers, n_heads, intermediate, max_positions)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, input_ids: torch.Tensor, token_overrides: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ) -> torch.Tensor:
+        """``token_overrides=(ids [K], vectors [K, D])`` puts ``vectors[j]`` in
+        place of the token embedding wherever the id is ``ids[j]`` (the
+        textual-inversion injection); those ids may lie past the vocabulary,
+        so the table lookup is clamped."""
         tm = self.text_model
         s = input_ids.shape[1]
-        x = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding.weight[:s]
+        table = tm.embeddings.token_embedding
+        if token_overrides is None:
+            tok = table(input_ids)
+        else:
+            ov_ids, ov_vec = token_overrides
+            tok = table(input_ids.clamp(0, self.vocab_size - 1))
+            hit = input_ids[..., None] == ov_ids.to(input_ids.device)[None, None, :]  # [B, S, K]
+            inj = torch.einsum("bsk,kd->bsd", hit.to(tok.dtype), ov_vec.to(device=tok.device, dtype=tok.dtype))
+            tok = torch.where(hit.any(-1, keepdim=True), inj, tok)
+        x = tok + tm.embeddings.position_embedding.weight[:s]
         causal = torch.triu(
             torch.ones((s, s), dtype=torch.bool, device=input_ids.device), diagonal=1
         )[None, None]
@@ -141,14 +175,169 @@ class CLIPModel:
         self.max_seq_len = cfg.max_seq_len
         self.module = module
         self.tokenizer = resolve_tokenizer(cfg)
+        self._ti: Optional[Tuple[str, np.ndarray, np.ndarray]] = None
+
+    # ------------------------------------------------------------------ #
+    # textual inversion
+    # ------------------------------------------------------------------ #
+
+    def add_textual_inversion(self, placeholder_token: str, vectors) -> np.ndarray:
+        """Register a learned concept: ``placeholder_token`` in a prompt
+        tokenizes to K sentinel ids (vocab_size + j) and ``vectors`` [K, 768]
+        are injected there by ``encode_text``. -> the sentinel ids."""
+        vectors = np.asarray(vectors, np.float32)
+        if vectors.ndim != 2 or vectors.shape[1] != self.module.d_model:
+            raise ValueError(f"textual-inversion vectors {vectors.shape}, want [K, {self.module.d_model}]")
+        ids = np.arange(vectors.shape[0], dtype=np.int32) + VOCAB_SIZE
+        self._ti = (placeholder_token, ids, vectors)
+        return ids
+
+    def set_textual_inversion_vectors(self, vectors) -> None:
+        if self._ti is None:
+            raise ValueError("call add_textual_inversion first")
+        self._ti = (self._ti[0], self._ti[1], np.asarray(vectors, np.float32))
+
+    def load_textual_inversion(self, ckpt_dir: str) -> str:
+        """Register the concept of a textual-inversion checkpoint (the port's
+        layout, module docstring); -> the placeholder token for prompts."""
+        with open(os.path.join(ckpt_dir, "textual_inversion.json")) as f:
+            sidecar = json.load(f)
+        vectors = np.asarray(load_params_for_inference(resolve_checkpoint(ckpt_dir))["ti"].float(), np.float32)
+        if vectors.shape[0] != sidecar["num_vectors"]:
+            raise ValueError(f"sidecar says {sidecar['num_vectors']} vectors, checkpoint has {vectors.shape[0]}")
+        self.add_textual_inversion(sidecar["placeholder_token"], vectors)
+        return sidecar["placeholder_token"]
+
+    # ------------------------------------------------------------------ #
+    # tokenization
+    # ------------------------------------------------------------------ #
+
+    def _plain_ids(self, text: str) -> List[int]:
+        """Token ids of ``text`` without BOS, EOS or padding."""
+        if not text.strip():
+            return []
+        ids = list(np.asarray(
+            self.tokenizer(text, max_length=10_000, padding=False, truncation=False).input_ids).reshape(-1))
+        if ids and ids[0] == BOS_TOKEN_ID:
+            ids = ids[1:]
+        while ids and ids[-1] == EOS_TOKEN_ID:
+            ids = ids[:-1]
+        return [int(i) for i in ids]
+
+    def _body_ids(self, text: str) -> List[int]:
+        """Fragment ids without specials; a registered placeholder expands to
+        its sentinel ids."""
+        if self._ti is None:
+            return self._plain_ids(text)
+        token, sentinel_ids, _ = self._ti
+        body: List[int] = []
+        for i, part in enumerate(text.split(token)):
+            if i > 0:
+                body.extend(int(s) for s in sentinel_ids)
+            body.extend(self._plain_ids(part))
+        return body
+
+    @staticmethod
+    def _finish_row(ids: List[int], max_len: int) -> List[int]:
+        """BOS + body + EOS, truncated keeping the final EOS, padded with EOS."""
+        row = [BOS_TOKEN_ID] + ids + [EOS_TOKEN_ID]
+        if len(row) > max_len:
+            row = row[: max_len - 1] + [EOS_TOKEN_ID]
+        return row + [EOS_TOKEN_ID] * (max_len - len(row))
+
+    def _weighted_body(self, prompt: str) -> Tuple[List[int], List[float]]:
+        """(body ids, per-token weights) of one prompt with emphasis syntax."""
+        body: List[int] = []
+        wts: List[float] = []
+        for text, w in parse_weighted_prompt(prompt):
+            ids = self._body_ids(text)
+            body.extend(ids)
+            wts.extend([w] * len(ids))
+        return body, wts
 
     def tokenize(self, prompt: Union[str, Sequence[str]] = ""):
-        """Pad to ``max_seq_len`` with EOS, truncate keeping the final EOS."""
+        """Pad to ``max_seq_len`` with EOS, truncate keeping the final EOS; a
+        registered placeholder expands to its sentinel ids."""
+        if self._ti is not None:
+            prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+            rows = [self._finish_row(self._body_ids(p), self.max_seq_len) for p in prompts]
+            return TokenizerOutput(np.asarray(rows, dtype=np.int32))
         return self.tokenizer(prompt, max_length=self.max_seq_len, padding="max_length", truncation=True)
 
+    def tokenize_weighted(self, prompts: Sequence[str]):
+        """Prompts with ``(word:1.3)`` emphasis -> (ids [B, 77], per-token
+        weights [B, 77] f32); BOS, EOS and padding weigh 1."""
+        max_len = self.max_seq_len
+        rows, weight_rows = [], []
+        for prompt in prompts:
+            body, wts = self._weighted_body(prompt)
+            rows.append(self._finish_row(body, max_len))
+            wrow = [1.0] + wts[: max_len - 2] + [1.0]
+            weight_rows.append(wrow + [1.0] * (max_len - len(wrow)))
+        return TokenizerOutput(np.asarray(rows, dtype=np.int32)), np.asarray(weight_rows, dtype=np.float32)
+
+    def tokenize_chunked(self, prompts: Sequence[str], weighted: bool = False, num_chunks: Optional[int] = None):
+        """Prompts of any length -> (ids [B, K, 77], weights [B, K, 77] or
+        None, K): K windows of BOS + 75 body tokens + EOS each; K is the most
+        any prompt of the batch needs unless ``num_chunks`` pins it."""
+        window = self.max_seq_len - 2
+        bodies = []
+        for p in prompts:
+            if weighted:
+                bodies.append(self._weighted_body(p))
+            else:
+                b = self._body_ids(p)
+                bodies.append((b, [1.0] * len(b)))
+        need = max(1, max((len(b) + window - 1) // window for b, _ in bodies))
+        k = num_chunks or need
+        rows, wrows = [], []
+        for body, wts in bodies:
+            body, wts = body[: k * window], wts[: k * window]
+            chunk_ids, chunk_w = [], []
+            for c in range(k):
+                piece, wpiece = body[c * window:(c + 1) * window], wts[c * window:(c + 1) * window]
+                chunk_ids.append(self._finish_row(piece, self.max_seq_len))
+                wrow = [1.0] + wpiece + [1.0]
+                chunk_w.append(wrow + [1.0] * (self.max_seq_len - len(wrow)))
+            rows.append(chunk_ids)
+            wrows.append(chunk_w)
+        weights = np.asarray(wrows, dtype=np.float32) if weighted else None
+        return np.asarray(rows, dtype=np.int32), weights, k
+
+    # ------------------------------------------------------------------ #
+    # encoding
+    # ------------------------------------------------------------------ #
+
     @torch.no_grad()
-    def encode_text(self, input_ids) -> torch.Tensor:
-        """[B, S] token ids -> [B, S, 768] on the encoder's device."""
+    def encode_text(self, input_ids, token_weights=None) -> torch.Tensor:
+        """[B, S] token ids -> [B, S, 768] on the encoder's device.
+
+        ``token_weights`` [B, S]: each token's embedding times its weight,
+        then the sequence rescaled so that its mean magnitude is the
+        unweighted one (abs-mean before over abs-mean after, floor 1e-8), in
+        float32 and cast back."""
         device = self.module.text_model.final_layer_norm.weight.device
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=device)
-        return self.module(ids)
+        if self._ti is None:
+            emb = self.module(ids)
+        else:
+            _, ov_ids, vectors = self._ti
+            emb = self.module(ids, token_overrides=(torch.as_tensor(ov_ids, dtype=torch.long),
+                                                    torch.from_numpy(vectors)))
+        if token_weights is None:
+            return emb
+        w = torch.as_tensor(np.asarray(token_weights, np.float32), device=device)
+        f = emb.float()
+        prev = f.abs().mean(dim=(-2, -1), keepdim=True)
+        f = f * w[..., None]
+        new = f.abs().mean(dim=(-2, -1), keepdim=True)
+        return (f * (prev / new.clamp(min=1e-8))).to(emb.dtype)
+
+    def encode_text_chunked(self, ids, token_weights=None) -> torch.Tensor:
+        """[B, K, 77] chunk ids -> [B, K*77, 768]: each chunk runs through the
+        tower alone (positions restart per chunk), the sequences concatenate."""
+        b, k, s = np.shape(ids)
+        emb = self.encode_text(
+            np.asarray(ids).reshape(b * k, s),
+            token_weights=None if token_weights is None else np.asarray(token_weights).reshape(b * k, s))
+        return emb.reshape(b, k * s, -1)

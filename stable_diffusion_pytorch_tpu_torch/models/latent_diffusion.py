@@ -6,10 +6,13 @@ Every sampler of the JAX package is ported: the discrete ``ddim``, ``ddpm``
 and ``dpmpp`` (DPM-Solver++ 2M) and the sigma-space ``euler``, ``euler_a``,
 ``heun`` and ``dpmpp_sde``, optionally on Karras spacing, with v-prediction,
 trailing spacing on zero-terminal-SNR schedules, guidance rescale,
-``strength`` (the hires fix's partial schedule) and tiled VAE decode. Each
-step's scalars come from the CPU schedule tables on the host, so the loop
-never reads a device value. ControlNet, DeepCache, inpainting, prompt
-weighting and long prompts wait for later work (ROADMAP Queue 1 item 16).
+``strength`` (img2img and the hires fix's partial schedule), inpainting
+(the known region re-noised and blended in after each step), DeepCache (the
+UNet's deep trunk refreshed every N steps, discrete samplers), ControlNet
+(one or several nets through :class:`_ControlShim`), prompt weighting and
+long prompts (``encode_prompts``) and tiled VAE decode. Each step's scalars
+come from the CPU schedule tables on the host, so the loop never reads a
+device value.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
+from stable_diffusion_pytorch_tpu_torch.models.blocks import GaussianDistribution
+from stable_diffusion_pytorch_tpu_torch.models.prompt_weighting import has_weight_syntax
 from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
 
 SIGMA_SPACE_SAMPLERS = ("euler", "euler_a", "heun", "dpmpp_sde")
@@ -53,24 +58,57 @@ def make_pred_noise_fn(unet, guidance_scale: float = 1.0, reference_cfg_formula:
     """``f(x_t [B,h,w,c], t [B], context [B,S,D], uncond [B,S,D] | None) -> eps``.
     With guidance > 1 the UNet runs once on the doubled batch [uncond, cond];
     ``guidance_rescale > 0`` applies :func:`rescale_cfg` to the model output
-    (eps, or v for a v-prediction model)."""
+    (eps, or v for a v-prediction model). DeepCache's UNet arguments pass
+    through: ``deep_cache`` (the trunk of the whole, doubled, batch) and
+    ``return_deep``, with which ``f`` returns (eps, trunk)."""
     do_cfg = guidance_scale > 1.0
 
-    def pred_noise(x_t, t, context_emb, uncond_emb=None):
-        if not do_cfg:
-            return unet(x_t, t, context_emb)
-        if uncond_emb is None:
-            raise ValueError("CFG requires the uncond embedding")
-        eps = unet(
-            torch.cat([x_t, x_t]), torch.cat([t, t]), torch.cat([uncond_emb, context_emb])
-        )
-        eps_uncond, eps_cond = eps.chunk(2)
-        out = cfg_combine(eps_uncond, eps_cond, guidance_scale, reference_cfg_formula)
-        if guidance_rescale > 0.0:
-            out = rescale_cfg(out, eps_cond, guidance_rescale)
-        return out
+    def pred_noise(x_t, t, context_emb, uncond_emb=None, **unet_kw):
+        return_deep = unet_kw.get("return_deep", False)
+        if do_cfg:
+            if uncond_emb is None:
+                raise ValueError("CFG requires the uncond embedding")
+            x_t, t, context_emb = torch.cat([x_t, x_t]), torch.cat([t, t]), torch.cat([uncond_emb, context_emb])
+        out = unet(x_t, t, context_emb, **unet_kw)
+        out, deep = out if return_deep else (out, None)
+        if do_cfg:
+            eps_uncond, eps_cond = out.chunk(2)
+            out = cfg_combine(eps_uncond, eps_cond, guidance_scale, reference_cfg_formula)
+            if guidance_rescale > 0.0:
+                out = rescale_cfg(out, eps_cond, guidance_rescale)
+        return (out, deep) if return_deep else out
 
     return pred_noise
+
+
+class _ControlShim:
+    """The UNet as the loops call it, ``f(x, t, context)``, with ControlNet
+    residuals: each net runs on the step's input and its hint (tiled when CFG
+    doubles the batch), the residuals of several nets sum, each times its
+    scale, and the UNet adds them (``UNetModel.forward(control=...)``)."""
+
+    def __init__(self, unet, controlnets: Sequence, control_scales: Sequence[float], hints: Sequence[torch.Tensor]):
+        if not len(controlnets) == len(control_scales) == len(hints):
+            raise ValueError(f"{len(hints)} hint(s) and {len(control_scales)} scale(s) for "
+                             f"{len(controlnets)} ControlNet(s)")
+        self.unet = unet
+        self.controlnets = list(controlnets)
+        self.scales = [float(s) for s in control_scales]
+        self.hints = list(hints)
+
+    def __call__(self, x, t, context_emb):
+        total_skips = total_mid = None
+        for net, scale, hint in zip(self.controlnets, self.scales, self.hints):
+            if hint.shape[0] != x.shape[0]:  # CFG doubled the batch
+                hint = torch.cat([hint] * (x.shape[0] // hint.shape[0]))
+            skips, mid = net(x, t, context_emb, hint)
+            s = torch.tensor(scale, dtype=mid.dtype)
+            if total_skips is None:
+                total_skips, total_mid = [r * s for r in skips], mid * s
+            else:
+                total_skips = [a + r * s for a, r in zip(total_skips, skips)]
+                total_mid = total_mid + mid * s
+        return self.unet(x, t, context_emb, control=(tuple(total_skips), total_mid))
 
 
 def _noise_source(generator: Optional[torch.Generator], noise: Optional[Sequence[torch.Tensor]]):
@@ -114,7 +152,8 @@ def make_sample_fn(
     guidance_rescale: float = 0.0,
     deep_cache_interval: int = 0,
 ) -> Callable:
-    """Reverse loop ``f(x_T, context_emb, uncond_emb, generator=None, noise=None) -> x_0``.
+    """Reverse loop ``f(x_T, context_emb, uncond_emb, generator=None, noise=None,
+    mask=None, init_latents=None, blend_noise=None) -> x_0``.
 
     Discrete ``ddim``/``ddpm``/``dpmpp`` step the trained grid; sigma-space
     ``euler``/``euler_a``/``heun``/``dpmpp_sde`` integrate the probability-flow
@@ -124,8 +163,16 @@ def make_sample_fn(
     order. ``strength < 1`` runs only the final ``round(num_steps * strength)``
     steps; the caller q-samples its latents to the first of them, exposed as
     ``.start_timestep``. Stochastic steps draw float32 noise on the CPU from
-    ``generator``, or take step i's from ``noise[i]``. The ``ValueError``s are
-    the JAX package's; DeepCache and inpainting raise ``NotImplementedError``."""
+    ``generator``, or take step i's from ``noise[i]``.
+
+    ``inpaint``: ``mask`` [B, h, w, 1] is 1 where the loop generates and 0
+    where it keeps ``init_latents``; after each step the kept region is
+    re-noised to the step's target (its noise drawn as the step noise is, or
+    ``blend_noise[i]``) and blended in; at the clean endpoint it is the init
+    itself. ``deep_cache_interval = N > 1``: DeepCache (Ma et al. 2023), the
+    full UNet on steps 0, N, 2N, ... (decided on the host) and only its
+    level-0 blocks against the cached trunk in between; the CFG-doubled batch
+    is cached whole. The ``ValueError``s are the JAX package's."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}")
     if prediction_type not in ("epsilon", "v_prediction"):
@@ -146,13 +193,17 @@ def make_sample_fn(
             "SNR 0, where eps-prediction is undefined; train and sample with "
             "--prediction-type v_prediction"
         )
-    if deep_cache_interval > 1 or inpaint:
-        raise NotImplementedError(
-            "DeepCache and inpainting are not ported yet (ROADMAP Queue 1 item 16)")
+    if deep_cache_interval > 1:
+        if sampler in SIGMA_SPACE_SAMPLERS:
+            raise ValueError("deep_cache_interval supports the discrete samplers (ddim/ddpm/dpmpp) only")
+        if not hasattr(unet, "channels_list"):
+            raise ValueError("deep_cache_interval needs a plain UNetModel (incompatible with the ControlNet shim)")
+        if len(unet.channels_list) < 2:
+            raise ValueError("deep_cache_interval needs a >=2-level UNet")
     pred_noise = make_pred_noise_fn(unet, guidance_scale, reference_cfg_formula, guidance_rescale)
     if sampler in SIGMA_SPACE_SAMPLERS:
         return _make_sigma_sample_fn(pred_noise, schedule, num_steps, sampler, eta, strength, karras,
-                                     prediction_type, timestep_spacing)
+                                     prediction_type, timestep_spacing, inpaint)
 
     if leading_timesteps or num_steps == schedule.noise_steps:
         ts = sched_lib.leading_timesteps(min(num_steps, schedule.noise_steps))
@@ -168,14 +219,21 @@ def make_sample_fn(
         steps = steps[::-1]
 
     def sample(x_T, context_emb, uncond_emb, generator: Optional[torch.Generator] = None,
-               noise: Optional[Sequence[torch.Tensor]] = None):
+               noise: Optional[Sequence[torch.Tensor]] = None, mask: Optional[torch.Tensor] = None,
+               init_latents: Optional[torch.Tensor] = None, blend_noise: Optional[Sequence[torch.Tensor]] = None):
         draw = _noise_source(generator, noise)
-        x, x0_prev = x_T, torch.zeros_like(x_T)
+        draw_blend = _noise_source(generator, blend_noise)
+        x, x0_prev, deep = x_T, torch.zeros_like(x_T), None
         bsz = x.shape[0]
         noise_shape = ((1,) + tuple(x.shape[1:])) if repeat_noise else tuple(x.shape)
         for i, (t, t_prev, t_last) in enumerate(steps):
             t_batch = torch.full((bsz,), t, dtype=torch.int32, device=x.device)
-            eps = pred_noise(x, t_batch, context_emb, uncond_emb)
+            if deep_cache_interval > 1 and i % deep_cache_interval == 0:  # DeepCache: refresh the trunk
+                eps, deep = pred_noise(x, t_batch, context_emb, uncond_emb, return_deep=True)
+            elif deep_cache_interval > 1:
+                eps = pred_noise(x, t_batch, context_emb, uncond_emb, deep_cache=deep)
+            else:
+                eps = pred_noise(x, t_batch, context_emb, uncond_emb)
             x0_v = None
             if prediction_type == "v_prediction":
                 alpha, sigma_vp = sched_lib.alpha_sigma_at(schedule, t)
@@ -193,6 +251,13 @@ def make_sample_fn(
                 step_noise = draw(i, noise_shape, x) if t > 0 else None
                 x, x0 = sched_lib.ddpm_step(schedule, eps, x, t, step_noise, repeat_noise=repeat_noise,
                                             scale_factor=scale_factor, x0=x0_v)
+            if inpaint:  # the kept region at the level just reached; the clean init at the end
+                if t_prev >= 0:  # the timesteps on the tables' device (the CPU): no sync
+                    t_prev_b = torch.full((bsz,), t_prev, dtype=torch.int32)
+                    known = sched_lib.add_noise(schedule, init_latents, draw_blend(i, x.shape, x), t_prev_b)
+                else:
+                    known = init_latents
+                x = mask * x + (1.0 - mask) * known
             x0_prev = x0
         return x
 
@@ -201,7 +266,8 @@ def make_sample_fn(
 
 
 def _make_sigma_sample_fn(pred_noise, schedule: DiffusionSchedule, num_steps: int, sampler: str, eta: float,
-                          strength: float, karras: bool, prediction_type: str, timestep_spacing: str) -> Callable:
+                          strength: float, karras: bool, prediction_type: str, timestep_spacing: str,
+                          inpaint: bool = False) -> Callable:
     """The sigma-space reverse loop. ``x_T`` keeps the discrete samplers'
     convention, the VP latent at the first timestep, and enters sigma space as
     ``x_T * sqrt(1 + sigma_0^2)`` (1/sqrt(abar) = sqrt(1 + sigma^2)); the
@@ -236,8 +302,10 @@ def _make_sigma_sample_fn(pred_noise, schedule: DiffusionSchedule, num_steps: in
         plan.append(step)
 
     def sample(x_T, context_emb, uncond_emb, generator: Optional[torch.Generator] = None,
-               noise: Optional[Sequence[torch.Tensor]] = None):
+               noise: Optional[Sequence[torch.Tensor]] = None, mask: Optional[torch.Tensor] = None,
+               init_latents: Optional[torch.Tensor] = None, blend_noise: Optional[Sequence[torch.Tensor]] = None):
         draw = _noise_source(generator, noise)
+        draw_blend = _noise_source(generator, blend_noise)
         dtype, bsz = x_T.dtype, x_T.shape[0]
 
         def eval_eps(x_k, call):
@@ -274,6 +342,11 @@ def _make_sigma_sample_fn(pred_noise, schedule: DiffusionSchedule, num_steps: in
                 x, h_last = sched_lib.dpmpp_2m_sde_step(x, denoised, d_prev, sigma, sigma_next, h_last,
                                                         step_noise, eff_eta)
                 d_prev = denoised
+            if inpaint:  # the kept region at sigma_next: init + sigma_next * n
+                known = init_latents
+                if sigma_next > 0.0:
+                    known = init_latents + sigma_next.to(dtype) * draw_blend(i, x.shape, x)
+                x = mask * x + (1.0 - mask) * known
         return x
 
     sample.start_timestep = ts[0]
@@ -291,6 +364,7 @@ class LatentDiffusion:
         self.noise_scheduler = schedule
         self.compat = compat
         self._compute_dtype = compute_dtype
+        self.controlnet: Optional[list] = None  # set by attach_controlnet
 
     @property
     def device(self) -> torch.device:
@@ -301,13 +375,50 @@ class LatentDiffusion:
         """The compute dtype (a training build keeps f32 UNet parameters)."""
         return self._compute_dtype or self.unet.conv_in.weight.dtype
 
-    def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
-        """[B] prompts -> [B, 77, 768]; prompts past 75 tokens are truncated
-        (the JAX package's long-prompt chunking is not ported yet)."""
+    def attach_controlnet(self, controlnet) -> None:
+        """Register one ControlNet (``models/controlnet.py``) or a list of them,
+        whose residuals sum; ``sample(control_hint=...)`` then steers through them."""
+        self.controlnet = list(controlnet) if isinstance(controlnet, (list, tuple)) else [controlnet]
+
+    def denoiser(self, control_hint=None, control_scale=1.0):
+        """What the loops call: the UNet, or with ``control_hint`` (one
+        [B, H, W, C] hint per attached net, or one tensor for one net) the
+        UNet with the nets' residuals; ``control_scale`` one float for all or
+        one per net."""
+        if control_hint is None:
+            return self.unet
+        if self.controlnet is None:
+            raise ValueError("call attach_controlnet(...) before sampling with control_hint")
+        hints = list(control_hint) if isinstance(control_hint, (list, tuple)) else [control_hint]
+        if len(hints) != len(self.controlnet):
+            raise ValueError(f"{len(hints)} hint(s) for {len(self.controlnet)} attached ControlNet(s)")
+        scales = (list(control_scale) if isinstance(control_scale, (list, tuple))
+                  else [control_scale] * len(hints))
+        hints = [torch.as_tensor(h).to(device=self.device, dtype=self.dtype) for h in hints]
+        return _ControlShim(self.unet, self.controlnet, scales, hints)
+
+    def encode_prompts(self, prompts: Sequence[str], weighted: Optional[bool] = None) -> torch.Tensor:
+        """[B] prompts -> [B, K*77, 768]. ``weighted=None`` detects
+        ``(word:1.3)`` emphasis (``prompt_weighting.py``); prompts past 75
+        tokens are encoded in K chunks of 77. Both are off in reference-compat
+        mode, where brackets stay literal and long prompts are truncated."""
+        prompts = list(prompts)
+        compat_mode = self.compat is not None and self.compat.reference_compat
+        if weighted is None:
+            weighted = not compat_mode and any(has_weight_syntax(p) for p in prompts)
         te = self.text_encoder
-        return te.encode_text(te.tokenize(list(prompts)).input_ids)
+        if not compat_mode:
+            ids, w, k = te.tokenize_chunked(prompts, weighted=weighted)
+            if k > 1:
+                return te.encode_text_chunked(ids, w)
+        if weighted:
+            out, w = te.tokenize_weighted(prompts)
+            return te.encode_text(out.input_ids, token_weights=w)
+        return te.encode_text(te.tokenize(prompts).input_ids)
 
     def encode_uncond(self, batch_size: int, text: str = "") -> torch.Tensor:
+        """The unconditional (or negative-prompt) embedding, weighted and
+        chunked as a prompt is, broadcast to the batch."""
         emb = self.encode_prompts([text])
         return emb.expand((batch_size,) + emb.shape[1:])
 
@@ -319,6 +430,11 @@ class LatentDiffusion:
         s = context_emb.shape[1]
         reps = -(-s // uncond.shape[1])
         return uncond.repeat(1, reps, 1)[:, :s, :]
+
+    @torch.no_grad()
+    def encode_image(self, img: torch.Tensor) -> GaussianDistribution:
+        """[B, H, W, 3] in [-1, 1] -> the VAE posterior over the latents."""
+        return self.autoencoder.encode(img.to(device=self.device))
 
     @torch.no_grad()
     def sample(
@@ -337,14 +453,20 @@ class LatentDiffusion:
         prediction_type: str = "epsilon",
         timestep_spacing: str = "even",
         guidance_rescale: float = 0.0,
+        control_hint=None,
+        control_scale=1.0,
+        deep_cache_interval: int = 0,
     ) -> torch.Tensor:
         """Reverse loop x_T -> x_0 on the UNet's device. The default sampler is
         DDPM over the full schedule, as the reference's and the JAX package's;
         any of ``SAMPLERS`` may be named. Stochastic samplers draw from
-        ``generator`` (seed 0 when None, as the JAX package's key)."""
+        ``generator`` (seed 0 when None, as the JAX package's key).
+        ``control_hint`` (one pixel-space [B, H, W, C] hint in [-1, 1] per
+        attached ControlNet) steers every UNet call through them;
+        ``deep_cache_interval > 1`` enables DeepCache."""
         compat = self.compat
         fn = make_sample_fn(
-            self.unet, self.noise_scheduler, time_steps or self.noise_scheduler.noise_steps, sampler=sampler,
+            self.denoiser(control_hint, control_scale), self.noise_scheduler, time_steps or self.noise_scheduler.noise_steps, sampler=sampler,
             guidance_scale=guidance_scale, eta=eta, repeat_noise=repeat_noise, scale_factor=scale_factor,
             karras=karras, prediction_type=prediction_type, timestep_spacing=timestep_spacing,
             guidance_rescale=guidance_rescale,
@@ -352,15 +474,20 @@ class LatentDiffusion:
             ascending_loop=bool(compat and compat.ascending_sample_loop),
             # the reference's few-step quirk applies only when a step count is given
             leading_timesteps=bool(compat and compat.ascending_sample_loop and time_steps),
+            deep_cache_interval=deep_cache_interval,
         )
-        if guidance_scale > 1.0:
-            uncond = self.encode_uncond(noised_sample.shape[0], negative_prompt)
-        else:
-            uncond = torch.zeros_like(context_emb)
-        uncond = self.align_uncond(uncond.to(context_emb.dtype), context_emb)
+        uncond = self.uncond_for(context_emb, guidance_scale, negative_prompt)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         return fn(noised_sample, context_emb, uncond, generator)
+
+    def uncond_for(self, context_emb: torch.Tensor, guidance_scale: float, negative_prompt: str = "") -> torch.Tensor:
+        """The CFG branch's embedding for ``context_emb``: the negative prompt's,
+        aligned to its length (zeros without guidance)."""
+        if guidance_scale <= 1.0:
+            return torch.zeros_like(context_emb)
+        uncond = self.encode_uncond(context_emb.shape[0], negative_prompt)
+        return self.align_uncond(uncond.to(context_emb.dtype), context_emb)
 
     @torch.no_grad()
     def decode_latent(self, latent: torch.Tensor, tile: Optional[int] = None,

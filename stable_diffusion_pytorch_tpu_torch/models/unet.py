@@ -7,7 +7,12 @@ Module names are the reference torch UNet's (``time_embedding.0``,
 ``out.2``), the layout ``utils/convert.py`` writes. Kept quirks: the first
 bottleneck ResBlock may use 2 groups (compat ``bottleneck_default_groups``) and
 the bottleneck attention takes its d_head from the last input-level attention.
-ControlNet residuals and DeepCache are not ported yet.
+
+``forward(control=(skips, mid))`` adds a ControlNet's residuals
+(``models/controlnet.py``): one to each skip as the decoder consumes it, one to
+the bottleneck output. DeepCache (``return_deep``, ``deep_cache``): the level-0
+blocks are shallow; the trunk from the first DownSample to the last upsample
+is returned as ``[B, h, w, channels_list[1]]`` and, handed back, skipped.
 
 Per-block rematerialization (``remat``, the JAX ``UNetModel(remat=...)``
 policies): in training, each ResBlock and each SpatialTransformer runs under
@@ -144,6 +149,8 @@ class UNetModel(nn.Module):
         ch0 = channels[0]
         t_dim = cfg.time_emb_dim or ch0 * 4
         self.ch0 = ch0
+        self.channels_list = tuple(channels)
+        self.num_res_blocks = cfg.num_res_blocks
         self.latent_channels = latent_channels
         self.flipped_time_embedding = flipped_time_embedding
         self.context_dim = cfg.context_dim
@@ -194,10 +201,21 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(GroupNorm(groups, out_ch), nn.SiLU(), conv3x3(out_ch, latent_channels))
 
     def forward(
-        self, x: torch.Tensor, timesteps: torch.Tensor, context_emb: Optional[torch.Tensor] = None
-    ) -> torch.Tensor:
-        """x [B, h, w, latent_channels], timesteps [B], context [B, S, context_dim]."""
+        self, x: torch.Tensor, timesteps: torch.Tensor, context_emb: Optional[torch.Tensor] = None,
+        control: Optional[Tuple[Sequence[torch.Tensor], torch.Tensor]] = None,
+        deep_cache: Optional[torch.Tensor] = None, return_deep: bool = False,
+    ):
+        """x [B, h, w, latent_channels], timesteps [B], context [B, S, context_dim].
+        ``control`` = (one residual per skip, one for the bottleneck output).
+        ``return_deep`` also returns the deep trunk's output; ``deep_cache``
+        (that output, from an earlier call) skips the trunk and runs only the
+        level-0 blocks. The two exclude ``control``."""
         dtype = self.conv_in.weight.dtype
+        if deep_cache is not None:
+            if control is not None:
+                raise ValueError("deep_cache and control are mutually exclusive")
+            if len(self.channels_list) < 2:
+                raise ValueError("deep_cache needs >= 2 levels")
         if context_emb is not None:
             if context_emb.shape[-1] != self.context_dim:
                 raise ValueError(f"context dim {context_emb.shape[-1]} != {self.context_dim}")
@@ -205,23 +223,48 @@ class UNetModel(nn.Module):
         t = sinusoidal_time_proj(timesteps, self.ch0, flipped=self.flipped_time_embedding)
         t_emb = self.time_embedding[2](F.silu(self.time_embedding[0](t.to(dtype))))
 
+        # DeepCache's split: the level-0 blocks are shallow, the rest is the trunk
+        n0, n_shallow_out = self.num_res_blocks, self.num_res_blocks + 1
         x = self.conv_in(x.to(dtype))
         skips = [x]
-        for layers in self.input_blocks:
-            for layer in layers:
-                x = self._run(layer, x, t_emb, context_emb)
+        for layers in self.input_blocks[:n0]:
+            x = self._run_all(layers, x, t_emb, context_emb)
             skips.append(x)
 
-        for layer in self.middle_block:
-            x = self._run(layer, x, t_emb, context_emb)
-
-        for layers in self.output_blocks:
-            x = self._block(layers[0], x, t_emb, skip_cat=skips.pop())
-            for layer in layers[1:]:
+        n_deep_out = len(self.output_blocks) - n_shallow_out
+        if deep_cache is None:
+            for layers in self.input_blocks[n0:]:
+                x = self._run_all(layers, x, t_emb, context_emb)
+                skips.append(x)
+            for layer in self.middle_block:
                 x = self._run(layer, x, t_emb, context_emb)
+            if control is not None:
+                c_skips, c_mid = control
+                if len(c_skips) != len(skips):
+                    raise ValueError(f"ControlNet produced {len(c_skips)} skip residuals, UNet has {len(skips)} skips")
+                x = x + c_mid.to(x.dtype)
+                skips = [s + c.to(s.dtype) for s, c in zip(skips, c_skips)]
+            for layers in self.output_blocks[:n_deep_out]:
+                x = self._out_block(layers, x, t_emb, context_emb, skips.pop())
+            deep = x
+        else:
+            deep = x = deep_cache.to(dtype)
+
+        for layers in self.output_blocks[n_deep_out:]:
+            x = self._out_block(layers, x, t_emb, context_emb, skips.pop())
 
         x = self.out[0](x, silu=True)
-        return self.out[2](x)
+        out = self.out[2](x)
+        return (out, deep) if return_deep else out
+
+    def _run_all(self, layers, x, t_emb, context_emb):
+        for layer in layers:
+            x = self._run(layer, x, t_emb, context_emb)
+        return x
+
+    def _out_block(self, layers, x, t_emb, context_emb, skip):
+        x = self._block(layers[0], x, t_emb, skip_cat=skip)
+        return self._run_all(layers[1:], x, t_emb, context_emb)
 
     def _block(self, layer: nn.Module, *args, **kwargs):
         """A ResBlock or SpatialTransformer, under the remat policy when autograd records."""

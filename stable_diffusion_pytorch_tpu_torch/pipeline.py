@@ -1,13 +1,17 @@
-"""Text-to-image sampling (port of stable_diffusion_pytorch_tpu/pipeline.py:sample).
+"""Sampling pipelines (port of stable_diffusion_pytorch_tpu/pipeline.py).
 
-``sample``: tokenize and CLIP-encode the prompts and the uncond prompt, draw
+``sample``: tokenize and CLIP-encode the prompts and the uncond prompt
+(weighted and chunked as ``LatentDiffusion.encode_prompts`` does), draw
 the init noise from seeded ``torch.Generator``s (one per row when the seed is
 a list, as the server batches requests), run any sampler of
 ``models/latent_diffusion.py`` with classifier-free guidance (the UNet runs
-once per step on the doubled batch), optionally the two-stage hires fix
+once per step on the doubled batch), optionally through attached ControlNets
+(``control_image``) or with DeepCache, optionally the two-stage hires fix
 (:func:`hires_refine`), VAE-decode (whole or tiled) and write PNGs.
-ControlNet, DeepCache, img2img and inpainting are not ported yet (ROADMAP
-Queue 1 item 16).
+``img2img`` and ``inpaint`` start from an init image's VAE posterior. Every
+random draw is float32 on the CPU from the seeded generator, moved to the
+card, so a seed gives the same image on every device; it does not reproduce
+JAX's key stream.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ import torch.nn.functional as F
 from stable_diffusion_pytorch_tpu_torch.config import BaseConfig
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import SAMPLERS, LatentDiffusion, make_sample_fn
-from stable_diffusion_pytorch_tpu_torch.utils.data import detransform, to_img
+from stable_diffusion_pytorch_tpu_torch.utils.data import detransform, read_image, to_img, transform_image
 
 
 @dataclass
 class SamplingConfig(BaseConfig):
-    """The txt2img flags of the JAX package's ``SamplingConfig`` that the port
-    serves (same names, defaults and help)."""
+    """The JAX package's ``SamplingConfig``: the same fields, defaults, help
+    and choices."""
 
     prompt: str = field(default="a cat", metadata={"help": "text prompt to sample."})
     negative_prompt: str = field(
@@ -96,6 +100,55 @@ class SamplingConfig(BaseConfig):
             "'latest' resolution) to load UNet weights from; EMA preferred."
         },
     )
+    lora_checkpoint: Optional[str] = field(
+        default=None,
+        metadata={
+            "help": "LoRA trainer checkpoint (from --lora-rank training) to "
+            "merge into the UNet weights before sampling."
+        },
+    )
+    lora_scale: float = field(
+        default=1.0,
+        metadata={
+            "help": "merge scale for --lora-checkpoint; equals alpha/rank "
+            "used in training (training default alpha=rank -> 1.0)."
+        },
+    )
+    textual_inversion: Optional[str] = field(
+        default=None,
+        metadata={
+            "help": "textual-inversion checkpoint dir (from "
+            "train_textual_inversion.py); registers the learned placeholder "
+            "token so it can be used in --prompt."
+        },
+    )
+    controlnet_checkpoint: Optional[str] = field(
+        default=None,
+        metadata={
+            "help": "ControlNet checkpoint dir (from train_controlnet.py); "
+            "requires --control-image."
+        },
+    )
+    control_image: Optional[str] = field(
+        default=None,
+        metadata={
+            "help": "conditioning image (e.g. edge map) steering sampling "
+            "through the loaded ControlNet; comma-separated list for "
+            "multi-ControlNet (matching --controlnet-checkpoint order)."
+        },
+    )
+    control_scale: float = field(
+        default=1.0,
+        metadata={"help": "strength of the ControlNet residuals (0 = off)."},
+    )
+    deep_cache_interval: int = field(
+        default=0,
+        metadata={
+            "help": "DeepCache: refresh the UNet's deep trunk every N steps "
+            "and reuse it in between (N > 1 enables; speed/quality trade; "
+            "ddim/ddpm/dpmpp only)."
+        },
+    )
     hires_scale: float = field(
         default=0.0,
         metadata={
@@ -133,6 +186,104 @@ def upscale_latent(x: torch.Tensor, scale: float) -> torch.Tensor:
     return up.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
+def load_image(image, resolution: int) -> torch.Tensor:
+    """A path, an HWC uint8 array or a [-1, 1] float array -> [1, H, W, 3]
+    float32 (uint8 resized and center-cropped to ``resolution``)."""
+    if isinstance(image, str):
+        image = read_image(image, "RGB")
+    image = np.asarray(image)
+    if image.dtype == np.uint8:
+        image = transform_image(image, resolution)
+    return torch.from_numpy(np.ascontiguousarray(image[None], np.float32))
+
+
+def load_mask(mask_image, size) -> torch.Tensor:
+    """An inpainting mask (a path, or an array in [0, 1] or [0, 255]; white =
+    repaint) at any size -> [1, h, w, 1] in {0, 1} at the latent ``size``
+    (h, w). The resize is ``jax.image.resize(..., "nearest")``'s, sampling at
+    half-pixel centres: ``nearest-exact``, not ``nearest``."""
+    if isinstance(mask_image, str):
+        mask_image = read_image(mask_image, "L")
+    mask = torch.from_numpy(np.asarray(mask_image, np.float32).copy())
+    if mask.max() > 1.0:
+        mask = mask / 255.0
+    mask = F.interpolate(mask[None, None], size=tuple(size), mode="nearest-exact")[0, 0]
+    return (mask > 0.5).float()[None, :, :, None]
+
+
+def _hints(control_image, image_size: int):
+    """``control_image`` (one image or a list, one per attached net) -> hints."""
+    if control_image is None:
+        return None
+    if isinstance(control_image, (list, tuple)):
+        return [load_image(i, image_size) for i in control_image]
+    return load_image(control_image, image_size)
+
+
+def _init_latents(model: LatentDiffusion, init_image, image_size: int, generator: torch.Generator) -> torch.Tensor:
+    """The init image's VAE posterior sample in the compute dtype; its eps is
+    drawn in float32 on the CPU from ``generator``."""
+    img = load_image(init_image, image_size).to(device=model.device, dtype=model.dtype)
+    posterior = model.encode_image(img)
+    eps = torch.randn(posterior.mean.shape, generator=generator, dtype=torch.float32)
+    return posterior.sample(eps=eps.to(posterior.mean.device)).to(model.dtype)
+
+
+def _decode_one(model: LatentDiffusion, x_0: torch.Tensor, save_dir: Optional[str], name: str) -> np.ndarray:
+    digit = detransform(model.decode_latent(x_0).float().cpu().numpy()[0])
+    if save_dir is not None:
+        to_img(digit, output_path=save_dir, name=name)
+    return digit
+
+
+@torch.no_grad()
+def img2img(
+    model: LatentDiffusion, init_image, prompt: str = "", strength: float = 0.75, image_size: int = 64,
+    time_steps: int = 50, guidance_scale: float = 7.5, sampler: str = "ddim", eta: float = 0.0,
+    save_dir: Optional[str] = "output", seed: int = 42, name: str = "img2img", negative_prompt: str = "",
+    control_image=None, control_scale: float = 1.0,
+) -> np.ndarray:
+    """Image-to-image: q-sample the init image's latent to the first step of
+    the final ``strength`` fraction of the schedule and denoise from there.
+    Draws, in this order from ``torch.Generator().manual_seed(seed)``: the
+    posterior's eps, the q-sample noise, then the loop's. -> HWC uint8.
+    ``control_image`` steers through the attached ControlNet(s)."""
+    generator = torch.Generator().manual_seed(int(seed))
+    init_latents = _init_latents(model, init_image, image_size, generator)
+    fn = make_sample_fn(model.denoiser(_hints(control_image, image_size), control_scale), model.noise_scheduler,
+                        time_steps, sampler=sampler, guidance_scale=guidance_scale, eta=eta, strength=strength)
+    noise = torch.randn(init_latents.shape, generator=generator, dtype=torch.float32)
+    t0 = torch.full((1,), fn.start_timestep, dtype=torch.int32)
+    x_t = sched_lib.add_noise(model.noise_scheduler, init_latents, noise.to(init_latents), t0)
+    ctx = model.encode_prompts([prompt]).to(model.dtype)
+    x_0 = fn(x_t, ctx, model.uncond_for(ctx, guidance_scale, negative_prompt), generator)
+    return _decode_one(model, x_0, save_dir, name)
+
+
+@torch.no_grad()
+def inpaint(
+    model: LatentDiffusion, init_image, mask_image, prompt: str = "", image_size: int = 64,
+    time_steps: int = 50, guidance_scale: float = 7.5, sampler: str = "ddim",
+    save_dir: Optional[str] = "output", seed: int = 42, name: str = "inpaint", negative_prompt: str = "",
+    control_image=None, control_scale: float = 1.0,
+) -> np.ndarray:
+    """Latent inpainting: generate inside the mask (white = repaint); after
+    each step the rest is the init latent re-noised to the step's level, and
+    at the end the init latent itself. Draws from the seeded generator: the
+    posterior's eps, the init noise, then the loop's (blend noise included).
+    -> HWC uint8."""
+    generator = torch.Generator().manual_seed(int(seed))
+    init_latents = _init_latents(model, init_image, image_size, generator)
+    mask = load_mask(mask_image, init_latents.shape[1:3]).to(device=model.device, dtype=model.dtype)
+    fn = make_sample_fn(model.denoiser(_hints(control_image, image_size), control_scale), model.noise_scheduler,
+                        time_steps, sampler=sampler, guidance_scale=guidance_scale, inpaint=True)
+    noise = torch.randn(init_latents.shape, generator=generator, dtype=torch.float32).to(init_latents)
+    ctx = model.encode_prompts([prompt]).to(model.dtype)
+    x_0 = fn(noise, ctx, model.uncond_for(ctx, guidance_scale, negative_prompt), generator,
+             mask=mask, init_latents=init_latents)
+    return _decode_one(model, x_0, save_dir, name)
+
+
 @torch.no_grad()
 def hires_refine(
     model: LatentDiffusion, x0: torch.Tensor, context_emb: torch.Tensor, *, guidance_scale: float,
@@ -159,11 +310,7 @@ def hires_refine(
     b = x_up.shape[0]
     t0 = torch.full((b,), fn.start_timestep, dtype=torch.int32, device=x_up.device)
     x_t = sched_lib.add_noise(model.noise_scheduler, x_up, noise, t0)
-    if guidance_scale > 1.0:
-        uncond = model.align_uncond(model.encode_uncond(b, negative_prompt).to(dtype), context_emb)
-    else:
-        uncond = torch.zeros_like(context_emb)
-    return fn(x_t, context_emb, uncond, generator)
+    return fn(x_t, context_emb, model.uncond_for(context_emb, guidance_scale, negative_prompt), generator)
 
 
 def sample(
@@ -185,6 +332,9 @@ def sample(
     prediction_type: str = "epsilon",
     timestep_spacing: str = "even",
     guidance_rescale: float = 0.0,
+    control_image=None,
+    control_scale: float = 1.0,
+    deep_cache_interval: int = 0,
     hires_scale: float = 0.0,
     hires_strength: float = 0.6,
     vae_tile: int = 0,
@@ -202,6 +352,12 @@ def sample(
     request's image does not depend on its batch mates (for the stochastic
     samplers, only as the batch's first row); on the CPU it is the solo
     render's bytes.
+
+    ``control_image`` (a path, an HWC uint8 or a [-1, 1] float array; a list
+    for several nets) steers sampling through the attached ControlNet(s)
+    (``model.attach_controlnet``), scaled by ``control_scale``;
+    ``deep_cache_interval = N > 1`` enables DeepCache (the UNet's deep trunk
+    refreshed every N steps).
 
     ``hires_scale > 1`` enables the two-stage hires fix: sample at
     ``image_size``, upscale the latent by the factor, then refine the final
@@ -233,7 +389,8 @@ def sample(
     x_0 = model.sample(
         noise, context_emb, guidance_scale=guidance_scale, repeat_noise=repeat_noise, scale_factor=scale_factor,
         time_steps=time_steps, sampler=sampler, eta=eta, generator=generator, negative_prompt=negative_prompt,
-        karras=karras, **guidance,
+        karras=karras, control_hint=_hints(control_image, image_size), control_scale=control_scale,
+        deep_cache_interval=deep_cache_interval, **guidance,
     )
     if hires_scale > 1.0:
         x_0 = hires_refine(

@@ -25,12 +25,13 @@ API (routes and status codes as the JAX server's):
     POST /txt2img_async {...}      -> 202 {"request_id": "..."}
     GET  /progress/<request_id>    -> {"state": queued|running|done|error, "pct": ..., ...}
     GET  /result/<request_id>      -> image/png when done (202 with the progress before)
-    POST /reload {"unet_checkpoint": path}
+    POST /reload {"unet_checkpoint": path, "lora_checkpoint": path, "lora_scale": 1.0}
                                    -> {"status": "reloaded", ...}: the UNet's weights are
-                                      swapped in place between batches, on the batcher thread
+                                      swapped in place between batches, on the batcher thread,
+                                      a LoRA (optional) merged into them in float32 first
 A bad request is 400 JSON, an unknown route or id 404. ``/progress`` estimates
-a running batch's share from an EMA of earlier runs of its signature. LoRA
-merging on ``/reload`` is not ported yet (ROADMAP Queue 1 item 16).
+a running batch's share from an EMA of earlier runs of its signature. As the
+JAX server, it takes no control image and no DeepCache per request.
 
 ``--device`` (default ``cuda``; without a card the server stops unless given
 ``--device cpu``) is the port's own flag. Weights are random, made from
@@ -60,10 +61,14 @@ from stable_diffusion_pytorch_tpu_torch.config import (
     compat_from_cfg,
     load_config,
 )
-from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
+from stable_diffusion_pytorch_tpu_torch.models.build import (
+    build_models,
+    load_unet_weights,
+    require_device,
+    resolve_dtype,
+)
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import SAMPLERS
 from stable_diffusion_pytorch_tpu_torch.pipeline import sample
-from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_unet_for_inference
 from stable_diffusion_pytorch_tpu_torch.utils.data import encode_png
 
 logger = logging.getLogger("serve")
@@ -249,10 +254,14 @@ class SDService:
                 pending.event.set()
 
     def _do_reload(self, job: _ReloadJob) -> None:
-        """Copy a checkpoint's UNet weights into the live UNet in place: the
-        modules, their dtype and device stay, so nothing is rebuilt."""
+        """Copy a checkpoint's UNet weights, with a LoRA merged in when the
+        request names one, into the live UNet in place: the modules, their
+        dtype and device stay, so nothing is rebuilt. A bad checkpoint or LoRA
+        leaves the live UNet as it was."""
         try:
-            path = load_unet_for_inference(self.model.unet, job.req["unet_checkpoint"])
+            path = load_unet_weights(self.model.unet, job.req["unet_checkpoint"],
+                                     lora=job.req.get("lora_checkpoint"),
+                                     lora_scale=float(job.req.get("lora_scale", 1.0)))
             self.current_checkpoint = path
             self.reloads += 1
             logger.info(f"hot-swapped UNet weights from {path}")
@@ -265,9 +274,6 @@ class SDService:
     def reload(self, req: dict, timeout: float = 600.0) -> str:
         if "unet_checkpoint" not in req:
             raise ValueError("reload needs 'unet_checkpoint'")
-        if req.get("lora_checkpoint"):
-            raise NotImplementedError("merging a LoRA checkpoint on /reload is not ported yet "
-                                      "(ROADMAP Queue 1 item 16)")
         job = _ReloadJob(req)
         self.queue.put(job)
         if not job.event.wait(timeout):

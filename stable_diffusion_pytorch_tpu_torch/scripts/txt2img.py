@@ -4,9 +4,12 @@
         --prompt "a cat" --image-size 512 --sampling-steps 50 --guidance-scale 7.5 \\
         --channels-list 320,640,1280,1280 ...
 
-Flag names are the JAX CLI's for the ported subset: the sampling flags (every
-sampler, Karras spacing, v-prediction, trailing spacing, guidance rescale,
-``--unet-checkpoint`` from one of the port's trainer checkpoints), the
+Flag names are the JAX CLI's for the ported subset: every sampling flag of
+``SamplingConfig`` (every sampler, Karras spacing, v-prediction, trailing
+spacing, guidance rescale, the hires fix, DeepCache, ``--unet-checkpoint``,
+``--lora-checkpoint``/``--lora-scale``, ``--textual-inversion``,
+``--controlnet-checkpoint`` (a comma list)/``--control-image``/
+``--control-scale``, each a checkpoint in the port's layout), the
 model-size flags of the UNet/VAE/CLIP/DDPM config groups, the compat switches
 the slice reads, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``.
 ``--device`` (default ``cuda``; without a card the run stops unless given
@@ -27,9 +30,15 @@ from stable_diffusion_pytorch_tpu_torch.config import (
     UnetConfig,
     add_dataclass_args,
 )
-from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
+from stable_diffusion_pytorch_tpu_torch.models.build import (
+    build_models,
+    load_controlnets,
+    load_unet_weights,
+    require_device,
+    resolve_dtype,
+)
 from stable_diffusion_pytorch_tpu_torch.pipeline import SamplingConfig, sample
-from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_unet_for_inference
+from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_params_for_inference, resolve_checkpoint
 from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
 logger = logging.getLogger("txt2img")
@@ -37,11 +46,14 @@ logger = logging.getLogger("txt2img")
 _GROUPS = (UnetConfig, AutoencoderConfig, ClipConfig, DDPMConfig, CompatConfig, SamplingConfig)
 
 
-def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="text-to-image sampling (PyTorch port)")
-    for dc in _GROUPS:
+def parse_args(argv=None, groups=_GROUPS, description="text-to-image sampling (PyTorch port)"):
+    """-> (args, {config dataclass: its instance}) for the flags of ``groups``
+    and the port's own ``--seed``, ``--guidance-scale``, ``--mixed-precision``
+    and ``--device`` (the img2img CLI passes its own groups)."""
+    parser = argparse.ArgumentParser(description=description)
+    for dc in groups:
         add_dataclass_args(parser, dc)
-    parser.add_argument("--seed", type=int, default=42, help="seed for weights and init noise")
+    parser.add_argument("--seed", type=int, default=42, help="seed for weights and noise")
     parser.add_argument("--guidance-scale", type=float, default=7.5,
                         help="guidance scale for classifier free guidance")
     parser.add_argument("--mixed-precision", default="bf16", choices=["no", "bf16", "fp16", "fp32"],
@@ -50,9 +62,48 @@ def parse_args(argv=None):
                         help="torch device to run on (cuda; the CPU only when asked: --device cpu)")
     args = parser.parse_args(argv)
     configs = {
-        dc: dc(**{f: getattr(args, f) for f in dc.__dataclass_fields__}) for dc in _GROUPS
+        dc: dc(**{f: getattr(args, f) for f in dc.__dataclass_fields__}) for dc in groups
     }
     return args, configs
+
+
+def build_for_sampling(args, cfg: dict, dtype, unet_checkpoint=None, lora_checkpoint=None, lora_scale=1.0,
+                       textual_inversion=None, controlnet_checkpoint=None, control_image=None):
+    """The seeded model with the sampling flags' weights: the UNet
+    checkpoint, the LoRA merged in float32 (into the checkpoint's weights, or
+    into the random ones before the cast), the textual-inversion concept and
+    the ControlNets of the comma list ``controlnet_checkpoint``, attached."""
+    lora = None
+    if lora_checkpoint and not unet_checkpoint:
+        lora = (load_params_for_inference(resolve_checkpoint(lora_checkpoint)), lora_scale)
+    model = build_models(
+        cfg[UnetConfig], cfg[AutoencoderConfig], cfg[ClipConfig], cfg[DDPMConfig],
+        compat=cfg[CompatConfig], dtype=dtype, device=args.device, seed=args.seed, lora=lora,
+    )
+    if unet_checkpoint:
+        path = load_unet_weights(model.unet, unet_checkpoint, lora=lora_checkpoint, lora_scale=lora_scale)
+        logger.info(f"loaded trained UNet weights from {path}")
+    if lora_checkpoint:
+        logger.info(f"merged LoRA weights from {lora_checkpoint} (scale {lora_scale:g})")
+    if controlnet_checkpoint:
+        if not control_image:
+            raise SystemExit("--controlnet-checkpoint needs --control-image")
+        paths = [p for p in controlnet_checkpoint.split(",") if p]
+        model.attach_controlnet(load_controlnets(paths, cfg[UnetConfig], cfg[AutoencoderConfig],
+                                                 cfg[CompatConfig], dtype, args.device))
+        logger.info(f"{len(paths)} ControlNet(s) attached (hints: {control_image})")
+    if textual_inversion:
+        token = model.text_encoder.load_textual_inversion(textual_inversion)
+        logger.info(f"loaded textual inversion from {textual_inversion}: placeholder {token!r}")
+    return model
+
+
+def control_images(controlnet_checkpoint, control_image):
+    """``--control-image`` as the pipelines take it: a list when it is a comma
+    list, else the one path; None without ``--controlnet-checkpoint``."""
+    if not controlnet_checkpoint:
+        return None
+    return [p for p in control_image.split(",") if p] if "," in control_image else control_image
 
 
 def main(argv=None) -> None:
@@ -62,13 +113,11 @@ def main(argv=None) -> None:
     except RuntimeError as exc:
         raise SystemExit(f"txt2img: {exc}") from None
     dtype = resolve_dtype(args.mixed_precision, args.device)
-    model = build_models(
-        cfg[UnetConfig], cfg[AutoencoderConfig], cfg[ClipConfig], cfg[DDPMConfig],
-        compat=cfg[CompatConfig], dtype=dtype, device=args.device, seed=args.seed,
-    )
     s = cfg[SamplingConfig]
-    if s.unet_checkpoint:
-        logger.info(f"loaded trained UNet weights from {load_unet_for_inference(model.unet, s.unet_checkpoint)}")
+    model = build_for_sampling(
+        args, cfg, dtype, unet_checkpoint=s.unet_checkpoint, lora_checkpoint=s.lora_checkpoint,
+        lora_scale=s.lora_scale, textual_inversion=s.textual_inversion,
+        controlnet_checkpoint=s.controlnet_checkpoint, control_image=s.control_image)
     logger.info(
         f"sampling {s.num_images} image(s) for prompt={s.prompt!r} ({s.sampler}, "
         f"{s.sampling_steps} steps, cfg={args.guidance_scale}) on {args.device} in {dtype}"
@@ -80,7 +129,8 @@ def main(argv=None) -> None:
         sampler=s.sampler, eta=s.eta, num_images=s.num_images, repeat_noise=s.repeat_noise, seed=args.seed,
         name=s.output_name, negative_prompt=s.negative_prompt, karras=s.karras,
         prediction_type=s.prediction_type, timestep_spacing=s.timestep_spacing,
-        guidance_rescale=s.guidance_rescale, hires_scale=s.hires_scale,
+        guidance_rescale=s.guidance_rescale, control_image=control_images(s.controlnet_checkpoint, s.control_image),
+        control_scale=s.control_scale, deep_cache_interval=s.deep_cache_interval, hires_scale=s.hires_scale,
         hires_strength=s.hires_strength, vae_tile=s.vae_tile,
     )
     logger.info(f"saved to {s.output_dir}/ in {time.perf_counter() - start:.2f} s")

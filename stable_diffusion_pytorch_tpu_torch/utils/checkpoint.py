@@ -74,19 +74,14 @@ def resolve_checkpoint(path: str) -> str:
     return path
 
 
-@torch.no_grad()
-def load_unet_for_inference(unet: torch.nn.Module, path: str) -> str:
-    """Copy a UNet trainer checkpoint's weights (EMA preferred) into ``unet``
-    in place, in its dtype and on its device; -> the checkpoint loaded. A
-    checkpoint of another module, or of other widths, raises before any
-    weight is copied, so a failed load leaves ``unet`` as it was."""
-    path = resolve_checkpoint(path)
-    params, live = load_params_for_inference(path), unet.state_dict()
+def check_unet_params(unet: torch.nn.Module, params: dict, path: str) -> None:
+    """Raise unless ``params`` (from the checkpoint ``path``) hold exactly
+    ``unet``'s parameter names and shapes: a checkpoint of another module, or
+    of other widths, is refused before any weight is copied."""
+    live = unet.state_dict()
     wrong = sorted(set(params) ^ set(live)) or [n for n, t in params.items() if t.shape != live[n].shape]
     if wrong:
         raise ValueError(f"{path} does not hold this UNet's parameters: {wrong[:5]} ...")
-    unet.load_state_dict(params, strict=True)
-    return path
 
 
 class CheckpointManager:

@@ -11,6 +11,12 @@ the port's modules load with ``load_state_dict(..., strict=True)`` after
   holds the two equal on the same tree.
 - CLIP: HF ``CLIPTextModel`` names, the inverse of the JAX package's
   ``models/clip.py:convert_text_tower``.
+- ControlNet (:func:`controlnet_state_dict`): the port's ``models/controlnet.py``
+  names (the UNet's for the encoder copy).
+- LoRA (:func:`lora_state_dict`): a JAX LoRA tree (``{"lora_a", "lora_b"}``
+  at each factored kernel) -> ``{"<module>.lora_a", "<module>.lora_b"}`` by
+  the UNet's names, through the same attention and feed-forward name tables
+  as the weights; the factors keep their orientation.
 
 Layouts: conv kernel [kh, kw, I, O] -> weight [O, I, kh, kw]; dense kernel
 [I, O] -> weight [O, I]; norm scale -> weight.
@@ -67,25 +73,78 @@ def resblock(p: Dict, sd: StateDict, prefix: str) -> None:
         _conv(p["skip"], sd, f"{prefix}.skip_connection")
 
 
+# (JAX path inside a transformer block, the port's module name)
+_ATTN_LINEARS = ((("to_q",), "to_q"), (("to_k",), "to_k"), (("to_v",), "to_v"), (("out",), "out.0"))
+_FFN_LINEARS = ((("ffn", "geglu", "proj"), "ffn.net.0.proj"), (("ffn", "out"), "ffn.net.2"))
+
+
+def _get(p: Dict, path):
+    for key in path:
+        if not isinstance(p, dict) or key not in p:
+            return None
+        p = p[key]
+    return p
+
+
 def cross_attention(p: Dict, sd: StateDict, prefix: str) -> None:
-    for name in ("to_q", "to_k", "to_v"):
-        _dense(p[name], sd, f"{prefix}.{name}")
-    _dense(p["out"], sd, f"{prefix}.out.0")
+    for path, name in _ATTN_LINEARS:
+        _dense(_get(p, path), sd, f"{prefix}.{name}")
+
+
+def _transformer_linears(p: Dict, prefix: str, n_layers: int):
+    """(JAX subtree, port module) of every linear layer of a transformer's
+    blocks that ``p`` holds."""
+    for i in range(n_layers):
+        ref = f"{prefix}.transformer_blocks.{i}"
+        for attn in ("self_attn", "cross_attn"):
+            for path, name in _ATTN_LINEARS:
+                if (leaf := _get(p, (f"block_{i}", attn, *path))) is not None:
+                    yield leaf, f"{ref}.{attn}.{name}"
+        for path, name in _FFN_LINEARS:
+            if (leaf := _get(p, (f"block_{i}", *path))) is not None:
+                yield leaf, f"{ref}.{name}"
 
 
 def spatial_transformer(p: Dict, sd: StateDict, prefix: str, n_layers: int) -> None:
     _norm(p["norm"], sd, f"{prefix}.norm")
     _conv(p["proj_in"], sd, f"{prefix}.proj_in")
     _conv(p["proj_out"], sd, f"{prefix}.proj_out")
+    for leaf, name in _transformer_linears(p, prefix, n_layers):
+        _dense(leaf, sd, name)
     for i in range(n_layers):
-        b = p[f"block_{i}"]
-        ref = f"{prefix}.transformer_blocks.{i}"
-        cross_attention(b["self_attn"], sd, f"{ref}.self_attn")
-        cross_attention(b["cross_attn"], sd, f"{ref}.cross_attn")
         for n in ("norm1", "norm2", "norm3"):
-            _norm(b[n], sd, f"{ref}.{n}")
-        _dense(b["ffn"]["geglu"]["proj"], sd, f"{ref}.ffn.net.0.proj")
-        _dense(b["ffn"]["out"], sd, f"{ref}.ffn.net.2")
+            _norm(p[f"block_{i}"][n], sd, f"{prefix}.transformer_blocks.{i}.{n}")
+
+
+def _unet_transformers(unet_cfg):
+    """(JAX name, port prefix) of every SpatialTransformer of the UNet."""
+    in_plan, skips, mid_ch, _, attn_mult = plan_input_blocks(
+        unet_cfg.channels_list[0], unet_cfg.channels_list, unet_cfg.num_res_blocks, unet_cfg.attention_resolutions)
+    out_plan, _ = plan_output_blocks(unet_cfg.channels_list, unet_cfg.num_res_blocks,
+                                     unet_cfg.attention_resolutions, skips, mid_ch, attn_mult)
+    yield "mid_attn", "middle_block.1"
+    for i, block in enumerate(in_plan):
+        if block[0] == "res" and block[3]:
+            yield f"in_{i}_attn", f"input_blocks.{i}.1"
+    for i, entry in enumerate(out_plan):
+        if entry[3]:
+            yield f"out_{i}_attn", f"output_blocks.{i}.1"
+
+
+def lora_state_dict(tree: Dict, unet_cfg) -> StateDict:
+    """JAX LoRA tree (``models/lora.py:init_lora``) -> the port's LoRA dict
+    (``models/lora.py``): ``lora_a`` [in, r] and ``lora_b`` [r, out] as they are."""
+    p = _params(tree)
+    sd: StateDict = {}
+    for jax_name, prefix in _unet_transformers(unet_cfg):
+        if jax_name in p:
+            for leaf, name in _transformer_linears(p[jax_name], prefix, unet_cfg.n_layers):
+                sd[f"{name}.lora_a"] = np.asarray(leaf["kernel"]["lora_a"])
+                sd[f"{name}.lora_b"] = np.asarray(leaf["kernel"]["lora_b"])
+    known = {j for j, _ in _unet_transformers(unet_cfg)}
+    if set(p) - known:
+        raise ValueError(f"LoRA factors outside the UNet's transformers: {sorted(set(p) - known)}")
+    return sd
 
 
 def unet_state_dict(tree: Dict, unet_cfg) -> StateDict:
@@ -127,6 +186,40 @@ def unet_state_dict(tree: Dict, unet_cfg) -> StateDict:
             idx += 1
         if upsample:
             _conv(p[f"out_{i}_up"]["conv"], sd, f"{ref}.{idx}.0.conv")
+    return sd
+
+
+def controlnet_state_dict(tree: Dict, unet_cfg) -> StateDict:
+    """JAX ControlNet params -> the port's ControlNet state dict."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _dense(p["time_fc1"], sd, "time_embedding.0")
+    _dense(p["time_fc2"], sd, "time_embedding.2")
+    _conv(p["conv_in"], sd, "conv_in")
+    hint = p["hint_embedding"]
+    _conv(hint["conv_in"], sd, "input_hint_block.0")
+    i = 0
+    while f"conv_pre_{i}" in hint:
+        _conv(hint[f"conv_pre_{i}"], sd, f"input_hint_block.{2 + 4 * i}")
+        _conv(hint[f"conv_down_{i}"], sd, f"input_hint_block.{4 + 4 * i}")
+        i += 1
+    _conv(hint["conv_out"], sd, f"input_hint_block.{2 + 4 * i}")
+    in_plan, _, _, _, _ = plan_input_blocks(
+        unet_cfg.channels_list[0], unet_cfg.channels_list, unet_cfg.num_res_blocks, unet_cfg.attention_resolutions)
+    _conv(p["zero_conv_0"], sd, "zero_convs.0")
+    for i, block in enumerate(in_plan):
+        ref = f"input_blocks.{i}"
+        if block[0] == "res":
+            resblock(p[f"in_{i}_res"], sd, f"{ref}.0")
+            if block[3]:
+                spatial_transformer(p[f"in_{i}_attn"], sd, f"{ref}.1", unet_cfg.n_layers)
+        else:
+            _conv(p[f"in_{i}_down"]["conv"], sd, f"{ref}.0.conv")
+        _conv(p[f"zero_conv_{i + 1}"], sd, f"zero_convs.{i + 1}")
+    resblock(p["mid_res1"], sd, "middle_block.0")
+    spatial_transformer(p["mid_attn"], sd, "middle_block.1", unet_cfg.n_layers)
+    resblock(p["mid_res2"], sd, "middle_block.2")
+    _conv(p["zero_conv_mid"], sd, "middle_block_out")
     return sd
 
 

@@ -12,7 +12,8 @@ preprocessing are not ported yet and raise.
 Image output without PIL: ``detransform`` ([-1, 1] -> uint8) and a stdlib PNG
 writer (``zlib`` and ``struct``; 8-bit grayscale, RGB or RGBA, filter type 0
 on every row). Unlike the JAX package's ``to_img``, a name that already ends
-in ``.png`` is not given a second suffix.
+in ``.png`` is not given a second suffix. Image input (img2img, inpaint,
+ControlNet hints): ``read_image``, through PIL, as the JAX package reads them.
 """
 
 from __future__ import annotations
@@ -457,3 +458,18 @@ def to_img(digit_img: np.ndarray, output_path: str = "", name: str = "sample") -
     with open(path, "wb") as f:
         f.write(encode_png(digit_img))
     return path
+
+
+# --------------------------------------------------------------------------- #
+# image input
+# --------------------------------------------------------------------------- #
+
+
+def read_image(path: str, mode: str = "RGB") -> np.ndarray:
+    """An image file as uint8 through PIL's ``convert(mode)``: "RGB" gives
+    [H, W, 3], "L" [H, W]. PIL is imported here, so the port runs without it
+    until an image is read from a file."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img.convert(mode))

@@ -238,15 +238,24 @@ def test_unknown_options_raise_as_jax():
         port_ld.make_sample_fn(None, PS_ZT, 5, sampler="euler")
     with pytest.raises(ValueError, match="v_prediction"):
         port_ld.make_sample_fn(None, PS_ZT, 5, sampler="ddim", timestep_spacing="trailing")
-    for kw in ({"deep_cache_interval": 3}, {"inpaint": True}):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            port_ld.make_sample_fn(None, PS, 5, **kw)
+    # DeepCache and inpainting build as JAX's loops do, and refuse what JAX's refuse
+    two_levels = type("TwoLevels", (), {"channels_list": (16, 24)})()
+    for kw in ({"deep_cache_interval": 3}, {"inpaint": True}, {"inpaint": True, "sampler": "euler"}):
+        p_fn, j_fn = port_ld.make_sample_fn(two_levels, PS, 5, **kw), jax_ld.make_sample_fn(two_levels, JS, 5, **kw)
+        assert p_fn.start_timestep == j_fn.start_timestep
+    for unet, kw in ((two_levels, {"sampler": "euler"}), (None, {}),
+                     (type("OneLevel", (), {"channels_list": (16,)})(), {})):
+        with pytest.raises(ValueError) as want:
+            jax_ld.make_sample_fn(unet, JS, 5, deep_cache_interval=3, **kw)
+        with pytest.raises(ValueError, match=str(want.value)[:40]):
+            port_ld.make_sample_fn(unet, PS, 5, deep_cache_interval=3, **kw)
 
 
 def test_sampling_config_fields_equal_jax():
-    """Each of the port's txt2img fields is the JAX field: name, default,
-    help and choices; ``--sampler`` offers all seven samplers."""
+    """The port's txt2img fields are the JAX fields, all of them: name,
+    default, help and choices; ``--sampler`` offers all seven samplers."""
     jax_fields = {f.name: f for f in dataclasses.fields(jax_pipeline.SamplingConfig)}
+    assert [f.name for f in dataclasses.fields(pipeline.SamplingConfig)] == list(jax_fields)
     for f in dataclasses.fields(pipeline.SamplingConfig):
         assert (f.default, dict(f.metadata)) == (jax_fields[f.name].default, dict(jax_fields[f.name].metadata)), f.name
     assert pipeline.SamplingConfig().__dataclass_fields__["sampler"].metadata["choices"] == list(jax_ld.SAMPLERS)

@@ -2,10 +2,11 @@
 server, the JAX package's ``tests/test_serve.py`` case by case (routes,
 status codes, batching, byte-identical determinism, async, progress,
 hot-swap), at the JAX test's tiny flags with ``--device cpu``. Plus: a
-``/reload`` naming a LoRA checkpoint is refused with 400 (``merge_lora`` is
-not ported), the swap prefers the checkpoint's EMA weights, a checkpoint of
-another module is refused before any weight changes, and ``ServeConfig`` is
-the JAX server's.
+``/reload`` with a LoRA checkpoint merges it into the checkpoint's float32
+weights (``lora_scale`` applied), and one whose LoRA does not fit, or is
+missing, is refused with 400 before any weight changes; the swap prefers the
+checkpoint's EMA weights, a checkpoint of another module is refused before
+any weight changes, and ``ServeConfig`` is the JAX server's.
 """
 
 import dataclasses
@@ -202,12 +203,50 @@ def test_reload_hot_swaps_weights(server, tmp_path):
     assert _health(server_url)["reloads"] == 1
 
 
-def test_reload_with_lora_is_refused(server_url, tmp_path):
-    status, ctype, body = _post(server_url + "/reload",
-                                {"unet_checkpoint": str(tmp_path), "lora_checkpoint": str(tmp_path)})
-    assert status == 400 and ctype == "application/json"
-    assert "item 16" in json.loads(body)["error"]
+def test_reload_with_lora_is_refused(server, tmp_path):
+    """A LoRA that does not fit the UNet, or a missing one, is a 400 JSON
+    answer, and the live UNet keeps every weight."""
+    service, server_url = server
+    unet = service.model.unet
+    live = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    save_checkpoint(str(tmp_path / "unet" / "checkpoint-1"), {
+        "step": 1, "params": _perturbed(unet, 8), "opt_state": {}, "ema_params": None})
+    name = next(n for n in live if n.endswith("self_attn.to_q.weight"))[: -len(".weight")]
+    save_checkpoint(str(tmp_path / "bad_lora" / "checkpoint-1"), {
+        "step": 1, "params": {f"{name}.lora_a": torch.zeros(3, 2), f"{name}.lora_b": torch.zeros(2, 3)},
+        "ema_params": None})
+    for lora in (tmp_path / "bad_lora", tmp_path / "missing"):
+        status, ctype, body = _post(server_url + "/reload", {"unet_checkpoint": str(tmp_path / "unet"),
+                                                             "lora_checkpoint": str(lora)})
+        assert status == 400 and ctype == "application/json", body
+        assert "error" in json.loads(body)
+    assert all(torch.equal(p, live[n]) for n, p in unet.named_parameters())
     assert _post(server_url + "/reload", {})[0] == 400
+
+
+def test_reload_merges_a_lora(server, tmp_path):
+    """/reload with ``lora_checkpoint`` and ``lora_scale``: the live UNet
+    holds the checkpoint's weights with the LoRA merged in float32, and the
+    same request gives another image than the checkpoint alone."""
+    from stable_diffusion_pytorch_tpu_torch.models.lora import init_lora, merge_lora
+
+    service, server_url = server
+    unet = service.model.unet
+    params = _perturbed(unet, 9, scale=1.0)  # no weight at zero: an attention LoRA shows
+    save_checkpoint(str(tmp_path / "unet" / "checkpoint-2"), {
+        "step": 2, "params": params, "opt_state": {}, "ema_params": None})
+    gen = torch.Generator().manual_seed(3)
+    lora = {k: torch.randn(v.shape, generator=gen) for k, v in init_lora(params, 2, "attn", gen).items()}
+    save_checkpoint(str(tmp_path / "lora" / "checkpoint-5"), {"step": 5, "params": lora, "ema_params": None})
+    req = {"prompt": "a blue square", "seed": 11}
+    assert _post(server_url + "/reload", {"unet_checkpoint": str(tmp_path / "unet")})[0] == 200
+    plain = _post(server_url + "/txt2img", req)[2]
+    status, _, body = _post(server_url + "/reload", {"unet_checkpoint": str(tmp_path / "unet"),
+                                                     "lora_checkpoint": str(tmp_path / "lora"), "lora_scale": 0.5})
+    assert status == 200, body
+    merged = merge_lora(params, lora, 0.5)
+    assert all(torch.equal(p, merged[n]) for n, p in unet.named_parameters())
+    assert _post(server_url + "/txt2img", req)[2] != plain
 
 
 def test_serve_config_and_buckets_are_the_jax_servers():

@@ -12,10 +12,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
    of each (the 512x512 txt2img slice; 1024x1024 txt2img; the hires fix's
    refine; the server's buckets of 2 and 4 requests at 512x512, UNet batch 4
    and 8 with CFG; one micro step of SD-1.5 training at 512x512, batch 4, at
-   1024x1024, batch 1, of the lean configuration at 512x512, batch 16, and
-   of the SD-1.5 VAE's training at 256x256, batch 4, each trainer built for
-   its probe and freed after it, taken with an optimizer that applies
-   nothing; and ``EXTRA_BWD_SHAPES``: the 512px VAE bottleneck's backward,
+   1024x1024, batch 1, of the lean configuration at 512x512, batch 16, of
+   the SD-1.5 VAE's training at 256x256, batch 4, and of phase 9c's three
+   trainers, each trainer built for its probe and freed after it, taken with
+   an optimizer that applies nothing; and ``EXTRA_BWD_SHAPES``: the 512px VAE bottleneck's backward,
    [1,4096,4096,1,512], and the f32 VAE parity's on K3): flash
    attention forward (K1, also at the kv > 9216 shapes of the TPU's K2),
    its fused backward (K3) and its split backward (K4/K5, at its own shapes
@@ -32,12 +32,14 @@ Phases, each printing one JSON line; any failure exits nonzero:
    the int8 Adam update (K9), CUDA C++, through its one-leaf entry at each of
    the 49 parameter shapes of the SD-1.5 UNet in the port's layout (conv
    weights channels_last), from seeded non-zero state with step-3 bias
-   corrections, gradient in float32 and bfloat16: the update at rtol 1e-6,
+   corrections (and at the DreamBooth LoRA's 7 factor-leaf shapes),
+   gradient in float32 and bfloat16: the update at rtol 1e-6,
    codes at most one apart at no more than one in 10^4, dequantized moments
    at rtol 1e-5 / atol 1e-8 elsewhere; and (``adam8bit_step``) the whole
    optimizer step as the trainer launches it, one launch over the 686 leaves
    with the clip and the parameter apply fused in, f32 and bf16 gradients,
-   the clip active and not, against ``adam8bit_step_plain`` on the card:
+   the clip active and not (``adam8bit_step_lora``: the same over the LoRA's
+   256 factor leaves), against ``adam8bit_step_plain`` on the card:
    parameters, codes and scales bit-identical, one device kernel a step
    (torch.profiler); no PyTorch call computes it (``library_ms`` null); its
    bound counts bytes and the f32 peak. Then, as context, the whole optimizer
@@ -147,13 +149,26 @@ Phases, each printing one JSON line; any failure exits nonzero:
    (at ``(step + 1) % log_interval``): finite losses, changed parameters,
    K1, the split set (the bottleneck's head of 512 in the backward), K6 and
    K7 launched; then its profile as phase 7's.
+9c. personalize: the three personalization entry points' trainers
+   (``build_personalize_trainer``) at SD-1.5 width, 512x512, UNet batch 4,
+   bf16 over f32, accumulation 4, weight decay 0, two optimizer steps and
+   one evaluation, each built where it runs and freed: DreamBooth with a
+   rank-8 LoRA, prior preservation (4 class images sampled first) and int8
+   Adam; textual inversion (2 vectors); ControlNet (the encoder copy, edge
+   hints). Each takes phase 7's checks and record (K9 once per optimizer step
+   in the DreamBooth run), the launches of one more micro step, the frozen
+   UNet, VAE and CLIP bit-identical after it, which tensors moved at each
+   step (LoRA's B and the zero convs at step 1, A and the encoder copy only
+   at step 2), and its checkpoint loaded by the sampling side's loaders into
+   a 10-step DDIM sample that decodes to a finite [1,512,512,3] unlike the
+   untrained model's.
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9b, 6b, 6c and 6d included (each
+the summary, ``launches`` counts phases 5 to 9c, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
 record); ``max_abs_err``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
@@ -257,6 +272,16 @@ LEAN_TRAIN_KERNELS = (*TRAIN_KERNELS, "adam8bit_update")
 # the VAE has no skip concat (no K8); f32 keeps the crossover, so its parity runs K3
 VAE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd")
 VAE_F32_KERNELS = ("flash_attention", "flash_attention_bwd", "group_norm", "group_norm_bwd")
+# phase 9c: the personalization trainers at 512x512, each a UNet batch of 4 a
+# micro step (DreamBooth: 2 instance rows and 2 class rows), weight decay 0 so
+# that a tensor without gradient stays exactly where it was
+PERSONALIZE_RUNS = ("dreambooth_lora", "textual_inversion", "controlnet")
+PERSONALIZE_SIZE = 512
+PERSONALIZE_BATCH = 4
+NUM_CLASS_IMAGES = 4
+NUM_INSTANCE_IMAGES = 16  # 8 micro batches of 2 pairs an epoch: both optimizer steps in one epoch
+PERSONALIZE_KERNELS = {"dreambooth_lora": (*TRAIN_KERNELS, "adam8bit_update"), "textual_inversion": TRAIN_KERNELS,
+                       "controlnet": TRAIN_KERNELS}
 # (phase, image size, batch, extra flags, kernels its run must launch)
 TRAIN_PHASES = (
     ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
@@ -365,9 +390,10 @@ def device_kernels(fn, calls: int = 2, attempts: int = 8) -> dict:
     """{kernel name: (launches, device ms) per ``fn()``} by torch.profiler
     over ``calls`` calls, copies and fills aside: the fullest of up to
     ``attempts`` profiles (a profile now and then misses a kernel and never
-    adds one; each opens with a short spin kernel, left out, so that the
-    calls' first kernel is not the profile's first), stopping at the first
-    that saw a kernel a call."""
+    adds one; each opens and closes with a short spin kernel, left out, so
+    that the calls' kernels are neither the profile's first nor its last: a
+    profile of a ~0.02 ms kernel lost its last one in most attempts),
+    stopping at the first that saw a kernel a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,6 +404,7 @@ def device_kernels(fn, calls: int = 2, attempts: int = 8) -> dict:
             torch.cuda._sleep(10000)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(10000)
             torch.cuda.synchronize()
         found = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
                  if "cuda" in str(getattr(e, "device_type", "")).lower() and e.self_device_time_total > 0
@@ -460,6 +487,67 @@ def build_sd15_vae_trainer(work: str, resolution: int, batch: int):
         "--max-test-samples", "2", "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
     ))
     fill_zero_weights(trainer.vae, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    return trainer
+
+
+def _png_file(path: str):
+    """RGB uint8 pixels of a PNG the port wrote: the image reader of the
+    DreamBooth folders here, where Pillow may be missing."""
+    with open(path, "rb") as f:
+        return _png_pixels(f.read())[..., :3]
+
+
+def build_personalize_trainer(kind: str, work: str, class_steps: int = STEPS):
+    """One personalization entry point's trainer at SD-1.5 width, 512x512,
+    through its ``build_trainer``: ``dreambooth_lora`` (``--lora-rank 8
+    --with-prior-preservation --use-8bit-adam``; 16 instance PNGs written
+    from ``smoke_image``, the 4 class images sampled by ``ensure_class_images``
+    in ``class_steps`` DDIM steps; the folders read without Pillow),
+    ``textual_inversion`` (two vectors from ``toy``) or ``controlnet``
+    (synthetic rows, edge hints). The UNet's and VAE's zero layers are filled
+    after the build, and the ControlNet copies the filled encoder; its own
+    zero convs stay at zero."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.controlnet import init_controlnet_from_unet
+    from stable_diffusion_pytorch_tpu_torch.utils.data import to_img
+
+    shutil.rmtree(work, ignore_errors=True)
+    flags = [*SD15_FLAGS, "--resolution", str(PERSONALIZE_SIZE), "--max-train-steps", str(TRAIN_STEPS),
+             "--lr-warmup-steps", "0",
+             "--learning-rate", "1e-4", "--adam-weight-decay", "0", "--log-interval", str(TRAIN_STEPS),
+             "--checkpointing-steps", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
+             "--eval-batch-size", str(PERSONALIZE_BATCH)]
+    if kind == "dreambooth_lora":
+        from stable_diffusion_pytorch_tpu_torch.scripts.train_dreambooth import build_trainer
+
+        inst = os.path.join(work, "instance")
+        for i in range(NUM_INSTANCE_IMAGES):
+            to_img(smoke_image(10 + i, PERSONALIZE_SIZE), inst, f"instance_{i:02d}.png")
+        trainer = build_trainer(train_argv(
+            work, *flags, "--train-batch-size", str(PERSONALIZE_BATCH // 2), "--instance-data-dir", inst,
+            "--instance-prompt", "a photo of sks toy", "--with-prior-preservation",
+            "--class-data-dir", os.path.join(work, "class"), "--class-prompt", "a photo of a toy",
+            "--num-class-images", str(NUM_CLASS_IMAGES), "--class-sampling-steps", str(class_steps),
+            "--lora-rank", str(LORA_RANK), "--use-8bit-adam"), read=_png_file)
+    else:
+        data = ["--train-batch-size", str(PERSONALIZE_BATCH), "--max-train-samples", str(16 * PERSONALIZE_BATCH),
+                "--max-val-samples", str(PERSONALIZE_BATCH)]
+        if kind == "textual_inversion":
+            from stable_diffusion_pytorch_tpu_torch.scripts.train_textual_inversion import build_trainer
+
+            data += ["--placeholder-token", "<concept>", "--num-vectors", "2", "--initializer-token", "toy"]
+        else:
+            from stable_diffusion_pytorch_tpu_torch.scripts.train_controlnet import build_trainer
+        trainer = build_trainer(train_argv(work, *flags, *data))
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 1)
+    fill_zero_weights(trainer.model.unet, gen)
+    fill_zero_weights(trainer.model.autoencoder, gen)
+    if kind == "controlnet":
+        check(trainer.state.ema_params is None, "the ControlNet run keeps no EMA to re-copy")
+        init_controlnet_from_unet(trainer.model.unet, trainer.controlnet)
     return trainer
 
 
@@ -963,6 +1051,7 @@ def record_shapes(model, work: str):
     collect()
     del trainer, probe, batch_in
     free_cuda()
+    lora_leaf_shapes = personalize_probes(work, collect)
     # K3's shapes: the backward shapes the JAX crossover sends to it (bf16
     # training now runs the split set at every length, backward_route)
     shapes["flash_attention_bwd"] |= {k for k in shapes["flash_attention_bwd_split"]
@@ -970,8 +1059,33 @@ def record_shapes(model, work: str):
     for name, extra in EXTRA_BWD_SHAPES.items():
         shapes[name] |= extra
     shapes["flash_attention_bwd_split"] |= shapes["flash_attention_bwd"]
-    shapes["adam8bit_update"] = set(leaf_shapes)
-    return {name: sorted(v) for name, v in shapes.items()}, leaf_shapes
+    shapes["adam8bit_update"] = set(leaf_shapes) | set(lora_leaf_shapes)
+    return {name: sorted(v) for name, v in shapes.items()}, leaf_shapes, lora_leaf_shapes
+
+
+def personalize_probes(work: str, collect):
+    """One micro step of each personalization trainer (phase 9c's), with an
+    optimizer that applies nothing, each built (the DreamBooth class images
+    sampled in one step) and freed; ``collect()`` after each. -> the count of
+    the LoRA trainer's leaves of each shape (K9's leaves there)."""
+    import collections
+
+    from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    lora_leaf_shapes = None
+    for kind in PERSONALIZE_RUNS:
+        trainer = build_personalize_trainer(kind, f"{work}_{kind}_probe", class_steps=1)
+        batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
+        own = trainer.state
+        trainer.state = TrainState(own.trainables or own.module, _NoUpdate())
+        trainer._train_step(batch_in, step_generator("cuda", 9))
+        collect()
+        if kind == "dreambooth_lora":
+            lora_leaf_shapes = collections.Counter(tuple(p.shape) for p in own.params)
+        del trainer, own, batch_in
+        free_cuda()
+    return lora_leaf_shapes
 
 
 def _bound(flops: float, nbytes: float, dtype: str):
@@ -1025,7 +1139,7 @@ def _attention_groups(rows, shapes) -> dict:
     return groups
 
 
-def phase_kernels(shapes: dict, leaf_shapes) -> dict:
+def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
@@ -1093,6 +1207,9 @@ def phase_kernels(shapes: dict, leaf_shapes) -> dict:
     # (clip active) numbers stand for K9 in the summary, the one-leaf sums beside them
     step = adam_step_record(leaf_shapes)
     failures += step["failures"]
+    # and over the DreamBooth LoRA's factor leaves, as its trainer launches it
+    lora_step = adam_step_record(lora_leaf_shapes)
+    failures += lora_step["failures"]
     s = summary["adam8bit_update"]
     main = next(c for c in step["cases"] if c["dtype"] == "bfloat16" and c["clip_active"])
     s.update({"per_leaf_ms_bf16": s["ms_bf16"], "per_leaf_plain_ms_bf16": s["plain_ms_bf16"],
@@ -1101,6 +1218,7 @@ def phase_kernels(shapes: dict, leaf_shapes) -> dict:
               "max_abs_err_bf16": max(s["max_abs_err_bf16"], main["max_abs_err"]), "library_ms_bf16": None})
     result = {"phase": "kernels", "ok": not failures, "n_shapes": {k: len(v) for k, v in shapes.items()},
               "summary": summary, "groups_bf16": _attention_groups(rows, shapes), "adam8bit_step": step,
+              "adam8bit_step_lora": lora_step,
               "failures": failures, "shapes": rows}
     emit({k: v for k, v in result.items() if k != "shapes"})
     check(all(shapes.get(name) for name in TPU_KERNELS), f"a kernel recorded no shape in the probe runs: "
@@ -2293,6 +2411,172 @@ def profile_window(trainer) -> dict:
     return profile_device(window, accum, "micro_step")
 
 
+# --------------------------------------------------------------------------- #
+# phase 9c: the personalization trainers
+# --------------------------------------------------------------------------- #
+
+
+def _host_copy(modules: dict) -> dict:
+    return {name: {k: t.detach().cpu().clone() for k, t in m.state_dict().items()} for name, m in modules.items()}
+
+
+def _personalize_round_trip(trainer, kind: str, work: str) -> dict:
+    """The run's ``checkpoint-2`` loaded by the sampling side's loaders, each
+    image (``STEPS`` DDIM steps, CFG 7.5, seed 42, through the sampling form
+    of the training build, ``models/build.py:sampling_model``) against the
+    untrained model's on the same base: a LoRA through
+    ``load_unet_weights(lora=)`` over the base saved as a UNet checkpoint
+    (against the base alone), the concept through
+    ``CLIPModel.load_textual_inversion`` (against its initial vectors), the
+    ControlNet through ``load_controlnets`` with an edge hint (against no
+    control: its zero convs start at zero)."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, UnetConfig
+    from stable_diffusion_pytorch_tpu_torch.models.build import load_controlnets, load_unet_weights, sampling_model
+    from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
+    from stable_diffusion_pytorch_tpu_torch.utils.data import edge_hint
+
+    model, cfg = trainer.model, trainer.cfg
+    ckpt, size = cfg.checkpoint.ckpt_dir, cfg.dataset.resolution
+    prompt = {"dreambooth_lora": "a photo of sks toy", "textual_inversion": "a photo of a <concept> on a table",
+              "controlnet": "a red circle on a gradient background"}[kind]
+
+    def run(name, nets=(), **kw):
+        sm = sampling_model(model)
+        if nets:
+            sm.attach_controlnet(list(nets))
+        return _feature_run(sm, name, lambda: pipeline.sample(
+            sm, prompt=prompt, image_size=size, time_steps=STEPS, guidance_scale=7.5, save_dir=None, seed=42, **kw),
+            nets)
+
+    untrained = run("untrained")
+    nets, kw = (), {}
+    if kind == "dreambooth_lora":
+        base = os.path.join(work, "base_unet")
+        save_checkpoint(os.path.join(base, "checkpoint-0"),
+                        {"step": 0, "params": model.unet.state_dict(), "ema_params": None})
+        loaded = load_unet_weights(model.unet, base, lora=ckpt)
+    elif kind == "textual_inversion":
+        loaded = model.text_encoder.load_textual_inversion(ckpt)
+    else:
+        nets = load_controlnets([ckpt], UnetConfig(**cfg.model.unet.to_dict()),
+                                AutoencoderConfig(**cfg.model.autoencoder.to_dict()), dtype=model.dtype,
+                                device=model.device)
+        pixels = smoke_image(4, size).astype(np.float32) / 127.5 - 1.0
+        kw["control_image"] = ((edge_hint(pixels) + 1.0) * 127.5).astype(np.uint8)
+        loaded = ckpt
+    trained = run("trained", nets, **kw)
+    diff = (trained["_image"] - untrained["_image"]).abs().max().item()
+    rec = {"loaded": str(loaded), "steps": STEPS, "max_abs_vs_untrained": diff,
+           **{f"{name}_{k}": r[k] for name, r in (("untrained", untrained), ("trained", trained))
+              for k in ("decoded_shape", "finite", "s_per_step", "launches")}}
+    rec["ok"] = (trained["decoded_shape"] == [1, size, size, 3] and trained["finite"] and untrained["finite"]
+                 and diff > 0)
+    del untrained, trained, nets
+    free_cuda()
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase_personalize(work: str) -> dict:
+    """Phase 9c: DreamBooth with LoRA (rank 8) and prior preservation on the
+    int8 optimizer, textual inversion and ControlNet training, each through
+    its entry point at SD-1.5 width, 512x512, UNet batch 4, bf16 over f32,
+    accumulation 4, two optimizer steps and one evaluation, built where it
+    runs and freed after (``build_personalize_trainer``). Each: phase 7's
+    record and checks (finite losses, kernels launched, K9 once per optimizer
+    step in the DreamBooth run, samples/s, step ms p50, peak memory,
+    optimizer-state bytes, profile); the launches of one more micro step; the
+    frozen UNet, VAE and CLIP bit-identical after the run; which trainable
+    tensors moved at each optimizer step (weight decay 0: a tensor without
+    gradient stays put): LoRA's B at step 1 and A only at step 2 (B starts at
+    zero), the concept at step 1, the ControlNet's zero convs at step 1 and
+    the encoder copy only at step 2; then the checkpoint round trip
+    (``_personalize_round_trip``)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    runs, failures = {}, []
+    for kind in PERSONALIZE_RUNS:
+        run_work = f"{work}_{kind}"
+        t0 = time.perf_counter()
+        trainer = build_personalize_trainer(kind, run_work)
+        build_s = time.perf_counter() - t0
+        state, model = trainer.state, trainer.model
+        frozen = {"unet": model.unet, "text_encoder": model.text_encoder.module, "autoencoder": model.autoencoder}
+        before = _host_copy(frozen)
+        start = [p.detach().clone() for p in state.params]
+        after_update, orig_step = [], state.optimizer.step
+
+        def step(grads, orig_step=orig_step, after_update=after_update, state=state):
+            applied, norm = orig_step(grads)
+            if applied:
+                after_update.append([p.detach().clone() for p in state.params])
+            return applied, norm
+
+        state.optimizer.step = step
+        res = phase_train(trainer, kind, PERSONALIZE_SIZE, PERSONALIZE_BATCH, PERSONALIZE_KERNELS[kind], free_cuda())
+        state.optimizer.step = orig_step
+        # one more micro step, counted alone (no update: the window restarts)
+        batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
+        torch.cuda.synchronize()
+        native.reset_counters()
+        trainer._train_step(batch_in, step_generator("cuda", 8))
+        torch.cuda.synchronize()
+        res["launches_per_micro_step"] = launch_counts()
+        del batch_in
+        after = _host_copy(frozen)
+        res["frozen_unchanged"] = {name: all(torch.equal(t, after[name][k]) for k, t in tensors.items())
+                                   for name, tensors in before.items()}
+        del before, after
+        moved = [[not torch.equal(a, b) for a, b in zip(start, snap)] for snap in after_update[:TRAIN_STEPS]]
+        # "early": the tensors with a gradient from the first step (LoRA's B, the
+        # concept, the zero convs); "late": those whose gradient passes through
+        # an early one that starts at zero (LoRA's A, the encoder copy). The
+        # ControlNet's hint block is neither: its output conv starts at zero
+        # and moves at step 2, the convs before it only at step 3.
+        names = state.names
+        if kind == "dreambooth_lora":
+            group = ["early" if n.endswith(".lora_b") else "late" for n in names]
+        elif kind == "controlnet":
+            copied = set(model.unet.state_dict())
+            group = ["early" if n.startswith(("zero_convs.", "middle_block_out.")) else
+                     "late" if n in copied else "hint" for n in names]
+        else:
+            group = ["early"] * len(names)
+        res["moved_at_step"] = {f"{g}_at_{i + 1}": sum(m for m, h in zip(moved[i], group) if h == g)
+                                for g in ("early", "late", "hint") for i in range(TRAIN_STEPS)}
+        res["moved_at_step"].update({g: group.count(g) for g in ("early", "late", "hint")})
+        mv = res["moved_at_step"]
+        res["trainables"] = {"n_tensors": len(names), "n_params": res["n_params"], "shapes": sorted(
+            {tuple(p.shape) for p in state.params})[:12]}
+        del start, after_update
+        res["build_s"] = build_s
+        res["round_trip"] = _personalize_round_trip(trainer, kind, run_work)
+        checks = {"frozen_unchanged": all(res["frozen_unchanged"].values()),
+                  "early_moved_at_step_1": mv["early_at_1"] == mv["early"],
+                  "late_still_at_step_1": mv["late_at_1"] == 0, "late_moved_at_step_2": mv["late_at_2"] == mv["late"],
+                  "round_trip": res["round_trip"]["ok"]}
+        res["checks"] = checks
+        runs[kind] = res
+        if not all(checks.values()):
+            failures.append(kind)
+        del trainer, state, model, frozen
+        free_cuda()
+    out = {"phase": "personalize", "gpu": gpu_line(), "image_size": PERSONALIZE_SIZE, "unet_batch": PERSONALIZE_BATCH,
+           "ok": not failures, "runs": runs}
+    emit({**out, "runs": {k: {kk: vv for kk, vv in v.items() if kk not in ("max_param_change", "profile")}
+                          for k, v in runs.items()}})
+    check(not failures, f"personalize checks failed for {failures}: "
+          f"{ {k: runs[k]['checks'] for k in failures} }")
+    return out
+
+
 def _checkpoint_round_trip(work: str, flags) -> dict:
     """Train 2 steps saving checkpoint-2, resume ``latest`` in a new trainer
     and compare every tensor of the parameters, EMA and optimizer state."""
@@ -2363,8 +2647,8 @@ def main(argv=None) -> int:
 
     env = phase_env()
     model = build_sd15("cuda", torch.bfloat16, SEED)
-    shapes, leaf_shapes = record_shapes(model, work)
-    kernels = phase_kernels(shapes, leaf_shapes)
+    shapes, leaf_shapes, lora_leaf_shapes = record_shapes(model, work)
+    kernels = phase_kernels(shapes, leaf_shapes, lora_leaf_shapes)
     correlated = phase_correlated(kernels)
     optimizer = phase_optimizer(leaf_shapes, kernels)
     parity = phase_unet_parity(SEED)
@@ -2389,12 +2673,14 @@ def main(argv=None) -> int:
                                       free_cuda())
     del trainer
     free_cuda()
+    personalize = phase_personalize(os.path.join(REPO, "build", "chip_smoke_personalize"))
+    free_cuda()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
                  *(r["launches"] for r in samplers_res["runs"].values()),
                  *(r["launches"] for r in features_res["runs"].values()), serve_res["launches"],
-                 *(r["launches"] for r in trains.values())]
+                 *(r["launches"] for r in trains.values()), *(r["launches"] for r in personalize["runs"].values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -2410,13 +2696,14 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"env": env, "shapes": shapes, "leaf_shapes": sorted((list(k), n) for k, n in leaf_shapes.items()),
+                       "lora_leaf_shapes": sorted((list(k), n) for k, n in lora_leaf_shapes.items()),
                        "kernels": kernels, "correlated": correlated, "optimizer": optimizer,
                        "unet_parity": parity,
                        "flash_attention_launches_kv_past_9216": sum(
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
-                       "serve": serve_res, **trains,
+                       "serve": serve_res, **trains, "personalize": personalize,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

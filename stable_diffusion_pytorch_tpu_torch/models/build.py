@@ -22,7 +22,8 @@ f32 trainable parameters as the UNet has for its trainer.
 A LoRA (``models/lora.py``) given to :func:`build_models` is merged into the
 UNet's f32 weights before the cast, and :func:`load_unet_weights` merges one
 into a trained checkpoint's f32 weights before the copy; :func:`load_controlnets`
-builds ControlNets to match the UNet and loads their checkpoints.
+builds ControlNets to match the UNet and loads their checkpoints; the
+ControlNet trainer takes one built with f32 trainable parameters.
 
 Entry points run on the card: ``device`` defaults to ``"cuda"``, and without a
 CUDA device only an explicit ``"cpu"`` runs (:func:`require_device`).
@@ -30,7 +31,9 @@ CUDA device only an explicit ``"cpu"`` runs (:func:`require_device`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import contextlib
+import copy
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -65,6 +68,29 @@ def resolve_dtype(mixed_precision: str, device: Union[str, torch.device]) -> tor
     if torch.device(device).type != "cuda":
         return torch.float32
     return _DTYPES.get(mixed_precision, torch.float32)
+
+
+# the torch layers of the port's modules whose constructors run a default init
+_DEFAULT_INIT = (nn.Linear, nn.Conv2d, nn.Embedding, nn.LayerNorm)
+
+
+@contextlib.contextmanager
+def _without_default_init() -> Iterator[None]:
+    """Construct modules without the default init of their torch layers (their
+    storage is left as allocated): :func:`init_weights` sets every parameter of
+    the port's modules afterwards, and they hold no buffer, so no value
+    changes, and the full-size CLIP tower's 123 M parameters are drawn once,
+    not twice. Construction here runs on one thread; the layers' methods are
+    restored on exit."""
+    owners = {next(c for c in cls.__mro__ if "reset_parameters" in c.__dict__) for cls in _DEFAULT_INIT}
+    saved = {cls: cls.__dict__["reset_parameters"] for cls in owners}
+    try:
+        for cls in owners:
+            cls.reset_parameters = lambda self: None
+        yield
+    finally:
+        for cls, method in saved.items():
+            cls.reset_parameters = method
 
 
 @torch.no_grad()
@@ -131,7 +157,7 @@ def build_autoencoder(
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    with device:
+    with device, _without_default_init():
         vae = AutoEncoderKL(vae_cfg, bottleneck_default_groups=compat.bottleneck_default_groups)
     init_weights(vae, generator)
     return prepare_for_training(vae)
@@ -158,7 +184,7 @@ def build_models(
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    with device:
+    with device, _without_default_init():
         unet = UNetModel(
             vae_cfg.latent_channels, vae_cfg.groups, unet_cfg,
             flipped_time_embedding=compat.flipped_time_embedding,
@@ -179,6 +205,19 @@ def build_models(
         unet, vae, CLIPModel(clip_cfg, text), make_schedule(ddpm_cfg), compat=compat,
         compute_dtype=dtype,
     )
+
+
+def sampling_model(model: LatentDiffusion) -> LatentDiffusion:
+    """A training build (f32 UNet computing under autocast) as the sampling
+    path takes it: the UNet copied and cast to the compute dtype as
+    :func:`build_models` casts for inference, the frozen VAE and text encoder
+    (cast already) and any attached ControlNets shared. The trainers sample
+    with it (DreamBooth's class images)."""
+    unet = cast_for_inference(copy.deepcopy(model.unet), model.dtype)
+    out = LatentDiffusion(unet, model.autoencoder, model.text_encoder, model.noise_scheduler, compat=model.compat,
+                          compute_dtype=model.dtype)
+    out.controlnet = model.controlnet
+    return out
 
 
 @torch.no_grad()
@@ -205,17 +244,21 @@ def build_controlnet(
     dtype: torch.dtype = torch.float32,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
+    for_training: bool = False,
 ) -> ControlNet:
     """A ControlNet matching the UNet of ``unet_cfg`` (its hint reaches the
     latent resolution through one stride-2 conv per VAE level), seeded as
-    :func:`build_models` seeds, zero convs at zero, cast for inference."""
+    :func:`build_models` seeds, zero convs at zero, cast for inference or,
+    ``for_training``, with f32 trainable parameters (the ControlNet trainer's)."""
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
-    with device:
+    with device, _without_default_init():
         net = ControlNet(vae_cfg.latent_channels, vae_cfg.groups, unet_cfg,
                          hint_downsamples=len(vae_cfg.autoencoder_channels_list) - 1,
                          flipped_time_embedding=compat.flipped_time_embedding)
     init_weights(net, torch.Generator(device=device).manual_seed(seed))
+    if for_training:
+        return prepare_for_training(net.zero_init())
     return cast_for_inference(net.zero_init(), dtype)
 
 

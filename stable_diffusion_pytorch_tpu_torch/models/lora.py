@@ -1,4 +1,4 @@
-"""LoRA merge for sampling (port of stable_diffusion_pytorch_tpu/models/lora.py).
+"""LoRA merge for sampling and for training (port of stable_diffusion_pytorch_tpu/models/lora.py).
 
 A LoRA holds rank-r factors for some of the UNet's linear weights; sampling
 merges them into the base weights once, ``W_eff = W + scale * (A @ B)^T``,
@@ -14,11 +14,20 @@ inference dtype, as the JAX package merges into its f32 parameters and rounds
 once, at compute. The target sets are the JAX package's: ``attn`` (to_q,
 to_k, to_v and out of every self- and cross-attention) and ``attn_mlp``
 (also the GEGLU projection and the feed-forward output).
+
+Training (the JAX package's ``merge_lora`` as the train step's
+``param_transform``): :func:`lora_weights` forms the factored weights
+``W + scale * (A @ B)^T`` from the frozen f32 base and the trainable factors,
+differentiable in the factors, in float32 with autocast off, so that autocast
+rounds once, at the layer's matmul; :func:`substituted` runs the UNet with
+them in place of its parameters, through the forward and the backward (a
+per-block remat recomputes inside the backward and must see them too).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -84,3 +93,41 @@ def merge_lora(state_dict: Dict[str, torch.Tensor], lora: Dict[str, torch.Tensor
         a, b = (lora[f"{module}.lora_{s}"].to(device=w.device, dtype=torch.float32) for s in "ab")
         out[f"{module}.weight"] = (w.float() + scale * (a @ b).T).to(w.dtype)
     return out
+
+
+def lora_param_count(lora: Dict[str, torch.Tensor]) -> int:
+    return sum(int(t.numel()) for t in lora.values())
+
+
+def lora_weights(base: Dict[str, torch.Tensor], lora: Dict[str, torch.Tensor], scale: float) -> Dict[str, torch.Tensor]:
+    """The factored weights only, ``{"<module>.weight": W + scale * (A @ B)^T}``,
+    from the float32 base weights ``base`` (by the UNet's names), computed in
+    float32 with autocast off and differentiable in the factors."""
+    out = {}
+    with torch.autocast("cuda", enabled=False), torch.autocast("cpu", enabled=False):
+        for module in sorted({k.rsplit(".", 1)[0] for k in lora}):
+            w = base[f"{module}.weight"]
+            a, b = lora[f"{module}.lora_a"], lora[f"{module}.lora_b"]
+            out[f"{module}.weight"] = w.float() + scale * (a.float() @ b.float()).t()
+    return out
+
+
+@contextlib.contextmanager
+def substituted(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> Iterator[None]:
+    """Run ``module`` with ``tensors`` (by parameter name) in place of those
+    parameters until the block exits. Each tensor goes into its owner's
+    instance dict, which attribute lookup reads before ``nn.Module`` looks
+    in ``_parameters``: the parameters themselves stay registered, in order."""
+    owners = []
+    try:
+        for name, t in tensors.items():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = module.get_submodule(owner_name)
+            if leaf not in owner._parameters:
+                raise KeyError(f"{name!r} is not a parameter of the module")
+            owner.__dict__[leaf] = t
+            owners.append((owner, leaf))
+        yield
+    finally:
+        for owner, leaf in owners:
+            del owner.__dict__[leaf]

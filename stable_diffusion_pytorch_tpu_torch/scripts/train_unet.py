@@ -43,14 +43,16 @@ def _add_device(parser) -> None:
                         help="torch device to train on (cuda; the CPU only when asked: --device cpu)")
 
 
-def build_trainer(argv=None) -> UNetTrainer:
-    """Parse the flags and build the models, datasets and trainer."""
-    logger = get_logger("train_unet")
+def build_training_models(argv, name: str):
+    """Parse the flags, check them and build the models for a UNet-loss
+    trainer (frozen CLIP and VAE, the UNet with f32 parameters and the run's
+    remat policy) -> (cfg, device, compat, model, logger)."""
+    logger = get_logger(name)
     args, cfg = load_config(argv, parser_hook=_add_device)
     try:
         device = require_device(args.device)
     except RuntimeError as exc:
-        raise SystemExit(f"train_unet: {exc}") from None
+        raise SystemExit(f"{name}: {exc}") from None
     check_supported(cfg)
     compat = compat_from_cfg(cfg)
     dtype = resolve_dtype(cfg.parallel.mixed_precision, device)
@@ -61,6 +63,12 @@ def build_trainer(argv=None) -> UNetTrainer:
         compat=compat, dtype=dtype, device=device, seed=cfg.train.seed, for_training=True,
         remat=cfg.parallel.remat_policy,
     )
+    return cfg, device, compat, model, logger
+
+
+def build_trainer(argv=None) -> UNetTrainer:
+    """Parse the flags and build the models, datasets and trainer."""
+    cfg, device, compat, model, logger = build_training_models(argv, "train_unet")
     tokenizer = model.text_encoder.tokenizer
     train_dataset = get_dataset(cfg.dataset, split="train", tokenizer=tokenizer, logger=logger)
     eval_dataset = get_dataset(cfg.dataset, split="validation", tokenizer=tokenizer, logger=logger)

@@ -106,7 +106,8 @@ def control_images(controlnet_checkpoint, control_image):
     return [p for p in control_image.split(",") if p] if "," in control_image else control_image
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Sample and write the image(s) -> the model they were sampled with."""
     args, cfg = parse_args(argv)
     try:
         require_device(args.device)
@@ -134,6 +135,7 @@ def main(argv=None) -> None:
         hires_strength=s.hires_strength, vae_tile=s.vae_tile,
     )
     logger.info(f"saved to {s.output_dir}/ in {time.perf_counter() - start:.2f} s")
+    return model
 
 
 if __name__ == "__main__":

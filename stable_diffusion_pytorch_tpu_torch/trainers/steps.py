@@ -1,5 +1,7 @@
-"""The train and eval steps of the UNet and of the KL-VAE (port of
-trainers/steps.py: ``make_unet_train_step``, ``make_vae_train_step``).
+"""The train and eval steps of the UNet, of the KL-VAE, of textual inversion and
+of ControlNet (port of trainers/steps.py: ``make_unet_train_step``,
+``make_vae_train_step``, ``make_textual_inversion_train_step``,
+``make_controlnet_train_step``).
 
 One UNet step: frozen VAE encode and posterior sample, q-sample, frozen CLIP encode
 with empty-prompt dropout, the UNet forward and backward, the f32 MSE to the
@@ -21,39 +23,94 @@ One VAE step: the whole VAE (encode, posterior sample, decode) forward and
 backward on trainable f32 parameters under the same autocast, the f32 MSE of
 the reconstruction plus ``kl_weight`` times the KL, then the same optimizer
 and EMA update. Its one draw, the posterior noise, is handed in as ``eps``.
+
+The personalization steps. DreamBooth is the UNet step with
+``prior_loss_weight`` (instance rows at the even indices, class rows at the
+odd ones: ``mean(instance MSE) + w * mean(class MSE)``) and, for LoRA, a
+``param_transform`` that forms the factored UNet weights from the frozen base
+and the trainable factors (``models/lora.py:lora_weights``), put in place of
+the UNet's parameters through the forward and the backward. Textual inversion
+trains only ``{"ti": [K, 768]}``, injected where the placeholder's sentinel
+ids stand in the prompt; its gradient reaches the vectors only through the
+frozen UNet's cross-attention keys and values. ControlNet trains the control
+branch, whose residuals the frozen UNet adds to its skips and bottleneck, and
+drops each row's prompt on its own. The trainable tensors of LoRA and textual
+inversion are not a module's parameters: :class:`Trainables` holds them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
+from stable_diffusion_pytorch_tpu_torch.models.lora import substituted
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_pred_noise_fn
 from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
 
 
-class TrainState:
-    """The trainable module's parameters (held by the module: the UNet, or
-    the VAE of the autoencoder trainer), the optimizer state, the micro-step
-    count and the optional EMA shadow parameters."""
+class Trainables:
+    """Named tensors that are not a module's parameters: LoRA factors
+    (``<module>.lora_a`` [in, r], ``<module>.lora_b`` [r, out]) or the
+    textual-inversion vectors (``{"ti": [K, 768]}``), each in the JAX
+    package's orientation. The optimizer updates their transposes (``leaves``,
+    f32, contiguous; a 1-D tensor is its own): dim 0 of a leaf is then the
+    JAX minor axis, as it is for the port's module weights, so the int8
+    optimizer's blocks along dim 0 (``ops/adam8bit_update.py``) are the JAX
+    package's."""
 
-    def __init__(self, module: torch.nn.Module, optimizer, with_ema: bool = False):
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self.names = list(tensors)
+        with torch.no_grad():
+            self.leaves = [t.detach().float().t().contiguous().requires_grad_(True) for t in tensors.values()]
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """The named tensors in their own orientation, differentiable views of the leaves."""
+        return {n: leaf.t() for n, leaf in zip(self.names, self.leaves)}
+
+
+class TrainState:
+    """The trainable parameters, the optimizer state, the micro-step count and
+    the optional EMA shadow parameters.
+
+    ``trainable`` is a module (its parameters that require grad: the UNet, the
+    VAE, a ControlNet) or a :class:`Trainables`. ``params`` are what the
+    optimizer updates (a :class:`Trainables`' transposed leaves);
+    ``state_dict`` keys them by name in the checkpoint layout, a
+    :class:`Trainables`' in their own orientation."""
+
+    def __init__(self, trainable: Union[torch.nn.Module, Trainables], optimizer, with_ema: bool = False):
         self.step = 0
-        self.module = module
-        self.names = [n for n, p in module.named_parameters() if p.requires_grad]
-        self.params: List[torch.Tensor] = [p for p in module.parameters() if p.requires_grad]
+        if isinstance(trainable, Trainables):
+            self.module, self.trainables = None, trainable
+            self.names, self.params = list(trainable.names), trainable.leaves
+        else:
+            self.module, self.trainables = trainable, None
+            self.names = [n for n, p in trainable.named_parameters() if p.requires_grad]
+            self.params = [p for p in trainable.parameters() if p.requires_grad]
         self.optimizer = optimizer
         with torch.no_grad():
             self.ema_params = [p.detach().clone() for p in self.params] if with_ema else None
 
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """The trainable tensors by name, as the model takes them."""
+        if self.trainables is not None:
+            return self.trainables.tensors()
+        return dict(zip(self.names, self.params))
+
+    def _saved(self, tensors: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.trainables is None:
+            return dict(zip(self.names, tensors))
+        return {n: t.detach().t().contiguous() for n, t in zip(self.names, tensors)}
+
     def state_dict(self) -> Dict:
         return {
             "step": self.step,
-            "params": dict(zip(self.names, self.params)),
+            "params": self._saved(self.params),
             "opt_state": self.optimizer.state_dict(),
-            "ema_params": None if self.ema_params is None else dict(zip(self.names, self.ema_params)),
+            "ema_params": None if self.ema_params is None else self._saved(self.ema_params),
         }
 
     @torch.no_grad()
@@ -61,12 +118,19 @@ class TrainState:
         if (state["ema_params"] is None) != (self.ema_params is None):
             raise ValueError("checkpoint EMA parameters do not match this run's --ema-decay")
         if sorted(state["params"]) != sorted(self.names):
-            raise ValueError("checkpoint parameters do not match this module's parameters")
+            raise ValueError("checkpoint parameters do not match this run's trainable tensors")
+
+        def put(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
+            src = src if self.trainables is None else src.t()
+            if src.shape != dst.shape:
+                raise ValueError(f"checkpoint tensor {name!r} is {tuple(src.shape)}, this run's {tuple(dst.shape)}")
+            dst.copy_(src)
+
         self.step = int(state["step"])
         for i, name in enumerate(self.names):
-            self.params[i].copy_(state["params"][name])
+            put(self.params[i], state["params"][name], name)
             if self.ema_params is not None:
-                self.ema_params[i].copy_(state["ema_params"][name])
+                put(self.ema_params[i], state["ema_params"][name], name)
         self.optimizer.load_state_dict(state["opt_state"])
 
 
@@ -105,22 +169,60 @@ def _ema_update(ema_params, params, decay: float) -> None:
     torch._foreach_add_(ema_params, params, alpha=1.0 - decay)
 
 
-def _apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float) -> torch.Tensor:
-    """Backward from ``loss``, hand the gradients to ``state.optimizer.step``,
-    move the EMA when that applied an update, count the micro step -> the
-    gradients' global norm."""
+def _backward(state: TrainState, loss: torch.Tensor) -> List[torch.Tensor]:
+    """Backward from ``loss`` -> the gradient of each of ``state.params``
+    (zeros where none reached it)."""
     for p in state.params:
         p.grad = None
     loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
-    applied, grad_norm = state.optimizer.step(grads)
     for p in state.params:
         p.grad = None
+    return grads
+
+
+def _apply(state: TrainState, grads: List[torch.Tensor], ema_decay: float) -> torch.Tensor:
+    """Hand ``grads`` to ``state.optimizer.step``, move the EMA when that
+    applied an update, count the micro step -> the gradients' global norm."""
+    applied, grad_norm = state.optimizer.step(grads)
     with torch.no_grad():
         # the EMA moves only when the optimizer applied an update
         _ema_update(state.ema_params, state.params, ema_decay if applied else 1.0)
     state.step += 1
     return grad_norm
+
+
+def _apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float) -> torch.Tensor:
+    return _apply(state, _backward(state, loss), ema_decay)
+
+
+def _mse(pred: torch.Tensor, target: torch.Tensor, prior_loss_weight: float = 0.0) -> torch.Tensor:
+    """The f32 MSE; with ``prior_loss_weight`` > 0 the per-example MSEs as
+    ``mean(even rows) + w * mean(odd rows)`` (instance rows, class rows)."""
+    sq = (pred.float() - target.float()) ** 2
+    if prior_loss_weight > 0.0:
+        per_example = sq.reshape(sq.shape[0], -1).mean(dim=1)
+        return per_example[0::2].mean() + prior_loss_weight * per_example[1::2].mean()
+    return sq.mean()
+
+
+def _latents_and_x_t(vae, sched, batch, draws):
+    """Frozen VAE encode, posterior sample and q-sample -> (x_t, t, noise)."""
+    latents = vae.encode(batch["pixel_values"]).sample(eps=draws["posterior_eps"])
+    noise = draws["noise"].to(latents.dtype)
+    t = draws["timesteps"]
+    return sched_lib.add_noise(sched, latents, noise, t), t, noise
+
+
+def _drop_prompts(input_ids: torch.Tensor, uncond_ids: torch.Tensor, drop_u: torch.Tensor, p: float):
+    """Rows (or, for a 0-d ``drop_u``, the whole batch) whose uniform is below
+    ``p`` take the empty prompt -> (token ids, the empty prompt's batch)."""
+    input_ids = input_ids.long()
+    uncond_batch = uncond_ids.long()[None].expand_as(input_ids)
+    drop = drop_u < p
+    if drop.dim():
+        drop = drop[:, None]
+    return torch.where(drop, uncond_batch, input_ids), uncond_batch
 
 
 def make_unet_train_step(
@@ -137,11 +239,22 @@ def make_unet_train_step(
     ema_decay: float = 0.0,
     noise_offset: float = 0.0,
     input_perturbation: float = 0.0,
+    param_transform: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
+    prior_loss_weight: float = 0.0,
 ) -> Tuple[Callable, Callable]:
     """Build (train_step, eval_step) for latent-diffusion training.
 
     train_step(state, batch, uncond_ids, draws) -> {"loss", "grad_norm"}
-    eval_step(batch, uncond_ids, draws) -> loss
+    eval_step(batch, uncond_ids, draws, params=None) -> loss
+
+    ``param_transform(trainable tensors) -> {UNet parameter name: tensor}``
+    (LoRA: ``models/lora.py:lora_weights`` over the frozen base): the step
+    runs the UNet with those tensors in place of its parameters, forward and
+    backward, so the gradient lands on ``state.tensors()``; ``eval_step``
+    then needs ``params``, the trainable tensors to evaluate.
+    ``prior_loss_weight`` > 0 is DreamBooth's prior preservation: the batch
+    interleaves instance rows (even) and class rows (odd), and the loss is
+    ``mean(instance MSE) + w * mean(class MSE)``, in evaluation too.
 
     ``train_step`` hands the gradients to ``state.optimizer.step`` and moves
     the EMA when that applied an update.
@@ -173,21 +286,118 @@ def make_unet_train_step(
         else:
             x_t = sched_lib.add_noise(sched, latents, noise, t)
 
-        input_ids = batch["input_ids"].long()
-        uncond_batch = uncond_ids.long()[None].expand_as(input_ids)
-        drop = draws["drop_u"] < cfg_dropout_prob
-        if drop.dim():
-            drop = drop[:, None]
-        input_ids = torch.where(drop, uncond_batch, input_ids)
+        input_ids, uncond_batch = _drop_prompts(batch["input_ids"], uncond_ids, draws["drop_u"], cfg_dropout_prob)
         context = text_encoder(input_ids)
         uncond_emb = text_encoder(uncond_batch) if train_with_cfg else None
         return x_t, t, context, uncond_emb, noise
+
+    def weights(params):
+        """The UNet's parameters, or the transform's tensors in their place."""
+        if param_transform is None:
+            return contextlib.nullcontext()
+        if params is None:
+            raise ValueError("a step with param_transform evaluates given params: the trainable tensors")
+        return substituted(unet, param_transform(params))
 
     def loss_fn(batch, uncond_ids, draws):
         x_t, t, ctx, uncond_emb, noise = prepare_inputs(batch, uncond_ids, draws)
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             pred = pred_noise(x_t, t, ctx, uncond_emb)
-        return torch.mean((pred.float() - noise.float()) ** 2)
+        return _mse(pred, noise, prior_loss_weight)
+
+    def train_step(state: TrainState, batch, uncond_ids, draws):
+        with weights(state.tensors()):
+            loss = loss_fn(batch, uncond_ids, draws)
+            grads = _backward(state, loss)
+        grad_norm = _apply(state, grads, ema_decay)
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    @torch.no_grad()
+    def eval_step(batch, uncond_ids, draws, params=None):
+        with weights(params):
+            return loss_fn(batch, uncond_ids, draws)
+
+    return train_step, eval_step
+
+
+def make_textual_inversion_train_step(
+    unet: torch.nn.Module,
+    text_encoder: torch.nn.Module,
+    vae,
+    schedule: DiffusionSchedule,
+    placeholder_ids: Sequence[int],
+    compute_dtype: torch.dtype = torch.float32,
+    ema_decay: float = 0.0,
+) -> Tuple[Callable, Callable]:
+    """Build (train_step, eval_step) for textual inversion (Gal et al. 2022).
+
+    train_step(state, batch, draws) -> {"loss", "grad_norm"}
+    eval_step(batch, draws, params) -> loss
+
+    Everything is frozen but the state's ``{"ti": [K, D]}``, which the text
+    encoder injects wherever ``placeholder_ids[j]`` stands in the prompt
+    (``CLIPTextTransformer.forward(token_overrides=)``); the UNet regresses
+    the noise under the run's autocast, the f32 MSE. No prompt dropout, so
+    of ``draws`` only the posterior noise, the noise and the timesteps are
+    used; ``params`` of ``eval_step`` is ``{"ti": ...}``."""
+    device = next(unet.parameters()).device
+    sched = sched_lib.schedule_on(schedule, device)
+    pids = torch.as_tensor(list(placeholder_ids), dtype=torch.long, device=device)
+    autocast = device.type == "cuda" and compute_dtype != torch.float32
+
+    def loss_fn(params, batch, draws):
+        with torch.no_grad():
+            x_t, t, noise = _latents_and_x_t(vae, sched, batch, draws)
+        context = text_encoder(batch["input_ids"].long(), token_overrides=(pids, params["ti"]))
+        with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
+            eps = unet(x_t, t, context)
+        return _mse(eps, noise)
+
+    def train_step(state: TrainState, batch, draws):
+        loss = loss_fn(state.tensors(), batch, draws)
+        grad_norm = _apply_gradients(state, loss, ema_decay)
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    @torch.no_grad()
+    def eval_step(batch, draws, params):
+        return loss_fn(params, batch, draws)
+
+    return train_step, eval_step
+
+
+def make_controlnet_train_step(
+    unet: torch.nn.Module,
+    controlnet: torch.nn.Module,
+    text_encoder: torch.nn.Module,
+    vae,
+    schedule: DiffusionSchedule,
+    compute_dtype: torch.dtype = torch.float32,
+    cfg_dropout_prob: float = 0.5,
+    ema_decay: float = 0.0,
+) -> Tuple[Callable, Callable]:
+    """Build (train_step, eval_step) for ControlNet training (Zhang et al. 2023).
+
+    train_step(state, batch, uncond_ids, draws) -> {"loss", "grad_norm"}
+    eval_step(batch, uncond_ids, draws) -> loss
+
+    The UNet, VAE and text encoder are frozen; the state's module is the
+    ControlNet, whose residuals of ``batch["hint"]`` [B, H, W, C] (pixel
+    space, [-1, 1]) the UNet adds to its skips and bottleneck, under the
+    run's autocast. Each row's prompt is dropped on its own when its uniform
+    is below ``cfg_dropout_prob``; the loss is the f32 MSE to the noise."""
+    device = next(unet.parameters()).device
+    sched = sched_lib.schedule_on(schedule, device)
+    autocast = device.type == "cuda" and compute_dtype != torch.float32
+
+    def loss_fn(batch, uncond_ids, draws):
+        with torch.no_grad():
+            x_t, t, noise = _latents_and_x_t(vae, sched, batch, draws)
+            input_ids, _ = _drop_prompts(batch["input_ids"], uncond_ids, draws["drop_u"], cfg_dropout_prob)
+            context = text_encoder(input_ids)
+        with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
+            control = controlnet(x_t, t, context, batch["hint"].to(x_t.dtype))
+            eps = unet(x_t, t, context, control=control)
+        return _mse(eps, noise)
 
     def train_step(state: TrainState, batch, uncond_ids, draws):
         loss = loss_fn(batch, uncond_ids, draws)

@@ -1,5 +1,7 @@
-"""Trainer core on one device, the UNet trainer and the autoencoder (KL-VAE)
-trainer (port of trainers/trainer.py).
+"""Trainer core on one device and its trainers: the UNet trainer (with LoRA
+and DreamBooth's prior preservation), the textual-inversion trainer, the
+ControlNet trainer and the autoencoder (KL-VAE) trainer (port of
+trainers/trainer.py).
 
 The loop keeps the JAX package's semantics: ``train_batch_size`` per device,
 ``global_step`` counting optimizer steps (``gradient_accumulation_steps``
@@ -18,26 +20,33 @@ package's ``fold_in(seed, m)`` keys do. The streams differ from JAX's.
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP item
 (:func:`check_supported`): multi-device and sharded training, chained
-dispatch, v-prediction, Min-SNR, gradient-noise-scale, LoRA, prior
-preservation, the latent cache, on-device preprocessing, image logging, wandb
-tracking, loss-spike detection and the unfused optax optimizer
-(``--no-fused-adamw``). Ported memory levers: ``--remat-policy`` (per-block
+dispatch, v-prediction, Min-SNR, gradient-noise-scale, the latent cache,
+on-device preprocessing, image logging (so no trainer here has
+``log_images``), wandb tracking, loss-spike detection and the unfused optax
+optimizer (``--no-fused-adamw``). Ported memory levers: ``--remat-policy`` (per-block
 remat, set on the UNet by ``build_models``), ``--use-8bit-adam`` (int8
 moments, K9), ``--adam-mu-dtype``/``--adam-nu-dtype``/``--accum-dtype`` bf16.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from stable_diffusion_pytorch_tpu_torch.models import lora as lora_lib
 from stable_diffusion_pytorch_tpu_torch.models.build import require_device, resolve_dtype
+from stable_diffusion_pytorch_tpu_torch.models.controlnet import init_controlnet_from_unet
 from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_optimizer, lr_at_step
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
+    Trainables,
     TrainState,
+    make_controlnet_train_step,
+    make_textual_inversion_train_step,
     make_unet_train_step,
     make_vae_train_step,
     sample_draws,
@@ -66,8 +75,6 @@ def _unsupported(cfg):
         (t.prediction_type != "epsilon", f"--prediction-type {t.prediction_type}", SLICE2_REST),
         ((t.snr_gamma or 0.0) > 0.0, "--snr-gamma", SLICE2_REST),
         (lg.log_grad_noise_scale, "--log-grad-noise-scale", SLICE2_REST),
-        ((t.lora_rank or 0) > 0, "--lora-rank", "ROADMAP queue 1, item 16"),
-        (t.with_prior_preservation, "--with-prior-preservation", "ROADMAP queue 1, item 16"),
         (lg.log_image, "--log-image", SLICE2_REST),
         (lg.with_tracking, "--with-tracking", SLICE2_REST),
         ((lg.spike_threshold or 0.0) > 0.0, "--spike-threshold", SLICE2_REST),
@@ -96,7 +103,7 @@ class Trainer:
     run_name = "trainer"
     eval_cadence_offset = 0  # evaluate when (global_step + offset) % log_interval == 0
 
-    def __init__(self, cfg, train_dataset, eval_dataset, logger=None, device="cuda"):
+    def __init__(self, cfg, train_dataset, eval_dataset, logger=None, device="cuda", train_collate=None):
         if train_dataset is None:
             raise ValueError("must specify a training dataset")
         if eval_dataset is None and cfg.train.log_interval > 0:
@@ -113,7 +120,7 @@ class Trainer:
         num_workers = int(getattr(cfg.dataset, "dataloader_num_workers", 0) or 0)
         self.train_loader = DataLoader(
             train_dataset, batch_size=self.global_train_batch, shuffle=True, seed=cfg.train.seed,
-            num_workers=num_workers,
+            collate=train_collate, num_workers=num_workers,
         )
         self.eval_loader = (
             DataLoader(eval_dataset, batch_size=self.global_eval_batch, shuffle=False,
@@ -135,6 +142,40 @@ class Trainer:
         raise NotImplementedError
 
     # shared machinery
+    def _optimizer(self, params):
+        return build_optimizer(
+            params, self.cfg.optim, max_train_steps=self.cfg.train.max_train_steps,
+            gradient_accumulation_steps=self.cfg.train.gradient_accumulation_steps,
+        )
+
+    def _check_unet(self, unet, trainable: bool) -> None:
+        """The UNet as ``build_models(..., for_training=True, remat=...)`` makes it:
+        f32 parameters (trainable, or frozen here), the run's remat policy."""
+        p = next(unet.parameters())
+        if p.dtype != torch.float32 or (trainable and not p.requires_grad):
+            raise ValueError("the UNet must hold f32 trainable parameters: build_models(..., for_training=True)")
+        if unet.remat != self.cfg.parallel.remat_policy:
+            raise ValueError(f"the UNet was built with remat {unet.remat!r}, the run asks for "
+                             f"--remat-policy {self.cfg.parallel.remat_policy}: build_models(..., remat=...)")
+        if not trainable:
+            unet.requires_grad_(False)
+
+    def _unet_draws(self, batch, generator, whole_batch_drop: bool = False):
+        """Every draw of one UNet-loss step for this batch (its rows, 2B under prior preservation)."""
+        bsz = batch["input_ids"].shape[0]
+        return sample_draws(
+            generator, bsz, self.model.latent_shape(bsz, batch["pixel_values"].shape[1]),
+            self.model.noise_scheduler.noise_steps, self.device,
+            noise_offset=float(self.cfg.train.noise_offset or 0.0),
+            input_perturbation=float(self.cfg.train.input_perturbation or 0.0),
+            whole_batch_drop=whole_batch_drop,
+        )
+
+    def _uncond_ids(self) -> torch.Tensor:
+        """The empty prompt's token ids on the device."""
+        return torch.as_tensor(np.asarray(self.model.text_encoder.tokenize([""]).input_ids[0]), dtype=torch.long,
+                               device=self.device)
+
     def _place_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         non_blocking = self.device.type == "cuda"
         out = {}
@@ -289,29 +330,45 @@ class Trainer:
 
 
 class UNetTrainer(Trainer):
-    """Latent-diffusion training: frozen CLIP and VAE, trainable UNet."""
+    """Latent-diffusion training: frozen CLIP and VAE, trainable UNet, or with
+    ``--lora-rank`` a frozen f32 UNet and trainable rank-r factors at the
+    ``--lora-targets`` weights, merged into the loss with scale ``alpha /
+    rank`` (``--lora-alpha``, the rank when unset). ``--with-prior-preservation``
+    (DreamBooth, with ``train_collate=dreambooth_collate``) adds
+    ``--prior-loss-weight`` times the class rows' MSE, in evaluation too."""
 
     run_name = "train_unet"
 
-    def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, compat=None, device="cuda"):
+    def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, compat=None, device="cuda",
+                 train_collate=None):
         self.model = model
         self.compat = compat
-        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device)
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, train_collate=train_collate)
 
     def _build(self) -> None:
         cfg, compat, model = self.cfg, self.compat, self.model
         unet = model.unet
-        if next(unet.parameters()).dtype != torch.float32 or not next(unet.parameters()).requires_grad:
-            raise ValueError("the UNet must hold f32 trainable parameters: build_models(..., for_training=True)")
-        if unet.remat != cfg.parallel.remat_policy:
-            raise ValueError(f"the UNet was built with remat {unet.remat!r}, the run asks for "
-                             f"--remat-policy {cfg.parallel.remat_policy}: build_models(..., remat=...)")
-        optimizer = build_optimizer(
-            [p for p in unet.parameters() if p.requires_grad], cfg.optim,
-            max_train_steps=cfg.train.max_train_steps,
-            gradient_accumulation_steps=cfg.train.gradient_accumulation_steps,
-        )
-        self.state = TrainState(unet, optimizer, with_ema=cfg.train.ema_decay > 0)
+        lora_rank = int(cfg.train.lora_rank or 0)
+        self._check_unet(unet, trainable=lora_rank == 0)
+        transform = None
+        if lora_rank > 0:
+            alpha = float(cfg.train.lora_alpha or 0.0) or lora_rank
+            scale = alpha / lora_rank
+            base = dict(unet.named_parameters())
+            trainable = Trainables(lora_lib.init_lora(
+                {n: p.detach() for n, p in base.items()}, lora_rank, cfg.train.lora_targets,
+                generator=torch.Generator(device=self.device).manual_seed(cfg.train.seed)))
+
+            def transform(params):
+                return lora_lib.lora_weights(base, params, scale)
+
+            self.logger.info(f"LoRA rank {lora_rank} (alpha {alpha:g}, targets {cfg.train.lora_targets}): "
+                             f"{lora_lib.lora_param_count(trainable.tensors()):,} trainable params; base UNet frozen")
+            params = trainable.leaves
+        else:
+            trainable = unet
+            params = [p for p in unet.parameters() if p.requires_grad]
+        self.state = TrainState(trainable, self._optimizer(params), with_ema=cfg.train.ema_decay > 0)
         self.whole_batch_drop = bool(compat and compat.reference_compat)
         self._train, self._eval = make_unet_train_step(
             unet, model.text_encoder.module, model.autoencoder, model.noise_scheduler,
@@ -324,26 +381,98 @@ class UNetTrainer(Trainer):
             ema_decay=cfg.train.ema_decay,
             noise_offset=float(cfg.train.noise_offset or 0.0),
             input_perturbation=float(cfg.train.input_perturbation or 0.0),
+            param_transform=transform,
+            prior_loss_weight=float(cfg.train.prior_loss_weight or 0.0) if cfg.train.with_prior_preservation else 0.0,
         )
-        self.uncond_ids = torch.as_tensor(
-            np.asarray(model.text_encoder.tokenize([""]).input_ids[0]), dtype=torch.long, device=self.device
-        )
+        self.uncond_ids = self._uncond_ids()
 
     def _draws(self, batch, generator):
-        bsz = batch["input_ids"].shape[0]
-        return sample_draws(
-            generator, bsz, self.model.latent_shape(bsz, batch["pixel_values"].shape[1]),
-            self.model.noise_scheduler.noise_steps, self.device,
-            noise_offset=float(self.cfg.train.noise_offset or 0.0),
-            input_perturbation=float(self.cfg.train.input_perturbation or 0.0),
-            whole_batch_drop=self.whole_batch_drop,
-        )
+        return self._unet_draws(batch, generator, self.whole_batch_drop)
 
     def _train_step(self, batch, generator):
         return self._train(self.state, batch, self.uncond_ids, self._draws(batch, generator))
 
     def _eval_step(self, batch, generator):
-        return self._eval(batch, self.uncond_ids, self._draws(batch, generator))
+        return self._eval(batch, self.uncond_ids, self._draws(batch, generator), params=self.state.tensors())
+
+
+class TextualInversionTrainer(Trainer):
+    """Textual inversion (Gal et al. 2022): everything frozen but K embedding
+    vectors for a placeholder token. ``model.text_encoder.add_textual_inversion``
+    must have registered the placeholder and its initial vectors first (the
+    datasets tokenize through it). At build the trainer writes the
+    ``textual_inversion.json`` sidecar (placeholder, vector count) into the
+    checkpoint directory, which sampling reads (``CLIPModel.load_textual_inversion``)."""
+
+    run_name = "train_textual_inversion"
+
+    def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, device="cuda"):
+        self.model = model
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device)
+
+    def _build(self) -> None:
+        cfg, model = self.cfg, self.model
+        te = model.text_encoder
+        if te._ti is None:
+            raise ValueError("call model.text_encoder.add_textual_inversion(...) before building the "
+                             "TextualInversionTrainer")
+        self._check_unet(model.unet, trainable=False)
+        self.placeholder, pids, vectors = te._ti
+        trainable = Trainables({"ti": torch.as_tensor(vectors, dtype=torch.float32, device=self.device)})
+        self.state = TrainState(trainable, self._optimizer(trainable.leaves), with_ema=cfg.train.ema_decay > 0)
+        self._train, self._eval = make_textual_inversion_train_step(
+            model.unet, te.module, model.autoencoder, model.noise_scheduler, [int(i) for i in pids],
+            compute_dtype=self.dtype, ema_decay=cfg.train.ema_decay,
+        )
+        os.makedirs(cfg.checkpoint.ckpt_dir, exist_ok=True)
+        with open(os.path.join(cfg.checkpoint.ckpt_dir, "textual_inversion.json"), "w") as f:
+            json.dump({"placeholder_token": self.placeholder, "num_vectors": int(len(pids))}, f)
+
+    def _train_step(self, batch, generator):
+        return self._train(self.state, batch, self._unet_draws(batch, generator))
+
+    def _eval_step(self, batch, generator):
+        return self._eval(batch, self._unet_draws(batch, generator), self.state.tensors())
+
+
+class ControlNetTrainer(Trainer):
+    """ControlNet training (Zhang et al. 2023): frozen UNet, VAE and CLIP; the
+    control branch ``controlnet`` (f32 trainable parameters, zero convs at
+    zero: ``models/build.py:build_controlnet(..., for_training=True)``) starts
+    as a copy of the UNet's encoder. Each row's prompt drops with
+    ``--cfg-dropout-prob`` (default 0.1, the field's; the paper's 0.5 must be
+    asked for)."""
+
+    run_name = "train_controlnet"
+
+    def __init__(self, model, controlnet, cfg, train_dataset, eval_dataset, logger=None, device="cuda",
+                 train_collate=None):
+        self.model = model
+        self.controlnet = controlnet
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, train_collate=train_collate)
+
+    def _build(self) -> None:
+        cfg, model, net = self.cfg, self.model, self.controlnet
+        self._check_unet(model.unet, trainable=False)
+        p = next(net.parameters())
+        if p.dtype != torch.float32 or not p.requires_grad:
+            raise ValueError("the ControlNet must hold f32 trainable parameters: "
+                             "build_controlnet(..., for_training=True)")
+        init_controlnet_from_unet(model.unet, net)
+        self.state = TrainState(net, self._optimizer([q for q in net.parameters() if q.requires_grad]),
+                                with_ema=cfg.train.ema_decay > 0)
+        self._train, self._eval = make_controlnet_train_step(
+            model.unet, net, model.text_encoder.module, model.autoencoder, model.noise_scheduler,
+            compute_dtype=self.dtype, cfg_dropout_prob=float(getattr(cfg.train, "cfg_dropout_prob", 0.5)),
+            ema_decay=cfg.train.ema_decay,
+        )
+        self.uncond_ids = self._uncond_ids()
+
+    def _train_step(self, batch, generator):
+        return self._train(self.state, batch, self.uncond_ids, self._unet_draws(batch, generator))
+
+    def _eval_step(self, batch, generator):
+        return self._eval(batch, self.uncond_ids, self._unet_draws(batch, generator))
 
 
 class AutoencoderTrainer(Trainer):
@@ -368,12 +497,8 @@ class AutoencoderTrainer(Trainer):
         cfg, vae = self.cfg, self.vae
         if next(vae.parameters()).dtype != torch.float32 or not next(vae.parameters()).requires_grad:
             raise ValueError("the VAE must hold f32 trainable parameters: build_autoencoder(..., device)")
-        optimizer = build_optimizer(
-            [p for p in vae.parameters() if p.requires_grad], cfg.optim,
-            max_train_steps=cfg.train.max_train_steps,
-            gradient_accumulation_steps=cfg.train.gradient_accumulation_steps,
-        )
-        self.state = TrainState(vae, optimizer, with_ema=cfg.train.ema_decay > 0)
+        self.state = TrainState(vae, self._optimizer([p for p in vae.parameters() if p.requires_grad]),
+                                with_ema=cfg.train.ema_decay > 0)
         self._train, self._eval = make_vae_train_step(
             vae, compute_dtype=self.dtype, kl_weight=float(cfg.model.autoencoder.kl_weight),
             kl_per_example0=bool(self.compat and self.compat.kl_per_example0), ema_decay=cfg.train.ema_decay,

@@ -7,7 +7,11 @@ to the JAX package's), the synthetic branch of ``get_dataset`` and the
 deterministic ``DataLoader`` with its optional prefetch thread. Batches are
 numpy, NHWC float32 pixels in [-1, 1]; the trainer moves them to the device.
 The Hugging Face ``datasets`` branch, the latent cache and on-device
-preprocessing are not ported yet and raise.
+preprocessing are not ported yet and raise. The personalization datasets:
+``TextualInversionDataset`` (template captions with the placeholder),
+``FolderPromptDataset`` and ``DreamBoothDataset`` with ``dreambooth_collate``
+(instance and class rows interleaved), and ``ControlNetDataset`` with its
+default hint, ``edge_hint``; each row equals the JAX package's.
 
 Image output without PIL: ``detransform`` ([-1, 1] -> uint8) and a stdlib PNG
 writer (``zlib`` and ``struct``; 8-bit grayscale, RGB or RGBA, filter type 0
@@ -172,11 +176,15 @@ def tokenize_captions(
 
 
 def collate_fn(examples: Sequence[dict]) -> dict:
-    """Stack rows into {"pixel_values": [B,H,W,3] f32, "input_ids": [B,77] int32}."""
-    return {
+    """Stack rows into {"pixel_values": [B,H,W,3] f32, "input_ids": [B,77] int32},
+    and ``hint`` [B,H,W,C] f32 when the rows carry one (ControlNet)."""
+    out = {
         "pixel_values": np.stack([e["pixel_values"] for e in examples]).astype(np.float32),
         "input_ids": np.stack([e["input_ids"] for e in examples]).astype(np.int32),
     }
+    if "hint" in examples[0]:
+        out["hint"] = np.stack([e["hint"] for e in examples]).astype(np.float32)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -254,6 +262,171 @@ class SyntheticTextImageDataset:
             "input_ids": tokenize_captions([caption], self.tokenizer)[0],
             "text": caption,
         }
+
+
+# --------------------------------------------------------------------------- #
+# personalization datasets: textual inversion, DreamBooth, ControlNet
+# --------------------------------------------------------------------------- #
+
+# the textual-inversion paper's prompt templates (Gal et al. 2022,
+# "imagenet_templates_small"), the JAX package's list
+TI_TEMPLATES = [
+    "a photo of a {}",
+    "a rendering of a {}",
+    "the photo of a {}",
+    "a photo of a clean {}",
+    "a photo of a dirty {}",
+    "a dark photo of the {}",
+    "a photo of my {}",
+    "a photo of the cool {}",
+    "a close-up photo of a {}",
+    "a bright photo of the {}",
+    "a cropped photo of a {}",
+    "a photo of the {}",
+    "a good photo of the {}",
+    "a photo of one {}",
+    "a rendition of the {}",
+    "a photo of a nice {}",
+    "a photo of a small {}",
+]
+
+
+class TextualInversionDataset:
+    """Any image dataset's pixels with every caption replaced by a template
+    holding the placeholder ("a photo of a <concept>"), tokenized by
+    ``tokenize`` (the textual-inversion-aware ``CLIPModel.tokenize``, which
+    expands the placeholder into its sentinel ids). The template is drawn
+    per row and epoch from ``SeedSequence([epoch, idx, 7])``, as in the JAX
+    package."""
+
+    def __init__(self, base, placeholder_token: str, tokenize):
+        self.base = base
+        self.placeholder_token = placeholder_token
+        self.tokenize = tokenize
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        if hasattr(self.base, "set_epoch"):
+            self.base.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> dict:
+        row = dict(self.base[int(idx)])
+        rng = np.random.default_rng(np.random.SeedSequence([self.epoch, idx, 7]))
+        text = TI_TEMPLATES[int(rng.integers(len(TI_TEMPLATES)))].format(self.placeholder_token)
+        row["text"] = text
+        row["input_ids"] = np.asarray(self.tokenize([text]).input_ids, dtype=np.int32)[0]
+        return row
+
+
+class FolderPromptDataset:
+    """The images of a folder, every row captioned with one prompt (the
+    DreamBooth instance and class sets). ``read(path)`` -> HWC uint8 RGB
+    pixels; :func:`read_image` (Pillow) unless given another reader."""
+
+    EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+
+    def __init__(self, folder: str, prompt: str, cfg: DatasetConfig, tokenizer, read=None):
+        self.folder = folder
+        self.prompt = prompt
+        self.cfg = cfg
+        self.read = read or read_image
+        self.paths = sorted(os.path.join(folder, f) for f in os.listdir(folder) if f.lower().endswith(self.EXTS))
+        if not self.paths:
+            raise ValueError(f"no images found under {folder!r}")
+        self.input_ids = tokenize_captions([prompt], tokenizer)[0]
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, idx: int) -> dict:
+        pixel_values = transform_image(
+            self.read(self.paths[int(idx)]),
+            self.cfg.resolution,
+            center_crop=self.cfg.center_crop,
+            random_flip=self.cfg.random_flip,
+            rng=np.random.default_rng(np.random.SeedSequence([self.epoch, idx])),
+        )
+        return {"pixel_values": pixel_values, "input_ids": self.input_ids, "text": self.prompt}
+
+
+class DreamBoothDataset:
+    """Each instance row paired with a class (prior) row; the pairing shifts
+    every epoch by a draw from ``SeedSequence([epoch])``. :func:`dreambooth_collate`
+    interleaves the pairs."""
+
+    def __init__(self, instance_ds, class_ds):
+        self.instance_ds = instance_ds
+        self.class_ds = class_ds
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        for ds in (self.instance_ds, self.class_ds):
+            if hasattr(ds, "set_epoch"):
+                ds.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return max(len(self.instance_ds), len(self.class_ds))
+
+    def __getitem__(self, idx: int) -> dict:
+        inst = self.instance_ds[int(idx) % len(self.instance_ds)]
+        shift = int(np.random.default_rng(np.random.SeedSequence([self.epoch])).integers(1 << 30))
+        cls = self.class_ds[(int(idx) + shift) % len(self.class_ds)]
+        return {"pixel_values": inst["pixel_values"], "input_ids": inst["input_ids"],
+                "class_pixel_values": cls["pixel_values"], "class_input_ids": cls["input_ids"]}
+
+
+def dreambooth_collate(examples: Sequence[dict]) -> dict:
+    """B pairs -> one batch of 2B rows: instance rows at the even indices,
+    class rows at the odd ones (the prior-preservation loss splits them so)."""
+    pixels = np.empty((2 * len(examples),) + np.asarray(examples[0]["pixel_values"]).shape, np.float32)
+    ids = np.empty((2 * len(examples),) + np.asarray(examples[0]["input_ids"]).shape, np.int32)
+    for i, e in enumerate(examples):
+        pixels[2 * i], pixels[2 * i + 1] = e["pixel_values"], e["class_pixel_values"]
+        ids[2 * i], ids[2 * i + 1] = e["input_ids"], e["class_input_ids"]
+    return {"pixel_values": pixels, "input_ids": ids}
+
+
+def edge_hint(pixel_values: np.ndarray, threshold: float = 0.15) -> np.ndarray:
+    """The default ControlNet hint: the Sobel-style edge map of a [-1, 1] HWC
+    image (central differences of the channel mean, magnitude above
+    ``threshold``), as a [-1, 1] 3-channel image."""
+    gray = np.asarray(pixel_values, np.float32).mean(axis=-1)
+    gy = np.zeros_like(gray)
+    gx = np.zeros_like(gray)
+    gy[1:-1, :] = gray[2:, :] - gray[:-2, :]
+    gx[:, 1:-1] = gray[:, 2:] - gray[:, :-2]
+    edges = (np.sqrt(gx * gx + gy * gy) > threshold).astype(np.float32)
+    return np.repeat((edges * 2.0 - 1.0)[..., None], 3, axis=-1)
+
+
+class ControlNetDataset:
+    """An image-text dataset's rows with a ``hint``: ``hint_fn(pixel_values)``
+    -> [H, W, C] in [-1, 1] (default :func:`edge_hint`)."""
+
+    def __init__(self, base, hint_fn=None):
+        self.base = base
+        self.hint_fn = hint_fn or edge_hint
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.base, "set_epoch"):
+            self.base.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> dict:
+        row = dict(self.base[int(idx)])
+        row["hint"] = self.hint_fn(row["pixel_values"])
+        return row
 
 
 def get_dataset(args: DatasetConfig, split: str = "train", tokenizer=None, logger=None):

@@ -23,6 +23,13 @@ torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+def jitted_apply(jmod, params, *args):
+    """``jmod.apply(params, *args)`` compiled once (the inputs held as
+    constants, Python flags included): one compile costs less than eager
+    dispatch's first call."""
+    return jax.jit(lambda p: jmod.apply(p, *args))(params)
+
+
 def random_params(module, seed, *args):
     """Seeded random parameters of a flax module (shapes from ``eval_shape``,
     no init run): unit-centred norm scales, small biases, LeCun-scaled kernels,
@@ -75,7 +82,7 @@ def test_resblock(c1, c2, out_ch):
     jmod = jb.ResBlock(out_channels=out_ch, time_emb_dim=t_dim, groups=groups)
     jargs = (jnp.asarray(x), jnp.asarray(t), True, None if s is None else jnp.asarray(s))
     params = random_params(jmod, 3, *jargs)
-    ref = jmod.apply(params, *jargs)
+    ref = jitted_apply(jmod, params, *jargs)
     port = load(tb.ResBlock(c1 + c2, out_ch, t_dim, groups), convert.resblock, params["params"])
     out = port(torch.from_numpy(x), torch.from_numpy(t), None if s is None else torch.from_numpy(s))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
@@ -88,7 +95,7 @@ def test_cross_attention(cross):
     jmod = jb.CrossAttention(query_dim=32, context_dim=24 if cross else None, n_heads=4, d_head=10)
     jargs = (jnp.asarray(x), None if ctx is None else jnp.asarray(ctx))
     params = random_params(jmod, 6, *jargs)
-    ref = jmod.apply(params, *jargs)
+    ref = jitted_apply(jmod, params, *jargs)
     port = load(tb.CrossAttention(32, 24 if cross else None, 4, 10), convert.cross_attention, params["params"])
     out = port(torch.from_numpy(x), None if ctx is None else torch.from_numpy(ctx))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
@@ -99,7 +106,7 @@ def test_spatial_transformer():
     jmod = jb.SpatialTransformer(in_channels=32, n_heads=4, d_head=8, n_layers=2, context_dim=24, groups=8)
     jargs = (jnp.asarray(x), jnp.asarray(ctx))
     params = random_params(jmod, 9, *jargs)
-    ref = jmod.apply(params, *jargs)
+    ref = jitted_apply(jmod, params, *jargs)
     port = load(
         tb.SpatialTransformer(32, 4, 8, n_layers=2, context_dim=24, groups=8),
         convert.spatial_transformer, params["params"], 2,
@@ -113,7 +120,7 @@ def test_resampling(down):
     x = rand(10, 2, 6, 4, 8)
     jmod = jb.DownSample(out_channels=12) if down else jb.UpSample(out_channels=12)
     params = random_params(jmod, 11, jnp.asarray(x))
-    ref = jmod.apply(params, jnp.asarray(x))
+    ref = jitted_apply(jmod, params, jnp.asarray(x))
     cls = tb.DownSample if down else tb.UpSample
     sd = {}
     convert._conv(params["params"]["conv"], sd, "conv")

@@ -135,9 +135,13 @@ def test_unet_deep_cache_calls_match_jax(models):
     jax_model, port_model = models
     x, t, ctx = _inputs(3)
     apply = jax_model.unet.apply  # jitted: one compile costs less than eager dispatch's first call
-    ref, ref_deep = jax.jit(lambda *a: apply(*a, return_deep=True))(jax_model.unet_params, x, t, ctx)
     x2 = x + 0.1  # a later step: only the level-0 blocks run, on the cached trunk
-    ref2 = jax.jit(lambda p, *a, d: apply(p, *a, deep_cache=d))(jax_model.unet_params, x2, t - 5, ctx, d=ref_deep)
+
+    def both(p, x, t, ctx, x2, t2):
+        out, deep = apply(p, x, t, ctx, return_deep=True)
+        return out, deep, apply(p, x2, t2, ctx, deep_cache=deep)
+
+    ref, ref_deep, ref2 = jax.jit(both)(jax_model.unet_params, x, t, ctx, x2, t - 5)
     with torch.no_grad():
         out, deep = port_model.unet(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx), return_deep=True)
         out2 = port_model.unet(torch.from_numpy(x2), torch.from_numpy(t - 5), torch.from_numpy(ctx), deep_cache=deep)
@@ -156,9 +160,11 @@ def test_controlnet_and_controlled_unet_match_jax(models, nets):
     x, t, ctx = _inputs(4)
     j_mod, params, net = nets[3][0]
     hint = _hint(5, 3)
-    ref_skips, ref_mid = jax.jit(j_mod.apply)(params, x, t, ctx, hint)
-    ref = jax.jit(lambda p, *a, c: jax_model.unet.apply(p, *a, control=c))(jax_model.unet_params, x, t, ctx,
-                                                                            c=(ref_skips, ref_mid))
+    def both(cn_params, unet_params, x, t, ctx, hint):
+        control = j_mod.apply(cn_params, x, t, ctx, hint)
+        return control, jax_model.unet.apply(unet_params, x, t, ctx, control=control)
+
+    (ref_skips, ref_mid), ref = jax.jit(both)(params, jax_model.unet_params, x, t, ctx, hint)
     with torch.no_grad():
         skips, mid = net(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx), torch.from_numpy(hint))
         out = port_model.unet(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx), control=(skips, mid))

@@ -215,7 +215,8 @@ def test_unet_matches_jax(quirks):
     cfg, model, params, compat = _jax_unet(quirks)
     x, ctx = rand(3, 2, 8, 8, 4), rand(4, 2, 77, 24)
     t = np.array([1, 3], np.int32) if compat else np.array([981, 3], np.int32)
-    ref = model.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx))
+    # jitted: one compile costs less than eager dispatch's first call
+    ref = jax.jit(model.apply)(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx))
     port = port_unet_from(cfg, params, compat)
     with torch.no_grad():
         out = port(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx))
@@ -232,8 +233,9 @@ def test_autoencoder_encode_decode_match_jax():
     cfg, model, params = _jax_vae()
     port = port_vae_from(cfg, params)
     img, lat = rand(5, 2, 16, 16, 3), rand(6, 2, 8, 8, 4)
-    post = model.apply(params, jnp.asarray(img), method=model.encode).latent_dist
-    dec = model.apply(params, jnp.asarray(lat), method=model.decode)
+    post, dec = jax.jit(lambda p, i, z: (model.apply(p, i, method=model.encode).latent_dist,
+                                         model.apply(p, z, method=model.decode)))(params, jnp.asarray(img),
+                                                                                  jnp.asarray(lat))
     with torch.no_grad():
         port_post = port.encode(torch.from_numpy(img))
         out = port.decode(torch.from_numpy(lat))

@@ -10,6 +10,8 @@ embeddings (f32 through the text tower) and on the decoder run on one latent;
 decoder's gain amplifies that latent gap.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -48,10 +50,17 @@ CLIP_KW = dict(d_model=32, n_layers=2, n_heads=4, intermediate=64, max_positions
 PROMPTS = ["a photo of a cat", "an astronaut riding a horse"]
 
 
+@functools.lru_cache(maxsize=None)
+def _param_shapes(module, arg_shapes):
+    return jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                          *(jax.ShapeDtypeStruct(shape, dtype) for shape, dtype in arg_shapes))
+
+
 def random_params(module, seed, *args):
-    """Seeded random parameters of a flax module (shapes from ``eval_shape``):
-    unit-centred norm scales, small biases, LeCun-scaled kernels."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+    """Seeded random parameters of a flax module (shapes from ``eval_shape``,
+    traced once per module and input shapes): unit-centred norm scales, small
+    biases, LeCun-scaled kernels."""
+    shapes = _param_shapes(module, tuple((tuple(a.shape), a.dtype) for a in args))
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):

@@ -1,6 +1,6 @@
 """The port's training entry point and its plumbing, on the CPU.
 
-- The training CLI with ``--device cpu`` and jax blocked: 3 optimizer steps
+- The training CLI with ``--device cpu`` and jax blocked, in one process: 3 optimizer steps
   (gradient accumulation 2, EMA on) save ``checkpoint-{1,2,3}``; a second run
   resumed from ``latest`` with only ``checkpoint-2`` present ends in exactly the
   unbroken run's state (same draws, same batches: bitwise equal on the CPU).
@@ -17,7 +17,6 @@ import ast
 import dataclasses
 import os
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -56,35 +55,42 @@ TRAIN = (
     "--dataloader-num-workers 0"
 ).split() + TINY_MODEL
 
+# one process, jax blocked: the unbroken run in ./unbroken, then a run in
+# ./resumed that holds only its checkpoint-2 and resumes `latest`
 _NO_JAX = """
-import sys
+import os, shutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
 import torch
 torch.set_num_threads(2)
 from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import main
-main(sys.argv[1:])
+argv = sys.argv[1:] + ["--ckpt-dir", "ckpt"]
+os.makedirs("unbroken")
+os.chdir("unbroken")
+main(argv)
+os.makedirs("../resumed/ckpt")
+shutil.copytree("ckpt/checkpoint-2", "../resumed/ckpt/checkpoint-2")
+os.chdir("../resumed")
+print("RESUMED RUN", file=sys.stderr, flush=True)
+main(argv + ["--resume-from-checkpoint", "latest"])
 assert not any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules if sys.modules[m] is not None)
 """
 
 
-def _run_cli(cwd, *argv):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(unbroken dir, resumed dir, the resumed run's log)."""
+    cwd = tmp_path_factory.mktemp("train_cli")
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *TRAIN, *argv], capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *TRAIN], capture_output=True, text=True,
                           timeout=300, env=env, cwd=cwd)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return proc
+    return cwd / "unbroken", cwd / "resumed", proc.stderr.split("RESUMED RUN")[-1]
 
 
-@pytest.fixture(scope="module")
-def unbroken(tmp_path_factory):
-    cwd = tmp_path_factory.mktemp("unbroken")
-    _run_cli(cwd, "--ckpt-dir", "ckpt")
-    return cwd
-
-
-def test_train_cli_runs_without_jax_and_checkpoints(unbroken):
+def test_train_cli_runs_without_jax_and_checkpoints(runs):
+    unbroken = runs[0]
     assert sorted(os.listdir(unbroken / "ckpt")) == ["checkpoint-1", "checkpoint-2", "checkpoint-3"]
     state = load_checkpoint(str(unbroken / "ckpt" / "checkpoint-2"))
     assert state["step"] == 4 and state["opt_state"]["count"] == 2  # micro steps, optimizer updates
@@ -92,13 +98,11 @@ def test_train_cli_runs_without_jax_and_checkpoints(unbroken):
     assert [l for l in lines if "eval_loss" in l] and len([l for l in lines if "train_loss" in l]) == 3
 
 
-def test_train_cli_resumes_latest_to_the_unbroken_state(unbroken, tmp_path):
-    os.makedirs(tmp_path / "ckpt")
-    shutil.copytree(unbroken / "ckpt" / "checkpoint-2", tmp_path / "ckpt" / "checkpoint-2")
-    proc = _run_cli(tmp_path, "--ckpt-dir", "ckpt", "--resume-from-checkpoint", "latest")
-    assert "Resuming from checkpoint at global step 2" in proc.stderr
+def test_train_cli_resumes_latest_to_the_unbroken_state(runs):
+    unbroken, resumed, resumed_log = runs
+    assert "Resuming from checkpoint at global step 2" in resumed_log
     want = load_checkpoint(str(unbroken / "ckpt" / "checkpoint-3"))
-    got = load_checkpoint(str(tmp_path / "ckpt" / "checkpoint-3"))
+    got = load_checkpoint(str(resumed / "ckpt" / "checkpoint-3"))
     assert got["step"] == want["step"] == 6
     for part in ("params", "ema_params"):
         for name, t in want[part].items():
@@ -212,9 +216,9 @@ def test_entry_points_run_on_cuda_unless_given_the_cpu(monkeypatch, capsys):
 @pytest.mark.parametrize(
     "flags",
     [["--no-fused-adamw"], ["--snr-gamma", "5"], ["--prediction-type", "v_prediction"],
-     ["--lora-rank", "4"], ["--steps-per-dispatch", "2"], ["--num-devices", "4"], ["--latent-cache", "c.npz"],
+     ["--log-grad-noise-scale"], ["--steps-per-dispatch", "2"], ["--num-devices", "4"], ["--latent-cache", "c.npz"],
      ["--dataset", "poloclub/diffusiondb"]],
-    ids=["no_fused_adamw", "snr_gamma", "v_prediction", "lora", "steps_per_dispatch", "multi_device",
+    ids=["no_fused_adamw", "snr_gamma", "v_prediction", "grad_noise_scale", "steps_per_dispatch", "multi_device",
          "latent_cache", "hf_dataset"],
 )
 def test_unported_training_options_raise(tmp_path, monkeypatch, flags):

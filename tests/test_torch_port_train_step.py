@@ -5,7 +5,14 @@ trees converted by ``utils/convert.py``), the same batch and the same random
 draws: JAX's step key is split seven ways inside the step, and the test draws
 the posterior noise, the noise, the timesteps, the dropout uniforms, the
 offset noise and the input perturbation from those keys and hands them to the
-port. Tolerances, f32 on both sides with sums in another order:
+port. One step configuration serves both step tests: the reference-compat
+switches (the CFG-combined doubled forward, the reference's CFG formula,
+whole-batch prompt dropout), offset noise, input perturbation and an EMA of
+0.9 (the per-example dropout of the default step is held in
+``test_torch_port_personalize.py``). One jitted JAX train step, whose
+optimizer keeps each step's gradients in its state, runs two steps once for
+the module; the tests read its losses, gradients, parameters and EMA.
+Tolerances, f32 on both sides with sums in another order:
 
 - loss: 1e-5 relative;
 - gradients: per leaf, max-abs error within 1e-4 of the leaf's largest
@@ -62,17 +69,8 @@ UNET_KW = dict(num_res_blocks=1, n_heads=2, attention_resolutions=[2], channels_
 VAE_KW = dict(in_channels=3, latent_channels=4, out_channels=3, autoencoder_channels_list=[8, 16],
               autoencoder_num_res_blocks=1, groups=4, kl_weight=1.0)
 CLIP_KW = dict(d_model=16, n_layers=1, n_heads=2, intermediate=32, max_positions=77)
-# the gradient check takes the reference-compat switches (the CFG-combined
-# doubled forward, the reference's CFG formula, whole-batch prompt dropout) and
-# offset noise and input perturbation; the two-step check the default step
-# (per-example dropout) with EMA
-STEP_KW = {
-    "compat_offset_perturbation": dict(
-        cfg_dropout_prob=0.5, train_with_cfg=True, reference_cfg_formula=True, whole_batch_cfg_dropout=True,
-        noise_offset=0.1, input_perturbation=0.1,
-    ),
-    "default_ema": dict(cfg_dropout_prob=0.5, ema_decay=0.9),
-}
+STEP_KW = dict(cfg_dropout_prob=0.5, train_with_cfg=True, reference_cfg_formula=True, whole_batch_cfg_dropout=True,
+               noise_offset=0.1, input_perturbation=0.1, ema_decay=0.9)
 OPTIM = dict(learning_rate=1e-4, adam_weight_decay=0.1, max_grad_norm=0.1, scheduler_type="linear",
              lr_warmup_steps=0)
 
@@ -95,7 +93,8 @@ def random_params(module, seed, *args):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_setup(variant):
+def jax_models():
+    """The tiny JAX UNet, VAE and CLIP and their seeded random weights, shared by every variant."""
     unet_cfg, vae_cfg = jax_unet.UnetConfig(**UNET_KW), jax_vae.AutoencoderConfig(**VAE_KW)
     j_unet = jax_unet.UNetModel.from_config(4, 4, unet_cfg)
     j_vae = jax_vae.AutoEncoderKL.from_config(vae_cfg)
@@ -103,14 +102,48 @@ def jax_setup(variant):
     u = random_params(j_unet, 0, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 16)))
     v = random_params(j_vae, 1, jnp.zeros((1, 16, 16, 3)))
     c = random_params(j_clip, 2, jnp.zeros((1, 77), jnp.int32))
+    return unet_cfg, vae_cfg, (j_unet, j_vae, j_clip), (u, v, c)
+
+
+class _KeepGrads:
+    """A JAX fused transform: ``inner``'s update, with each step's gradients
+    kept in the state, so that one jitted train step hands them out."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def apply(self, grads, state, params):
+        new_params, inner = self.inner.apply(grads, state[0], params)
+        return new_params, (inner, grads)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run():
+    """Two JAX train steps on batches 10 and 11 with keys 20 and 21 -> (the
+    batches, the keys, the state after each step, the metrics of each step)."""
+    unet_cfg, vae_cfg, (j_unet, j_vae, j_clip), (u, v, c) = jax_models()
     sched = jax_schedule.make_schedule(jax_schedule.DDPMConfig())
-    tx = jax_optim.build_optimizer(jax_args.OptimConfig(**OPTIM), max_train_steps=10)
-    train_step, eval_step = jax_steps.make_unet_train_step(j_unet, j_clip, j_vae, sched, tx, **STEP_KW[variant])
-    return unet_cfg, vae_cfg, (j_unet, j_vae, j_clip), (u, v, c), tx, train_step, eval_step
+    tx = _KeepGrads(jax_optim.build_optimizer(jax_args.OptimConfig(**OPTIM), max_train_steps=10))
+    train_step, _ = jax_steps.make_unet_train_step(j_unet, j_clip, j_vae, sched, tx, **STEP_KW)
+    train_step = jax.jit(train_step)
+    jstate = jax_steps.TrainState.create(u, tx, with_ema=True)
+    batches, keys, states, metrics = [], [], [], []
+    for i in range(2):
+        batch, uncond = batch_and_uncond(10 + i)
+        key = jax.random.PRNGKey(20 + i)
+        jstate, m = train_step(jstate, c, v, {k: jnp.asarray(a) for k, a in batch.items()}, jnp.asarray(uncond), key)
+        batches.append((batch, uncond))
+        keys.append(key)
+        states.append(jstate)
+        metrics.append(m)
+    return batches, keys, states, metrics
 
 
-def port_setup(variant):
-    unet_cfg, vae_cfg, _, (u, v, c), *_ = jax_setup(variant)
+def port_setup():
+    unet_cfg, vae_cfg, _, (u, v, c) = jax_models()
     unet = UNetModel(4, 4, UnetConfig(**UNET_KW))
     unet.load_state_dict(convert.to_torch(convert.unet_state_dict(u, unet_cfg)), strict=True)
     vae = AutoEncoderKL(AutoencoderConfig(**VAE_KW))
@@ -118,7 +151,7 @@ def port_setup(variant):
     clip = CLIPTextTransformer(**CLIP_KW)
     clip.load_state_dict(convert.to_torch(convert.clip_state_dict(c)), strict=True)
     steps = make_unet_train_step(unet, clip.eval().requires_grad_(False), vae.eval().requires_grad_(False),
-                                 make_schedule(DDPMConfig()), **STEP_KW[variant])
+                                 make_schedule(DDPMConfig()), **STEP_KW)
     return unet, steps
 
 
@@ -158,22 +191,19 @@ class _Record:
 
 
 def test_train_step_loss_and_gradients_match_jax():
-    variant = "compat_offset_perturbation"
-    unet_cfg, _, _, (u, v, c), _, _, eval_step = jax_setup(variant)
-    batch, uncond = batch_and_uncond(3)
-    key = jax.random.PRNGKey(7)
-    loss, grads = jax.jit(jax.value_and_grad(eval_step))(
-        u, c, v, {k: jnp.asarray(a) for k, a in batch.items()}, jnp.asarray(uncond), key
-    )
+    batches, keys, states, metrics = jax_run()
+    (batch, uncond), key = batches[0], keys[0]
     draws = jax_draws(key, whole_batch_drop=True)
+    unet_cfg = jax_models()[0]
 
-    unet, (train_step, port_eval) = port_setup(variant)
+    unet, (train_step, port_eval) = port_setup()
     state = TrainState(unet, _Record())
-    metrics = train_step(state, _torch_batch(batch), torch.from_numpy(uncond), draws)
-    np.testing.assert_allclose(metrics["loss"].item(), float(loss), rtol=1e-5)
-    np.testing.assert_allclose(port_eval(_torch_batch(batch), torch.from_numpy(uncond), draws).item(),
-                               float(loss), rtol=1e-5)
-    ref = convert.to_torch(convert.unet_state_dict(grads, unet_cfg))
+    out = train_step(state, _torch_batch(batch), torch.from_numpy(uncond), draws)
+    loss = float(metrics[0]["loss"])
+    np.testing.assert_allclose(out["loss"].item(), loss, rtol=1e-5)
+    np.testing.assert_allclose(port_eval(_torch_batch(batch), torch.from_numpy(uncond), draws).item(), loss,
+                               rtol=1e-5)
+    ref = convert.to_torch(convert.unet_state_dict(states[0].opt_state[1], unet_cfg))
     for name, got in zip(state.names, state.optimizer.grads):
         want = ref[name]
         err = (got - want).abs().max().item()
@@ -181,21 +211,18 @@ def test_train_step_loss_and_gradients_match_jax():
 
 
 def test_two_train_steps_params_and_ema_match_jax():
-    unet_cfg, _, _, (u, v, c), tx, train_step, _ = jax_setup("default_ema")
-    jstate = jax_steps.TrainState.create(u, tx, with_ema=True)
-    train_step = jax.jit(train_step)
-    unet, (port_step, _) = port_setup("default_ema")
+    batches, keys, states, metrics = jax_run()
+    unet_cfg = jax_models()[0]
+    unet, (port_step, _) = port_setup()
     optimizer = port_optim.build_optimizer(
         [p for p in unet.parameters()], port_args.OptimConfig(**OPTIM), max_train_steps=10,
     )
     state = TrainState(unet, optimizer, with_ema=True)
-    for i in range(2):
-        batch, uncond = batch_and_uncond(10 + i)
-        key = jax.random.PRNGKey(20 + i)
-        jstate, jm = train_step(jstate, c, v, {k: jnp.asarray(a) for k, a in batch.items()}, jnp.asarray(uncond), key)
-        pm = port_step(state, _torch_batch(batch), torch.from_numpy(uncond), jax_draws(key))
+    for (batch, uncond), key, jm in zip(batches, keys, metrics):
+        pm = port_step(state, _torch_batch(batch), torch.from_numpy(uncond), jax_draws(key, whole_batch_drop=True))
         np.testing.assert_allclose(pm["loss"].item(), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(pm["grad_norm"].item(), float(jm["grad_norm"]), rtol=1e-4)
+    jstate = states[-1]
     assert state.step == int(jstate.step) == 2
     for tree, ours in ((jstate.params, state.params), (jstate.ema_params, state.ema_params)):
         ref = convert.to_torch(convert.unet_state_dict(tree, unet_cfg))

@@ -1,6 +1,7 @@
 """The KL-VAE training path, port vs the JAX package, at a tiny size on the CPU (f32).
 
-- ``make_vae_train_step``: the JAX step's loss, its parts and ``jax.grad``
+- ``make_vae_train_step``: the JAX step's loss, its parts and its gradients
+  (kept by the optimizer of a jitted step; both KL variants in one compile)
   against the port's step on the same weights (JAX trees converted by
   ``utils/convert.py:autoencoder_state_dict``), the same batch and the JAX
   posterior draw ``jax.random.normal(key, std.shape)`` handed in as ``eps``;
@@ -13,7 +14,7 @@
   within 1e-4 of each gradient's largest magnitude (f32 sums over 64 kv rows
   and 512 columns in another order). Past 512 the kernel wrappers refuse the
   head dim on any device.
-- The training CLI with ``--device cpu`` and jax blocked: 3 optimizer steps
+- The training CLI with ``--device cpu`` and jax blocked, in one process: 3 optimizer steps
   (accumulation 2, EMA on) save ``checkpoint-{1,2,3}`` and evaluate at
   ``(step + 1) % log_interval``; a run resumed from ``latest`` with only
   ``checkpoint-2`` present ends in exactly the unbroken run's state (bitwise
@@ -25,7 +26,6 @@
 import functools
 import os
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -73,14 +73,47 @@ LATENT = (2, 16, 16, 4)  # the posterior of a batch of two 32x32 images, f = 2
 
 
 @functools.lru_cache(maxsize=None)
-def jax_setup(kl_per_example0):
+def vae_params():
     vae_cfg = jax_vae.AutoencoderConfig(**VAE_KW)
     j_vae = jax_vae.AutoEncoderKL.from_config(vae_cfg)
-    params = random_params(j_vae, 1, jnp.zeros((1, 32, 32, 3)))
-    tx = jax_optim.build_optimizer(jax_args.OptimConfig(**OPTIM), max_train_steps=10)
-    train_step, eval_step = jax_steps.make_vae_train_step(
-        j_vae, tx, kl_weight=VAE_KW["kl_weight"], kl_per_example0=kl_per_example0)
-    return vae_cfg, params, tx, jax.jit(train_step), eval_step
+    return vae_cfg, j_vae, random_params(j_vae, 1, jnp.zeros((1, 32, 32, 3)))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_steps_run():
+    """One jitted JAX train step of each KL variant on batch 3 with key 7, in
+    one compile (the variants share the VAE's forward and most of its
+    backward) -> (batch, key, {kl_per_example0: (state after, metrics)})."""
+    vae_cfg, j_vae, params = vae_params()
+    rng = np.random.default_rng(3)
+    batch = {"pixel_values": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)}
+    key = jax.random.PRNGKey(7)
+    steps = {}
+    for variant in (False, True):
+        tx = _KeepGrads(jax_optim.build_optimizer(jax_args.OptimConfig(**OPTIM), max_train_steps=10))
+        train_step, _ = jax_steps.make_vae_train_step(j_vae, tx, kl_weight=VAE_KW["kl_weight"],
+                                                      kl_per_example0=variant)
+        steps[variant] = (tx, train_step)
+
+    def both(p, jbatch, k):
+        return {v: step(jax_steps.TrainState.create(p, tx), jbatch, k) for v, (tx, step) in steps.items()}
+
+    return batch, key, jax.jit(both)(params, {k: jnp.asarray(a) for k, a in batch.items()}, key)
+
+
+class _KeepGrads:
+    """A JAX fused transform: ``inner``'s update, with the step's gradients
+    kept in the state, so that one jitted train step hands them out."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params), jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def apply(self, grads, state, params):
+        new_params, inner = self.inner.apply(grads, state[0], params)
+        return new_params, (inner, grads)
 
 
 class _Record:
@@ -93,13 +126,12 @@ class _Record:
 
 @pytest.mark.parametrize("kl_per_example0", [False, True], ids=["batch_mean_kl", "kl_per_example0"])
 def test_vae_train_step_loss_and_gradients_match_jax(kl_per_example0):
-    vae_cfg, params, tx, train_step, eval_step = jax_setup(kl_per_example0)
-    rng = np.random.default_rng(3)
-    batch = {"pixel_values": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)}
-    jbatch = {k: jnp.asarray(a) for k, a in batch.items()}
-    key = jax.random.PRNGKey(7)
-    loss, grads = jax.jit(jax.value_and_grad(eval_step))(params, jbatch, key)
-    _, jm = train_step(jax_steps.TrainState.create(params, tx), jbatch, key)
+    vae_cfg, _, params = vae_params()
+    batch, key, results = jax_steps_run()
+    # the jitted step's metrics, and the gradients ``jax.value_and_grad`` took
+    # inside it, kept by the optimizer in its state
+    jstate, jm = results[kl_per_example0]
+    loss, grads = jm["loss"], jstate.opt_state[1]
     eps = torch.from_numpy(np.array(jax.random.normal(key, LATENT, jnp.float32)))
 
     vae = AutoEncoderKL(AutoencoderConfig(**VAE_KW))
@@ -162,47 +194,56 @@ TRAIN = (
     "--dataloader-num-workers 0 --autoencoder-channels-list 16,32 --groups 8"
 ).split()
 
+# one process, jax blocked: the unbroken run in ./unbroken; a run in ./resumed
+# that holds only its checkpoint-2 and resumes `latest`; the lean run in ./lean
 _NO_JAX = """
-import sys
+import os, shutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
 import torch
 torch.set_num_threads(2)
 from stable_diffusion_pytorch_tpu_torch.scripts.train_autoencoder import main
-main(sys.argv[1:])
+argv = sys.argv[1:] + ["--ckpt-dir", "ckpt"]
+os.makedirs("unbroken")
+os.chdir("unbroken")
+main(argv)
+os.makedirs("../resumed/ckpt")
+shutil.copytree("ckpt/checkpoint-2", "../resumed/ckpt/checkpoint-2")
+os.chdir("../resumed")
+print("RESUMED RUN", file=sys.stderr, flush=True)
+main(argv + ["--resume-from-checkpoint", "latest"])
+print("LEAN RUN", file=sys.stderr, flush=True)
+os.makedirs("../lean")
+os.chdir("../lean")
+main(argv + ["--use-8bit-adam", "--accum-dtype", "bf16", "--max-train-steps", "2"])
 assert not any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules if sys.modules[m] is not None)
 """
 
 
-def _run_cli(cwd, *argv):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(unbroken dir, resumed dir, the resumed run's log, lean dir)."""
+    cwd = tmp_path_factory.mktemp("vae_cli")
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *TRAIN, *argv], capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *TRAIN], capture_output=True, text=True,
                           timeout=300, env=env, cwd=cwd)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    return proc
+    resumed_log = proc.stderr.split("RESUMED RUN")[-1].split("LEAN RUN")[0]
+    return cwd / "unbroken", cwd / "resumed", resumed_log, cwd / "lean"
 
 
-@pytest.fixture(scope="module")
-def unbroken(tmp_path_factory):
-    cwd = tmp_path_factory.mktemp("unbroken_vae")
-    _run_cli(cwd, "--ckpt-dir", "ckpt")
-    return cwd
-
-
-def test_vae_cli_runs_without_jax_checkpoints_and_resumes_latest(unbroken, tmp_path):
+def test_vae_cli_runs_without_jax_checkpoints_and_resumes_latest(runs):
+    unbroken, resumed, resumed_log, _ = runs
     assert sorted(os.listdir(unbroken / "ckpt")) == ["checkpoint-1", "checkpoint-2", "checkpoint-3"]
     lines = (unbroken / "logs" / "train_autoencoder_metrics.jsonl").read_text().splitlines()
     assert len([line for line in lines if "train_loss" in line]) == 3
     # the VAE trainer evaluates at (step + 1) % log_interval == 0: steps 1 and 3
     assert [line.split(",")[0] for line in lines if "eval_loss" in line] == ['{"step": 1', '{"step": 3']
 
-    os.makedirs(tmp_path / "ckpt")
-    shutil.copytree(unbroken / "ckpt" / "checkpoint-2", tmp_path / "ckpt" / "checkpoint-2")
-    proc = _run_cli(tmp_path, "--ckpt-dir", "ckpt", "--resume-from-checkpoint", "latest")
-    assert "Resuming from checkpoint at global step 2" in proc.stderr
+    assert "Resuming from checkpoint at global step 2" in resumed_log
     want = load_checkpoint(str(unbroken / "ckpt" / "checkpoint-3"))
-    got = load_checkpoint(str(tmp_path / "ckpt" / "checkpoint-3"))
+    got = load_checkpoint(str(resumed / "ckpt" / "checkpoint-3"))
     assert got["step"] == want["step"] == 6 and got["opt_state"]["count"] == 3
     assert any(name.startswith("encoder.bottleneck.1.") for name in want["params"])
     for part in ("params", "ema_params"):
@@ -220,11 +261,10 @@ def test_vae_trainer_reconstructs_a_test_image(tmp_path):
     assert out.shape == (32, 32, 3) and out.dtype == np.uint8
 
 
-def test_vae_cli_takes_the_lean_optimizer(tmp_path):
+def test_vae_cli_takes_the_lean_optimizer(runs):
     """``--use-8bit-adam --accum-dtype bf16`` on the VAE's leaves (K9's plain
     version on the CPU): the checkpoint holds int8 codes and a bf16 accumulator."""
-    _run_cli(tmp_path, "--ckpt-dir", "ckpt", "--use-8bit-adam", "--accum-dtype", "bf16", "--max-train-steps", "2")
-    state = load_checkpoint(str(tmp_path / "ckpt" / "checkpoint-2"))
+    state = load_checkpoint(str(runs[3] / "ckpt" / "checkpoint-2"))
     opt = state["opt_state"]
     assert opt["layout"] == {"gradient_accumulation": True, "accum_dtype": "bf16", "use_8bit_adam": True}
     assert opt["count"] == 2 and len(opt["mu_q"]) == len(state["params"])

@@ -13,8 +13,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    refine; the server's buckets of 2 and 4 requests at 512x512, UNet batch 4
    and 8 with CFG; one micro step of SD-1.5 training at 512x512, batch 4, at
    1024x1024, batch 1, of the lean configuration at 512x512, batch 16, of
-   the SD-1.5 VAE's training at 256x256, batch 4, and of phase 9c's three
-   trainers, each trainer built for its probe and freed after it, taken with
+   the SD-1.5 VAE's training at 256x256, batch 4, of phase 9c's three
+   trainers and of phase 9d's new shapes (the latent cache's VAE encoder at
+   a batch of 16 at 512x512; run (a)'s micro step, every kernel at half its
+   batch of 4; the UNet and VAE trainers at 256x256 from uint8 rows), each
+   trainer built for its probe and freed after it, taken with
    an optimizer that applies nothing; and ``EXTRA_BWD_SHAPES``: the 512px VAE bottleneck's backward,
    [1,4096,4096,1,512], and the f32 VAE parity's on K3): flash
    attention forward (K1, also at the kv > 9216 shapes of the TPU's K2),
@@ -162,13 +165,38 @@ Phases, each printing one JSON line; any failure exits nonzero:
    at step 2), and its checkpoint loaded by the sampling side's loaders into
    a 10-step DDIM sample that decodes to a finite [1,512,512,3] unlike the
    untrained model's.
+9d. train_options: the rest of the trainers' options at SD-1.5 width through
+   the entry points' ``build_trainer``, bf16 over f32, UNet batch 4, each run
+   built where it runs and freed, each with phase 7's record and checks
+   (``phase_train``, which also counts one more micro step alone):
+   (a) 512x512, ``--zero-terminal-snr --prediction-type v_prediction
+   --snr-gamma 5 --log-grad-noise-scale --spike-threshold 3 --log-image``,
+   5 optimizer steps at accumulation 2, the evaluation and a logged 50-step
+   sample on the last: ``grad_noise_scale`` recorded at step 5 only; a micro
+   step launches K1, the split set, K6, K7 and K8 twice as often as train
+   512's, every K1 and split-set launch at the half batch; the logged sample
+   decodes to a finite [1,512,512,3]. (b) ``--latent-cache``: the cache of
+   16 synthetic rows built on the card (moments [16,64,64,8] f32, the text
+   [16,77,768] f16), 2 steps from it: a micro step calls neither the VAE
+   encoder nor CLIP, its K1, K6 and K8 equal one UNet call's block plan, its
+   profiled launches fall below train 512's. (c) ``--device-preprocess
+   --random-flip``, the UNet trainer and the VAE trainer (with
+   ``--log-grad-noise-scale``: its K1 and split set at the half batch) at
+   256x256 batch 4, 2 steps each; ``device_preprocess`` on the card within
+   1e-4 of its CPU run (the card's antialiased resize sums its taps in
+   another order: 2.4e-5 at [4,300,400,3] -> 256). (d) ``--no-fused-adamw`` at accumulation 2, 2 steps,
+   a fused ``AdamW`` over copies of the starting parameters fed the same
+   gradients: the parameters within 1e-3 of the learning rate beyond 2^-22
+   of their size after step 2.
+   Hugging Face datasets and wandb are absent on the card's machine (and it
+   has no network): those paths are held by the CPU tests only.
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9c, 6b, 6c and 6d included (each
+the summary, ``launches`` counts phases 5 to 9d, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
 record); ``max_abs_err``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
@@ -282,6 +310,26 @@ NUM_CLASS_IMAGES = 4
 NUM_INSTANCE_IMAGES = 16  # 8 micro batches of 2 pairs an epoch: both optimizer steps in one epoch
 PERSONALIZE_KERNELS = {"dreambooth_lora": (*TRAIN_KERNELS, "adam8bit_update"), "textual_inversion": TRAIN_KERNELS,
                        "controlnet": TRAIN_KERNELS}
+# phase 9d: the rest of the trainers' options, SD-1.5 width, each run built
+# where it runs and freed. (a) the objective and the logging, 512x512 batch 4:
+# grad_noise_scale is first reported at optimizer step 5
+OBJECTIVE_STEPS = 5
+OBJECTIVE_FLAGS = ("--zero-terminal-snr", "--prediction-type", "v_prediction", "--snr-gamma", "5",
+                   "--log-grad-noise-scale", "--spike-threshold", "3", "--log-image",
+                   "--max-train-steps", str(OBJECTIVE_STEPS), "--log-interval", str(OBJECTIVE_STEPS),
+                   "--gradient-accumulation-steps", "2")
+# (b) the latent cache of 16 synthetic rows at 512x512 (one encoder batch of 16)
+CACHE_ROWS = 16
+# (c) on-device preprocessing with flips, the UNet and the VAE trainer at 256x256 batch 4
+PREPROCESS_SIZE = 256
+PREPROCESS_FLAGS = ("--device-preprocess", "--random-flip")
+# card vs CPU: the bar tests/test_torch_port_data_options.py states for another
+# device's resize (about 1/80 of a uint8 step in [-1, 1]; against JAX on the CPU it is 1e-6)
+PREPROCESS_TOL = 1e-4
+# (d) the unfused optimizer, accumulation 2, beside a fused AdamW fed the same gradients
+CHAIN_FLAGS = ("--no-fused-adamw", "--gradient-accumulation-steps", "2")
+CHAIN_TOL_LR = 1e-3  # of the learning rate, beyond the parameter's last bits: trainers/optim.py:ChainAdamW
+CHAIN_TOL_REL = 2.0 ** -22
 # (phase, image size, batch, extra flags, kernels its run must launch)
 TRAIN_PHASES = (
     ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
@@ -386,13 +434,17 @@ def graph_ms(fn, calls: int = 10, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_kernels(fn, calls: int = 2, attempts: int = 8) -> dict:
+SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's ~2 GHz
+
+
+def device_kernels(fn, calls: int = 2, attempts: int = 16) -> dict:
     """{kernel name: (launches, device ms) per ``fn()``} by torch.profiler
     over ``calls`` calls, copies and fills aside: the fullest of up to
     ``attempts`` profiles (a profile now and then misses a kernel and never
-    adds one; each opens and closes with a short spin kernel, left out, so
-    that the calls' kernels are neither the profile's first nor its last: a
-    profile of a ~0.02 ms kernel lost its last one in most attempts),
+    adds one; each opens and closes with a spin kernel of ~0.1 ms, left
+    out, so that the calls' kernels are neither the profile's first nor its
+    last: a profile of a ~0.02 ms kernel lost its last one in most attempts,
+    and with spins of ~5 us a 0.01 ms kernel lost one in all of 8),
     stopping at the first that saw a kernel a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -401,10 +453,10 @@ def device_kernels(fn, calls: int = 2, attempts: int = 8) -> dict:
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(10000)
+            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(calls):
                 fn()
-            torch.cuda._sleep(10000)
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         found = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
                  if "cuda" in str(getattr(e, "device_type", "")).lower() and e.self_device_time_total > 0
@@ -471,7 +523,7 @@ def build_sd15_trainer(work: str, resolution: int, batch: int, flags=()):
     return trainer
 
 
-def build_sd15_vae_trainer(work: str, resolution: int, batch: int):
+def build_sd15_vae_trainer(work: str, resolution: int, batch: int, flags=()):
     """The autoencoder training entry point's trainer at the SD-1.5 VAE's width."""
     import shutil
 
@@ -484,7 +536,7 @@ def build_sd15_vae_trainer(work: str, resolution: int, batch: int):
         work, *SD15_VAE_FLAGS, "--resolution", str(resolution), "--train-batch-size", str(batch),
         "--eval-batch-size", str(batch), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
         "--learning-rate", "1e-4", "--max-train-samples", str(16 * batch), "--max-val-samples", str(batch),
-        "--max-test-samples", "2", "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4",
+        "--max-test-samples", "2", "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4", *flags,
     ))
     fill_zero_weights(trainer.vae, torch.Generator(device="cuda").manual_seed(SEED + 1))
     return trainer
@@ -1052,6 +1104,7 @@ def record_shapes(model, work: str):
     del trainer, probe, batch_in
     free_cuda()
     lora_leaf_shapes = personalize_probes(work, collect)
+    train_options_probes(model, work, collect)
     # K3's shapes: the backward shapes the JAX crossover sends to it (bf16
     # training now runs the split set at every length, backward_route)
     shapes["flash_attention_bwd"] |= {k for k in shapes["flash_attention_bwd_split"]
@@ -1061,6 +1114,42 @@ def record_shapes(model, work: str):
     shapes["flash_attention_bwd_split"] |= shapes["flash_attention_bwd"]
     shapes["adam8bit_update"] = set(leaf_shapes) | set(lora_leaf_shapes)
     return {name: sorted(v) for name, v in shapes.items()}, leaf_shapes, lora_leaf_shapes
+
+
+def train_options_probes(model, work: str, collect):
+    """Phase 9d's new launch shapes, ``collect()`` after each: the latent
+    cache's encoder at its batch (``build_latent_cache`` over ``CACHE_ROWS``
+    synthetic rows at 512x512, on the slice's bf16 VAE and CLIP), one micro
+    step of run (a) (the gradient-noise-scale split: the UNet, the VAE
+    encoder and their backward at half the batch), of (c)'s UNet trainer at
+    256x256 and of (c)'s VAE trainer (the split at 256x256), each with an
+    optimizer that applies nothing, built and freed."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+    from stable_diffusion_pytorch_tpu_torch.utils.data import DatasetConfig, SyntheticTextImageDataset
+    from stable_diffusion_pytorch_tpu_torch.utils.latent_cache import build_latent_cache
+
+    rows = SyntheticTextImageDataset(DatasetConfig(dataset="synthetic", resolution=512), "train",
+                                     model.text_encoder.tokenizer, CACHE_ROWS)
+    with torch.inference_mode():
+        build_latent_cache(model.autoencoder, rows, os.path.join(f"{work}_cache_probe", "latents.npz"),
+                           text_encoder=model.text_encoder)
+    collect()
+    for build, size, flags, halves in (
+            (build_sd15_trainer, 512, OBJECTIVE_FLAGS, True),
+            (build_sd15_trainer, PREPROCESS_SIZE, PREPROCESS_FLAGS, False),
+            (build_sd15_vae_trainer, PREPROCESS_SIZE, (*PREPROCESS_FLAGS, "--log-grad-noise-scale"), True)):
+        trainer = build(f"{work}_options_probe", size, TRAIN_BATCH, flags)
+        batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
+        own = trainer.state
+        trainer.state = TrainState(own.module, _NoUpdate())
+        check(trainer.gns == halves, f"the probe's gradient-noise-scale switch is {trainer.gns}")
+        trainer._train_step(batch_in, step_generator("cuda", 9))
+        collect()
+        del trainer, own, batch_in
+        free_cuda()
 
 
 def personalize_probes(work: str, collect):
@@ -2279,12 +2368,16 @@ def phase_serve(work: str, steps: int) -> dict:
     return res
 
 
-def phase_train(trainer, name: str, image_size: int, batch: int, required, allocated_before_gb: float) -> dict:
-    """Train ``TRAIN_STEPS`` optimizer steps with the trainer, alone on the card
-    (``allocated_before_gb``: what its own build holds), then profile."""
+def phase_train(trainer, name: str, image_size: int, batch: int, required, allocated_before_gb: float,
+                steps: int = TRAIN_STEPS) -> dict:
+    """Train ``steps`` optimizer steps with the trainer, alone on the card
+    (``allocated_before_gb``: what its own build holds), then profile one
+    more accumulation window and count the launches of one more micro step
+    alone (``launches_per_micro_step``, with each kernel's batch sizes)."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
 
     state = trainer.state
     watch = [n for n in state.names if n.endswith(("conv_in.weight", "out.2.weight", "middle_block.1.proj_in.weight"))]
@@ -2306,7 +2399,7 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
     eval_recs = [r for r in records if "eval_loss" in r]
     losses = [r["train_loss"] for r in train_recs] + [r["eval_loss"] for r in eval_recs]
     timer = trainer.step_timer
-    micro = TRAIN_STEPS * trainer.cfg.train.gradient_accumulation_steps
+    micro = steps * trainer.cfg.train.gradient_accumulation_steps
     res = {
         "phase": name, "gpu": gpu_line(), "image_size": image_size, "batch": batch,
         "gradient_accumulation_steps": trainer.cfg.train.gradient_accumulation_steps,
@@ -2322,12 +2415,12 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
         "optimizer_state_bytes": state.optimizer.state_bytes(),
         "remat": trainer.model.unet.remat if hasattr(trainer, "model") else None,
     }
-    k9_want = TRAIN_STEPS if "adam8bit_update" in required else 0  # one launch per optimizer step
-    res["ok"] = (res["finite"] and len(train_recs) == TRAIN_STEPS and len(eval_recs) == 1
+    k9_want = steps if "adam8bit_update" in required else 0  # one launch per optimizer step
+    res["ok"] = (res["finite"] and len(train_recs) == steps and len(eval_recs) == 1
                  and state.step == micro and all(v > 0 for v in changed.values())
                  and all(launches[k] > 0 for k in required) and launches["adam8bit_update"] == k9_want)
     emit(res)
-    check(len(train_recs) == TRAIN_STEPS and state.step == micro, f"train ran {state.step} micro steps")
+    check(len(train_recs) == steps and state.step == micro, f"train ran {state.step} micro steps")
     check(res["finite"], f"non-finite loss: {losses}")
     check(all(v > 0 for v in changed.values()), f"parameters did not change: {changed}")
     check(all(launches[k] > 0 for k in required), f"a kernel was not launched by the {name} run: {launches}")
@@ -2336,6 +2429,14 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
     check(res["ok"], f"{name} phase check failed")
     res["profile"] = profile_window(trainer)
     emit({"phase": f"{name}_profile", **{k: v for k, v in res["profile"].items() if k != "top_kernels"}})
+    # one more micro step, counted alone (no update: the window restarts)
+    batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
+    torch.cuda.synchronize()
+    native.reset_counters()
+    trainer._train_step(batch_in, step_generator("cuda", 8))
+    torch.cuda.synchronize()
+    res["launches_per_micro_step"] = launch_counts()
+    res["micro_step_batch_sizes"] = {k: sorted({key[0] for key in native.COUNTERS[k].shapes}) for k in TPU_KERNELS}
     return res
 
 
@@ -2498,9 +2599,6 @@ def phase_personalize(work: str) -> dict:
     (``_personalize_round_trip``)."""
     import torch
 
-    from stable_diffusion_pytorch_tpu_torch.ops import native
-    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
-
     runs, failures = {}, []
     for kind in PERSONALIZE_RUNS:
         run_work = f"{work}_{kind}"
@@ -2522,14 +2620,6 @@ def phase_personalize(work: str) -> dict:
         state.optimizer.step = step
         res = phase_train(trainer, kind, PERSONALIZE_SIZE, PERSONALIZE_BATCH, PERSONALIZE_KERNELS[kind], free_cuda())
         state.optimizer.step = orig_step
-        # one more micro step, counted alone (no update: the window restarts)
-        batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
-        torch.cuda.synchronize()
-        native.reset_counters()
-        trainer._train_step(batch_in, step_generator("cuda", 8))
-        torch.cuda.synchronize()
-        res["launches_per_micro_step"] = launch_counts()
-        del batch_in
         after = _host_copy(frozen)
         res["frozen_unchanged"] = {name: all(torch.equal(t, after[name][k]) for k, t in tensors.items())
                                    for name, tensors in before.items()}
@@ -2574,6 +2664,238 @@ def phase_personalize(work: str) -> dict:
                           for k, v in runs.items()}})
     check(not failures, f"personalize checks failed for {failures}: "
           f"{ {k: runs[k]['checks'] for k in failures} }")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 9d: the rest of the trainers' options
+# --------------------------------------------------------------------------- #
+
+
+def _decodes():
+    """Record the shape and finiteness of every ``LatentDiffusion.decode_latent``
+    output until the returned ``stop()`` (the images ``--log-image`` samples)."""
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+
+    seen, real = [], LatentDiffusion.decode_latent
+
+    def decode_latent(self, *args, **kwargs):
+        out = real(self, *args, **kwargs)
+        seen.append({"shape": list(out.shape), "finite": bool(out.float().isfinite().all())})
+        return out
+
+    LatentDiffusion.decode_latent = decode_latent
+
+    def stop():
+        LatentDiffusion.decode_latent = real
+        return seen
+
+    return stop
+
+
+def _objective_run(work: str, train_ref: dict) -> dict:
+    """(a) v-prediction on the zero-terminal-SNR schedule, Min-SNR 5, the
+    gradient noise scale, spike detection and ``--log-image``, 5 optimizer
+    steps at accumulation 2, the evaluation and the logged sample on the
+    last: ``grad_noise_scale`` recorded at step 5; a micro step launches K1,
+    the split set, K6, K7 and K8 exactly twice as often as train 512's (each
+    half batch runs the VAE encoder and the UNet forward and backward), every
+    K1 and split-set launch at the half batch; the logged sample decodes to a
+    finite [1, 512, 512, 3]."""
+    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH, OBJECTIVE_FLAGS)
+    stop = _decodes()
+    try:
+        res = phase_train(trainer, "train_options_objective", 512, TRAIN_BATCH, TRAIN_KERNELS, free_cuda(),
+                          steps=OBJECTIVE_STEPS)
+    finally:
+        decodes = stop()
+    with open(trainer.tracker.jsonl_path) as f:
+        records = [json.loads(line) for line in f if "train_loss" in line]
+    res["grad_noise_scale"] = [r.get("grad_noise_scale") for r in records]
+    res["loss_spikes"] = [r["loss_spike"] for r in records if "loss_spike" in r]
+    res["logged_decodes"] = decodes
+    per, ref = res["launches_per_micro_step"], train_ref["launches_per_micro_step"]
+    doubled = ("flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd", "group_norm_cat")
+    res["vs_train_per_micro_step"] = {k: [per[k], ref[k]] for k in doubled}
+    half = TRAIN_BATCH // 2
+    res["checks"] = {
+        "grad_noise_scale_at_step_5": len(records) == OBJECTIVE_STEPS and records[-1].get("grad_noise_scale")
+        is not None and all(r.get("grad_noise_scale") is None for r in records[:-1]),
+        "twice_train_per_micro_step": all(per[k] == 2 * ref[k] > 0 for k in doubled),
+        "half_batch": all(res["micro_step_batch_sizes"][k] == [half]
+                          for k in ("flash_attention", "flash_attention_bwd_split")),
+        "logged_image": decodes == [{"shape": [1, 512, 512, 3], "finite": True}],
+        "gns_finite": math.isfinite(records[-1].get("grad_noise_scale") or math.nan),
+    }
+    del trainer
+    return res
+
+
+def _cache_run(work: str, train_ref: dict) -> dict:
+    """(b) ``--latent-cache``: the cache built on the card from ``CACHE_ROWS``
+    synthetic rows with the text embeddings, then 2 optimizer steps from it.
+    The file's moments are [16, 64, 64, 8]; a micro step calls neither the
+    VAE encoder nor CLIP, and its K1, K6 and K8 equal one UNet call's block
+    plan; its launches, beside train 512's, fall by the encoder's and CLIP's."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    cache = os.path.join(work, "latents.npz")
+    t0 = time.perf_counter()
+    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH, ("--latent-cache", cache,
+                                                          "--max-train-samples", str(CACHE_ROWS)))
+    build_s = time.perf_counter() - t0
+    with np.load(cache) as data:
+        layout = {k: [list(data[k].shape), str(data[k].dtype)] for k in data}
+    res = phase_train(trainer, "train_options_cache", 512, TRAIN_BATCH, TRAIN_KERNELS, free_cuda())
+    calls = {"vae_encoder": 0, "clip": 0}
+
+    def counting(name):
+        return lambda *_: calls.__setitem__(name, calls[name] + 1)
+
+    hooks = [trainer.model.autoencoder.encoder.register_forward_pre_hook(counting("vae_encoder")),
+             trainer.model.text_encoder.module.register_forward_pre_hook(counting("clip"))]
+    batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
+    torch.cuda.synchronize()
+    native.reset_counters()
+    trainer._train_step(batch_in, step_generator("cuda", 6))
+    torch.cuda.synchronize()
+    per = launch_counts()
+    for h in hooks:
+        h.remove()
+    plan = feature_plans(presets.sd15_unet_config())["unet_call"]
+    launches = res["profile"].get("kernel_launches_per_micro_step")
+    ref_launches = train_ref["profile"].get("kernel_launches_per_micro_step")
+    res.update({"cache_layout": layout, "build_with_cache_s": build_s, "batch_keys": sorted(batch_in),
+                "calls_per_micro_step": calls, "launches_per_micro_step": per, "unet_plan": plan,
+                "kernel_launches_per_micro_step": [launches, ref_launches]})
+    res["checks"] = {
+        "moments": layout.get("moments") == [[CACHE_ROWS, 64, 64, 8], "float32"],
+        "text_cached": layout.get("context_emb") == [[CACHE_ROWS, 77, 768], "float16"],
+        "no_encoder_no_clip": calls == {"vae_encoder": 0, "clip": 0} and "moments" in batch_in,
+        "unet_plan": all(per[k] == plan[k] for k in plan),
+        "fewer_launches": launches is not None and ref_launches is not None and launches < ref_launches,
+    }
+    del trainer, batch_in
+    return res
+
+
+def _preprocess_runs(work: str) -> dict:
+    """(c) ``--device-preprocess --random-flip``: the UNet trainer and the VAE
+    trainer (with the gradient noise scale) at 256x256 batch 4 from uint8
+    rows; ``device_preprocess`` on the card against its CPU run, a batch of
+    non-square [4, 300, 400, 3] rows and one of the run's, with flips."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.utils.preprocess import device_preprocess
+
+    out = {}
+    trainer = build_sd15_trainer(f"{work}_unet", PREPROCESS_SIZE, TRAIN_BATCH, PREPROCESS_FLAGS)
+    first = next(iter(trainer.train_loader))
+    out["unet"] = phase_train(trainer, "train_options_preprocess_unet", PREPROCESS_SIZE, TRAIN_BATCH, TRAIN_KERNELS,
+                              free_cuda())
+    del trainer
+    free_cuda()
+    trainer = build_sd15_vae_trainer(f"{work}_vae", PREPROCESS_SIZE, TRAIN_BATCH,
+                                     (*PREPROCESS_FLAGS, "--log-grad-noise-scale"))
+    out["vae"] = phase_train(trainer, "train_options_preprocess_vae", PREPROCESS_SIZE, TRAIN_BATCH,
+                             VAE_TRAIN_KERNELS, free_cuda())
+    del trainer
+    free_cuda()
+    errs = {}
+    for name, raw in (("non_square", np.random.default_rng(0).integers(0, 256, (4, 300, 400, 3), np.uint8)),
+                      ("run_rows", first["raw_images"])):
+        raw = torch.from_numpy(np.ascontiguousarray(raw))
+        flip = torch.arange(raw.shape[0]) % 2 == 0
+        cpu = device_preprocess(raw, PREPROCESS_SIZE, random_flip=True, flip=flip)
+        card = device_preprocess(raw.cuda(), PREPROCESS_SIZE, random_flip=True, flip=flip.cuda())
+        errs[name] = (card.cpu() - cpu).abs().max().item()
+    out["card_vs_cpu_max_abs"] = errs
+    half = [TRAIN_BATCH // 2]
+    out["checks"] = {"raw_rows": first["raw_images"].dtype == np.uint8 and "pixel_values" not in first,
+                     "card_vs_cpu": all(e <= PREPROCESS_TOL for e in errs.values()),
+                     "vae_gns_half_batch": all(out["vae"]["micro_step_batch_sizes"][k] == half
+                                               for k in ("flash_attention", "flash_attention_bwd_split"))}
+    return out
+
+
+def _chain_run(work: str) -> dict:
+    """(d) ``--no-fused-adamw``, accumulation 2, 2 optimizer steps; a fused
+    ``AdamW`` over copies of the starting parameters takes the same gradients
+    at every micro step: after step 2 the two paths' parameters agree within
+    ``CHAIN_TOL_LR`` of the learning rate beyond ``CHAIN_TOL_REL`` of their
+    size (``trainers/optim.py:ChainAdamW``)."""
+    import types
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.trainers import optim
+
+    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH, CHAIN_FLAGS)
+    state, cfg = trainer.state, trainer.cfg
+    check(isinstance(state.optimizer, optim.ChainAdamW), f"--no-fused-adamw built {type(state.optimizer).__name__}")
+    shadow_params = [p.detach().clone() for p in state.params]
+    shadow = optim.build_optimizer(shadow_params, types.SimpleNamespace(**{**cfg.optim.to_dict(),
+                                                                           "no_fused_adamw": False}),
+                                   max_train_steps=cfg.train.max_train_steps,
+                                   gradient_accumulation_steps=cfg.train.gradient_accumulation_steps)
+    check(type(shadow) is optim.AdamW, "the shadow optimizer is the fused AdamW")
+    chain_step, seen = state.optimizer.step, {}
+
+    def step(grads):
+        shadow.step(grads)
+        applied, norm = chain_step(grads)
+        if applied and state.optimizer.count == TRAIN_STEPS:
+            seen["max_abs_diff"] = max((a - b).abs().max().item() for a, b in zip(state.params, shadow_params))
+            seen["max_excess"] = max(((a - b).abs() - CHAIN_TOL_REL * b.abs()).max().item()
+                                     for a, b in zip(state.params, shadow_params))
+            seen["max_abs_param"] = max(p.abs().max().item() for p in state.params)
+        return applied, norm
+
+    state.optimizer.step = step
+    try:
+        res = phase_train(trainer, "train_options_chain", 512, TRAIN_BATCH, TRAIN_KERNELS, free_cuda())
+    finally:
+        state.optimizer.step = chain_step
+    lr = float(cfg.optim.learning_rate)
+    res["vs_fused"] = {**seen, "lr": lr, "tol": CHAIN_TOL_LR * lr}
+    res["checks"] = {"layout": res["optimizer_layout"].get("no_fused_adamw") is True
+                     and res["optimizer_layout"].get("accum_dtype") == "f32",
+                     "vs_fused": seen.get("max_excess", math.inf) <= CHAIN_TOL_LR * lr}
+    del trainer, state, shadow, shadow_params
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_train_options(work: str, train_ref: dict) -> dict:
+    """Phase 9d: the rest of the trainers' options at SD-1.5 width through the
+    entry points' ``build_trainer``, each run built where it runs and freed
+    (``_objective_run``, ``_cache_run``, ``_preprocess_runs``, ``_chain_run``),
+    each with phase 7's record and checks and its own; ``train_ref`` is
+    train 512's record (batch 4, its launches per micro step)."""
+    t0 = time.perf_counter()
+    runs = {"objective": _objective_run(f"{work}_objective", train_ref)}
+    free_cuda()
+    runs["cache"] = _cache_run(f"{work}_cache", train_ref)
+    free_cuda()
+    pre = _preprocess_runs(f"{work}_preprocess")
+    runs["preprocess_unet"], runs["preprocess_vae"] = pre.pop("unet"), pre.pop("vae")
+    runs["preprocess_unet"].update(pre)
+    free_cuda()
+    runs["chain"] = _chain_run(f"{work}_chain")
+    free_cuda()
+    failures = {k: {c: ok for c, ok in r["checks"].items() if not ok} for k, r in runs.items() if "checks" in r}
+    failures = {k: v for k, v in failures.items() if v}
+    out = {"phase": "train_options", "gpu": gpu_line(), "seconds": time.perf_counter() - t0, "ok": not failures,
+           "runs": runs}
+    emit({**out, "runs": {k: {kk: vv for kk, vv in v.items() if kk not in ("max_param_change", "profile")}
+                          for k, v in runs.items()}})
+    check(not failures, f"train_options checks failed: {failures}")
     return out
 
 
@@ -2675,12 +2997,15 @@ def main(argv=None) -> int:
     free_cuda()
     personalize = phase_personalize(os.path.join(REPO, "build", "chip_smoke_personalize"))
     free_cuda()
+    options = phase_train_options(os.path.join(REPO, "build", "chip_smoke_options"), trains["train"])
+    free_cuda()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
                  *(r["launches"] for r in samplers_res["runs"].values()),
                  *(r["launches"] for r in features_res["runs"].values()), serve_res["launches"],
-                 *(r["launches"] for r in trains.values()), *(r["launches"] for r in personalize["runs"].values())]
+                 *(r["launches"] for r in trains.values()), *(r["launches"] for r in personalize["runs"].values()),
+                 *(r["launches"] for r in options["runs"].values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -2703,7 +3028,7 @@ def main(argv=None) -> int:
                            launches["flash_attention_kv_past_9216"] for launches in main_path),
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
-                       "serve": serve_res, **trains, "personalize": personalize,
+                       "serve": serve_res, **trains, "personalize": personalize, "train_options": options,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

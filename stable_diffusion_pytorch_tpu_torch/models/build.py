@@ -207,13 +207,21 @@ def build_models(
     )
 
 
-def sampling_model(model: LatentDiffusion) -> LatentDiffusion:
+def sampling_model(model: LatentDiffusion, weights: Optional[Dict[str, torch.Tensor]] = None) -> LatentDiffusion:
     """A training build (f32 UNet computing under autocast) as the sampling
-    path takes it: the UNet copied and cast to the compute dtype as
-    :func:`build_models` casts for inference, the frozen VAE and text encoder
-    (cast already) and any attached ControlNets shared. The trainers sample
-    with it (DreamBooth's class images)."""
-    unet = cast_for_inference(copy.deepcopy(model.unet), model.dtype)
+    path takes it: the UNet copied, ``weights`` (by parameter name, e.g. a
+    LoRA's merged weights) copied over its parameters in float32, and cast
+    to the compute dtype as :func:`build_models` casts for inference; the
+    frozen VAE and text encoder (cast already) and any attached ControlNets
+    shared. The trainers sample with it (DreamBooth's class images, the
+    images ``--log-image`` logs)."""
+    unet = copy.deepcopy(model.unet)
+    if weights:
+        with torch.no_grad():
+            params = dict(unet.named_parameters())
+            for name, w in weights.items():
+                params[name].copy_(w)
+    unet = cast_for_inference(unet, model.dtype)
     out = LatentDiffusion(unet, model.autoencoder, model.text_encoder, model.noise_scheduler, compat=model.compat,
                           compute_dtype=model.dtype)
     out.controlnet = model.controlnet

@@ -13,7 +13,8 @@ Steps: DDPM (``ddpm_step``), DDIM (``ddim_step``), DPM-Solver++(2M)
 (``dpmpp_2m_sde_step``). A stochastic step takes its noise as an argument:
 the sampling loop draws it (float32 on the CPU from a seeded generator, so a
 seed gives the same image on every device), and the parity tests pass the
-JAX loop's own draws. Also the v-prediction conversions, zero-terminal-SNR
+JAX loop's own draws. Also the v-prediction conversions, the training
+weights ``snr_at`` and ``min_snr_weight``, zero-terminal-SNR
 rescaling (``rescale_zero_terminal_snr``) and the even, leading and trailing
 spacings. ``add_noise`` is the forward process.
 """
@@ -257,6 +258,24 @@ def x0_from_v(x_t: torch.Tensor, v: torch.Tensor, alpha, sigma_vp) -> torch.Tens
     """x0 from a v output, computed in float32: finite at every SNR, alpha_bar
     = 0 included, which is why zero-terminal-SNR schedules need v."""
     return (alpha * x_t.float() - sigma_vp * v.float()).to(x_t.dtype)
+
+
+def snr_at(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
+    """SNR(t) = abar_t / (1 - abar_t), the denominator floored at 1e-12;
+    ``t`` [B] int on the tables' device."""
+    ab = sched.alphas_cumprod[t]
+    return ab / torch.clamp(1.0 - ab, min=1e-12)
+
+
+def min_snr_weight(sched: DiffusionSchedule, t: torch.Tensor, gamma: float,
+                   prediction_type: str = "epsilon") -> torch.Tensor:
+    """The Min-SNR-gamma loss weight of each example (Hang et al. 2023):
+    min(SNR, gamma) / SNR for epsilon, min(SNR, gamma) / (SNR + 1) for v."""
+    snr = snr_at(sched, t)
+    clipped = torch.clamp(snr, max=gamma)
+    if prediction_type == "v_prediction":
+        return clipped / (snr + 1.0)
+    return clipped / torch.clamp(snr, min=1e-12)
 
 
 # Sigma space (the k-diffusion convention): sigma_t = sqrt((1 - abar_t) / abar_t),

@@ -26,6 +26,7 @@ from stable_diffusion_pytorch_tpu_torch.models.clip import resolve_tokenizer
 from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import _add_device
 from stable_diffusion_pytorch_tpu_torch.trainers.trainer import AutoencoderTrainer, check_supported
 from stable_diffusion_pytorch_tpu_torch.utils.data import get_dataset, sample_test_image
+from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import get_logger
 
 
@@ -49,10 +50,15 @@ def build_trainer(argv=None) -> AutoencoderTrainer:
                               compat=compat, device=device)
 
 
-def main(argv=None) -> AutoencoderTrainer:
+def _main(argv=None) -> AutoencoderTrainer:
     trainer = build_trainer(argv)
     trainer.train()
     return trainer
+
+
+def main(argv=None) -> AutoencoderTrainer:
+    """Build and train; a failure leaves a crash report under ``logs/crashes`` (``utils/errors.py``)."""
+    return record(_main)(argv)
 
 
 if __name__ == "__main__":

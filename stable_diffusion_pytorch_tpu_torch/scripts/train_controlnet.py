@@ -21,6 +21,7 @@ from stable_diffusion_pytorch_tpu_torch.models.build import build_controlnet
 from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_training_models
 from stable_diffusion_pytorch_tpu_torch.trainers.trainer import ControlNetTrainer
 from stable_diffusion_pytorch_tpu_torch.utils.data import ControlNetDataset, get_dataset
+from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 
 
 def build_trainer(argv=None) -> ControlNetTrainer:
@@ -37,10 +38,15 @@ def build_trainer(argv=None) -> ControlNetTrainer:
     return ControlNetTrainer(model, controlnet, cfg, *datasets, logger=logger, device=device)
 
 
-def main(argv=None) -> ControlNetTrainer:
+def _main(argv=None) -> ControlNetTrainer:
     trainer = build_trainer(argv)
     trainer.train()
     return trainer
+
+
+def main(argv=None) -> ControlNetTrainer:
+    """Build and train; a failure leaves a crash report under ``logs/crashes`` (``utils/errors.py``)."""
+    return record(_main)(argv)
 
 
 if __name__ == "__main__":

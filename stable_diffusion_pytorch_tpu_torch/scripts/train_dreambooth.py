@@ -34,6 +34,7 @@ from stable_diffusion_pytorch_tpu_torch.utils.data import (
     dreambooth_collate,
     to_img,
 )
+from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 
 CLASS_BATCH = 4  # class images sampled per call
 
@@ -92,10 +93,15 @@ def build_trainer(argv=None, read=None) -> UNetTrainer:
                        train_collate=collate)
 
 
-def main(argv=None) -> UNetTrainer:
+def _main(argv=None) -> UNetTrainer:
     trainer = build_trainer(argv)
     trainer.train()
     return trainer
+
+
+def main(argv=None) -> UNetTrainer:
+    """Build and train; a failure leaves a crash report under ``logs/crashes`` (``utils/errors.py``)."""
+    return record(_main)(argv)
 
 
 if __name__ == "__main__":

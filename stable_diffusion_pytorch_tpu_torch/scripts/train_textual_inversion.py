@@ -22,6 +22,7 @@ import numpy as np
 from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_training_models
 from stable_diffusion_pytorch_tpu_torch.trainers.trainer import TextualInversionTrainer
 from stable_diffusion_pytorch_tpu_torch.utils.data import TextualInversionDataset, get_dataset
+from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 
 
 def init_concept_vectors(text_encoder, cfg_train, seed: int = 0) -> np.ndarray:
@@ -52,10 +53,15 @@ def build_trainer(argv=None) -> TextualInversionTrainer:
     return TextualInversionTrainer(model, cfg, *datasets, logger=logger, device=device)
 
 
-def main(argv=None) -> TextualInversionTrainer:
+def _main(argv=None) -> TextualInversionTrainer:
     trainer = build_trainer(argv)
     trainer.train()
     return trainer
+
+
+def main(argv=None) -> TextualInversionTrainer:
+    """Build and train; a failure leaves a crash report under ``logs/crashes`` (``utils/errors.py``)."""
+    return record(_main)(argv)
 
 
 if __name__ == "__main__":

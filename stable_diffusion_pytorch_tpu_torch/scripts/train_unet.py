@@ -19,10 +19,17 @@ from ``--seed``. Tiny run on the CPU:
 
 The memory-lean configuration (int8 Adam moments, a bf16 gradient
 accumulator, per-block remat saving the ResBlock convs) adds
-``--use-8bit-adam --accum-dtype bf16 --remat-policy conv-save``.
+``--use-8bit-adam --accum-dtype bf16 --remat-policy conv-save``. The JAX
+trainer's other options run here too: ``--prediction-type v_prediction``
+(with ``--zero-terminal-snr``), ``--snr-gamma``, ``--latent-cache PATH``
+(built on first use), ``--device-preprocess``, ``--log-grad-noise-scale``,
+``--spike-threshold``, ``--log-image``, ``--no-fused-adamw`` and a Hugging
+Face ``--dataset``.
 """
 
 from __future__ import annotations
+
+import os
 
 from stable_diffusion_pytorch_tpu_torch.config import (
     AutoencoderConfig,
@@ -35,6 +42,12 @@ from stable_diffusion_pytorch_tpu_torch.config import (
 from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
 from stable_diffusion_pytorch_tpu_torch.trainers.trainer import UNetTrainer, check_supported
 from stable_diffusion_pytorch_tpu_torch.utils.data import get_dataset
+from stable_diffusion_pytorch_tpu_torch.utils.errors import record
+from stable_diffusion_pytorch_tpu_torch.utils.latent_cache import (
+    LatentCacheDataset,
+    build_latent_cache,
+    collate_latents,
+)
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import get_logger
 
 
@@ -67,18 +80,34 @@ def build_training_models(argv, name: str):
 
 
 def build_trainer(argv=None) -> UNetTrainer:
-    """Parse the flags and build the models, datasets and trainer."""
+    """Parse the flags and build the models, datasets and trainer. With
+    ``--latent-cache PATH`` the training rows come from that cache, built
+    first from the training set (the frozen VAE and CLIP on the run's
+    device) when the file does not exist."""
     cfg, device, compat, model, logger = build_training_models(argv, "train_unet")
     tokenizer = model.text_encoder.tokenizer
     train_dataset = get_dataset(cfg.dataset, split="train", tokenizer=tokenizer, logger=logger)
     eval_dataset = get_dataset(cfg.dataset, split="validation", tokenizer=tokenizer, logger=logger)
-    return UNetTrainer(model, cfg, train_dataset, eval_dataset, logger=logger, compat=compat, device=device)
+    collate = None
+    cache = cfg.dataset.latent_cache
+    if cache:
+        if not os.path.exists(cache):
+            build_latent_cache(model.autoencoder, train_dataset, cache, logger=logger, text_encoder=model.text_encoder)
+        train_dataset, collate = LatentCacheDataset(cache), collate_latents
+        logger.info(f"training from cached latents: {cache}")
+    return UNetTrainer(model, cfg, train_dataset, eval_dataset, logger=logger, compat=compat, device=device,
+                       train_collate=collate)
 
 
-def main(argv=None) -> UNetTrainer:
+def _main(argv=None) -> UNetTrainer:
     trainer = build_trainer(argv)
     trainer.train()
     return trainer
+
+
+def main(argv=None) -> UNetTrainer:
+    """Build and train; a failure leaves a crash report under ``logs/crashes`` (``utils/errors.py``)."""
+    return record(_main)(argv)
 
 
 if __name__ == "__main__":

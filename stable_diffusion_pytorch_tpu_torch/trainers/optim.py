@@ -25,6 +25,8 @@ operation, and upcasting whole lists would undo the memory saved). The clip's
 norm is taken in f32 for a bf16 accumulator too (:func:`global_norm` says
 where that departs from the JAX package). :class:`~stable_diffusion_pytorch_tpu_torch.trainers.adam8bit.AdamW8bit`
 (``--use-8bit-adam``) shares the accumulation (:class:`Accumulating`).
+:class:`ChainAdamW` (``--no-fused-adamw``) is the unfused optax chain under
+``optax.MultiSteps``, in optax's order of operations.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ _FLAGS = {
     "adam_nu_dtype": "--adam-nu-dtype",
     "gradient_accumulation": "--gradient-accumulation-steps",
     "accum_dtype": "--accum-dtype",
+    "no_fused_adamw": "--no-fused-adamw",
 }
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -189,16 +192,19 @@ class Accumulating:
     def load_state_dict(self, state: Dict) -> None:
         saved = state.get("layout") or _legacy_layout(state)
         mine = self.layout()
-        differ = [k for k in sorted(set(saved) | set(mine)) if saved.get(k) != mine.get(k)]
+        # the fused AdamW's layout names no path: a checkpoint without the key is the fused one
+        value = lambda d, k: d.get(k, False) if k == "no_fused_adamw" else d.get(k)  # noqa: E731
+        differ = [k for k in sorted(set(saved) | set(mine)) if value(saved, k) != value(mine, k)]
         # a dtype means nothing where the other side has no such state
         if "gradient_accumulation" in differ:
             differ = [k for k in differ if k != "accum_dtype"]
         if "use_8bit_adam" in differ:
-            differ = [k for k in differ if k not in ("adam_mu_dtype", "adam_nu_dtype")]
+            differ = [k for k in differ if k not in ("adam_mu_dtype", "adam_nu_dtype", "no_fused_adamw")]
         if differ:
             raise ValueError(
                 "checkpoint optimizer state does not match this run's flags: "
-                + ", ".join(f"{_FLAGS[k]} (checkpoint: {saved.get(k)}, this run: {mine.get(k)})" for k in differ)
+                + ", ".join(f"{_FLAGS[k]} (checkpoint: {value(saved, k)}, this run: {value(mine, k)})"
+                            for k in differ)
                 + "; re-run with the saving run's flags"
             )
         self.count = int(state["count"])
@@ -284,15 +290,66 @@ class AdamW(Accumulating):
             d.copy_(s)
 
 
+class ChainAdamW(AdamW):
+    """``--no-fused-adamw``: the JAX package's optax path, ``chain(
+    clip_by_global_norm(c), adamw(mu_dtype))`` under ``optax.MultiSteps``,
+    in optax 0.2.6's order of operations: the clip ``g / ||g|| * c`` where
+    ``||g|| >= c``; ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2
+    nu`` in f32 (for a bf16 mu, b1 rounded to bf16 first, as JAX's
+    weak-typed scalar is), mu stored in ``mu_dtype`` after the update read it; ``u =
+    (mu / bc1) / (sqrt(nu / bc2) + eps) + wd p``, then ``p + u * -lr``.
+    ``nu`` stays f32 (``optax.adamw`` has no nu storage dtype). Under
+    accumulation ``MultiSteps`` keeps the same running mean as the fused
+    path, in f32 whatever ``--accum-dtype`` says. Leaf by leaf. The layout
+    names the path, so a checkpoint of either path refuses to resume under
+    the other. Given the same gradients and f32 moments it differs from
+    :class:`AdamW` only in rounding (the clip's ``g / ||g|| * c`` against
+    ``g * (c / ||g||)``): after a few steps the parameters agree within 1e-3
+    of the learning rate beyond 2^-22 of their size (an f32 parameter's last
+    bits), as ``chip_smoke.py`` phase 9d and
+    ``tests/test_torch_port_train_options.py`` hold them. With a bf16 mu the
+    two differ as the JAX package's two paths do (optax takes b1 in bf16,
+    ``fused_adamw`` in f32)."""
+
+    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
+        b1, b2 = self.b1, self.b2
+        count_inc, bc1, bc2, lr = self._scalars()
+        if self.max_grad_norm is not None:
+            c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
+            keep = norm < c
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            g = g.float()
+            if self.max_grad_norm is not None:
+                g = torch.where(keep, g, g / norm * c)
+            # JAX's weak-typed b1 takes mu's dtype; XLA multiplies in f32
+            mu_n = (1.0 - b1) * g + float(torch.tensor(b1, dtype=mu.dtype)) * mu.float()
+            nu_n = (1.0 - b2) * (g * g) + b2 * nu
+            u = (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + self.eps) + self.weight_decay * p
+            p.add_(u * -lr)
+            mu.copy_(mu_n)
+            nu.copy_(nu_n)
+        self.count = count_inc
+
+    def layout(self) -> Dict:
+        return {**super().layout(), "no_fused_adamw": True}
+
+
 def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulation_steps: int = 1) -> Accumulating:
     """clip-by-global-norm -> AdamW(schedule, wd), accumulated over k micro
     steps, as the JAX package's ``build_optimizer`` composes it: the fused
     AdamW with ``--adam-mu-dtype``/``--adam-nu-dtype`` storage, or under
     ``--use-8bit-adam`` the int8 optimizer (which ignores the moment dtype
-    flags); both honour ``--accum-dtype``. ``--no-fused-adamw`` (the optax
-    chain with ``MultiSteps``) is not ported."""
-    if getattr(optim_cfg, "no_fused_adamw", False):
-        raise NotImplementedError("--no-fused-adamw is not ported yet (ROADMAP queue 1, item 13a)")
+    flags), both honouring ``--accum-dtype``; or under ``--no-fused-adamw``
+    the optax chain (:class:`ChainAdamW`: ``--adam-mu-dtype`` only, an f32
+    accumulator). ``--adam-nu-dtype bf16`` with ``--no-fused-adamw`` raises
+    the JAX package's ``ValueError``."""
+    unfused = getattr(optim_cfg, "no_fused_adamw", False)
+    if (unfused and not getattr(optim_cfg, "use_8bit_adam", False)
+            and getattr(optim_cfg, "adam_nu_dtype", "f32") == "bf16"):
+        raise ValueError(
+            "--adam-nu-dtype bf16 requires the fused AdamW path "
+            "(optax.adamw has no nu storage dtype); drop --no-fused-adamw"
+        )
     schedule = build_lr_schedule(
         optim_cfg.scheduler_type, optim_cfg.learning_rate, optim_cfg.lr_warmup_steps, max_train_steps
     )
@@ -305,6 +362,9 @@ def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulati
         from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit
 
         return AdamW8bit(params, schedule, **common)
+    if unfused:
+        return ChainAdamW(params, schedule, mu_dtype=storage_dtype(getattr(optim_cfg, "adam_mu_dtype", "f32")),
+                          **{**common, "acc_dtype": torch.float32})
     return AdamW(
         params, schedule, mu_dtype=storage_dtype(getattr(optim_cfg, "adam_mu_dtype", "f32")),
         nu_dtype=storage_dtype(getattr(optim_cfg, "adam_nu_dtype", "f32")), **common,

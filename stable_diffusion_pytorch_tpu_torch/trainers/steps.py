@@ -3,26 +3,31 @@ of ControlNet (port of trainers/steps.py: ``make_unet_train_step``,
 ``make_vae_train_step``, ``make_textual_inversion_train_step``,
 ``make_controlnet_train_step``).
 
-One UNet step: frozen VAE encode and posterior sample, q-sample, frozen CLIP encode
-with empty-prompt dropout, the UNet forward and backward, the f32 MSE to the
-noise, clip-by-global-norm and AdamW (``trainers/optim.py``), and the EMA
-shadow update. The UNet keeps f32 parameters; on a CUDA device with a bf16
-compute dtype its forward runs under ``torch.autocast`` (matmuls and convs in
-bf16, the counterpart of Flax's ``dtype=bf16`` over ``param_dtype=f32``). The
+One UNet step: frozen VAE encode and posterior sample (or the latent cache's
+moments sampled, or uint8 rows normalized on the device first), q-sample,
+frozen CLIP encode with empty-prompt dropout (or the cached embeddings), the
+UNet forward and backward, the f32 MSE to the noise or to v, optionally
+weighted per example by Min-SNR, clip-by-global-norm and AdamW
+(``trainers/optim.py``), and the EMA shadow update. Under the gradient noise
+scale the backward runs once per half batch (:func:`_gns_grads`). The UNet
+keeps f32 parameters; on a CUDA device with a bf16 compute dtype its forward
+runs under ``torch.autocast`` (matmuls and convs in bf16, the counterpart of
+Flax's ``dtype=bf16`` over ``param_dtype=f32``). The
 attention and GroupNorm layers reach the kernels through their autograd
 Functions (``ops/flash_attention.py``, ``ops/fused_groupnorm.py``), forward and
 backward.
 
 Every random draw of a step comes from :func:`sample_draws`: the posterior
 noise, the diffusion noise, the timesteps, the dropout uniforms, the offset
-noise and the input perturbation. ``jax.random`` cannot be reproduced, so a
+noise, the input perturbation and the flips. ``jax.random`` cannot be reproduced, so a
 parity test draws them in JAX (``steps.py`` splits the step key seven ways)
 and hands them in.
 
 One VAE step: the whole VAE (encode, posterior sample, decode) forward and
 backward on trainable f32 parameters under the same autocast, the f32 MSE of
 the reconstruction plus ``kl_weight`` times the KL, then the same optimizer
-and EMA update. Its one draw, the posterior noise, is handed in as ``eps``.
+and EMA update. Its draws, the posterior noise and under on-device
+preprocessing the flips, are handed in as ``eps`` and ``flip``.
 
 The personalization steps. DreamBooth is the UNet step with
 ``prior_loss_weight`` (instance rows at the even indices, class rows at the
@@ -46,9 +51,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
-from stable_diffusion_pytorch_tpu_torch.models.lora import substituted
+from stable_diffusion_pytorch_tpu_torch.models.blocks import GaussianDistribution
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_pred_noise_fn
+from stable_diffusion_pytorch_tpu_torch.models.lora import substituted
 from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
+from stable_diffusion_pytorch_tpu_torch.trainers.optim import global_norm
+from stable_diffusion_pytorch_tpu_torch.utils.preprocess import device_preprocess
 
 
 class Trainables:
@@ -143,11 +151,13 @@ def sample_draws(
     noise_offset: float = 0.0,
     input_perturbation: float = 0.0,
     whole_batch_drop: bool = False,
+    random_flip: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Every random draw of one step, f32 (timesteps int64) on ``device``:
     ``posterior_eps`` and ``noise`` [B, h, w, c], ``timesteps`` [B] in
     [0, noise_steps), ``drop_u`` uniforms ([B], or [] for whole-batch
-    dropout), and when enabled ``offset`` [B, 1, 1, c] and ``perturb``."""
+    dropout), and when enabled ``offset`` [B, 1, 1, c], ``perturb`` and
+    ``flip`` [B] bool (the on-device preprocessing's flips, p = 0.5)."""
     kw = dict(generator=generator, device=device)
     draws = {
         "posterior_eps": torch.randn(latent_shape, **kw),
@@ -159,7 +169,19 @@ def sample_draws(
         draws["offset"] = torch.randn((batch_size, 1, 1, latent_shape[-1]), **kw)
     if input_perturbation > 0.0:
         draws["perturb"] = torch.randn(latent_shape, **kw)
+    if random_flip:
+        draws["flip"] = torch.rand((batch_size,), **kw) < 0.5
     return draws
+
+
+def batch_rows(batch: Dict[str, torch.Tensor]) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def split_batch(batch: Dict[str, torch.Tensor]):
+    """The two halves of a batch along dim 0 (the first ``B // 2`` rows, the rest)."""
+    half = batch_rows(batch) // 2
+    return {k: v[:half] for k, v in batch.items()}, {k: v[half:] for k, v in batch.items()}
 
 
 def _ema_update(ema_params, params, decay: float) -> None:
@@ -196,14 +218,41 @@ def _apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float) ->
     return _apply(state, _backward(state, loss), ema_decay)
 
 
-def _mse(pred: torch.Tensor, target: torch.Tensor, prior_loss_weight: float = 0.0) -> torch.Tensor:
-    """The f32 MSE; with ``prior_loss_weight`` > 0 the per-example MSEs as
+def _mse(pred: torch.Tensor, target: torch.Tensor, prior_loss_weight: float = 0.0,
+         weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 MSE. With per-example weights ``weight`` [B] (Min-SNR) or
+    ``prior_loss_weight`` > 0 the loss is taken over the per-example MSEs:
+    each times its weight, then their mean, or with the prior term
     ``mean(even rows) + w * mean(odd rows)`` (instance rows, class rows)."""
     sq = (pred.float() - target.float()) ** 2
+    if weight is None and prior_loss_weight <= 0.0:
+        return sq.mean()
+    per_example = sq.reshape(sq.shape[0], -1).mean(dim=1)
+    if weight is not None:
+        per_example = weight * per_example
     if prior_loss_weight > 0.0:
-        per_example = sq.reshape(sq.shape[0], -1).mean(dim=1)
         return per_example[0::2].mean() + prior_loss_weight * per_example[1::2].mean()
-    return sq.mean()
+    return per_example.mean()
+
+
+def _gns_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequence):
+    """The gradient-noise-scale split (McCandlish et al. 2018): the gradient
+    of each half of the batch, ``grad_fn(half, its draws) -> (loss, grads)``
+    with ``draws`` one per half, averaged into the full batch's; with
+    B_small = B // 2 and B_big = 2 B_small, the estimator's two halves
+    S = 2 B_small (|g_small|^2 - |g_big|^2) and G^2 = 2 |g_big|^2 - |g_small|^2,
+    |g_small|^2 the mean of the halves' squared norms. The trainer smooths
+    both and reports S / G^2. -> (loss, grads, {"gns_s", "gns_g2"})."""
+    b1, b2 = split_batch(batch)
+    half = batch_rows(b1)
+    l1, g1 = grad_fn(b1, draws[0])
+    l2, g2 = grad_fn(b2, draws[1])
+    small2 = (global_norm(g1) ** 2 + global_norm(g2) ** 2) * 0.5
+    torch._foreach_add_(g1, g2)
+    del g2
+    torch._foreach_mul_(g1, 0.5)
+    big2 = global_norm(g1) ** 2
+    return (l1 + l2) * 0.5, g1, {"gns_s": 2.0 * half * (small2 - big2), "gns_g2": 2.0 * big2 - small2}
 
 
 def _latents_and_x_t(vae, sched, batch, draws):
@@ -241,10 +290,15 @@ def make_unet_train_step(
     input_perturbation: float = 0.0,
     param_transform: Optional[Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]] = None,
     prior_loss_weight: float = 0.0,
+    prediction_type: str = "epsilon",
+    snr_gamma: float = 0.0,
+    grad_noise_scale: bool = False,
+    random_flip: bool = False,
 ) -> Tuple[Callable, Callable]:
     """Build (train_step, eval_step) for latent-diffusion training.
 
     train_step(state, batch, uncond_ids, draws) -> {"loss", "grad_norm"}
+    (and "gns_s", "gns_g2" under ``grad_noise_scale``)
     eval_step(batch, uncond_ids, draws, params=None) -> loss
 
     ``param_transform(trainable tensors) -> {UNet parameter name: tensor}``
@@ -256,26 +310,52 @@ def make_unet_train_step(
     interleaves instance rows (even) and class rows (odd), and the loss is
     ``mean(instance MSE) + w * mean(class MSE)``, in evaluation too.
 
+    The objective: ``prediction_type`` "epsilon" regresses the noise,
+    "v_prediction" the f32 v = alpha eps - sigma x0 (Salimans & Ho 2022);
+    ``snr_gamma`` > 0 weighs each example's MSE by its Min-SNR-gamma weight
+    (Hang et al. 2023), before the prior term splits the rows. The loss is
+    f32. ``grad_noise_scale`` takes the gradient as the mean of the two
+    half batches' (:func:`_gns_grads`); ``draws`` is then a pair, one
+    :func:`sample_draws` for each half.
+
     ``train_step`` hands the gradients to ``state.optimizer.step`` and moves
     the EMA when that applied an update.
 
-    ``batch``: {"pixel_values": [B, H, W, 3] in [-1, 1], "input_ids": [B, S]}
-    on the model's device; ``uncond_ids`` [S], the empty prompt's tokens;
-    ``draws`` from :func:`sample_draws`. The target is the noise (epsilon);
-    the loss is the f32 MSE. ``whole_batch_cfg_dropout`` swaps the whole batch
-    for the empty prompt at once (the reference), otherwise each example is
-    dropped on its own; ``train_with_cfg`` regresses the CFG-combined doubled
-    forward at ``guidance_scale`` (the reference's quirk)."""
+    ``batch`` on the model's device: "input_ids" [B, S] and the image as
+    "pixel_values" [B, H, W, 3] in [-1, 1], "raw_images" [B, H, W, 3] uint8
+    (normalized here, flipped where ``draws["flip"]`` is set under
+    ``random_flip``), "moments" [B, h, w, 2c] (the latent cache's posterior,
+    sampled with ``draws["posterior_eps"]``) or "latents"; with
+    "context_emb" [B, S, D] (the cached text) CLIP does not run and
+    ``uncond_ids`` is the cached empty prompt's embedding [S, D], else the
+    empty prompt's tokens [S]. ``draws`` from :func:`sample_draws`.
+    ``whole_batch_cfg_dropout`` swaps the whole batch for the empty prompt at
+    once (the reference), otherwise each example is dropped on its own;
+    ``train_with_cfg`` regresses the CFG-combined doubled forward at
+    ``guidance_scale`` (the reference's quirk)."""
     device = next(unet.parameters()).device
     sched = sched_lib.schedule_on(schedule, device)
     pred_noise = make_pred_noise_fn(unet, guidance_scale if train_with_cfg else 1.0, reference_cfg_formula)
     autocast = device.type == "cuda" and compute_dtype != torch.float32
 
     @torch.no_grad()
+    def encode_latents(batch, draws):
+        if "moments" in batch:
+            return GaussianDistribution.from_moments(batch["moments"]).sample(eps=draws["posterior_eps"])
+        if "latents" in batch:
+            return batch["latents"]
+        if "raw_images" in batch:
+            raw = batch["raw_images"]
+            pixels = device_preprocess(raw, raw.shape[1], center_crop=True, random_flip=random_flip,
+                                       flip=draws.get("flip"))
+        else:
+            pixels = batch["pixel_values"]
+        return vae.encode(pixels).sample(eps=draws["posterior_eps"])
+
+    @torch.no_grad()
     def prepare_inputs(batch, uncond_ids, draws):
-        """Frozen encoders + q-sample -> (x_t, t, context, uncond_emb, noise)."""
-        posterior = vae.encode(batch["pixel_values"])
-        latents = posterior.sample(eps=draws["posterior_eps"])
+        """Frozen encoders + q-sample -> (x_t, t, context, uncond_emb, noise, latents)."""
+        latents = encode_latents(batch, draws)
         noise = draws["noise"].to(latents.dtype)
         if noise_offset > 0.0:
             noise = noise + noise_offset * draws["offset"].to(latents.dtype)
@@ -286,10 +366,18 @@ def make_unet_train_step(
         else:
             x_t = sched_lib.add_noise(sched, latents, noise, t)
 
+        if "context_emb" in batch:
+            context = batch["context_emb"]
+            uncond_batch = uncond_ids.to(context.dtype)[None].expand_as(context)
+            drop = draws["drop_u"] < cfg_dropout_prob
+            if drop.dim():
+                drop = drop[:, None, None]
+            context = torch.where(drop, uncond_batch, context)
+            return x_t, t, context, uncond_batch if train_with_cfg else None, noise, latents
         input_ids, uncond_batch = _drop_prompts(batch["input_ids"], uncond_ids, draws["drop_u"], cfg_dropout_prob)
         context = text_encoder(input_ids)
         uncond_emb = text_encoder(uncond_batch) if train_with_cfg else None
-        return x_t, t, context, uncond_emb, noise
+        return x_t, t, context, uncond_emb, noise, latents
 
     def weights(params):
         """The UNet's parameters, or the transform's tensors in their place."""
@@ -300,17 +388,32 @@ def make_unet_train_step(
         return substituted(unet, param_transform(params))
 
     def loss_fn(batch, uncond_ids, draws):
-        x_t, t, ctx, uncond_emb, noise = prepare_inputs(batch, uncond_ids, draws)
+        x_t, t, ctx, uncond_emb, noise, latents = prepare_inputs(batch, uncond_ids, draws)
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             pred = pred_noise(x_t, t, ctx, uncond_emb)
-        return _mse(pred, noise, prior_loss_weight)
+        if prediction_type == "v_prediction":
+            alpha, sigma_vp = (c.reshape(-1, 1, 1, 1).float() for c in sched_lib.alpha_sigma_at(sched, t))
+            target = sched_lib.v_from_eps_x0(latents.float(), noise.float(), alpha, sigma_vp)
+        else:
+            target = noise
+        weight = sched_lib.min_snr_weight(sched, t, snr_gamma, prediction_type) if snr_gamma > 0.0 else None
+        return _mse(pred, target, prior_loss_weight, weight)
+
+    def grad_fn(state, uncond_ids):
+        def fn(batch, draws):
+            with weights(state.tensors()):
+                loss = loss_fn(batch, uncond_ids, draws)
+                return loss.detach(), _backward(state, loss)
+
+        return fn
 
     def train_step(state: TrainState, batch, uncond_ids, draws):
-        with weights(state.tensors()):
-            loss = loss_fn(batch, uncond_ids, draws)
-            grads = _backward(state, loss)
+        if grad_noise_scale:
+            loss, grads, extras = _gns_grads(grad_fn(state, uncond_ids), batch, draws)
+        else:
+            (loss, grads), extras = grad_fn(state, uncond_ids)(batch, draws), {}
         grad_norm = _apply(state, grads, ema_decay)
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm, **extras}
 
     @torch.no_grad()
     def eval_step(batch, uncond_ids, draws, params=None):
@@ -417,22 +520,33 @@ def make_vae_train_step(
     kl_weight: float = 1.0,
     kl_per_example0: bool = False,
     ema_decay: float = 0.0,
+    grad_noise_scale: bool = False,
+    random_flip: bool = False,
 ) -> Tuple[Callable, Callable]:
     """Build (train_step, eval_step) for KL-VAE training.
 
-    train_step(state, batch, eps) -> {"loss", "grad_norm", "recon_loss", "kl_loss"}
-    eval_step(batch, eps) -> loss
+    train_step(state, batch, eps, flip=None) -> {"loss", "grad_norm", "recon_loss", "kl_loss"}
+    eval_step(batch, eps, flip=None) -> loss
 
-    ``batch``: {"pixel_values": [B, H, W, 3] in [-1, 1]} on the VAE's device;
-    ``eps``: the posterior noise, [B, H/f, W/f, latent_channels]. The loss is
-    the f32 MSE(img, recon) + ``kl_weight`` * KL, the KL the batch mean of the
-    per-example sums, or example 0's under ``kl_per_example0`` (the
-    reference's bug, ``CompatConfig.kl_per_example0``)."""
+    ``batch``: {"pixel_values": [B, H, W, 3] in [-1, 1]} or {"raw_images":
+    [B, H, W, 3] uint8} (normalized here, row i flipped where ``flip[i]``
+    under ``random_flip``) on the VAE's device; ``eps``: the posterior noise,
+    [B, H/f, W/f, latent_channels]. The loss is the f32 MSE(img, recon) +
+    ``kl_weight`` * KL, the KL the batch mean of the per-example sums, or
+    example 0's under ``kl_per_example0`` (the reference's bug,
+    ``CompatConfig.kl_per_example0``). Under ``grad_noise_scale`` the
+    gradient is the mean of the half batches' (:func:`_gns_grads`): ``eps``
+    and ``flip`` are then pairs, one for each half, and the metrics hold
+    "gns_s" and "gns_g2" in place of the loss parts, as in the JAX package."""
     device = next(vae.parameters()).device
     autocast = device.type == "cuda" and compute_dtype != torch.float32
 
-    def loss_fn(batch, eps):
-        img = batch["pixel_values"]
+    def loss_fn(batch, eps, flip):
+        if "raw_images" in batch:
+            raw = batch["raw_images"]
+            img = device_preprocess(raw, raw.shape[1], center_crop=True, random_flip=random_flip, flip=flip)
+        else:
+            img = batch["pixel_values"]
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             recon, posterior = vae(img, eps=eps)
         recon_loss = torch.mean((img.float() - recon.float()) ** 2)
@@ -440,14 +554,24 @@ def make_vae_train_step(
         kl_loss = kl[0] if kl_per_example0 else kl.mean()
         return recon_loss + kl_weight * kl_loss, recon_loss, kl_loss
 
-    def train_step(state: TrainState, batch, eps):
-        loss, recon_loss, kl_loss = loss_fn(batch, eps)
-        grad_norm = _apply_gradients(state, loss, ema_decay)
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "recon_loss": recon_loss.detach(),
-                "kl_loss": kl_loss.detach()}
+    def train_step(state: TrainState, batch, eps, flip=None):
+        if grad_noise_scale:
+            def grad_fn(half, draws):
+                loss = loss_fn(half, *draws)[0]
+                return loss.detach(), _backward(state, loss)
+
+            flips = flip if flip is not None else (None, None)
+            loss, grads, extras = _gns_grads(grad_fn, batch, list(zip(eps, flips)))
+        else:
+            loss, recon_loss, kl_loss = loss_fn(batch, eps, flip)
+            grads = _backward(state, loss)
+            loss = loss.detach()
+            extras = {"recon_loss": recon_loss.detach(), "kl_loss": kl_loss.detach()}
+        grad_norm = _apply(state, grads, ema_decay)
+        return {"loss": loss, "grad_norm": grad_norm, **extras}
 
     @torch.no_grad()
-    def eval_step(batch, eps):
-        return loss_fn(batch, eps)[0]
+    def eval_step(batch, eps, flip=None):
+        return loss_fn(batch, eps, flip)[0]
 
     return train_step, eval_step

@@ -18,18 +18,29 @@ seeded with ``SeedSequence([0, seed, m])`` (evaluation batch ``i``:
 ``[1, seed, i]``), so a resumed run replays the same draws, as the JAX
 package's ``fold_in(seed, m)`` keys do. The streams differ from JAX's.
 
-Not ported, and refused with ``NotImplementedError`` naming the ROADMAP item
-(:func:`check_supported`): multi-device and sharded training, chained
-dispatch, v-prediction, Min-SNR, gradient-noise-scale, the latent cache,
-on-device preprocessing, image logging (so no trainer here has
-``log_images``), wandb tracking, loss-spike detection and the unfused optax
-optimizer (``--no-fused-adamw``). Ported memory levers: ``--remat-policy`` (per-block
-remat, set on the UNet by ``build_models``), ``--use-8bit-adam`` (int8
-moments, K9), ``--adam-mu-dtype``/``--adam-nu-dtype``/``--accum-dtype`` bf16.
+The JAX trainers' options: v-prediction and Min-SNR (``trainers/steps.py``),
+the gradient noise scale (``--log-grad-noise-scale``: two half-batch
+backward passes a micro step, the EMA-smoothed ratio ``grad_noise_scale`` in
+the metrics from the 5th optimizer step, :class:`GradNoiseScale`), loss-spike
+detection (``--spike-threshold``, :class:`LossSpikes`), ``--log-image``
+(each trainer's ``log_images`` after an evaluation), wandb
+(``--with-tracking``), the latent cache's rows (``has_text_cache``: the
+cached empty-prompt embedding), on-device preprocessing and the
+``synthetic_fallback`` stamp. Ported memory levers: ``--remat-policy``
+(per-block remat, set on the UNet by ``build_models``), ``--use-8bit-adam``
+(int8 moments, K9), ``--adam-mu-dtype``/``--adam-nu-dtype``/``--accum-dtype``
+bf16; ``--no-fused-adamw`` runs the optax chain (``trainers/optim.py``).
+``--use-pallas-attention`` changes nothing, as in the JAX package, which
+declares it and never reads it: the kernels run either way.
+
+Still refused with ``NotImplementedError`` naming the ROADMAP item
+(:func:`check_supported`): multi-device and sharded training (item 17) and
+chained dispatch, ``--steps-per-dispatch`` (item 20).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -38,8 +49,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from stable_diffusion_pytorch_tpu_torch import pipeline
 from stable_diffusion_pytorch_tpu_torch.models import lora as lora_lib
-from stable_diffusion_pytorch_tpu_torch.models.build import require_device, resolve_dtype
+from stable_diffusion_pytorch_tpu_torch.models.build import (
+    cast_for_inference,
+    require_device,
+    resolve_dtype,
+    sampling_model,
+)
 from stable_diffusion_pytorch_tpu_torch.models.controlnet import init_controlnet_from_unet
 from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_optimizer, lr_at_step
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
@@ -50,37 +67,31 @@ from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
     make_unet_train_step,
     make_vae_train_step,
     sample_draws,
+    split_batch,
 )
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import CheckpointManager, resume_train_state_math
-from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, detransform
+from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, detransform, to_img
 from stable_diffusion_pytorch_tpu_torch.utils.profiling import StepTimer
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker, get_logger
 
-SLICE2_REST = "ROADMAP queue 1, item 13a"
+MULTI_DEVICE = "ROADMAP queue 1, item 17"
+CHAINED_DISPATCH = "ROADMAP queue 1, item 20"
+LOG_IMAGE_PROMPT = "a white cat wearing a hat"  # the reference's eval prompt (train_unet.py:452-465)
+LOG_IMAGE_STEPS = 50  # DDIM steps of a logged sample
 
 
 def _unsupported(cfg):
     """(flag, ROADMAP item) of every option set away from a default whose
     feature the port does not have."""
-    p, t, lg, d, o = cfg.parallel, cfg.train, cfg.log, cfg.dataset, cfg.optim
+    p, t = cfg.parallel, cfg.train
     checks = [
-        (p.num_devices not in (None, 1), "--num-devices", "ROADMAP queue 1, item 17"),
-        (p.shard_optimizer_state, "--shard-optimizer-state", "ROADMAP queue 1, item 17"),
-        (t.use_deepspeed, "--use-deepspeed", "ROADMAP queue 1, item 17"),
-        (p.offload_optimizer, "--offload-optimizer", "ROADMAP queue 1, item 17"),
-        (p.shard_params, "--shard-params", "ROADMAP queue 1, item 17"),
-        ((p.tensor_parallel or 1) > 1, "--tensor-parallel", "ROADMAP queue 1, item 17"),
-        (not p.use_pallas_attention, "--use-pallas-attention off", SLICE2_REST),
-        ((t.steps_per_dispatch or 1) > 1, "--steps-per-dispatch", SLICE2_REST),
-        (t.prediction_type != "epsilon", f"--prediction-type {t.prediction_type}", SLICE2_REST),
-        ((t.snr_gamma or 0.0) > 0.0, "--snr-gamma", SLICE2_REST),
-        (lg.log_grad_noise_scale, "--log-grad-noise-scale", SLICE2_REST),
-        (lg.log_image, "--log-image", SLICE2_REST),
-        (lg.with_tracking, "--with-tracking", SLICE2_REST),
-        ((lg.spike_threshold or 0.0) > 0.0, "--spike-threshold", SLICE2_REST),
-        (d.latent_cache is not None, "--latent-cache", SLICE2_REST),
-        (d.device_preprocess, "--device-preprocess", SLICE2_REST),
-        (o.no_fused_adamw, "--no-fused-adamw", SLICE2_REST),
+        (p.num_devices not in (None, 1), "--num-devices", MULTI_DEVICE),
+        (p.shard_optimizer_state, "--shard-optimizer-state", MULTI_DEVICE),
+        (t.use_deepspeed, "--use-deepspeed", MULTI_DEVICE),
+        (p.offload_optimizer, "--offload-optimizer", MULTI_DEVICE),
+        (p.shard_params, "--shard-params", MULTI_DEVICE),
+        ((p.tensor_parallel or 1) > 1, "--tensor-parallel", MULTI_DEVICE),
+        ((t.steps_per_dispatch or 1) > 1, "--steps-per-dispatch", CHAINED_DISPATCH),
     ]
     return [(flag, item) for bad, flag, item in checks if bad]
 
@@ -89,6 +100,60 @@ def check_supported(cfg) -> None:
     """Raise NotImplementedError for the first option the port cannot honour."""
     for flag, item in _unsupported(cfg):
         raise NotImplementedError(f"{flag} is not ported to the PyTorch trainer yet ({item})")
+
+
+class GradNoiseScale:
+    """The gradient-noise-scale record (JAX ``trainers/trainer.py:585-599``):
+    EMAs (decay 0.95, from 0) of the estimator's two halves, S and G^2, one
+    update per optimizer step; from the 5th update, while the G^2 EMA is
+    positive, ``update`` returns B_noise = EMA(S) / EMA(G^2) (the bias
+    corrections cancel in the ratio), else None."""
+
+    def __init__(self, decay: float = 0.95, warmup: int = 5):
+        self.decay, self.warmup = decay, warmup
+        self.s_ema, self.g2_ema, self.count = 0.0, 0.0, 0
+
+    def update(self, gns_s: float, gns_g2: float) -> Optional[float]:
+        d = self.decay
+        self.count += 1
+        self.s_ema = d * self.s_ema + (1 - d) * gns_s
+        self.g2_ema = d * self.g2_ema + (1 - d) * gns_g2
+        if self.count >= self.warmup and self.g2_ema > 0:
+            return self.s_ema / self.g2_ema
+        return None
+
+
+class LossSpikes:
+    """Running-statistics loss-spike detection (JAX ``trainers/trainer.py:
+    600-625``): after step 10, a loss above mean + threshold * std of the
+    running statistics (decay 0.98; the mean starts at the first loss) is a
+    spike; ``update`` returns the spike count then, or None. The statistics
+    take every loss, spikes included."""
+
+    def __init__(self, threshold: float, decay: float = 0.98, after: int = 10):
+        self.threshold, self.decay, self.after = threshold, decay, after
+        self.mean: Optional[float] = None
+        self.var, self.count = 0.0, 0
+
+    def update(self, global_step: int, loss: float, logger=None) -> Optional[int]:
+        spike = None
+        if (self.mean is not None and global_step > self.after and self.var > 0
+                and loss > self.mean + self.threshold * (self.var ** 0.5)):
+            self.count += 1
+            spike = self.count
+            if logger is not None:
+                logger.warning(
+                    f"LOSS SPIKE at step {global_step}: loss={loss:.5f} vs running "
+                    f"mean={self.mean:.5f} std={self.var ** 0.5:.5f} (threshold {self.threshold}x)"
+                )
+        if self.mean is None:
+            self.mean = loss
+        else:
+            dm = self.decay
+            delta = loss - self.mean
+            self.mean += (1 - dm) * delta
+            self.var = dm * (self.var + (1 - dm) * delta * delta)
+        return spike
 
 
 def step_generator(device, *seeds: int) -> torch.Generator:
@@ -128,7 +193,11 @@ class Trainer:
             if eval_dataset is not None else None
         )
         self.ckpt_manager = CheckpointManager(cfg.checkpoint)
-        self.tracker = Tracker(cfg.log, self.run_name)
+        self.tracker = Tracker(cfg.log, self.run_name, config=cfg.to_dict() if cfg.log.with_tracking else None)
+        # a dataset standing in for one that failed to load marks every record
+        if any(getattr(ds, "synthetic_fallback", False) for ds in (train_dataset, eval_dataset)):
+            self.tracker.set_persistent(synthetic_fallback=True)
+        self.random_flip = bool(cfg.dataset.random_flip and cfg.dataset.device_preprocess)
         self._build()
 
     # subclass surface
@@ -140,6 +209,11 @@ class Trainer:
 
     def _eval_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
         raise NotImplementedError
+
+    def log_images(self, global_step: int):
+        """Under ``--log-image``, after each evaluation: sample or reconstruct,
+        write the PNG under ``output/``, hand it to the tracker; -> the image."""
+        return None
 
     # shared machinery
     def _optimizer(self, params):
@@ -160,15 +234,28 @@ class Trainer:
         if not trainable:
             unet.requires_grad_(False)
 
-    def _unet_draws(self, batch, generator, whole_batch_drop: bool = False):
-        """Every draw of one UNet-loss step for this batch (its rows, 2B under prior preservation)."""
+    def _latent_shape(self, batch) -> tuple:
+        """The latents' shape for a batch of pixels, uint8 images, cached moments or latents."""
+        if "moments" in batch:
+            m = batch["moments"].shape
+            return (*m[:-1], m[-1] // 2)
+        if "latents" in batch:
+            return tuple(batch["latents"].shape)
+        image = batch["pixel_values"] if "pixel_values" in batch else batch["raw_images"]
+        return self.model.latent_shape(image.shape[0], image.shape[1])
+
+    def _unet_draws(self, batch, generator, whole_batch_drop: bool = False, halves: bool = False):
+        """Every draw of one UNet-loss step for this batch (its rows, 2B under
+        prior preservation); with ``halves`` a pair, one for each half of it
+        (the gradient-noise-scale split), drawn in that order."""
+        if halves:
+            return [self._unet_draws(half, generator, whole_batch_drop) for half in split_batch(batch)]
         bsz = batch["input_ids"].shape[0]
         return sample_draws(
-            generator, bsz, self.model.latent_shape(bsz, batch["pixel_values"].shape[1]),
-            self.model.noise_scheduler.noise_steps, self.device,
+            generator, bsz, self._latent_shape(batch), self.model.noise_scheduler.noise_steps, self.device,
             noise_offset=float(self.cfg.train.noise_offset or 0.0),
             input_perturbation=float(self.cfg.train.input_perturbation or 0.0),
-            whole_batch_drop=whole_batch_drop,
+            whole_batch_drop=whole_batch_drop, random_flip=self.random_flip,
         )
 
     def _uncond_ids(self) -> torch.Tensor:
@@ -205,8 +292,9 @@ class Trainer:
             placed = self._place_batch(batch)
             with step_timer:
                 metrics = self._train_step(placed, step_generator(self.device, 0, self.cfg.train.seed, micro))
-                # reading the loss waits for the step's device work
-                metrics = {k: float(v) for k, v in metrics.items()}
+                # reading the loss waits for the step's device work; the
+                # other metrics stay on the device until the loop reads them
+                metrics["loss"] = float(metrics["loss"])
             micro += 1
             yield metrics, fetch_dt + (time.perf_counter() - t0)
 
@@ -259,6 +347,9 @@ class Trainer:
         window_wall = 0.0
         self.step_timer = step_timer = StepTimer(warmup=2)  # the first steps build and tune
         done = False
+        gns = GradNoiseScale()
+        spike_thr = float(cfg.log.spike_threshold or 0.0)
+        spikes = LossSpikes(spike_thr)
 
         for epoch in range(start_epoch, max_train_epochs):
             if done:
@@ -287,6 +378,15 @@ class Trainer:
                         "samples_per_sec": total_bs / max(dt, 1e-9),
                         **step_timer.summary_ms(),
                     }
+                    if "gns_s" in metrics:
+                        # the sync micro step's estimator halves, read beside the loss
+                        b_noise = gns.update(float(metrics["gns_s"]), float(metrics["gns_g2"]))
+                        if b_noise is not None:
+                            record["grad_noise_scale"] = b_noise
+                    if spike_thr > 0:
+                        spike = spikes.update(global_step, loss_val, self.logger)
+                        if spike is not None:
+                            record["loss_spike"] = spike
                     self.tracker.log(record, step=global_step)
                     if global_step % 10 == 0 or global_step <= 3:
                         self.logger.info(
@@ -302,6 +402,8 @@ class Trainer:
                 if (sync and global_step > 0 and cfg.train.log_interval > 0
                         and (global_step + self.eval_cadence_offset) % cfg.train.log_interval == 0):
                     self.evaluate(global_step)
+                    if cfg.log.log_image:
+                        self.log_images(global_step)
 
                 if global_step >= max_train_steps:
                     done = True
@@ -347,10 +449,17 @@ class UNetTrainer(Trainer):
 
     def _build(self) -> None:
         cfg, compat, model = self.cfg, self.compat, self.model
+        if bool(model.noise_scheduler.alphas_cumprod[-1] <= 0.0) and cfg.train.prediction_type == "epsilon":
+            raise ValueError(
+                "--zero-terminal-snr trains a timestep with SNR 0, where the "
+                "eps objective is degenerate (the target IS the input); use "
+                "--prediction-type v_prediction (Lin et al. 2023 §3.1)"
+            )
         unet = model.unet
         lora_rank = int(cfg.train.lora_rank or 0)
         self._check_unet(unet, trainable=lora_rank == 0)
         transform = None
+        self._lora = None
         if lora_rank > 0:
             alpha = float(cfg.train.lora_alpha or 0.0) or lora_rank
             scale = alpha / lora_rank
@@ -361,6 +470,8 @@ class UNetTrainer(Trainer):
 
             def transform(params):
                 return lora_lib.lora_weights(base, params, scale)
+
+            self._lora = (base, scale)
 
             self.logger.info(f"LoRA rank {lora_rank} (alpha {alpha:g}, targets {cfg.train.lora_targets}): "
                              f"{lora_lib.lora_param_count(trainable.tensors()):,} trainable params; base UNet frozen")
@@ -383,17 +494,49 @@ class UNetTrainer(Trainer):
             input_perturbation=float(cfg.train.input_perturbation or 0.0),
             param_transform=transform,
             prior_loss_weight=float(cfg.train.prior_loss_weight or 0.0) if cfg.train.with_prior_preservation else 0.0,
+            prediction_type=cfg.train.prediction_type,
+            snr_gamma=float(cfg.train.snr_gamma or 0.0),
+            grad_noise_scale=bool(cfg.log.log_grad_noise_scale),
+            random_flip=self.random_flip,
         )
+        self.gns = bool(cfg.log.log_grad_noise_scale)
         self.uncond_ids = self._uncond_ids()
+        # the latent cache's rows hold the text embedding: the train step
+        # drops prompts to the cached empty-prompt embedding (evaluation
+        # batches are pixels and tokens, and keep the token path)
+        self.uncond_train = (
+            torch.as_tensor(np.asarray(self.train_dataset.uncond_emb, np.float32), device=self.device)
+            if getattr(self.train_dataset, "has_text_cache", False) else self.uncond_ids
+        )
 
-    def _draws(self, batch, generator):
-        return self._unet_draws(batch, generator, self.whole_batch_drop)
+    def _draws(self, batch, generator, halves: bool = False):
+        return self._unet_draws(batch, generator, self.whole_batch_drop, halves=halves)
 
     def _train_step(self, batch, generator):
-        return self._train(self.state, batch, self.uncond_ids, self._draws(batch, generator))
+        return self._train(self.state, batch, self.uncond_train, self._draws(batch, generator, halves=self.gns))
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, self.uncond_ids, self._draws(batch, generator), params=self.state.tensors())
+
+    @torch.no_grad()
+    def log_images(self, global_step: int):
+        """A sample at the reference's eval prompt, 50 DDIM steps (the
+        reference's full loop runs 1000), from the trained weights (a LoRA
+        merged into the base), written as ``output/unet_sample.png``. The
+        sampler reads the UNet's output as the run trains it
+        (``--prediction-type``), where the JAX package's reads it as epsilon."""
+        weights = None
+        if self._lora is not None:
+            base, scale = self._lora
+            weights = lora_lib.lora_weights(base, self.state.tensors(), scale)
+        outs = pipeline.sample(
+            sampling_model(self.model, weights=weights), image_size=self.cfg.dataset.resolution,
+            prompt=LOG_IMAGE_PROMPT, time_steps=LOG_IMAGE_STEPS, guidance_scale=self.cfg.train.guidance_scale,
+            save_dir="output", sampler="ddim", seed=self.cfg.train.seed, name="unet_sample",
+            prediction_type=self.cfg.train.prediction_type,
+        )
+        self.tracker.log_images({"sampled image": outs[0]}, step=global_step)
+        return outs[0]
 
 
 class TextualInversionTrainer(Trainer):
@@ -433,6 +576,20 @@ class TextualInversionTrainer(Trainer):
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, self._unet_draws(batch, generator), self.state.tensors())
+
+    @torch.no_grad()
+    def log_images(self, global_step: int):
+        """A 50-step DDIM sample of "a photo of a <placeholder>" with the
+        trained vectors, written as ``output/ti_sample.png``."""
+        self.model.text_encoder.set_textual_inversion_vectors(self.state.tensors()["ti"].detach().float().cpu().numpy())
+        outs = pipeline.sample(
+            sampling_model(self.model), image_size=self.cfg.dataset.resolution,
+            prompt=f"a photo of a {self.placeholder}", time_steps=LOG_IMAGE_STEPS,
+            guidance_scale=self.cfg.train.guidance_scale, save_dir="output", sampler="ddim",
+            seed=self.cfg.train.seed, name="ti_sample",
+        )
+        self.tracker.log_images({"sampled image": outs[0]}, step=global_step)
+        return outs[0]
 
 
 class ControlNetTrainer(Trainer):
@@ -474,6 +631,22 @@ class ControlNetTrainer(Trainer):
     def _eval_step(self, batch, generator):
         return self._eval(batch, self.uncond_ids, self._unet_draws(batch, generator))
 
+    @torch.no_grad()
+    def log_images(self, global_step: int):
+        """A 50-step DDIM sample at the first evaluation row's caption,
+        steered by its hint through a copy of the trained ControlNet cast for
+        inference, written as ``output/controlnet_sample.png``."""
+        sampler = sampling_model(self.model)
+        sampler.attach_controlnet(cast_for_inference(copy.deepcopy(self.controlnet), self.model.dtype))
+        row = self.eval_dataset[0]
+        outs = pipeline.sample(
+            sampler, image_size=self.cfg.dataset.resolution, prompt=row.get("text", ""),
+            time_steps=LOG_IMAGE_STEPS, guidance_scale=self.cfg.train.guidance_scale, save_dir="output",
+            sampler="ddim", seed=self.cfg.train.seed, name="controlnet_sample", control_image=row["hint"],
+        )
+        self.tracker.log_images({"sampled image": outs[0]}, step=global_step)
+        return outs[0]
+
 
 class AutoencoderTrainer(Trainer):
     """KL-VAE training: the whole VAE trainable, loss MSE + ``kl_weight`` * KL,
@@ -499,22 +672,35 @@ class AutoencoderTrainer(Trainer):
             raise ValueError("the VAE must hold f32 trainable parameters: build_autoencoder(..., device)")
         self.state = TrainState(vae, self._optimizer([p for p in vae.parameters() if p.requires_grad]),
                                 with_ema=cfg.train.ema_decay > 0)
+        self.gns = bool(cfg.log.log_grad_noise_scale)
         self._train, self._eval = make_vae_train_step(
             vae, compute_dtype=self.dtype, kl_weight=float(cfg.model.autoencoder.kl_weight),
             kl_per_example0=bool(self.compat and self.compat.kl_per_example0), ema_decay=cfg.train.ema_decay,
+            grad_noise_scale=self.gns, random_flip=self.random_flip,
         )
 
     def _eps(self, batch, generator) -> torch.Tensor:
         """The posterior noise of one step, [B, H/f, W/f, latent_channels] f32."""
-        b, h, w, _ = batch["pixel_values"].shape
+        b, h, w, _ = (batch["pixel_values"] if "pixel_values" in batch else batch["raw_images"]).shape
         f = self.vae.downsample_factor
         return torch.randn((b, h // f, w // f, self.vae.latent_channels), generator=generator, device=self.device)
 
+    def _draws(self, batch, generator, halves: bool = False):
+        """(posterior noise, flips or None) of one step; with ``halves`` each a
+        pair, one for each half of the batch (drawn half by half)."""
+        if halves:
+            eps, flip = zip(*(self._draws(half, generator) for half in split_batch(batch)))
+            return eps, flip if self.random_flip else None
+        eps = self._eps(batch, generator)
+        if not self.random_flip:
+            return eps, None
+        return eps, torch.rand((eps.shape[0],), generator=generator, device=self.device) < 0.5
+
     def _train_step(self, batch, generator):
-        return self._train(self.state, batch, self._eps(batch, generator))
+        return self._train(self.state, batch, *self._draws(batch, generator, halves=self.gns))
 
     def _eval_step(self, batch, generator):
-        return self._eval(batch, self._eps(batch, generator))
+        return self._eval(batch, *self._draws(batch, generator))
 
     @torch.no_grad()
     def recon(self, image: np.ndarray) -> np.ndarray:
@@ -525,3 +711,14 @@ class AutoencoderTrainer(Trainer):
         with torch.autocast(self.device.type, dtype=self.dtype, enabled=autocast):
             recon, _ = self.vae(batch["pixel_values"], eps=self._eps(batch, step_generator(self.device, 0)))
         return detransform(recon.float().cpu().numpy())
+
+    def log_images(self, global_step: int):
+        """Reconstructions of the test images; the first written as
+        ``output/autoencoder.png``."""
+        if not self.test_images:
+            return None
+        recons = [self.recon(img) for img in self.test_images]
+        to_img(recons[0], output_path="output", name="autoencoder")
+        self.tracker.log_images({"original_imgs": [detransform(i) for i in self.test_images], "recon_imgs": recons},
+                                step=global_step)
+        return recons[0]

@@ -5,9 +5,13 @@ transforms, caption tokenization, ``collate_fn``, the offline
 ``SyntheticTextImageDataset`` (rows are a pure function of their index, equal
 to the JAX package's), the synthetic branch of ``get_dataset`` and the
 deterministic ``DataLoader`` with its optional prefetch thread. Batches are
-numpy, NHWC float32 pixels in [-1, 1]; the trainer moves them to the device.
-The Hugging Face ``datasets`` branch, the latent cache and on-device
-preprocessing are not ported yet and raise. The personalization datasets:
+numpy, NHWC float32 pixels in [-1, 1], or under ``--device-preprocess``
+uint8 ``raw_images`` the train step normalizes on the device
+(``utils/preprocess.py``); the trainer moves them to the device. Any other
+``--dataset`` loads through Hugging Face ``datasets`` (imported when used)
+into ``HFImageTextDataset`` with the reference's train/validation/test
+windows (``_split_window``), and falls back, loudly, to the synthetic rows
+tagged ``synthetic_fallback`` when loading fails. The personalization datasets:
 ``TextualInversionDataset`` (template captions with the placeholder),
 ``FolderPromptDataset`` and ``DreamBoothDataset`` with ``dreambooth_collate``
 (instance and class rows interleaved), and ``ControlNetDataset`` with its
@@ -176,12 +180,14 @@ def tokenize_captions(
 
 
 def collate_fn(examples: Sequence[dict]) -> dict:
-    """Stack rows into {"pixel_values": [B,H,W,3] f32, "input_ids": [B,77] int32},
-    and ``hint`` [B,H,W,C] f32 when the rows carry one (ControlNet)."""
-    out = {
-        "pixel_values": np.stack([e["pixel_values"] for e in examples]).astype(np.float32),
-        "input_ids": np.stack([e["input_ids"] for e in examples]).astype(np.int32),
-    }
+    """Stack rows into {"pixel_values": [B,H,W,3] f32, "input_ids": [B,77] int32}
+    (uint8 ``raw_image`` rows into "raw_images" [B,H,W,3] uint8), and
+    ``hint`` [B,H,W,C] f32 when the rows carry one (ControlNet)."""
+    out = {"input_ids": np.stack([e["input_ids"] for e in examples]).astype(np.int32)}
+    if "raw_image" in examples[0]:
+        out["raw_images"] = np.stack([e["raw_image"] for e in examples])
+    else:
+        out["pixel_values"] = np.stack([e["pixel_values"] for e in examples]).astype(np.float32)
     if "hint" in examples[0]:
         out["hint"] = np.stack([e["hint"] for e in examples]).astype(np.float32)
     return out
@@ -198,7 +204,8 @@ class SyntheticTextImageDataset:
     Each row is a colored gradient with a circle, square or stripes and a
     matching caption; a row is a pure function of its index, split and epoch,
     drawn with the same numpy generators as the JAX package's, so both give
-    the same rows."""
+    the same rows. Under ``--device-preprocess`` a row carries the rendered
+    uint8 image (``raw_image``) in place of ``pixel_values``."""
 
     _COLORS = [
         ("red", (220, 60, 50)),
@@ -218,6 +225,7 @@ class SyntheticTextImageDataset:
         self.num_rows = num_rows
         self.resolution = cfg.resolution
         self.epoch = 0
+        self.synthetic_fallback = False  # True where it stands in for a dataset that failed to load
 
     def set_epoch(self, epoch: int) -> None:
         """Vary augmentation randomness across epochs (DataLoader forwards this)."""
@@ -250,18 +258,64 @@ class SyntheticTextImageDataset:
         color_name = self._COLORS[idx % len(self._COLORS)][0]
         shape = self._SHAPES[(idx // len(self._COLORS)) % len(self._SHAPES)]
         caption = f"a {color_name} {shape} on a gradient background"
+        img = self._render(idx)
+        input_ids = tokenize_captions([caption], self.tokenizer)[0]
+        if self.cfg.device_preprocess:
+            return {"raw_image": img, "input_ids": input_ids, "text": caption}
         pixel_values = transform_image(
-            self._render(idx),
+            img,
             self.cfg.resolution,
             center_crop=self.cfg.center_crop,
             random_flip=self.cfg.random_flip,
             rng=np.random.default_rng(np.random.SeedSequence([self.epoch, idx])),
         )
-        return {
-            "pixel_values": pixel_values,
-            "input_ids": tokenize_captions([caption], self.tokenizer)[0],
-            "text": caption,
-        }
+        return {"pixel_values": pixel_values, "input_ids": input_ids, "text": caption}
+
+
+class HFImageTextDataset:
+    """Rows of a Hugging Face dataset split, transformed when read
+    (prepare_dataset.py:159-236): the image column (``image`` or ``img``)
+    converted to RGB and transformed, the caption column (``text``,
+    ``caption`` or ``prompt``; a list picks one per row and epoch in
+    training, its first otherwise) tokenized. Under ``--device-preprocess``
+    the host only resizes (short side) and center-crops to a uint8
+    ``raw_image``."""
+
+    def __init__(self, hf_dataset, cfg: DatasetConfig, tokenizer, is_train: bool):
+        self.ds = hf_dataset
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.is_train = is_train
+        self.epoch = 0
+        self.synthetic_fallback = False
+        cols = hf_dataset.column_names
+        self.image_column = [c for c in ["image", "img"] if c in cols][0]
+        self.caption_column = [c for c in ["text", "caption", "prompt"] if c in cols][0]
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, idx: int) -> dict:
+        row = self.ds[int(idx)]
+        img = np.asarray(row[self.image_column].convert("RGB"))
+        caption = row[self.caption_column]
+        rng = np.random.default_rng(np.random.SeedSequence([self.epoch, idx]))
+        input_ids = tokenize_captions([caption], self.tokenizer, self.is_train, rng=rng)[0]
+        text = caption if isinstance(caption, str) else caption[0]
+        if self.cfg.device_preprocess:
+            raw = center_crop_image(resize_image(img, self.cfg.resolution), self.cfg.resolution)
+            return {"raw_image": raw.astype(np.uint8), "input_ids": input_ids, "text": text}
+        pixel_values = transform_image(
+            img,
+            self.cfg.resolution,
+            center_crop=self.cfg.center_crop,
+            random_flip=self.cfg.random_flip and self.is_train,
+            rng=rng,
+        )
+        return {"pixel_values": pixel_values, "input_ids": input_ids, "text": text}
 
 
 # --------------------------------------------------------------------------- #
@@ -304,6 +358,7 @@ class TextualInversionDataset:
         self.placeholder_token = placeholder_token
         self.tokenize = tokenize
         self.epoch = 0
+        self.synthetic_fallback = bool(getattr(base, "synthetic_fallback", False))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -339,6 +394,7 @@ class FolderPromptDataset:
             raise ValueError(f"no images found under {folder!r}")
         self.input_ids = tokenize_captions([prompt], tokenizer)[0]
         self.epoch = 0
+        self.synthetic_fallback = False
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -366,6 +422,7 @@ class DreamBoothDataset:
         self.instance_ds = instance_ds
         self.class_ds = class_ds
         self.epoch = 0
+        self.synthetic_fallback = bool(getattr(instance_ds, "synthetic_fallback", False))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -410,11 +467,13 @@ def edge_hint(pixel_values: np.ndarray, threshold: float = 0.15) -> np.ndarray:
 
 class ControlNetDataset:
     """An image-text dataset's rows with a ``hint``: ``hint_fn(pixel_values)``
-    -> [H, W, C] in [-1, 1] (default :func:`edge_hint`)."""
+    -> [H, W, C] in [-1, 1] (default :func:`edge_hint`). The hint needs pixel
+    rows: ``--device-preprocess`` rows raise."""
 
     def __init__(self, base, hint_fn=None):
         self.base = base
         self.hint_fn = hint_fn or edge_hint
+        self.synthetic_fallback = bool(getattr(base, "synthetic_fallback", False))
 
     def set_epoch(self, epoch: int) -> None:
         if hasattr(self.base, "set_epoch"):
@@ -425,39 +484,104 @@ class ControlNetDataset:
 
     def __getitem__(self, idx: int) -> dict:
         row = dict(self.base[int(idx)])
+        if "pixel_values" not in row:
+            raise ValueError("ControlNetDataset needs pixel rows (device_preprocess unsupported)")
         row["hint"] = self.hint_fn(row["pixel_values"])
         return row
 
 
-def get_dataset(args: DatasetConfig, split: str = "train", tokenizer=None, logger=None):
-    """The offline synthetic dataset, ``max_{train,val,test}_samples`` rows
-    (9000/500/500 when unset). Any other ``--dataset`` raises: loading Hugging
-    Face datasets is not ported (ROADMAP queue 1, slice 2 follow-ups)."""
-    if tokenizer is None:
-        raise ValueError("you need to specify a tokenizer")
-    if split not in {"train", "validation", "test"}:
-        raise ValueError(f"unknown split {split!r}")
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {args.dataset!r}: the port loads only --dataset synthetic; "
-            "Hugging Face datasets are not ported (ROADMAP queue 1, slice 2 follow-ups)"
-        )
+def _split_window(cfg: DatasetConfig, split: str, total: int, logger=None) -> range:
+    """The reference's windows over the one "train" split
+    (prepare_dataset.py:181-215): train [0, max_train), validation the next
+    max_val rows, test the next max_test; a window applies only when it ends
+    strictly inside the dataset, else the split is the whole dataset."""
+    mtr, mva, mte = cfg.max_train_samples, cfg.max_val_samples, cfg.max_test_samples
+    if split == "train" and mtr is not None:
+        if mtr < total:
+            return range(0, mtr)
+        if logger:
+            logger.info(f"max_train_samples({mtr}) is larger than the dataset({total})")
+    if split == "validation" and mva is not None:
+        if mtr + mva < total:
+            return range(mtr, mtr + mva)
+        if logger:
+            logger.info(f"max_val_samples({mva}) is larger than the dataset({total})")
+    if split == "test" and mte is not None:
+        if mtr + mva + mte < total:
+            return range(mtr + mva, mtr + mva + mte)
+        if logger:
+            logger.info(f"max_test_samples({mte}) is larger than the dataset({total})")
+    return range(total)
+
+
+def _synthetic(args: DatasetConfig, split: str, tokenizer) -> SyntheticTextImageDataset:
     sizes = {
         "train": args.max_train_samples or 9000,
         "validation": args.max_val_samples or 500,
         "test": args.max_test_samples or 500,
     }
-    if logger:
-        logger.info(f"synthetic {split} dataset: {sizes[split]} rows at {args.resolution}px")
     return SyntheticTextImageDataset(args, split, tokenizer, sizes[split])
+
+
+def get_dataset(args: DatasetConfig, split: str = "train", tokenizer=None, logger=None):
+    """``--dataset synthetic``: the offline rows, ``max_{train,val,test}_samples``
+    of them (9000/500/500 when unset). Any other name: ``datasets.load_dataset(
+    name, subset, cache_dir=data_dir/name)["train"]`` windowed by
+    :func:`_split_window` into :class:`HFImageTextDataset`; when loading
+    fails, a warning banner and the synthetic rows, tagged
+    ``synthetic_fallback`` (the trainer stamps it on every metrics record)."""
+    if tokenizer is None:
+        raise ValueError("you need to specify a tokenizer")
+    if split not in {"train", "validation", "test"}:
+        raise ValueError(f"unknown split {split!r}")
+    if args.dataset == "synthetic":
+        ds = _synthetic(args, split, tokenizer)
+        if logger:
+            logger.info(f"synthetic {split} dataset: {len(ds)} rows at {args.resolution}px")
+        return ds
+    try:
+        from datasets import load_dataset
+
+        hf = load_dataset(args.dataset, args.subset, cache_dir=os.path.join(args.data_dir, args.dataset))["train"]
+    except Exception as e:  # not cached and no network: degrade to synthetic, loudly
+        import warnings
+
+        banner = (
+            "\n" + "!" * 78 + "\n"
+            f"!! DATASET FALLBACK: could not load {args.dataset!r} "
+            f"({type(e).__name__}: {e});\n"
+            "!! training will run on the SYNTHETIC offline dataset. If you "
+            "expected real data,\n!! fix the dataset path/cache — this run's "
+            "metrics are tagged synthetic_fallback.\n" + "!" * 78
+        )
+        warnings.warn(banner, stacklevel=2)
+        if logger:
+            logger.warning(banner)
+        ds = _synthetic(args, split, tokenizer)
+        ds.synthetic_fallback = True
+        return ds
+    window = _split_window(args, split, len(hf), logger)
+    if len(window) < len(hf):
+        hf = hf.select(window)
+    if logger:
+        logger.info(f"Loaded {len(hf)} {split} samples from dataset:{args.dataset}")
+    return HFImageTextDataset(hf, args, tokenizer, is_train=split == "train")
 
 
 def sample_test_image(args: DatasetConfig, split: str, tokenizer, logger=None, num: int = 10) -> List[np.ndarray]:
     """``num`` [-1, 1] HWC f32 images of ``split``, rows drawn with a numpy
-    generator seeded 0 (the JAX package's ``sample_test_image``: the same rows)."""
+    generator seeded 0 (the JAX package's ``sample_test_image``: the same
+    rows); a ``--device-preprocess`` row's uint8 image is normalized here."""
     test_data = get_dataset(args, split=split, tokenizer=tokenizer, logger=logger)
     rng = np.random.default_rng(0)
-    return [test_data[int(rng.integers(0, len(test_data)))]["pixel_values"] for _ in range(num)]
+    out = []
+    for _ in range(num):
+        row = test_data[int(rng.integers(0, len(test_data)))]
+        if "pixel_values" in row:
+            out.append(row["pixel_values"])
+        else:
+            out.append((row["raw_image"].astype(np.float32) / 255.0 - 0.5) / 0.5)
+    return out
 
 
 class DataLoader:

@@ -20,7 +20,7 @@
   ``checkpoint-2`` present ends in exactly the unbroken run's state (bitwise
   on the CPU); ``--use-8bit-adam --accum-dtype bf16`` trains the VAE's
   leaves. The test images are the JAX package's rows, and the trainer
-  reconstructs one; unported options name their ROADMAP item.
+  reconstructs one; the multi-device options (ROADMAP item 17) raise naming it.
 """
 
 import functools
@@ -273,9 +273,9 @@ def test_vae_cli_takes_the_lean_optimizer(runs):
     assert all(torch.isfinite(p).all() for p in state["params"].values())
 
 
-@pytest.mark.parametrize("flags", [["--log-grad-noise-scale"], ["--device-preprocess"], ["--log-image"]],
-                         ids=["grad_noise_scale", "device_preprocess", "log_image"])
+@pytest.mark.parametrize("flags", [["--num-devices", "4"], ["--shard-params"], ["--offload-optimizer"]],
+                         ids=["num_devices", "shard_params", "offload_optimizer"])
 def test_unported_vae_options_raise(tmp_path, monkeypatch, flags):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13a"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
         train_autoencoder.main([*TRAIN, "--ckpt-dir", "ckpt", *flags])

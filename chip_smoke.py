@@ -6,7 +6,15 @@
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. env: the card (``nvidia-smi`` name and power limit), torch/CUDA
-   versions, and the time to build the CUDA kernels from ``csrc/``.
+   versions, and the time to build the CUDA kernels from ``csrc/``. Then
+   (``stage``) seeded random pretrained weights written under
+   ``build/chip_smoke_pretrained`` in the layouts a user stages for
+   ``--model-dir`` (``stage_pretrained``): the SD-1.5 UNet as a
+   reference-format ``unet.pt``, the SD-1.5 diffusers VAE as ``vae/`` with
+   ``config.json`` and ``diffusion_pytorch_model.bin``, the HF text encoder
+   as ``text_encoder/model.safetensors``, a torchvision
+   ``inception/inception_v3.pth`` and an HF CLIP ViT-L/14 as
+   ``clip_full/model.safetensors`` (the port's safetensors writer).
 2. kernels: every ported kernel against its plain PyTorch version on the card,
    at every distinct shape the main paths launch, recorded from a one-step run
    of each (the 512x512 txt2img slice; 1024x1024 txt2img; the hires fix's
@@ -16,7 +24,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    the SD-1.5 VAE's training at 256x256, batch 4, of phase 9c's three
    trainers and of phase 9d's new shapes (the latent cache's VAE encoder at
    a batch of 16 at 512x512; run (a)'s micro step, every kernel at half its
-   batch of 4; the UNet and VAE trainers at 256x256 from uint8 rows), each
+   batch of 4; the UNet and VAE trainers at 256x256 from uint8 rows) and of
+   phase 9e's (the staged diffusers VAE's bf16 decode at 512x512: K6 at
+   GroupNorm eps 1e-6, which K6's launch key and its record carry; a
+   CLIP-score batch of 16 through the ViT-L/14 tower in f32: K1 at
+   [16, 257, 257, 16, 64]), each
    trainer built for its probe and freed after it, taken with
    an optimizer that applies nothing; and ``EXTRA_BWD_SHAPES``: the 512px VAE bottleneck's backward,
    [1,4096,4096,1,512], and the f32 VAE parity's on K3): flash
@@ -190,13 +202,29 @@ Phases, each printing one JSON line; any failure exits nonzero:
    of their size after step 2.
    Hugging Face datasets and wandb are absent on the card's machine (and it
    has no network): those paths are held by the CPU tests only.
+9e. eval: from the staged directory, (a) the port's txt2img ``main`` with
+   ``--model-dir`` at SD-1.5 width, 512x512, batch 1, 10 DDIM steps, CFG 7.5,
+   bf16: its log names the UNet, the VAE and the text encoder as loaded;
+   every loaded tensor equals the one written (made again from its seed),
+   bit for bit, through the cast (GroupNorm affine f32, the rest bf16); the
+   run launches K1 at the diffusers decode's [1, 4096, 4096, 1, 512]; the
+   decode alone launches that K1 once and K6 once per GroupNorm of the
+   diffusers decoder (30); the PNG is a 512x512 RGB image; s/step and the
+   decode's ms. (b) FID: 32 seeded 512x512 images through the canonical
+   extractor (``utils/fid.py:InceptionFeatureExtractor``, f32 without TF32,
+   299x299) on the card and on the CPU, features within ``FID_FEATURE_TOL``
+   of their scale; |FID(set, itself)| below 1 % of FID(set, the set shifted
+   by 0.5); seconds per 32 images and peak GB. (c) ``CLIPScorer`` over the
+   32 images and prompts with the staged ViT-L/14, f32: K1 ran at
+   [16, 257, 257, 16, 64] only, 48 times, every launch ``fma``; the card's
+   similarities within ``CLIP_SIM_TOL`` of the CPU's; seconds per image.
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9d, 6b, 6c and 6d included (each
+the summary, ``launches`` counts phases 5 to 9e, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
 record); ``max_abs_err``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
@@ -330,6 +358,21 @@ PREPROCESS_TOL = 1e-4
 CHAIN_FLAGS = ("--no-fused-adamw", "--gradient-accumulation-steps", "2")
 CHAIN_TOL_LR = 1e-3  # of the learning rate, beyond the parameter's last bits: trainers/optim.py:ChainAdamW
 CHAIN_TOL_REL = 2.0 ** -22
+# phase 9e: staged pretrained weights and evaluation. Seeded random SD-1.5,
+# Inception v3 and CLIP ViT-L/14 weights are written in the real on-disk layouts
+# (STAGED: the files, each from its own generator, so that each can be made
+# again to hold the loaded tensors against); the staged txt2img runs STEPS DDIM steps
+STAGED = ("unet", "vae", "text_encoder", "inception", "clip_full")
+STAGE_SEED = 100
+EVAL_IMAGES = 32   # at 512x512, the FID and CLIP-score sets
+EVAL_BATCH = 16    # the extractor's batch and CLIPScorer's default
+EVAL_SHIFT = 0.5   # the shifted set: every pixel + 0.5 in [-1, 1], clipped
+# card vs CPU, both in full f32 (no TF32 inside the extractor or the scorer):
+# pool3 features through ~95 convs, sums in another order, of max(1, max|CPU|);
+# the cosine similarities after 24 + 12 transformer layers, absolute
+FID_FEATURE_TOL = 1e-4
+CLIP_SIM_TOL = 1e-4
+FID_SELF_RATIO = 0.01  # |FID(set, itself)| below this share of FID(set, shifted set)
 # (phase, image size, batch, extra flags, kernels its run must launch)
 TRAIN_PHASES = (
     ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
@@ -739,28 +782,29 @@ def _gn_inputs(shape, c, gen, offset=0.5):
     return x, w, b
 
 
-def _torch_gn(x, w, b, g, silu):
+def _torch_gn(x, w, b, g, silu, eps=1e-5):
     """F.group_norm (+ F.silu) on a channel-last [B, S, C] map."""
     import torch.nn.functional as F
 
-    y = F.group_norm(x.transpose(1, 2), g, w.to(x.dtype), b.to(x.dtype), 1e-5)
+    y = F.group_norm(x.transpose(1, 2), g, w.to(x.dtype), b.to(x.dtype), eps)
     return F.silu(y) if silu else y
 
 
 def _gn_case(key, dtype, gen):
-    """K6 at [B, S, C, groups, silu]."""
+    """K6 at [B, S, C, groups, silu, eps] (eps as the path launched it: 1e-6
+    in the diffusers VAE, 1e-5 elsewhere)."""
     from stable_diffusion_pytorch_tpu_torch.ops.fused_groupnorm import fused_group_norm
     from stable_diffusion_pytorch_tpu_torch.ops.groupnorm import xla_group_norm
 
     import torch
 
-    b, s, c, g, silu = key
+    b, s, c, g, silu, eps = key
     x, w, bias = _gn_inputs((b, s, c), c, gen)
     x = x.to(getattr(torch, dtype))
     return (
-        lambda: fused_group_norm(x, w, bias, g, 1e-5, silu),
-        lambda: xla_group_norm(x, w, bias, g, 1e-5, silu),
-        lambda: _torch_gn(x, w, bias, g, silu),
+        lambda: fused_group_norm(x, w, bias, g, eps, silu),
+        lambda: xla_group_norm(x, w, bias, g, eps, silu),
+        lambda: _torch_gn(x, w, bias, g, silu, eps),
         (12 if silu else 8) * x.numel(),
         _elem(dtype) * 2 * x.numel(),
     )
@@ -1032,7 +1076,7 @@ class _NoUpdate:
         return False, torch.zeros(())
 
 
-def record_shapes(model, work: str):
+def record_shapes(model, work: str, stage: str):
     """The distinct launch shapes of each kernel: one-step runs of txt2img at
     512x512 and at 1024x1024, of the hires fix (a one-step base and a
     one-step refine), of the server's buckets of 2 and 4 requests at
@@ -1041,7 +1085,8 @@ def record_shapes(model, work: str):
     shapes: K1 at kv 154, the VAE encoder), and one training
     micro step of each train phase's trainer and of the VAE trainer
     (parameters untouched), each trainer built for its probe and freed
-    after it. K3 is held at the backward shapes the
+    after it, and phase 9e's (``eval_probes``: the staged diffusers VAE's
+    decode, a CLIP-score batch). K3 is held at the backward shapes the
     JAX crossover sends to it (kv up to 9216), which bf16 training runs on the
     split set, and at the f32 VAE parity's; the split set also at the 512px
     VAE bottleneck (``EXTRA_BWD_SHAPES``); K9 at every parameter shape of the
@@ -1105,6 +1150,7 @@ def record_shapes(model, work: str):
     free_cuda()
     lora_leaf_shapes = personalize_probes(work, collect)
     train_options_probes(model, work, collect)
+    eval_probes(stage, collect)
     # K3's shapes: the backward shapes the JAX crossover sends to it (bf16
     # training now runs the split set at every length, backward_route)
     shapes["flash_attention_bwd"] |= {k for k in shapes["flash_attention_bwd_split"]
@@ -2899,6 +2945,333 @@ def phase_train_options(work: str, train_ref: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 9e: staged pretrained weights and evaluation
+# --------------------------------------------------------------------------- #
+
+
+def staged_state(name: str, device="cuda") -> dict:
+    """{key: CPU tensor} of one staged file (``STAGED``), made from its own
+    generator on ``device`` in its real layout: ``unet`` the SD-1.5 UNet in
+    reference names (zero layers filled), ``vae`` the SD-1.5 diffusers VAE in
+    diffusers names, ``text_encoder`` an HF CLIPTextModel (``position_ids``
+    included), ``inception`` a torchvision ``inception_v3`` (conv weights and
+    BatchNorm statistics, fc and AuxLogits left out), ``clip_full`` an HF
+    CLIPModel at ViT-L/14 width (both projections, ``logit_scale``). The same
+    call gives the same tensors."""
+    import torch
+    from torch import nn
+
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.models.build import without_default_init, init_weights
+    from stable_diffusion_pytorch_tpu_torch.models.clip import CLIPTextTransformer
+    from stable_diffusion_pytorch_tpu_torch.models.clip_vision import CLIPVisionTransformer
+    from stable_diffusion_pytorch_tpu_torch.models.diffusers_vae import DEFAULT_CONFIG, DiffusersAutoencoderKL
+    from stable_diffusion_pytorch_tpu_torch.models.inception import BasicConv2d, InceptionV3Pool3
+    from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
+
+    gen = torch.Generator(device=device).manual_seed(STAGE_SEED + STAGED.index(name))
+    vae_cfg = presets.sd15_autoencoder_config()
+    with torch.device(device), without_default_init():
+        module = {
+            "unet": lambda: UNetModel(vae_cfg.latent_channels, vae_cfg.groups, presets.sd15_unet_config()),
+            "vae": lambda: DiffusersAutoencoderKL(**DEFAULT_CONFIG),  # SD-1.5's, as stage_pretrained writes it
+            "text_encoder": CLIPTextTransformer,
+            "inception": InceptionV3Pool3,
+            "clip_full": lambda: nn.ModuleList([CLIPTextTransformer(), CLIPVisionTransformer()]),  # ViT-L/14
+        }[name]()
+    init_weights(module, gen)
+    state = {}
+    with torch.no_grad():
+        if name == "unet":
+            fill_zero_weights(module, gen)
+        elif name == "inception":
+            for prefix, m in module.named_modules():
+                if isinstance(m, BasicConv2d):
+                    w, c = m.conv.weight, m.conv.weight.shape[0]
+                    w.normal_(0.0, (2.0 / w[0].numel()) ** 0.5, generator=gen)
+                    stats = torch.randn(4, c, device=device, generator=gen)
+                    state.update({f"{prefix}.conv.weight": w, f"{prefix}.bn.weight": 1.0 + 0.1 * stats[0],
+                                  f"{prefix}.bn.bias": 0.1 * stats[1], f"{prefix}.bn.running_mean": 0.1 * stats[2],
+                                  f"{prefix}.bn.running_var": 0.75 + 0.25 * stats[3].abs()})
+        elif name == "clip_full":
+            text, vision = module
+            vision.vision_model.embeddings.class_embedding.normal_(0.0, 0.02, generator=gen)
+            state = {**text.state_dict(), **vision.state_dict()}
+            for key, d in (("text_projection.weight", text.d_model), ("visual_projection.weight", vision.d_model)):
+                state[key] = torch.randn(768, d, device=device, generator=gen) * d ** -0.5
+            state["logit_scale"] = torch.tensor(2.6592, device=device)
+            n_patches = state["vision_model.embeddings.position_embedding.weight"].shape[0]
+            state["vision_model.embeddings.position_ids"] = torch.arange(n_patches, device=device)[None]
+        if name in ("text_encoder", "clip_full"):
+            state["text_model.embeddings.position_ids"] = torch.arange(77, device=device)[None]
+    state = state if name in ("inception", "clip_full") else {**module.state_dict(), **state}
+    return {k: v.detach().to("cpu", copy=True).contiguous() for k, v in state.items()}
+
+
+def stage_pretrained(root: str) -> dict:
+    """Write every ``STAGED`` file under ``root`` as a user stages them for
+    ``--model-dir``: ``unet.pt`` (torch), ``vae/config.json`` with
+    ``diffusion_pytorch_model.bin`` (torch), ``text_encoder/model.safetensors``
+    and ``clip_full/model.safetensors`` (the port's writer),
+    ``inception/inception_v3.pth`` (torch) -> {file: GB}, seconds."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.diffusers_vae import DEFAULT_CONFIG
+    from stable_diffusion_pytorch_tpu_torch.utils.safetensors import save_file
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    paths = {"unet": "unet.pt", "vae": "vae/diffusion_pytorch_model.bin",
+             "text_encoder": "text_encoder/model.safetensors", "inception": "inception/inception_v3.pth",
+             "clip_full": "clip_full/model.safetensors"}
+    sizes = {}
+    for name in STAGED:
+        path = os.path.join(root, paths[name])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        state = staged_state(name)
+        if path.endswith(".safetensors"):
+            save_file(state, path)
+        else:
+            torch.save(state, path)
+        sizes[paths[name]] = os.path.getsize(path) / 1e9
+        del state
+    cfg = {**DEFAULT_CONFIG, "block_out_channels": list(DEFAULT_CONFIG["block_out_channels"])}
+    cfg["norm_num_groups"] = cfg.pop("groups")
+    with open(os.path.join(root, "vae", "config.json"), "w") as f:
+        json.dump({"_class_name": "AutoencoderKL", **cfg}, f)
+    free_cuda()
+    return {"root": root, "gb": sizes, "seconds": time.perf_counter() - t0}
+
+
+def eval_images(shift: float = 0.0):
+    """The evaluation set: ``EVAL_IMAGES`` seeded smooth 512x512 images in
+    [-1, 1] (f32), every pixel moved by ``shift`` and clipped."""
+    import numpy as np
+
+    images = np.stack([smoke_image(200 + i) for i in range(EVAL_IMAGES)]).astype(np.float32) / 127.5 - 1.0
+    return np.clip(images + shift, -1.0, 1.0)
+
+
+def eval_prompts():
+    return [f"a photograph of pattern number {i}" for i in range(EVAL_IMAGES)]
+
+
+def eval_probes(stage: str, collect) -> None:
+    """Phase 9e's launch shapes, ``collect()`` after each: the staged
+    diffusers VAE's decode of a 64x64 latent in bf16 (cast as ``build_models``
+    casts it: K6 at eps 1e-6, K1 at its mid block's head of 512) and one
+    ``CLIPScorer`` batch of ``EVAL_BATCH`` (the ViT-L/14 tower in f32: K1 at
+    [16, 257, 257, 16, 64])."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
+    from stable_diffusion_pytorch_tpu_torch.models.build import cast_for_inference
+    from stable_diffusion_pytorch_tpu_torch.models.clip import resolve_tokenizer
+    from stable_diffusion_pytorch_tpu_torch.models.clip_vision import CLIPScorer
+    from stable_diffusion_pytorch_tpu_torch.models.diffusers_vae import load_diffusers_vae
+
+    vae = cast_for_inference(load_diffusers_vae(os.path.join(stage, "vae"), "cuda"), torch.bfloat16)
+    with torch.inference_mode():
+        vae.decode(torch.randn(1, 64, 64, 4, device="cuda", dtype=torch.bfloat16))
+    collect()
+    del vae
+    scorer = CLIPScorer(resolve_tokenizer(ClipConfig(model_dir=stage)), model_dir=stage, device="cuda")
+    images = ((eval_images()[:EVAL_BATCH] + 1.0) * 127.5).round().astype(np.uint8)
+    scorer.similarities(images, eval_prompts()[:EVAL_BATCH], batch=EVAL_BATCH)
+    collect()
+    del scorer
+    free_cuda()
+
+
+class _LogLines:
+    """Collects the messages of one logger while installed."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.lines = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def _loaded_bits(module, written: dict, dtype) -> list:
+    """The parameters of ``module`` that are not ``written`` cast as
+    ``cast_for_inference`` casts (GroupNorm affine f32 as written, the rest
+    ``dtype``), bit for bit (the first 8 names); [] when all are."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.blocks import GroupNorm
+
+    gn = {f"{n}.{k}" for n, m in module.named_modules() if isinstance(m, GroupNorm) for k in ("weight", "bias")}
+    bad = []
+    for name, p in module.state_dict().items():
+        want = written[name].to(torch.float32 if name in gn else dtype)
+        if p.dtype != want.dtype or not torch.equal(p.cpu(), want):
+            bad.append(name)
+    return bad[:8]
+
+
+def _staged_txt2img(stage: str, work: str) -> dict:
+    """(a) txt2img's ``main`` with ``--model-dir`` at the staged directory."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.blocks import GroupNorm
+    from stable_diffusion_pytorch_tpu_torch.models.clip import tower_state
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.scripts import txt2img
+
+    argv = [*SD15_FLAGS, "--model-dir", stage, "--device", "cuda", "--mixed-precision", "bf16", "--seed", str(SEED),
+            "--prompt", SERVE_PROMPT, "--image-size", "512", "--sampling-steps", str(STEPS), "--sampler", "ddim",
+            "--guidance-scale", "7.5", "--output-dir", work, "--output-name", "staged.png"]
+    torch.cuda.synchronize()
+    native.reset_counters()
+    t0 = time.perf_counter()
+    with _LogLines("txt2img") as lines:
+        model = txt2img.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    k1_shapes = dict(native.COUNTERS["flash_attention"].shapes)
+    res = {"launches": launches, "total_s": total_s, "log": [ln for ln in lines if "pretrained" in ln]}
+    # each loaded tensor as written, through the cast
+    res["not_as_written"] = {
+        "unet": _loaded_bits(model.unet, staged_state("unet"), model.dtype),
+        "vae": _loaded_bits(model.autoencoder, staged_state("vae"), model.dtype),
+        "text_encoder": _loaded_bits(model.text_encoder.module, tower_state(staged_state("text_encoder")),
+                                     model.dtype),
+    }
+    # the decode alone: its launches against the diffusers plan, its time
+    latent = torch.randn(1, 64, 64, 4, device="cuda", dtype=model.dtype, generator=torch.Generator("cuda").manual_seed(1))
+    native.reset_counters()
+    with torch.inference_mode():
+        model.autoencoder.decode(latent)
+        torch.cuda.synchronize()
+        res["decode_launches"] = {"flash_attention": {str(k): n for k, n in native.COUNTERS["flash_attention"].shapes.items()},
+                                  "group_norm": native.COUNTERS["group_norm"].count}
+        res["decode_gn_plan"] = sum(isinstance(m, GroupNorm) for m in model.autoencoder.decoder.modules())
+        res["decode_ms"] = cuda_ms(lambda: model.autoencoder.decode(latent), iters=2, repeats=3)
+        ctx = model.encode_prompts([SERVE_PROMPT])
+        noise = torch.randn(model.latent_shape(1, 512), device="cuda", dtype=model.dtype)
+        _, loop_s = _timed(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=STEPS, sampler="ddim"))
+    res["s_per_step"] = loop_s / STEPS
+    png = _png_file(os.path.join(work, "staged.png"))
+    res.update(png_shape=list(png.shape), png_std=float(np.asarray(png, np.float32).std()))
+    decode_key = (1, 4096, 4096, 1, 512, "torch.bfloat16")
+    res["checks"] = {
+        "loaded_all_three": any("pretrained weights loaded: ['unet', 'vae', 'clip'] (diffusers AutoencoderKL" in ln
+                                for ln in res["log"]),
+        "bit_exact": not any(res["not_as_written"].values()),
+        "k1_in_decode": k1_shapes.get(decode_key, 0) >= 1,
+        "decode_k1": res["decode_launches"]["flash_attention"] == {str(decode_key): 1},
+        "decode_k6_plan": res["decode_launches"]["group_norm"] == res["decode_gn_plan"],
+        "png": res["png_shape"] == [512, 512, 3] and res["png_std"] > 0,
+        "kernels": all(launches[k] > 0 for k in SLICE_KERNELS),
+    }
+    return res
+
+
+def _fid_run(stage: str) -> dict:
+    """(b) the canonical extractor on the card vs the CPU, FID self vs shifted."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.utils.fid import InceptionFeatureExtractor, fid_from_features
+
+    images, shifted = eval_images(), eval_images(EVAL_SHIFT)
+
+    def feats(ext, x):
+        return np.concatenate([ext(x[i:i + EVAL_BATCH]) for i in range(0, len(x), EVAL_BATCH)])
+
+    card = InceptionFeatureExtractor(model_dir=stage, device="cuda")
+    card_shifted = feats(card, shifted)  # the first call also warms cuDNN up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card_feats, secs = _timed(lambda: feats(card, images))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cpu_feats, cpu_s = _timed(lambda: feats(InceptionFeatureExtractor(model_dir=stage, device="cpu"), images))
+    err = float(np.abs(card_feats - cpu_feats).max())
+    scale = max(1.0, float(np.abs(cpu_feats).max()))
+    fid_self, fid_shift = fid_from_features(card_feats, card_feats), fid_from_features(card_feats, card_shifted)
+    res = {"s_per_32_images": secs * 32 / EVAL_IMAGES, "peak_gb": peak, "cpu_s": cpu_s, "feature_err": err,
+           "feature_scale": scale, "feature_rel_err": err / scale, "tol": FID_FEATURE_TOL,
+           "fid_self": fid_self, "fid_shifted": fid_shift, "feature_shape": list(card_feats.shape)}
+    res["checks"] = {"card_vs_cpu": err / scale <= FID_FEATURE_TOL, "finite": bool(np.isfinite(card_feats).all()),
+                     "shape": res["feature_shape"] == [EVAL_IMAGES, 2048],
+                     "self_below_shifted": abs(fid_self) < FID_SELF_RATIO * fid_shift}
+    return res
+
+
+def _clip_score_run(stage: str) -> dict:
+    """(c) CLIPScorer with the staged ViT-L/14, f32, on the card vs the CPU."""
+    import numpy as np
+
+    from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
+    from stable_diffusion_pytorch_tpu_torch.models.clip import resolve_tokenizer
+    from stable_diffusion_pytorch_tpu_torch.models.clip_vision import CLIPScorer
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    tok = resolve_tokenizer(ClipConfig(model_dir=stage))
+    images = ((eval_images() + 1.0) * 127.5).round().astype(np.uint8)
+    prompts = eval_prompts()
+    scorer = CLIPScorer(tok, model_dir=stage, device="cuda")
+    native.reset_counters()
+    sims, first_s = _timed(lambda: scorer.similarities(images, prompts, batch=EVAL_BATCH))
+    launches = launch_counts()
+    k1 = native.COUNTERS["flash_attention"]
+    k1_shapes, k1_impls = {str(k): n for k, n in k1.shapes.items()}, dict(k1.impls)
+    _, secs = _timed(lambda: scorer.similarities(images, prompts, batch=EVAL_BATCH))
+    del scorer
+    free_cuda()
+    cpu = CLIPScorer(tok, model_dir=stage, device="cpu")
+    cpu_sims, cpu_s = _timed(lambda: cpu.similarities(images, prompts, batch=EVAL_BATCH))
+    score, cpu_score = (float(100.0 * np.maximum(s, 0.0).mean()) for s in (sims, cpu_sims))
+    layers = 24 * (EVAL_IMAGES // EVAL_BATCH)
+    key = str((EVAL_BATCH, 257, 257, 16, 64, "torch.float32"))
+    res = {"launches": launches, "k1_shapes": k1_shapes, "k1_impls": k1_impls, "score": score,
+           "cpu_score": cpu_score, "max_sim_err": float(np.abs(sims - cpu_sims).max()), "tol": CLIP_SIM_TOL,
+           "s_per_image": secs / EVAL_IMAGES, "first_call_s": first_s, "cpu_s": cpu_s}
+    res["checks"] = {"k1_vision_fma": k1_shapes == {key: layers} and k1_impls == {"fma": layers},
+                     "card_vs_cpu": res["max_sim_err"] <= CLIP_SIM_TOL and abs(score - cpu_score) <= 100 * CLIP_SIM_TOL,
+                     "finite": bool(np.isfinite(sims).all())}
+    return res
+
+
+def phase_eval(stage: str, work: str) -> dict:
+    """Phase 9e: (a) txt2img from the staged directory, (b) FID with the
+    canonical extractor, (c) the CLIP score; each with its checks."""
+    t0 = time.perf_counter()
+    runs = {"txt2img": _staged_txt2img(stage, work)}
+    free_cuda()
+    runs["fid"] = _fid_run(stage)
+    free_cuda()
+    runs["clip_score"] = _clip_score_run(stage)
+    free_cuda()
+    failures = {k: [c for c, ok in r["checks"].items() if not ok] for k, r in runs.items()}
+    failures = {k: v for k, v in failures.items() if v}
+    out = {"phase": "eval", "gpu": gpu_line(), "seconds": time.perf_counter() - t0, "ok": not failures, "runs": runs}
+    emit(out)
+    check(not failures, f"eval checks failed: {failures}")
+    return out
+
+
 def _checkpoint_round_trip(work: str, flags) -> dict:
     """Train 2 steps saving checkpoint-2, resume ``latest`` in a new trainer
     and compare every tensor of the parameters, EMA and optimizer state."""
@@ -2968,8 +3341,11 @@ def main(argv=None) -> int:
     work = os.path.join(REPO, "build", "chip_smoke_train")
 
     env = phase_env()
+    staged = stage_pretrained(os.path.join(REPO, "build", "chip_smoke_pretrained"))
+    env["staged"] = staged
+    emit({"phase": "stage", **staged})
     model = build_sd15("cuda", torch.bfloat16, SEED)
-    shapes, leaf_shapes, lora_leaf_shapes = record_shapes(model, work)
+    shapes, leaf_shapes, lora_leaf_shapes = record_shapes(model, work, staged["root"])
     kernels = phase_kernels(shapes, leaf_shapes, lora_leaf_shapes)
     correlated = phase_correlated(kernels)
     optimizer = phase_optimizer(leaf_shapes, kernels)
@@ -2999,13 +3375,16 @@ def main(argv=None) -> int:
     free_cuda()
     options = phase_train_options(os.path.join(REPO, "build", "chip_smoke_options"), trains["train"])
     free_cuda()
+    eval_res = phase_eval(staged["root"], os.path.join(REPO, "build", "chip_smoke_eval"))
+    free_cuda()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
                  *(r["launches"] for r in samplers_res["runs"].values()),
                  *(r["launches"] for r in features_res["runs"].values()), serve_res["launches"],
                  *(r["launches"] for r in trains.values()), *(r["launches"] for r in personalize["runs"].values()),
-                 *(r["launches"] for r in options["runs"].values())]
+                 *(r["launches"] for r in options["runs"].values()),
+                 *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score"))]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -3029,6 +3408,7 @@ def main(argv=None) -> int:
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
                        "serve": serve_res, **trains, "personalize": personalize, "train_options": options,
+                       "eval": eval_res,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

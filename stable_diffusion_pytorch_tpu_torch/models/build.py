@@ -1,12 +1,34 @@
-"""Model assembly with seeded random weights (port of models/build.py).
+"""Model assembly: staged pretrained weights where they are, else seeded random
+ones (port of models/build.py).
 
-No pretrained weights ship with the repository, so every module is initialized
-from ``seed`` the way the JAX package initializes it: LeCun-normal conv and
-linear weights, zero biases, unit GroupNorm/LayerNorm scales, and zero weights
-where the JAX package zero-initializes (each ResBlock's last conv, each
-SpatialTransformer's ``proj_out``). The draws differ from JAX's PRNG; parity
-tests load JAX weights through ``utils/convert.py`` instead. Loading
-reference-format ``unet.pt``/``vae.pt`` checkpoints is not ported yet.
+Pretrained weights (the JAX package's ``build_models``): ``pretrained_dir``
+(by default the CLIP config's ``model_dir``, ``data/pretrained``; ``None``
+for none) is searched, each hit loaded by name with ``strict=True`` and
+logged loudly:
+
+- ``unet.pt``: a reference-format UNet state dict (the reference's torch
+  names, which the port's UNet carries), read by
+  ``utils/checkpoint.py:load_reference_checkpoint``;
+- the VAE, in the JAX package's order: ``vae/``, a diffusers AutoencoderKL
+  directory (``models/diffusers_vae.py``: its ``config.json`` sets the
+  module, whose latent channels then override ``--latent-channels``, with a
+  warning), else ``vae.pt``, a reference-format from-scratch ``AutoEncoderKL``;
+- the text encoder from the CLIP config's own ``model_dir``, as the JAX
+  package's ``CLIPModel`` reads it (``models/clip.py:load_text_encoder``:
+  ``text_encoder/model.safetensors`` or ``pytorch_model.bin``, HF names).
+
+The log names what was loaded ("pretrained weights loaded: [...]") and warns
+of what was not. A loaded state dict goes through the same dtype rules as
+random weights below.
+
+Every module not loaded is initialized from ``seed`` the way the JAX package
+initializes it: LeCun-normal conv and linear weights, zero biases, unit
+GroupNorm/LayerNorm scales, and zero weights where the JAX package
+zero-initializes (each ResBlock's last conv, each SpatialTransformer's
+``proj_out``). The draws differ from JAX's PRNG; parity tests load JAX
+weights through ``utils/convert.py`` or a staged directory instead. Every
+module is drawn, loaded or not, so the random ones do not depend on what is
+staged.
 
 Precision: for inference the parameters are cast to the compute dtype once, at
 build time (the JAX package casts f32 parameters per op, which gives the same
@@ -33,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
 from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
@@ -46,8 +69,13 @@ from stable_diffusion_pytorch_tpu_torch.config import (
 )
 from stable_diffusion_pytorch_tpu_torch.models.autoencoder import AutoEncoderKL
 from stable_diffusion_pytorch_tpu_torch.models.blocks import GroupNorm, ResBlock, SpatialTransformer
-from stable_diffusion_pytorch_tpu_torch.models.clip import CLIPModel, CLIPTextTransformer
+from stable_diffusion_pytorch_tpu_torch.models.clip import CLIPModel, CLIPTextTransformer, load_text_encoder
 from stable_diffusion_pytorch_tpu_torch.models.controlnet import ControlNet
+from stable_diffusion_pytorch_tpu_torch.models.diffusers_vae import (
+    DiffusersAutoencoderKL,
+    read_diffusers_vae_state,
+    read_vae_config,
+)
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
 from stable_diffusion_pytorch_tpu_torch.models.lora import merge_lora
 from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
@@ -55,10 +83,13 @@ from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import (
     check_unet_params,
     load_params_for_inference,
+    load_reference_checkpoint,
     resolve_checkpoint,
 )
 from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
+# build_models' default pretrained_dir: the CLIP config's model_dir
+FROM_CLIP_CFG = "__from_clip_cfg__"
 _DTYPES = {"no": torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.bfloat16}
 
 
@@ -75,12 +106,12 @@ _DEFAULT_INIT = (nn.Linear, nn.Conv2d, nn.Embedding, nn.LayerNorm)
 
 
 @contextlib.contextmanager
-def _without_default_init() -> Iterator[None]:
+def without_default_init() -> Iterator[None]:
     """Construct modules without the default init of their torch layers (their
-    storage is left as allocated): :func:`init_weights` sets every parameter of
-    the port's modules afterwards, and they hold no buffer, so no value
-    changes, and the full-size CLIP tower's 123 M parameters are drawn once,
-    not twice. Construction here runs on one thread; the layers' methods are
+    storage is left as allocated): :func:`init_weights` (or a strict load)
+    sets every parameter of the port's modules afterwards, and they hold no
+    buffer, so no value changes, and the full-size CLIP tower's 123 M
+    parameters are drawn once, not twice. Construction here runs on one thread; the layers' methods are
     restored on exit."""
     owners = {next(c for c in cls.__mro__ if "reset_parameters" in c.__dict__) for cls in _DEFAULT_INIT}
     saved = {cls: cls.__dict__["reset_parameters"] for cls in owners}
@@ -113,13 +144,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def cast_for_inference(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast once to the compute dtype, keep GroupNorm affine params f32, freeze.
+    """Cast once to the compute dtype, keep GroupNorm affine params f32 (their
+    f32 values as they were, not rounded through the compute dtype), freeze.
     Conv weights go to ``channels_last``, the layout of the NHWC activations,
     so cuDNN does not convert them on every call."""
+    affine = [(m, m.weight.data.float(), m.bias.data.float()) for m in module.modules() if isinstance(m, GroupNorm)]
     module.to(dtype=dtype, memory_format=torch.channels_last)
-    for m in module.modules():
-        if isinstance(m, GroupNorm):
-            m.float()
+    for m, weight, bias in affine:
+        m.weight.data, m.bias.data = weight, bias
     return module.eval().requires_grad_(False)
 
 
@@ -157,10 +189,30 @@ def build_autoencoder(
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
-    with device, _without_default_init():
+    with device, without_default_init():
         vae = AutoEncoderKL(vae_cfg, bottleneck_default_groups=compat.bottleneck_default_groups)
     init_weights(vae, generator)
     return prepare_for_training(vae)
+
+
+def find_pretrained(pretrained_dir: Optional[str]) -> dict:
+    """The staged weights under ``pretrained_dir``, read to the CPU: ``"unet"``
+    (the ``unet.pt`` state dict) and ``"vae"`` (``(tag, state, diffusers
+    config or None)``, ``vae/`` before ``vae.pt``), each where found."""
+    found: dict = {}
+    if not pretrained_dir:
+        return found
+    path = os.path.join(pretrained_dir, "unet.pt")
+    if os.path.exists(path):
+        found["unet"] = load_reference_checkpoint(path)
+    vae_dir = os.path.join(pretrained_dir, "vae")
+    state = read_diffusers_vae_state(vae_dir) if os.path.isdir(vae_dir) else None
+    if state is not None:
+        found["vae"] = (f"diffusers AutoencoderKL from {vae_dir}", state, read_vae_config(vae_dir))
+    elif os.path.exists(os.path.join(pretrained_dir, "vae.pt")):
+        path = os.path.join(pretrained_dir, "vae.pt")
+        found["vae"] = (f"reference-format AutoEncoderKL from {path}", load_reference_checkpoint(path), None)
+    return found
 
 
 def build_models(
@@ -175,34 +227,66 @@ def build_models(
     for_training: bool = False,
     remat: str = "none",
     lora: Optional[Tuple[Dict[str, torch.Tensor], float]] = None,
+    pretrained_dir: Optional[str] = FROM_CLIP_CFG,
+    logger=None,
 ) -> LatentDiffusion:
-    """Schedule + UNet + CLIP + VAE on ``device``, seeded. ``dtype`` is the
+    """Schedule + UNet + CLIP + VAE on ``device``: staged weights under
+    ``pretrained_dir`` (module docstring; default the CLIP config's
+    ``model_dir``, ``None`` for none), the rest seeded. ``dtype`` is the
     compute dtype: every module is cast to it for inference; with
     ``for_training`` the UNet keeps f32 trainable parameters instead.
     ``remat`` is the UNet's per-block remat policy (``--remat-policy``).
-    ``lora`` = (factors, scale) is merged into the UNet's f32 weights first."""
+    ``lora`` = (factors, scale) is merged into the UNet's f32 weights first.
+    ``logger`` gets the JAX package's lines on what was loaded."""
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
+    if pretrained_dir == FROM_CLIP_CFG:
+        pretrained_dir = clip_cfg.model_dir
+    found = find_pretrained(pretrained_dir)
+    vae_tag, vae_state, diffusers_cfg = found.get("vae", (None, None, None))
+    if diffusers_cfg is not None and diffusers_cfg["latent_channels"] != vae_cfg.latent_channels and logger:
+        logger.warning(f"pretrained VAE latent_channels={diffusers_cfg['latent_channels']} "
+                       f"overrides --latent-channels={vae_cfg.latent_channels}")
     generator = torch.Generator(device=device).manual_seed(seed)
-    with device, _without_default_init():
+    with device, without_default_init():
         unet = UNetModel(
             vae_cfg.latent_channels, vae_cfg.groups, unet_cfg,
             flipped_time_embedding=compat.flipped_time_embedding,
             bottleneck_default_groups=compat.bottleneck_default_groups,
             remat=remat,
         )
-        vae = AutoEncoderKL(vae_cfg, bottleneck_default_groups=compat.bottleneck_default_groups)
+        if diffusers_cfg is not None:
+            vae = DiffusersAutoencoderKL(**diffusers_cfg)
+        else:
+            vae = AutoEncoderKL(vae_cfg, bottleneck_default_groups=compat.bottleneck_default_groups)
         text = CLIPTextTransformer(max_positions=clip_cfg.max_seq_len)
     for module in (unet, vae, text):
         init_weights(module, generator)
+    unet_pretrained = "unet" in found
+    with torch.no_grad():
+        if unet_pretrained:
+            unet.load_state_dict(found.pop("unet"), strict=True)
+        if vae_state is not None:
+            vae.load_state_dict(vae_state, strict=True)
+    del found, vae_state
+    clip_pretrained = load_text_encoder(text, clip_cfg.model_dir)
+    for module in (unet, vae, text):
         if lora is not None and module is unet:
             unet.load_state_dict(merge_lora(unet.state_dict(), *lora), strict=True)
         if for_training and module is unet:
             prepare_for_training(module)
         else:
             cast_for_inference(module, dtype)
+    if logger is not None:
+        loaded = [name for name, ok in (("unet", unet_pretrained), ("vae", vae_tag is not None),
+                                        ("clip", clip_pretrained)) if ok]
+        missing = [name for name in ("unet", "vae", "clip") if name not in loaded]
+        logger.info(f"pretrained weights loaded: {loaded or 'NONE'}" + (f" ({vae_tag})" if vae_tag else ""))
+        if missing:
+            logger.warning(f"pretrained weights NOT found for {missing} under {pretrained_dir!r} "
+                           "— these components are randomly initialized")
     return LatentDiffusion(
-        unet, vae, CLIPModel(clip_cfg, text), make_schedule(ddpm_cfg), compat=compat,
+        unet, vae, CLIPModel(clip_cfg, text, pretrained=clip_pretrained), make_schedule(ddpm_cfg), compat=compat,
         compute_dtype=dtype,
     )
 
@@ -260,7 +344,7 @@ def build_controlnet(
     ``for_training``, with f32 trainable parameters (the ControlNet trainer's)."""
     compat = compat.resolved() if compat is not None else CompatConfig()
     device = require_device(device)
-    with device, _without_default_init():
+    with device, without_default_init():
         net = ControlNet(vae_cfg.latent_channels, vae_cfg.groups, unet_cfg,
                          hint_downsamples=len(vae_cfg.autoencoder_channels_list) - 1,
                          flipped_time_embedding=compat.flipped_time_embedding)

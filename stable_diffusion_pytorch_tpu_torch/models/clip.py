@@ -2,9 +2,20 @@
 
 The module tree uses the HF ``CLIPTextModel`` parameter names
 (``text_model.encoder.layers.{i}.self_attn.q_proj``, ...), the inverse of the
-JAX package's ``convert_text_tower``. The causal-masked attention runs as
-``ops.attention.xla_attention`` on every device: it never reached the flash
-kernel in the JAX package either.
+JAX package's ``convert_text_tower``. Attention goes through
+``ops.attention.multi_head_attention``, as the JAX package's
+``CLIPEncoderLayer`` does: the text tower's causal mask sends it to
+``xla_attention`` on every device (it never reached the flash kernel in the
+JAX package either); the vision tower (``models/clip_vision.py``) passes no
+mask, so its attention launches the flash-attention kernel (K1) on the card.
+
+Weights (the JAX package's ``load_clip_params``): :func:`load_text_encoder`
+loads a staged Hugging Face checkpoint, ``{model_dir}/text_encoder/
+model.safetensors`` (read by ``utils/safetensors.py``) or
+``pytorch_model.bin``, straight into the tower by name (its
+``text_model.*`` keys; the ``position_ids`` buffer is dropped), strictly;
+with nothing staged the tower keeps its seeded random weights and the JAX
+package's loud warning is given.
 
 Tokenizer resolution: the CLIP BPE of ``models/bpe.py`` (the port's copy of
 the JAX package's numpy-only tokenizer) with staged ``{model_dir}/tokenizer/vocab.json`` + merges, else its
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -39,8 +51,8 @@ from torch import nn
 from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
 from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer, TokenizerOutput
 from stable_diffusion_pytorch_tpu_torch.models.prompt_weighting import parse_weighted_prompt
-from stable_diffusion_pytorch_tpu_torch.ops.attention import xla_attention
-from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_params_for_inference, resolve_checkpoint
+from stable_diffusion_pytorch_tpu_torch.ops.attention import multi_head_attention
+from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_params_for_inference, read_weights, resolve_checkpoint
 
 BOS_TOKEN_ID = 49406
 EOS_TOKEN_ID = 49407
@@ -60,11 +72,11 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, d = x.shape
         dh = d // self.n_heads
         q, k, v = (p(x).view(b, s, self.n_heads, dh) for p in (self.q_proj, self.k_proj, self.v_proj))
-        return self.out_proj(xla_attention(q, k, v, dh ** -0.5, mask).reshape(b, s, d))
+        return self.out_proj(multi_head_attention(q, k, v, dh ** -0.5, mask).reshape(b, s, d))
 
 
 class CLIPMLP(nn.Module):
@@ -87,7 +99,7 @@ class CLIPEncoderLayer(nn.Module):
         self.mlp = CLIPMLP(d_model, intermediate)
         self.layer_norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
         return x + self.mlp(self.layer_norm2(x))
 
@@ -159,6 +171,47 @@ class CLIPTextTransformer(nn.Module):
         return tm.final_layer_norm(x)
 
 
+def load_clip_state(model_dir: Optional[str]) -> Optional[dict]:
+    """The staged HF ``CLIPTextModel`` state dict under ``model_dir``
+    (``text_encoder/model.safetensors``, else ``text_encoder/pytorch_model.bin``),
+    or None when neither is there."""
+    if not model_dir:
+        return None
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        path = os.path.join(model_dir, "text_encoder", name)
+        if os.path.exists(path):
+            return read_weights(path)
+    return None
+
+
+def tower_state(state: dict, prefix: str = "text_model.") -> dict:
+    """One tower's entries of an HF state dict, the keys under ``prefix``
+    (``text_model.``: a CLIPTextModel's, or a full CLIPModel's text half;
+    ``vision_model.``), without the ``position_ids`` buffer HF saves."""
+    return {k: v for k, v in state.items() if k.startswith(prefix) and not k.endswith("position_ids")}
+
+
+@torch.no_grad()
+def load_text_encoder(module: CLIPTextTransformer, model_dir: Optional[str]) -> bool:
+    """Load the staged text encoder under ``model_dir`` into ``module`` by
+    name, strictly, in the module's dtype and device -> True; with none
+    staged, warn as the JAX package does and leave the weights -> False."""
+    state = load_clip_state(model_dir)
+    if state is None:
+        warnings.warn(
+            "\n" + "!" * 78 + "\n"
+            f"!! CLIP FALLBACK: no pretrained text-encoder checkpoint under "
+            f"{model_dir!r};\n!! using RANDOM-INIT weights (seeded). "
+            "Text conditioning is meaningless until real\n!! weights are "
+            "staged (e.g. data/pretrained/text_encoder/model.safetensors)."
+            "\n" + "!" * 78,
+            stacklevel=2,
+        )
+        return False
+    module.load_state_dict(tower_state(state), strict=True)
+    return True
+
+
 def resolve_tokenizer(cfg: ClipConfig) -> CLIPBPETokenizer:
     if cfg.model_dir:
         tok_dir = os.path.join(cfg.model_dir, "tokenizer")
@@ -168,12 +221,14 @@ def resolve_tokenizer(cfg: ClipConfig) -> CLIPBPETokenizer:
 
 
 class CLIPModel:
-    """Tokenizer + frozen text encoder with the JAX package's call surface."""
+    """Tokenizer + frozen text encoder with the JAX package's call surface;
+    ``pretrained`` says whether staged weights were loaded."""
 
-    def __init__(self, cfg: ClipConfig, module: CLIPTextTransformer):
+    def __init__(self, cfg: ClipConfig, module: CLIPTextTransformer, pretrained: bool = False):
         self.cfg = cfg
         self.max_seq_len = cfg.max_seq_len
         self.module = module
+        self.pretrained = pretrained
         self.tokenizer = resolve_tokenizer(cfg)
         self._ti: Optional[Tuple[str, np.ndarray, np.ndarray]] = None
 

@@ -1,9 +1,10 @@
 """Attention dispatch (port of stable_diffusion_pytorch_tpu/ops/attention.py).
 
 Layout, as in the JAX package: q [B, N, H, D], k/v [B, M, H, D] -> [B, N, H, D].
-Unmasked attention (UNet self/cross attention, the VAE bottleneck) goes to the
-flash-attention kernel wrapper; masked attention (CLIP's causal mask) never
-reached the TPU kernel either and runs as :func:`xla_attention` on every device.
+Unmasked attention (UNet self/cross attention, the VAE bottlenecks, the
+CLIP vision tower) goes to the flash-attention kernel wrapper; masked
+attention (the CLIP text tower's causal mask) never reached the TPU kernel
+either and runs as :func:`xla_attention` on every device.
 """
 
 from __future__ import annotations

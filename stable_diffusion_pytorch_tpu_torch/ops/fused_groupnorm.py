@@ -372,8 +372,9 @@ def _forward(x, s, scale, bias, num_groups, eps, apply_silu):
             return xla_group_norm(x, scale, bias, num_groups, eps, apply_silu), None, None
         _check([x], scale, bias, num_groups)
         out, mean, rstd = _launch_gn([x], scale, bias, num_groups, eps, apply_silu)
+        # the launch key holds eps: the diffusers VAE normalizes at 1e-6, the rest at 1e-5
         LAUNCHES.hit((x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1], num_groups,
-                      bool(apply_silu), str(x.dtype)))
+                      bool(apply_silu), float(eps), str(x.dtype)))
         return out, mean, rstd
     if x.device.type == "cpu" and s.device.type == "cpu":
         return xla_group_norm_cat(x, s, scale, bias, num_groups, eps, apply_silu), None, None

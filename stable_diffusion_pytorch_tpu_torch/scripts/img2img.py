@@ -11,7 +11,8 @@ compat switches, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``
 are txt2img's. ``--controlnet-checkpoint`` takes a checkpoint in the port's
 layout (``models/controlnet.py``), or a comma list. ``--device`` (default
 ``cuda``; without a card the run stops unless given ``--device cpu``) is the
-port's own. Weights are random, made from ``--seed``.
+port's own. Weights staged under ``--model-dir`` are loaded
+(``models/build.py``), the rest are random, made from ``--seed``.
 """
 
 from __future__ import annotations

@@ -34,8 +34,9 @@ a running batch's share from an EMA of earlier runs of its signature. As the
 JAX server, it takes no control image and no DeepCache per request.
 
 ``--device`` (default ``cuda``; without a card the server stops unless given
-``--device cpu``) is the port's own flag. Weights are random, made from
-``--seed``, until a ``/reload``.
+``--device cpu``) is the port's own flag. Weights staged under
+``--model-dir`` are loaded (``models/build.py``), the rest are random, made
+from ``--seed``, until a ``/reload``.
 """
 
 from __future__ import annotations
@@ -158,6 +159,7 @@ class SDService:
             UnetConfig(**m.unet.to_dict()), AutoencoderConfig(**m.autoencoder.to_dict()),
             ClipConfig(**m.clip.to_dict()), DDPMConfig(**m.ddpm.to_dict()),
             compat=compat, dtype=dtype, device=device, seed=cfg.train.seed,
+            pretrained_dir=m.clip.model_dir, logger=logger,
         )
         self.queue: "queue.Queue" = queue.Queue()
         self.requests_served = 0

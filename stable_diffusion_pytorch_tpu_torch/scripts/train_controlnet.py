@@ -10,7 +10,8 @@ resolution through one stride-2 conv per VAE downsample. Each row's prompt
 drops with ``--cfg-dropout-prob``. ``txt2img --controlnet-checkpoint ckpt
 --control-image hint.png`` samples with the result. The flags and their
 defaults are the JAX CLI's; ``--device`` (default ``cuda``; without a card
-the run stops unless given ``--device cpu``) is the port's own. Weights are
+the run stops unless given ``--device cpu``) is the port's own. Weights
+staged under ``--model-dir`` are loaded (``models/build.py``), the rest are
 random, made from ``--seed``.
 """
 

@@ -16,7 +16,8 @@ then interleaves an instance and a class row per pair and adds
 ``--train-batch-size``. Evaluation runs on the instance images. The flags and
 their defaults are the JAX CLI's; ``--device`` (default ``cuda``; without a
 card the run stops unless given ``--device cpu``) is the port's own. Weights
-are random, made from ``--seed``. A LoRA checkpoint samples through
+staged under ``--model-dir`` are loaded (``models/build.py``), the rest are
+random, made from ``--seed``. A LoRA checkpoint samples through
 ``txt2img --lora-checkpoint``, a whole UNet through ``--unet-checkpoint``.
 """
 

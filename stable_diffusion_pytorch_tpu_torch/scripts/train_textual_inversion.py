@@ -12,7 +12,8 @@ holds ``{"ti": [K, 768]}``, and the checkpoint directory the
 ``textual_inversion.json`` sidecar; ``txt2img --textual-inversion`` samples
 with it. The flags and their defaults are the JAX CLI's; ``--device``
 (default ``cuda``; without a card the run stops unless given ``--device
-cpu``) is the port's own. Weights are random, made from ``--seed``.
+cpu``) is the port's own. Weights staged under ``--model-dir`` are loaded
+(``models/build.py``), the rest are random, made from ``--seed``.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ Builds the models (frozen CLIP text encoder, frozen VAE, trainable UNet with f32
 parameters computing in ``--mixed-precision``), loads the synthetic train and
 validation datasets and runs ``UNetTrainer``. The flags and their defaults are
 the JAX CLI's; ``--device`` (default ``cuda``; without a card the run stops
-unless given ``--device cpu``) is the port's own. Weights are random, made
+unless given ``--device cpu``) is the port's own. Weights staged under
+``--model-dir`` are loaded (``models/build.py``), the rest are random, made
 from ``--seed``. Tiny run on the CPU:
 
     python -m stable_diffusion_pytorch_tpu_torch.scripts.train_unet --device cpu \\
@@ -74,7 +75,7 @@ def build_training_models(argv, name: str):
         UnetConfig(**m.unet.to_dict()), AutoencoderConfig(**m.autoencoder.to_dict()),
         ClipConfig(**m.clip.to_dict()), DDPMConfig(**m.ddpm.to_dict()),
         compat=compat, dtype=dtype, device=device, seed=cfg.train.seed, for_training=True,
-        remat=cfg.parallel.remat_policy,
+        remat=cfg.parallel.remat_policy, pretrained_dir=m.clip.model_dir, logger=logger,
     )
     return cfg, device, compat, model, logger
 

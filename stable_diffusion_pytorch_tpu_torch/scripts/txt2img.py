@@ -13,8 +13,11 @@ spacing, guidance rescale, the hires fix, DeepCache, ``--unet-checkpoint``,
 model-size flags of the UNet/VAE/CLIP/DDPM config groups, the compat switches
 the slice reads, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``.
 ``--device`` (default ``cuda``; without a card the run stops unless given
-``--device cpu``) is the port's own. Weights are
-random, made from ``--seed``: no pretrained weights ship with the repository.
+``--device cpu``) is the port's own. Weights staged under ``--model-dir``
+(default ``data/pretrained``: ``unet.pt``, ``vae/`` or ``vae.pt``,
+``text_encoder/``; ``models/build.py``) are loaded, as the JAX CLI loads
+them; the rest are random, made from ``--seed``: no pretrained weights ship
+with the repository.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ def build_for_sampling(args, cfg: dict, dtype, unet_checkpoint=None, lora_checkp
     model = build_models(
         cfg[UnetConfig], cfg[AutoencoderConfig], cfg[ClipConfig], cfg[DDPMConfig],
         compat=cfg[CompatConfig], dtype=dtype, device=args.device, seed=args.seed, lora=lora,
+        pretrained_dir=cfg[ClipConfig].model_dir, logger=logger,
     )
     if unet_checkpoint:
         path = load_unet_weights(model.unet, unet_checkpoint, lora=lora_checkpoint, lora_scale=lora_scale)

@@ -13,7 +13,11 @@ utils/checkpoint.py; Orbax becomes ``torch.save``).
   the largest step; any other value is a path (or a name under ``ckpt_dir``);
 - ``keep_last_only`` removes the previous checkpoint after a save;
 - :func:`resume_train_state_math` is the reference's step/epoch replay
-  arithmetic (the reference's train_unet.py:284-312).
+  arithmetic (the reference's train_unet.py:284-312);
+- :func:`load_reference_checkpoint` reads a reference-format torch state dict
+  (a staged ``unet.pt`` or ``vae.pt``), the JAX package's
+  ``utils/torch_port.py:load_reference_checkpoint``; :func:`read_weights`
+  reads a staged Hugging Face or diffusers weights file.
 """
 
 from __future__ import annotations
@@ -64,6 +68,24 @@ def load_params_for_inference(path: str, map_location: Any = "cpu") -> dict:
     ``--ema-decay > 0``), else the trained ones."""
     state = load_checkpoint(path, map_location)
     return state["ema_params"] or state["params"]
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """{name: CPU tensor} of a torch checkpoint holding a state dict, unwrapped
+    from ``"state_dict"`` where it is nested there; no pickled code is run
+    (``weights_only``)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return state["state_dict"] if "state_dict" in state else state
+
+
+def read_weights(path: str) -> dict:
+    """{name: CPU tensor} of a staged weights file: ``.safetensors`` through
+    ``utils/safetensors.py``, else a torch state dict (``.bin``)."""
+    if path.endswith(".safetensors"):
+        from stable_diffusion_pytorch_tpu_torch.utils.safetensors import load_file
+
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def resolve_checkpoint(path: str) -> str:

@@ -218,15 +218,44 @@ Phases, each printing one JSON line; any failure exits nonzero:
    32 images and prompts with the staged ViT-L/14, f32: K1 ran at
    [16, 257, 257, 16, 64] only, 48 times, every launch ``fma``; the card's
    similarities within ``CLIP_SIM_TOL`` of the CPU's; seconds per image.
+9f. parallel: multi-device training on the one card, at SD-1.5 width,
+   512x512, batch 4, accumulation 1, 8 optimizer steps a run (2 warm-up,
+   6 timed), cuDNN's deterministic convolutions, every run from the staged
+   weights (``--model-dir``): (a) the UNet entry point (``build_trainer``)
+   in one subprocess under ``python -m torch.distributed.run
+   --nproc_per_node 1`` (this script with ``--parallel-child``), over NCCL,
+   once each with ``--num-devices 1``, ``--shard-optimizer-state
+   --use-8bit-adam``, ``--shard-params``, ``--offload-optimizer`` and
+   ``--offload-optimizer --use-8bit-adam``, against one process with no
+   flag (f32 AdamW, or int8 Adam for the int8 runs; their parameters handed
+   over in a file): the backend is ``nccl``; the runs start from the same
+   weights; DDP, ZeRO and offload give the same losses and parameters bit
+   for bit; FSDP's update (final minus initial parameters) is within
+   ``PARALLEL_UPDATE_TOL`` of the baseline's (over all leaves, the median
+   leaf, the worst leaf) and its losses within ``PARALLEL_LOSS_TOL``, while
+   the same check fails each ``PARALLEL_CONTROLS`` path (no update, half the
+   learning rate, the wrong sign); offload leaves no optimizer state on the
+   card between steps, and the checkpoint it saves after the steps (and,
+   ``PARALLEL_RESTORE``, restores: the state then compared) raises the
+   card's memory by at most one leaf's moments; the train kernels ran,
+   K9 once per step (per group of leaves under offload); samples/s, step ms
+   p50 (and min, max), peak GB, the optimizer state's bytes on the card and
+   the host transfers' seconds per step; (b) K9 per ZeRO shard: the 686
+   leaves cut by the port's rule for 2, 4 and 8 ranks, one launch per
+   simulated rank over its slices and whole leaves, put back together equal
+   bit for bit to one launch over the whole leaves (parameters, codes,
+   scales); ms and the int8 state's bytes per simulated rank. Two ranks on
+   the one card are not run (NCCL puts one rank on a device).
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
 Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
 ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9e, 6b, 6c and 6d included (each
+the summary, ``launches`` counts phases 5 to 9f, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
-record); ``max_abs_err``, ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
+record; 9f's comparison of K9 per shard is not counted); ``max_abs_err``,
+``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
 the whole step's one launch over the 686 leaves with a bfloat16 gradient,
 the lean path's, and the clip active); ``impl`` is the implementation each
@@ -373,6 +402,34 @@ EVAL_SHIFT = 0.5   # the shifted set: every pixel + 0.5 in [-1, 1], clipped
 FID_FEATURE_TOL = 1e-4
 CLIP_SIM_TOL = 1e-4
 FID_SELF_RATIO = 0.01  # |FID(set, itself)| below this share of FID(set, shifted set)
+# phase 9f: multi-device training on the one card, SD-1.5 width, 512x512, the
+# train phase's batch, PARALLEL_STEPS optimizer steps (accumulation 1; two
+# warm-up steps, the rest timed), from the staged weights (--model-dir), each
+# run under torchrun --nproc_per_node 1 (NCCL) against one process with no
+# flag: DDP, ZeRO and offload run the same kernels on the same data and must
+# give the same bits; FSDP (other conv layouts, so other cuDNN algorithms) is
+# held by the update it applied, PARALLEL_UPDATE_TOL
+PARALLEL_STEPS = 8
+PARALLEL_LR = 1e-4
+PARALLEL_RUNS = (
+    ("ddp", ("--num-devices", "1")),
+    ("zero_int8", ("--shard-optimizer-state", "--use-8bit-adam")),
+    ("fsdp", ("--shard-params",)),
+    ("offload", ("--offload-optimizer",)),
+    ("offload_int8", ("--offload-optimizer", "--use-8bit-adam")),
+)
+# ||d_run - d_base|| / ||d_base||, d = final - initial parameters: over all
+# leaves, the median leaf's and the worst leaf's. A path that applies no
+# update reads 1, one at half the learning rate 0.5, one with the wrong sign
+# 2: phase 9f holds these controls against the same limits and needs each to
+# fail. FSDP read 0.0023, 0.00047 and 0.015 on an H100 (PERF.md, PR 15); the
+# limits stand ~7-20x above those and >= 5x below the nearest control
+PARALLEL_UPDATE_TOL = {"global": 0.02, "median_leaf": 0.01, "worst_leaf": 0.1}
+PARALLEL_CONTROLS = {"no_update": 0.0, "half_lr": 0.5, "wrong_sign": -1.0}
+PARALLEL_LOSS_TOL = 1e-3  # FSDP's losses, relative (read: at most 5.3e-5)
+PARALLEL_RESTORE = ("offload_int8",)  # the offload run that also restores its checkpoint
+PARALLEL_RUNS_TIMEOUT_S = 900  # the one torchrun child that runs every configuration
+PARALLEL_K9_WORLDS = (2, 4, 8)
 # (phase, image size, batch, extra flags, kernels its run must launch)
 TRAIN_PHASES = (
     ("train", 512, TRAIN_BATCH, (), TRAIN_KERNELS),
@@ -477,38 +534,47 @@ def graph_ms(fn, calls: int = 10, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's ~2 GHz
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's ~2 GHz
 
 
-def device_kernels(fn, calls: int = 2, attempts: int = 16) -> dict:
-    """{kernel name: (launches, device ms) per ``fn()``} by torch.profiler
-    over ``calls`` calls, copies and fills aside: the fullest of up to
-    ``attempts`` profiles (a profile now and then misses a kernel and never
-    adds one; each opens and closes with a spin kernel of ~0.1 ms, left
-    out, so that the calls' kernels are neither the profile's first nor its
-    last: a profile of a ~0.02 ms kernel lost its last one in most attempts,
-    and with spins of ~5 us a 0.01 ms kernel lost one in all of 8),
-    stopping at the first that saw a kernel a call."""
+LAUNCH_API = "cudaLaunch"  # the runtime API's kernel launches (the spins' too), as the profiler records them
+
+
+def device_kernels(fn, calls: int = 2, attempts: int = 32) -> tuple:
+    """({kernel name: (launches, device ms) per ``fn()``}, kernels launched
+    per ``fn()``) by torch.profiler over ``calls`` calls, copies and fills
+    aside. The names and times come from the device's records: the fullest
+    of up to ``attempts`` profiles (a profile now and then misses a kernel
+    and never adds one; each opens and closes with a spin kernel of ~1 ms,
+    left out, and the calls are spun apart, so that no call's kernels are the
+    profile's first or its last), stopping at the first that saw a kernel a
+    call. The launches per call are the larger of the device's count and the
+    host's: the ``LAUNCH_API`` calls less the spins, which the profiler
+    records on the host without loss (the LoRA step's 0.01 ms K9 kernel once
+    lost one device record of two in all of 32 profiles while the host
+    recorded both launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    best = {}
+    best, host = {}, 0.0
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(calls):
+                torch.cuda._sleep(SPIN_CYCLES)
                 fn()
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        found = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
+        events = prof.key_averages()
+        found = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / calls) for e in events
                  if "cuda" in str(getattr(e, "device_type", "")).lower() and e.self_device_time_total > 0
                  and not e.key.startswith(("Memcpy", "Memset")) and "spin_kernel" not in e.key}
+        host = max(host, (sum(e.count for e in events if e.key.startswith(LAUNCH_API)) - (calls + 1)) / calls)
         if sum(n for n, _ in found.values()) > sum(n for n, _ in best.values()):
             best = found
         if sum(n for n, _ in best.values()) >= 1:
             break
-    return best
+    return best, max(sum(n for n, _ in best.values()), host)
 
 
 def fill_zero_weights(module, generator) -> None:
@@ -1018,17 +1084,17 @@ def adam_step_record(leaf_shapes) -> dict:
             for name, i in (("codes", 0), ("scales", 1)):
                 differ[name] = sum(not torch.equal(a[i], b[i]) for a, b in states)
             err = max((a - b).abs().max().item() for a, b in zip(fused[0], plain[0]))
-            kernels = device_kernels(run_fused)
+            kernels, launches = device_kernels(run_fused)
             ms = cuda_ms(run_fused)
             plain_ms = cuda_ms(run_plain, iters=1, repeats=3)
             nbytes = n * (_elem(dname) + 2 + 2 + 4 + 4) + 16 * n_scales
             bound_ms, bound_by = _bound(40 * n, nbytes, "float32")
             rec = {"dtype": dname, "clip_active": clip, "n_leaves": len(shapes), "n_params": n,
                    "n_items": len(plan.items), "leaves_differ": differ, "max_abs_err": err,
-                   "device_kernels": {k: count for k, (count, _) in kernels.items()},
+                   "device_kernels": {k: count for k, (count, _) in kernels.items()}, "launches_per_call": launches,
                    "device_ms": sum(t for _, t in kernels.values()), "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
-            rec["ok"] = (not any(differ.values()) and sum(rec["device_kernels"].values()) == 1
+            rec["ok"] = (not any(differ.values()) and launches == 1 and kernels
                          and all("adam8bit_step_kernel" in k for k in kernels))
             cases.append(rec)
             if not rec["ok"]:
@@ -1308,7 +1374,7 @@ def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
                 tol = TOLERANCE[name][dname]
                 del out, ref, again
                 if name in ONE_LAUNCH:
-                    record["device_launches"] = sum(n for n, _ in device_kernels(kernel).values())
+                    record["device_launches"] = device_kernels(kernel)[1]
                     if dname == "bfloat16":
                         record["graph_ms"] = graph_ms(kernel)
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
@@ -3311,6 +3377,380 @@ def _checkpoint_round_trip(work: str, flags) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 9f: multi-device training on the one card
+# --------------------------------------------------------------------------- #
+
+
+def parallel_argv(work: str, stage: str, flags=()):
+    return train_argv(
+        work, *SD15_FLAGS, "--model-dir", stage, "--resolution", "512", "--train-batch-size", str(TRAIN_BATCH),
+        "--gradient-accumulation-steps", "1", "--max-train-steps", str(PARALLEL_STEPS), "--lr-warmup-steps", "0",
+        "--learning-rate", str(PARALLEL_LR), "--max-train-samples", str(PARALLEL_STEPS * TRAIN_BATCH),
+        "--log-interval", "0", "--dataloader-num-workers", "4", *flags)
+
+
+def _whole_params(trainer) -> dict:
+    """{name: the whole parameter} in the checkpoint layout (every rank gathers)."""
+    return trainer.state.state_dict()["params"]
+
+
+def _parallel_train(work: str, stage: str, flags, restore: bool = False) -> tuple:
+    """Build the UNet trainer through the entry point (``build_trainer``,
+    which joins the launcher's process group) from the staged weights, train
+    ``PARALLEL_STEPS`` optimizer steps; under offload save a checkpoint
+    after them (and with ``restore`` restore it) -> (record, the trainer,
+    {name: initial parameter on the host} under FSDP, else None)."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.parallel.mesh import per_device_bytes
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
+
+    shutil.rmtree(work, ignore_errors=True)
+    allocated = torch.cuda.memory_allocated()
+    trainer = build_trainer(parallel_argv(work, stage, flags))
+    opt = trainer.state.optimizer
+    start = _whole_params(trainer)
+    checksums = _checksums(start)
+    theta0 = {n: t.detach().to("cpu", copy=True) for n, t in start.items()} if opt.dp.fsdp else None
+    del start
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_counters()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(trainer.tracker.jsonl_path) as f:
+        losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
+    timer = trainer.step_timer
+    res = {
+        "flags": list(flags), "world": trainer.world, "global_batch": trainer.global_train_batch,
+        "allocated_before_build_gb": allocated / 2**30, "start_checksums": checksums,
+        "train_loss": losses, "finite": all(math.isfinite(v) for v in losses), "optimizer_steps": opt.count,
+        "launches": launches, "timed_steps": len(timer.durations), "step_ms_p50": timer.percentile(50) * 1e3,
+        "step_ms_min": min(timer.durations) * 1e3, "step_ms_max": max(timer.durations) * 1e3,
+        "samples_per_s": trainer.global_train_batch / timer.percentile(50), "total_s": total_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "optimizer": type(opt).__name__, "optimizer_state_bytes": opt.state_bytes(),
+        "optimizer_state_bytes_on_card": per_device_bytes(opt.state_tensors(), trainer.device),
+        "offload": opt.offload, "host_transfer_s_per_step": opt.transfer_s / max(opt.count, 1),
+        "offload_groups": len(opt._offload_groups()) if opt.offload else None,
+        "fsdp": opt.dp.fsdp, "zero_sharded_leaves": sum(d is not None for d in opt.dp.dims),
+    }
+    if opt.offload:  # a checkpoint gathers the state: it must not bring the moments back to the card
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        path = trainer.ckpt_manager.save(opt.count, trainer.state, write=trainer.is_main_process)
+        torch.cuda.synchronize()
+        res["save_s"] = time.perf_counter() - t1
+        res["save_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - before
+        res["peak_mem_with_save_gb"] = max(res["peak_mem_gb"], torch.cuda.max_memory_allocated() / 2**30)
+        res["largest_leaf_moment_bytes"] = max(opt.leaf_moment_bytes(i) for i in range(len(opt.params)))
+        res["checkpoint_gb"] = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+        if restore:  # and restoring it (the state the run goes on to compare) must not either
+            trainer.ckpt_manager.resume_from = path
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            res["restored"] = trainer.ckpt_manager.restore(trainer.state)[0]
+            torch.cuda.synchronize()
+            res["restore_s"] = time.perf_counter() - t1
+            res["restore_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - before
+        shutil.rmtree(path)
+    return res, trainer, theta0
+
+
+def _checksums(params: dict, device="cuda") -> dict:
+    """{name: a checksum of the f32 tensor's bits in logical order}: each
+    32-bit word times (its index mod 251) + 1, summed in int64 (no overflow
+    below 2^24 elements a leaf), exact whatever the memory layout or the
+    order of the sum; the runs' initial weights compared."""
+    import torch
+
+    sums = []
+    for t in params.values():
+        words = t.detach().to(device).contiguous().view(-1).view(torch.int32).to(torch.int64)
+        sums.append((words * (torch.arange(words.numel(), device=words.device) % 251 + 1)).sum())
+    return dict(zip(params, torch.stack(sums).tolist()))
+
+
+def compare_params(params: dict, base: dict, theta0: dict = None) -> dict:
+    """A run's final parameters against the one-process run's, ``base``, in
+    one pass over the leaves: the largest absolute gap and whether every
+    leaf is equal bit for bit; with the initial parameters ``theta0`` also
+    the update gap: the update applied, d = params - theta0, against the
+    baseline's, d_b = base - theta0, as ||d - d_b|| / ||d_b|| over all
+    leaves (``global``), of the median leaf and of the worst; the same for
+    each ``PARALLEL_CONTROLS`` path, whose update is ``s * d`` (from each
+    leaf's ||d||^2, ||d_b||^2 and <d, d_b>, in float64)."""
+    import torch
+
+    rows = []
+    for n, p in params.items():
+        p, b = p.detach(), base[n].to(p.device)
+        row = [(p.float() - b.float()).abs().max().double(), (p != b).any().double()]
+        if theta0 is not None:
+            t0 = theta0[n].to(p.device)
+            d, db = (p.float() - t0).double(), (b.float() - t0).double()
+            row += [(d * d).sum(), (db * db).sum(), (d * db).sum(), ((d - db) ** 2).sum()]
+        rows.append(torch.stack(row))
+    rows = torch.stack(rows).tolist()  # one wait for the whole pass
+    out = {"max_abs_param_gap": max(r[0] for r in rows), "params_bitwise_equal": not any(r[1] for r in rows)}
+    if theta0 is None:
+        return out
+    scales = {"run": 1.0, **PARALLEL_CONTROLS}
+    per = {k: [] for k in scales}
+    tot = {k: 0.0 for k in scales}
+    tot_b = 0.0
+    for _, _, dd, bb, cross, diff in rows:
+        tot_b += bb
+        for k, sc in scales.items():
+            sq = diff if k == "run" else max(sc * sc * dd - 2.0 * sc * cross + bb, 0.0)
+            tot[k] += sq
+            per[k].append(math.sqrt(sq / bb) if bb > 0 else (0.0 if sq == 0 else math.inf))
+    gaps = {k: {"global": math.sqrt(tot[k] / tot_b) if tot_b > 0 else math.inf,
+                "median_leaf": statistics.median(per[k]), "worst_leaf": max(per[k])} for k in scales}
+    return {**out, "update_gap": gaps.pop("run"), "update_gap_controls": gaps}
+
+
+def update_ok(gap: dict) -> bool:
+    return all(gap[k] <= tol for k, tol in PARALLEL_UPDATE_TOL.items())
+
+
+def parallel_child(spec_path: str) -> int:
+    """The one rank of phase 9f's runs (started by ``torchrun`` from the
+    phase): for each run the spec lists, train, compare with the
+    one-process baseline it names, write the record where it says."""
+    import torch
+    import torch.distributed as dist
+
+    with open(spec_path) as f:
+        specs = json.load(f)
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    torch.backends.cudnn.deterministic = True
+    from stable_diffusion_pytorch_tpu_torch.ops import adam8bit_update, flash_attention, fused_groupnorm  # noqa: F401
+
+    for spec in specs:
+        res, trainer, theta0 = _parallel_train(spec["work"], spec["stage"], spec["flags"], spec["restore"])
+        res["backend"] = dist.get_backend() if dist.is_initialized() else None
+        base = torch.load(spec["baseline"], map_location="cuda", weights_only=True)  # the run's peak is read
+        res["same_start"] = res.pop("start_checksums") == base["start_checksums"]
+        res.update(compare_params(_whole_params(trainer), base["params"], theta0))
+        res["loss_rel_gap"] = [abs(a - b) / abs(b) for a, b in zip(res["train_loss"], base["train_loss"])]
+        res["losses_equal"] = res["train_loss"] == base["train_loss"]
+        with open(spec["result"], "w") as f:
+            json.dump(res, f)
+        del trainer, theta0, base
+        free_cuda()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_group(cmd, timeout: float) -> int:
+    """Run ``cmd`` in a session of its own; past ``timeout`` kill the session
+    (the launcher and its ranks) and fail."""
+    import signal
+
+    proc = subprocess.Popen(cmd, start_new_session=True, env={**os.environ, "PYTHONPATH": REPO})
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise SmokeFailure(f"{' '.join(cmd[:6])} ... ran past {timeout} s")
+
+
+PIECES = ("params", "codes", "scales", "codes", "scales")  # a leaf's parameter, mu (codes, scales), nu (the same)
+
+
+def _int8_state_bytes(shape) -> int:
+    """Bytes of one leaf's int8 moments: two sets of codes (1 B an element)
+    and f32 scales (one per block and column)."""
+    from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import blocked_layout
+
+    _, r, _, nb = blocked_layout(shape, 256)
+    return 2 * (math.prod(shape) + 4 * nb * r)
+
+
+def _k9_pieces(tensors, dim, rank: int, n: int, fmt):
+    """Rank ``rank``'s copies of ``tensors`` cut ``n`` ways along ``dim``
+    (whole copies for None): always copies, since K9 writes its leaves in
+    place (a one-block leaf's scale slice is a contiguous view of the whole)."""
+    if dim is None:
+        return [t.clone() for t in tensors]
+    return [t.narrow(dim, rank * (t.shape[dim] // n), t.shape[dim] // n).clone(memory_format=fmt)
+            for t in tensors]
+
+
+def parallel_k9_record(leaf_shapes) -> dict:
+    """(b) K9 per ZeRO shard: the SD-1.5 UNet's 686 leaves cut by the port's
+    rule (``int8_shard_dim``) for 2, 4 and 8 ranks; for each simulated rank
+    one K9 launch over its slices and its whole leaves (bf16 gradients, the
+    clip active at half the global norm, which the ranks share); the slices
+    put back together and every rank's whole leaves must equal one launch
+    over the whole leaves, bit for bit (parameters, codes, scales)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import LAUNCHES, Adam8bitStep, memory_format
+    from stable_diffusion_pytorch_tpu_torch.parallel.mesh import local_shape, zero_dims
+    from stable_diffusion_pytorch_tpu_torch.trainers.optim import global_norm
+
+    shapes, params, grads, mu, nu = sd15_leaves(leaf_shapes, seed=9)
+    g = grads["bfloat16"]
+    del grads
+    norm = global_norm(g)
+    limit = 0.5 * float(norm)
+    bc1, bc2 = (float(torch.tensor(b, dtype=torch.float32)) for b in ADAM_BC)
+    lr, wd = float(torch.tensor(1e-4, dtype=torch.float32)), 0.1
+    args = (norm, bc1, bc2, lr, 0.9, 0.999, 1e-8, wd, limit)
+    whole = _state_copy(params, mu, nu)
+    Adam8bitStep(*whole, 256)(g, *args)
+    torch.cuda.synchronize()
+    worlds = {}
+    for n in PARALLEL_K9_WORLDS:
+        dims = zero_dims(shapes, n, int8_block=256)
+        put = _state_copy(params, mu, nu)
+        ms, launches, differ = [], 0, {"params": 0, "codes": 0, "scales": 0}
+        for rank in range(n):
+            local = [[], [], [], []]  # params, grads, mu, nu
+            for p, gr, m, v, d in zip(params, g, mu, nu, dims):
+                fmt = memory_format(p)
+                (lp, lg), lm, lv = (_k9_pieces((p, gr), d, rank, n, fmt), tuple(_k9_pieces(m, d, rank, n, fmt)),
+                                    tuple(_k9_pieces(v, d, rank, n, fmt)))
+                for dst, x in zip(local, (lp, lg, lm, lv)):
+                    dst.append(x)
+            step = Adam8bitStep(local[0], local[2], local[3], 256)
+            before = LAUNCHES.count
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(local[1], *args)
+            stop.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(stop))
+            launches += LAUNCHES.count - before
+            for i, d in enumerate(dims):
+                got = [local[0][i], *local[2][i], *local[3][i]]
+                want = [whole[0][i], *whole[1][i], *whole[2][i]]
+                if d is None:  # a whole leaf: every rank must give the one-launch result
+                    for name, a, b in zip(PIECES, got, want):
+                        differ[name] += not torch.equal(a, b)
+                    continue
+                dst = [put[0][i], *put[1][i], *put[2][i]]
+                for a, b in zip(dst, got):
+                    a.narrow(d, rank * b.shape[d], b.shape[d]).copy_(b)
+            del local, step
+        for i, d in enumerate(dims):
+            if d is not None:
+                for name, a, b in zip(PIECES, [put[0][i], *put[1][i], *put[2][i]],
+                                      [whole[0][i], *whole[1][i], *whole[2][i]]):
+                    differ[name] += not torch.equal(a, b)
+        worlds[n] = {"ranks": n, "sharded_leaves": sum(d is not None for d in dims),
+                     "whole_leaves": sum(d is None for d in dims), "launches": launches,
+                     "launches_per_rank": launches / n, "ms_per_rank": ms,
+                     "state_bytes_per_rank": sum(_int8_state_bytes(local_shape(s, d, n)) for s, d in zip(shapes, dims)),
+                     "leaves_differ": differ, "ok": launches == n and not any(differ.values())}
+        del put
+        free_cuda()
+    whole_bytes = sum(_int8_state_bytes(s) for s in shapes)
+    del params, g, mu, nu, whole
+    free_cuda()
+    return {"n_leaves": len(shapes), "state_bytes_whole": whole_bytes, "worlds": worlds,
+            "ok": all(w["ok"] for w in worlds.values())}
+
+
+def parallel_runs(work: str, stage: str) -> dict:
+    """9f (a): one process with no flag from the staged weights (f32 AdamW,
+    and int8 Adam for the int8 runs), then one subprocess under ``torchrun
+    --nproc_per_node 1`` over NCCL that runs the UNet entry point once per
+    ``PARALLEL_RUNS`` configuration and compares each with its baseline ->
+    {"baselines", "runs"}."""
+    import torch
+
+    os.makedirs(work, exist_ok=True)
+    baselines = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the baselines and the ranks pick the same conv algorithms
+    try:
+        for kind, flags in (("f32", ()), ("int8", ("--use-8bit-adam",))):
+            res, trainer, _ = _parallel_train(os.path.join(work, f"baseline_{kind}"), stage, flags)
+            path = os.path.join(work, f"baseline_{kind}.pt")
+            torch.save({"params": {n: t.detach().cpu() for n, t in _whole_params(trainer).items()},
+                        "start_checksums": res["start_checksums"], "train_loss": res["train_loss"]}, path)
+            baselines[kind] = {**res, "path": path}
+            del trainer
+            free_cuda()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    specs = []
+    for name, flags in PARALLEL_RUNS:
+        kind = "int8" if "--use-8bit-adam" in flags else "f32"
+        specs.append({"name": name, "kind": kind, "work": os.path.join(work, name), "stage": stage,
+                      "flags": list(flags), "restore": name in PARALLEL_RESTORE,
+                      "baseline": baselines[kind]["path"], "result": os.path.join(work, f"{name}.json")})
+        if os.path.exists(specs[-1]["result"]):
+            os.remove(specs[-1]["result"])
+    spec_path = os.path.join(work, "runs_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(specs, f)
+    rc = _run_group([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                     os.path.abspath(__file__), "--parallel-child", spec_path], PARALLEL_RUNS_TIMEOUT_S)
+    runs = {}
+    for spec in specs:
+        name, kind = spec["name"], spec["kind"]
+        check(os.path.exists(spec["result"]), f"9f run {name} failed (the runs' exit code {rc})")
+        with open(spec["result"]) as f:
+            r = json.load(f)
+        base = baselines[kind]
+        required = TRAIN_KERNELS + (("adam8bit_update",) if kind == "int8" else ())
+        r["baseline_peak_mem_gb"] = base["peak_mem_gb"]
+        r["baseline_optimizer_state_bytes_on_card"] = base["optimizer_state_bytes_on_card"]
+        r["peak_mem_drop_gb"] = base["peak_mem_gb"] - r["peak_mem_gb"]
+        r["step_ms_p50_vs_baseline"] = r["step_ms_p50"] - base["step_ms_p50"]
+        # K9: one launch per optimizer step, or per group of leaves whose moments come in together (offload)
+        k9_want = PARALLEL_STEPS * (r["offload_groups"] or 1) if kind == "int8" else 0
+        ok = (r["backend"] == "nccl" and r["world"] == 1 and r["finite"] and r["same_start"]
+              and len(r["train_loss"]) == PARALLEL_STEPS and r["optimizer_steps"] == PARALLEL_STEPS
+              and all(r["launches"][k] > 0 for k in required) and r["launches"]["adam8bit_update"] == k9_want)
+        if r["fsdp"]:
+            r["controls_fail"] = {k: not update_ok(g) for k, g in r["update_gap_controls"].items()}
+            ok = (ok and update_ok(r["update_gap"]) and all(r["controls_fail"].values())
+                  and max(r["loss_rel_gap"]) <= PARALLEL_LOSS_TOL)
+        else:  # world 1: every collective is a copy, the same kernels run on the same data
+            ok = ok and r["params_bitwise_equal"] and r["losses_equal"]
+        if r["offload"]:
+            extra = max(r["save_peak_extra_bytes"], r.get("restore_peak_extra_bytes", 0))
+            ok = ok and (r["optimizer_state_bytes_on_card"] <= 0.01 * base["optimizer_state_bytes_on_card"]
+                         and r.get("restored", not spec["restore"]) and extra <= r["largest_leaf_moment_bytes"])
+        r["ok"] = ok
+        runs[name] = r
+        emit({"phase": f"parallel_{name}", "gpu": gpu_line(), **{k: v for k, v in r.items() if k != "launches"}})
+        check(ok, f"9f run {name} failed its checks: {r}")
+    check(rc == 0, f"9f runs exited {rc}")
+    return {"baselines": baselines, "runs": runs}
+
+
+def phase_parallel(work: str, stage: str, leaf_shapes) -> dict:
+    """9f: (a) :func:`parallel_runs`; (b) K9 per ZeRO shard for 2, 4 and 8 ranks."""
+    res = {"phase": "parallel", "gpu": gpu_line(), "steps": PARALLEL_STEPS, **parallel_runs(work, stage)}
+    k9 = parallel_k9_record(leaf_shapes)
+    res["k9_per_shard"] = k9
+    res["ok"] = k9["ok"] and all(r["ok"] for r in res["runs"].values())
+    emit({"phase": "parallel_k9", "gpu": res["gpu"], **k9})
+    check(k9["ok"], f"K9 per shard differs from K9 over whole leaves: {k9}")
+    check(res["ok"], "parallel phase failed")
+    return res
+
+
 def phase_checkpoint(work: str) -> dict:
     """Small width on the card, the f32 optimizer and the lean one (int8 Adam,
     bf16 accumulator): each saves checkpoint-2 and is resumed exactly."""
@@ -3326,6 +3766,7 @@ def phase_checkpoint(work: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None, help="also write every phase's JSON to DIR/chip_smoke.json")
+    parser.add_argument("--parallel-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -3336,6 +3777,8 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(REPO, "stable_diffusion_pytorch_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
+    if args.parallel_child:
+        return parallel_child(args.parallel_child)
     sys.path.insert(0, REPO)
     os.chdir(REPO)
     work = os.path.join(REPO, "build", "chip_smoke_train")
@@ -3377,6 +3820,8 @@ def main(argv=None) -> int:
     free_cuda()
     eval_res = phase_eval(staged["root"], os.path.join(REPO, "build", "chip_smoke_eval"))
     free_cuda()
+    parallel = phase_parallel(os.path.join(REPO, "build", "chip_smoke_parallel"), staged["root"], leaf_shapes)
+    free_cuda()
     ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
@@ -3384,7 +3829,9 @@ def main(argv=None) -> int:
                  *(r["launches"] for r in features_res["runs"].values()), serve_res["launches"],
                  *(r["launches"] for r in trains.values()), *(r["launches"] for r in personalize["runs"].values()),
                  *(r["launches"] for r in options["runs"].values()),
-                 *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score"))]
+                 *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score")),
+                 *(r["launches"] for r in parallel["baselines"].values()),
+                 *(r["launches"] for r in parallel["runs"].values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -3408,7 +3855,7 @@ def main(argv=None) -> int:
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
                        "serve": serve_res, **trains, "personalize": personalize, "train_options": options,
-                       "eval": eval_res,
+                       "eval": eval_res, "parallel": parallel,
                        "checkpoint": ckpt, "summary": summary}, f, indent=1)
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

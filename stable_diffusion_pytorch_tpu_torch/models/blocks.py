@@ -198,7 +198,13 @@ class CrossAttention(nn.Module):
 
     Self-attention concatenates the to_q/to_k/to_v weights and runs one matmul
     (the JAX package's fused QKV); the q/k/v views of its output go to the
-    kernel as they are, strided."""
+    kernel as they are, strided. Under tensor parallelism (``tp``, set by
+    ``parallel/tensor_parallel.py:shard_unet``) the weights hold this rank's
+    heads and the output projection's matching columns: the kernel runs on
+    the local heads, the partial outputs are summed over the model group and
+    the bias is added once, after the sum."""
+
+    tp = None
 
     def __init__(
         self,
@@ -228,7 +234,11 @@ class CrossAttention(nn.Module):
         if query.dim() == 4:
             query = query.reshape(shape[0], shape[1] * shape[2], shape[3])
         b, n, _ = query.shape
-        d_model = self.n_heads * self.d_head
+        tp = self.tp
+        heads = self.n_heads if tp is None else self.n_heads // tp.size
+        d_model = heads * self.d_head
+        if tp is not None:
+            query, context_emb = tp.enter(query), tp.enter(context_emb)
         if context_emb is None:
             w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight], dim=0)
             q, k, v = F.linear(query, w).split(d_model, dim=-1)
@@ -237,13 +247,19 @@ class CrossAttention(nn.Module):
             q, k, v = self.to_q(query), self.to_k(context_emb), self.to_v(context_emb)
         m = k.shape[1]
         out = multi_head_attention(
-            q.view(b, n, self.n_heads, self.d_head),
-            k.view(b, m, self.n_heads, self.d_head),
-            v.view(b, m, self.n_heads, self.d_head),
+            q.view(b, n, heads, self.d_head),
+            k.view(b, m, heads, self.d_head),
+            v.view(b, m, heads, self.d_head),
             scale=1.0 / math.sqrt(self.d_head),
             mask=mask,
         )
-        out = self.out(out.reshape(b, n, d_model))
+        out = out.reshape(b, n, d_model)
+        if tp is None:
+            out = self.out(out)
+        else:
+            proj = self.out[0]
+            out = tp.exit(F.linear(out, proj.weight))
+            out = self.out[1](out + proj.bias.to(out.dtype))
         return out.reshape(shape[:-1] + (out.shape[-1],))
 
 
@@ -260,7 +276,12 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU -> Dropout -> Linear."""
+    """GEGLU -> Dropout -> Linear. Under tensor parallelism (``tp``) the GEGLU
+    holds this rank's slice of the value and of the gate and the down
+    projection the matching columns: the partial outputs are summed over the
+    model group, then the bias is added once."""
+
+    tp = None
 
     def __init__(self, d_model: int, dim_mult: int = 4, dropout: float = 0.0):
         super().__init__()
@@ -271,7 +292,12 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        tp = self.tp
+        if tp is None:
+            return self.net(x)
+        down = self.net[2]
+        out = tp.exit(F.linear(self.net[1](self.net[0](tp.enter(x))), down.weight))
+        return out + down.bias.to(out.dtype)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -1,10 +1,16 @@
 """Parallelism / runtime configuration (copy of the JAX package's ``parallel/args.py``).
 
 The same fields, defaults and help strings (a test pins them equal). The port
-trains on one device: ``mixed_precision`` picks the compute dtype and
-``remat_policy`` the UNet's per-block remat; a sharding, offload or
-tensor-parallel option other than its default raises ``NotImplementedError``
-in the trainer.
+runs one process per device (``torchrun``; ``parallel/distributed.py``):
+``num_devices`` must equal the data size when given, ``shard_optimizer_state``
+is ZeRO over the data group (``parallel/data_parallel.py``),
+``offload_optimizer`` keeps the moments in pinned host memory between steps,
+``shard_params`` is FSDP2 (``parallel/fsdp.py``), ``mixed_precision`` picks
+the compute dtype and ``remat_policy`` the UNet's per-block remat;
+``tensor_parallel`` T above 1 splits the attention and feed-forward
+weights of the UNet trainer over model groups of T adjacent ranks
+(``parallel/tensor_parallel.py``), and ``use_pallas_attention`` changes
+nothing (the kernels always run).
 """
 
 from dataclasses import dataclass, field

@@ -16,15 +16,19 @@ unless given ``--device cpu``) is the port's own. Tiny run on the CPU:
         --eval-batch-size 2 --gradient-accumulation-steps 1 --max-train-samples 8 \\
         --max-val-samples 4 --max-test-samples 2 --log-interval 2 --checkpointing-steps 2 \\
         --ckpt-dir /tmp/ckpt_vae --autoencoder-channels-list 16,32 --groups 8
+
+On N cards: ``torchrun --nproc_per_node N -m
+stable_diffusion_pytorch_tpu_torch.scripts.train_autoencoder ...``;
+``--use-deepspeed`` maps to ``--shard-optimizer-state``, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
-from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, compat_from_cfg, load_config
-from stable_diffusion_pytorch_tpu_torch.models.build import build_autoencoder, require_device
+from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, compat_from_cfg
+from stable_diffusion_pytorch_tpu_torch.models.build import build_autoencoder
 from stable_diffusion_pytorch_tpu_torch.models.clip import resolve_tokenizer
-from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import _add_device
-from stable_diffusion_pytorch_tpu_torch.trainers.trainer import AutoencoderTrainer, check_supported
+from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import parse_training_flags
+from stable_diffusion_pytorch_tpu_torch.trainers.trainer import AutoencoderTrainer
 from stable_diffusion_pytorch_tpu_torch.utils.data import get_dataset, sample_test_image
 from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import get_logger
@@ -33,12 +37,7 @@ from stable_diffusion_pytorch_tpu_torch.utils.tracking import get_logger
 def build_trainer(argv=None) -> AutoencoderTrainer:
     """Parse the flags and build the VAE, datasets, test images and trainer."""
     logger = get_logger("train_autoencoder")
-    args, cfg = load_config(argv, parser_hook=_add_device)
-    try:
-        device = require_device(args.device)
-    except RuntimeError as exc:
-        raise SystemExit(f"train_autoencoder: {exc}") from None
-    check_supported(cfg)
+    cfg, device = parse_training_flags(argv, "train_autoencoder", logger, map_deepspeed=True)
     compat = compat_from_cfg(cfg)
     vae = build_autoencoder(AutoencoderConfig(**cfg.model.autoencoder.to_dict()), compat=compat, device=device,
                             seed=cfg.train.seed)

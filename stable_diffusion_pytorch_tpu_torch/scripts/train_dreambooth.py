@@ -27,6 +27,7 @@ import os
 
 from stable_diffusion_pytorch_tpu_torch import pipeline
 from stable_diffusion_pytorch_tpu_torch.models.build import sampling_model
+from stable_diffusion_pytorch_tpu_torch.parallel.distributed import main_first
 from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_training_models
 from stable_diffusion_pytorch_tpu_torch.trainers.trainer import UNetTrainer
 from stable_diffusion_pytorch_tpu_torch.utils.data import (
@@ -85,7 +86,7 @@ def build_trainer(argv=None, read=None) -> UNetTrainer:
     if t.with_prior_preservation:
         if not t.class_data_dir:
             raise SystemExit("train_dreambooth: --with-prior-preservation needs --class-data-dir")
-        ensure_class_images(model, t, cfg.dataset.resolution, logger)
+        main_first(ensure_class_images, model, t, cfg.dataset.resolution, logger)
         class_ds = FolderPromptDataset(t.class_data_dir, t.class_prompt, cfg.dataset, tokenizer, read=read)
         train_dataset, collate = DreamBoothDataset(instance_ds, class_ds), dreambooth_collate
         logger.info(f"prior preservation on: {len(class_ds)} class image(s), weight {t.prior_loss_weight:g} "

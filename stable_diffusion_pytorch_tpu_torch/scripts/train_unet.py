@@ -26,6 +26,16 @@ trainer's other options run here too: ``--prediction-type v_prediction``
 (built on first use), ``--device-preprocess``, ``--log-grad-noise-scale``,
 ``--spike-threshold``, ``--log-image``, ``--no-fused-adamw`` and a Hugging
 Face ``--dataset``.
+
+On N cards, one process per card (``--train-batch-size`` is per card):
+
+    torchrun --nproc_per_node N -m stable_diffusion_pytorch_tpu_torch.scripts.train_unet \
+        --dataset synthetic --resolution 512 --train-batch-size 4 ... [--shard-optimizer-state]
+
+``--shard-optimizer-state`` (ZeRO), ``--use-deepspeed`` (logged and mapped to
+it, as the JAX CLI does), ``--offload-optimizer`` and ``--shard-params``
+(FSDP) apply there; the trainer's docstring (``trainers/trainer.py``) gives
+the semantics.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from stable_diffusion_pytorch_tpu_torch.config import (
     load_config,
 )
 from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
+from stable_diffusion_pytorch_tpu_torch.parallel.distributed import main_first, maybe_initialize
 from stable_diffusion_pytorch_tpu_torch.trainers.trainer import UNetTrainer, check_supported
 from stable_diffusion_pytorch_tpu_torch.utils.data import get_dataset
 from stable_diffusion_pytorch_tpu_torch.utils.errors import record
@@ -57,17 +68,31 @@ def _add_device(parser) -> None:
                         help="torch device to train on (cuda; the CPU only when asked: --device cpu)")
 
 
-def build_training_models(argv, name: str):
-    """Parse the flags, check them and build the models for a UNet-loss
-    trainer (frozen CLIP and VAE, the UNet with f32 parameters and the run's
-    remat policy) -> (cfg, device, compat, model, logger)."""
-    logger = get_logger(name)
+def parse_training_flags(argv, name: str, logger, map_deepspeed: bool = False):
+    """Parse and check the flags, join the process group when a launcher
+    started this process (``parallel/distributed.py``) -> (cfg, device).
+    ``map_deepspeed``: ``--use-deepspeed`` turns on optimizer-state sharding
+    (the UNet and VAE CLIs, as the JAX ones)."""
     args, cfg = load_config(argv, parser_hook=_add_device)
     try:
         device = require_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"{name}: {exc}") from None
     check_supported(cfg)
+    if map_deepspeed and cfg.train.use_deepspeed:
+        logger.info("--use-deepspeed requested: mapping to optimizer-state sharding over the data group "
+                    "(ZeRO-2 analog)")
+        cfg.parallel.shard_optimizer_state = True
+    maybe_initialize(device=str(device))
+    return cfg, device
+
+
+def build_training_models(argv, name: str, map_deepspeed: bool = False):
+    """Parse the flags, check them and build the models for a UNet-loss
+    trainer (frozen CLIP and VAE, the UNet with f32 parameters and the run's
+    remat policy) -> (cfg, device, compat, model, logger)."""
+    logger = get_logger(name)
+    cfg, device = parse_training_flags(argv, name, logger, map_deepspeed)
     compat = compat_from_cfg(cfg)
     dtype = resolve_dtype(cfg.parallel.mixed_precision, device)
     m = cfg.model
@@ -85,7 +110,7 @@ def build_trainer(argv=None) -> UNetTrainer:
     ``--latent-cache PATH`` the training rows come from that cache, built
     first from the training set (the frozen VAE and CLIP on the run's
     device) when the file does not exist."""
-    cfg, device, compat, model, logger = build_training_models(argv, "train_unet")
+    cfg, device, compat, model, logger = build_training_models(argv, "train_unet", map_deepspeed=True)
     tokenizer = model.text_encoder.tokenizer
     train_dataset = get_dataset(cfg.dataset, split="train", tokenizer=tokenizer, logger=logger)
     eval_dataset = get_dataset(cfg.dataset, split="validation", tokenizer=tokenizer, logger=logger)
@@ -93,7 +118,8 @@ def build_trainer(argv=None) -> UNetTrainer:
     cache = cfg.dataset.latent_cache
     if cache:
         if not os.path.exists(cache):
-            build_latent_cache(model.autoencoder, train_dataset, cache, logger=logger, text_encoder=model.text_encoder)
+            main_first(build_latent_cache, model.autoencoder, train_dataset, cache, logger=logger,
+                       text_encoder=model.text_encoder)
         train_dataset, collate = LatentCacheDataset(cache), collate_latents
         logger.info(f"training from cached latents: {cache}")
     return UNetTrainer(model, cfg, train_dataset, eval_dataset, logger=logger, compat=compat, device=device,

@@ -26,7 +26,16 @@ launch over every leaf, the state and the parameters updated in place):
 On the card the update itself never reaches device memory. The accumulation is shared with
 :class:`~stable_diffusion_pytorch_tpu_torch.trainers.optim.AdamW`
 (:class:`~stable_diffusion_pytorch_tpu_torch.trainers.optim.Accumulating`).
-The ZeRO-sharded use of the kernel (per shard) is not ported.
+
+Under ZeRO (``--shard-optimizer-state``) the leaves are the rank's slices
+(``parallel/data_parallel.py``), cut by the JAX package's per-shard rule
+(``parallel/mesh.py:int8_shard_dim``, JAX ``shard_plan``): along a torch dim
+other than 0, so every block (all of one column's rows along dim 0) lies
+whole in one rank, or, where no such cut exists, the leaf stays whole on
+every rank. K9 then runs once per rank per optimizer step, over the rank's
+slices and its whole leaves, planned by ``adam8bit_plan`` on those shapes;
+the blocks, and so the codes and scales, are the ones a one-device run
+computes.
 """
 
 from __future__ import annotations
@@ -55,16 +64,26 @@ class AdamW8bit(Accumulating):
         self.nu = [zeros_state(p, block_size) for p in self.params]
         self._step = Adam8bitStep(self.params, self.mu, self.nu, block_size)
 
-    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
-        count_inc, bc1, bc2, lr = self._scalars()
-        self._step(grads, norm, bc1, bc2, lr, self.b1, self.b2, self.eps, self.weight_decay, self.max_grad_norm)
-        self.count = count_inc
+    def _update_leaves(self, idx, grads, norm, bc1, bc2, lr) -> None:
+        """One K9 launch over the leaves ``idx``: all of them through the step
+        made at construction, a group (offload) through one made for it."""
+        idx = list(idx)
+        if len(idx) == len(self.params):
+            step, grads = self._step, list(grads)
+        else:
+            step = Adam8bitStep([self.params[i] for i in idx], [self.mu[i] for i in idx],
+                                [self.nu[i] for i in idx], self.block_size)
+            grads = [grads[i] for i in idx]
+        step(grads, norm, bc1, bc2, lr, self.b1, self.b2, self.eps, self.weight_decay, self.max_grad_norm)
 
     def layout(self) -> Dict:
         return {**super().layout(), "use_8bit_adam": True}
 
     def state_tensors(self) -> List[torch.Tensor]:
         return [t for qs in self.mu + self.nu for t in qs] + super().state_tensors()
+
+    def _moment_lists(self) -> List[list]:
+        return [self.mu, self.nu]
 
     def _moments_state(self) -> Dict:
         return {"mu_q": [q for q, _ in self.mu], "mu_scale": [s for _, s in self.mu],

@@ -27,16 +27,37 @@ where that departs from the JAX package). :class:`~stable_diffusion_pytorch_tpu_
 (``--use-8bit-adam``) shares the accumulation (:class:`Accumulating`).
 :class:`ChainAdamW` (``--no-fused-adamw``) is the unfused optax chain under
 ``optax.MultiSteps``, in optax's order of operations.
+
+Over several devices (``parallel/data_parallel.py:DataParallel``) the
+optimizer holds what its rank updates: the whole leaves under data
+parallelism, a ZeRO rank's slices, or FSDP's local shards. The gradients are
+averaged over the data group once per optimizer step (the micro gradients, or
+under accumulation the window's mean), the moments are kept for the rank's
+slices only, and the slices are gathered back into the parameters after the
+update. ``state_dict`` gathers the state into the one-device layout and
+``load_state_dict`` takes that layout at any world size. ``offload``
+(``--offload-optimizer``) keeps the moments in pinned host memory between
+steps; the update runs over groups of leaves whose moments fill at most
+:data:`OFFLOAD_GROUP_BYTES`, each group's moments copied to the device, the
+group updated (one foreach pass, or one K9 launch), and copied back, so the
+device holds one group's moments at a time. Every leaf's math is the one of
+the whole update, bit for bit. The accumulator stays on the device, where
+every micro step adds to it.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional
 
 import torch
 
+from stable_diffusion_pytorch_tpu_torch.parallel.data_parallel import DataParallel
+from stable_diffusion_pytorch_tpu_torch.parallel.mesh import local_tensor
+
 SCHEDULES = ("linear", "cosine", "constant_with_warmup", "constant", "polynomial")
+OFFLOAD_GROUP_BYTES = 512 << 20  # of offloaded moments on the device at once
 
 
 def build_lr_schedule(scheduler_type: str, learning_rate: float, warmup_steps: int, total_steps: int):
@@ -113,10 +134,19 @@ class Accumulating:
     ``step(grads)`` takes the micro step's gradients (one per parameter) and
     returns ``(applied, norm)``: whether it applied an update (the micro step
     completed an accumulation window) and the global norm of those gradients
-    (a 0-d f32 tensor). State here: ``count`` (updates applied), and with
-    accumulation ``mini_step`` and ``acc`` (``acc_dtype``). Subclasses hold the
-    moments and implement ``_update(grads, norm)``, ``_moments_state`` and
-    ``_load_moments``."""
+    (a 0-d f32 tensor; the data group's mean gradient's, or under
+    accumulation the rank's own micro gradients'). Under FSDP with
+    accumulation the gradients stay inside FSDP until a window's last micro
+    step (``TrainState.defer_gradient_sync``): the earlier micro steps hand
+    in None and get a NaN norm, the last hands in the window's sum of the
+    data group's mean gradients, whose mean is applied and whose norm is
+    returned; the accumulator then stays zero. State here: ``count``
+    (updates applied), and with accumulation ``mini_step`` and ``acc``
+    (``acc_dtype``, shaped as the gradients handed in). Subclasses hold the
+    moments of ``self.params`` (the ``data_parallel.local`` leaves) and
+    implement ``_update_leaves(idx, grads, norm, bc1, bc2, lr)`` (the update
+    of the leaves ``idx``), ``_moments_state`` (lists aligned with the
+    leaves), ``_load_moments`` and ``_moment_lists``."""
 
     def __init__(
         self,
@@ -129,8 +159,12 @@ class Accumulating:
         max_grad_norm: Optional[float] = None,
         accum_steps: int = 1,
         acc_dtype: torch.dtype = torch.float32,
+        data_parallel: Optional[DataParallel] = None,
     ):
-        self.params = list(params)
+        self.dp = data_parallel if data_parallel is not None else DataParallel(params)
+        self.params = self.dp.local
+        self.offload = False  # offload_moments() moves the moments to the host
+        self.transfer_s = 0.0  # host <-> device seconds of the offloaded moments, all steps
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
@@ -138,17 +172,33 @@ class Accumulating:
         self.accum_steps = accum_steps
         self.count = 0
         self.mini_step = 0
+        self.deferred = 0  # micro steps of this window whose gradients FSDP holds
         with torch.no_grad():
-            self.acc = [torch.zeros_like(p, dtype=acc_dtype) for p in self.params] if accum_steps > 1 else None
+            self.acc = ([torch.zeros_like(local_tensor(p), dtype=acc_dtype) for p in self.dp.params]
+                        if accum_steps > 1 else None)
+
+    def applies_next(self) -> bool:
+        """Whether the next :meth:`step` completes an accumulation window."""
+        return self.acc is None or self.mini_step == self.accum_steps - 1
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]):
+    def step(self, grads: Optional[List[torch.Tensor]]):
         """-> (applied, global norm of ``grads``)."""
-        grads = [g.float() for g in grads]
-        norm = global_norm(grads)
-        if self.acc is None:
-            self._update(grads, norm)
+        if grads is None:
+            if self.applies_next():
+                raise ValueError("a window's last micro step must hand in its gradients")
+            self.deferred += 1
+            self.mini_step += 1
+            return False, torch.full((), float("nan"), device=self.params[0].device)
+        grads = [local_tensor(g).float() for g in grads]
+        if self.acc is None or self.deferred:
+            if self.deferred:  # FSDP summed the window's micro gradients into these
+                torch._foreach_div_(grads, float(self.deferred + 1))
+                self.deferred = self.mini_step = 0
+            grads, norm = self.dp.reduce(grads)
+            self._apply(grads, norm)
             return True, norm
+        norm = global_norm(grads)
         # running mean of the micro gradients (fused_accumulate's formula),
         # in f32; the in-place add rounds once into the accumulator's dtype
         delta = torch._foreach_sub(grads, self.acc)
@@ -158,11 +208,91 @@ class Accumulating:
         if self.mini_step < self.accum_steps - 1:
             self.mini_step += 1
             return False, norm
-        self._update(self.acc, global_norm(self.acc))
+        self._apply(*self.dp.reduce(self.acc))
         for a in self.acc:
             a.zero_()
         self.mini_step = 0
         return True, norm
+
+    def _apply(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
+        """The update (group by group, offloaded moments brought in for each),
+        and the sharded leaves gathered after it."""
+        if self.offload:
+            count_inc, bc1, bc2, lr = self._scalars()
+            device = self.params[0].device
+            for idx in self._offload_groups():
+                host = self._move_moments(lambda t: t.to(device, non_blocking=True), idx)
+                self._update_leaves(idx, grads, norm, bc1, bc2, lr)
+                self._move_moments(None, idx, host)
+            self.count = count_inc
+        else:
+            self._update(grads, norm)
+        self.dp.after_update()
+
+    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
+        """The update of every leaf in place (the moments where they lie)."""
+        count_inc, bc1, bc2, lr = self._scalars()
+        self._update_leaves(range(len(self.params)), grads, norm, bc1, bc2, lr)
+        self.count = count_inc
+
+    def _update_leaves(self, idx, grads: List[torch.Tensor], norm: torch.Tensor, bc1: float, bc2: float,
+                       lr: float) -> None:
+        raise NotImplementedError
+
+    def _offload_groups(self) -> List[List[int]]:
+        """Runs of neighbouring leaves whose moments fill at most
+        :data:`OFFLOAD_GROUP_BYTES` (a larger leaf alone)."""
+        groups, size = [[]], 0
+        for i in range(len(self.params)):
+            n = self.leaf_moment_bytes(i)
+            if groups[-1] and size + n > OFFLOAD_GROUP_BYTES:
+                groups.append([])
+                size = 0
+            groups[-1].append(i)
+            size += n
+        return [g for g in groups if g]
+
+    def leaf_moment_bytes(self, i: int) -> int:
+        """The bytes of leaf ``i``'s moments."""
+        return sum(t.numel() * t.element_size() for lst in self._moment_lists()
+                   for t in (lst[i] if isinstance(lst[i], tuple) else (lst[i],)))
+
+    def _moment_lists(self) -> List[list]:
+        """The lists holding the moments, one item per leaf (a tensor, or a
+        tuple of tensors); replaced item by item, never rebound."""
+        return []
+
+    def offload_moments(self) -> None:
+        """Move the moments into pinned host memory (``--offload-optimizer``),
+        where they stay between steps."""
+        def pinned(t):
+            return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device="cpu", pin_memory=True).copy_(t)
+
+        self._move_moments(pinned)
+        self.offload = True
+
+    def _move_moments(self, fn, idx=None, host: Optional[List[list]] = None) -> List[list]:
+        """Replace each moment of the leaves ``idx`` (all by default) by
+        ``fn(moment)`` (timed, waited for) -> the lists as they were; with
+        ``host`` (those lists), copy the moments back into its tensors and put
+        them in place again."""
+        lists = self._moment_lists()
+        before = [list(lst) for lst in lists]
+        t0 = time.perf_counter()
+        for k, lst in enumerate(lists):
+            for i in range(len(lst)) if idx is None else idx:
+                x = lst[i]
+                if host is None:
+                    lst[i] = tuple(fn(t) for t in x) if isinstance(x, tuple) else fn(x)
+                else:
+                    h = host[k][i]
+                    for dst, src in zip(h if isinstance(h, tuple) else (h,), x if isinstance(x, tuple) else (x,)):
+                        dst.copy_(src, non_blocking=True)
+                    lst[i] = h
+        if self.params and self.params[0].is_cuda:
+            torch.cuda.synchronize(self.params[0].device)
+        self.transfer_s += time.perf_counter() - t0
+        return before
 
     def _scalars(self):
         """(count + 1, bc1, bc2, lr): the f32 scalars of the next update, the
@@ -185,8 +315,20 @@ class Accumulating:
         return sum(t.numel() * t.element_size() for t in self.state_tensors())
 
     def state_dict(self) -> Dict:
-        return {"layout": self.layout(), "count": self.count, "mini_step": self.mini_step, "acc": self.acc,
-                **self._moments_state()}
+        """The state in the one-device layout (the moments of sharded leaves
+        gathered: a collective, every rank calls it). Offloaded moments stay
+        on the host; one whose gather needs the device goes there alone and
+        comes back at once, so at most one leaf's piece is on the card."""
+        device = self.params[0].device if self.params else torch.device("cpu")
+
+        def whole(i: int, t: torch.Tensor) -> torch.Tensor:
+            if t.device == device or not self.dp.gathers(i):
+                return self.dp.gather(i, t)
+            return self.dp.gather(i, t.to(device)).cpu()
+
+        moments = {k: [whole(i, t) for i, t in enumerate(v)] for k, v in self._moments_state().items()}
+        acc = None if self.acc is None else [self.dp.gather_param(i, a) for i, a in enumerate(self.acc)]
+        return {"layout": self.layout(), "count": self.count, "mini_step": self.mini_step, "acc": acc, **moments}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
@@ -209,9 +351,10 @@ class Accumulating:
             )
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
-        for d, s in zip(self.acc or [], state["acc"] or []):
-            d.copy_(s)
-        self._load_moments(state)
+        for i, (d, s) in enumerate(zip(self.acc or [], state["acc"] or [])):
+            d.copy_(self.dp.shard_param(i, s))
+        self._load_moments({**state, **{k: [self.dp.shard(i, t) for i, t in enumerate(state[k])]
+                                        for k in self._moments_state()}})
 
 
 def _legacy_layout(state: Dict) -> Dict:
@@ -237,32 +380,31 @@ class AdamW(Accumulating):
         c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
         return torch.where(norm < c, torch.ones_like(norm), c / norm)
 
-    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
+    def _update_leaves(self, idx, grads, norm, bc1, bc2, lr) -> None:
         b1, b2 = self.b1, self.b2
-        count_inc, bc1, bc2, lr = self._scalars()
+        params, grads = [self.params[i] for i in idx], [grads[i] for i in idx]
+        mus, nus = [self.mu[i] for i in idx], [self.nu[i] for i in idx]
         scale = None if self.max_grad_norm is None else self._clip_scale(norm)
-        if any(t.dtype != torch.float32 for t in (grads[0], self.mu[0], self.nu[0])):
-            for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        if any(t.dtype != torch.float32 for t in (grads[0], mus[0], nus[0])):
+            for p, g, mu, nu in zip(params, grads, mus, nus):
                 self._leaf(p, g, mu, nu, bc1, bc2, lr, scale)
-            self.count = count_inc
             return
         g = grads if scale is None else torch._foreach_mul(grads, scale)
         # mu = b1 mu + (1 - b1) g ; nu = b2 nu + (1 - b2) g^2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - b1))
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(g, 1.0 - b1))
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
         # adam = (mu / bc1) / (sqrt(nu / bc2) + eps)
-        denom = torch._foreach_div(self.nu, bc2)
+        denom = torch._foreach_div(nus, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        adam = torch._foreach_div(self.mu, bc1)
+        adam = torch._foreach_div(mus, bc1)
         torch._foreach_div_(adam, denom)
         # p = p - lr (adam + wd p)
-        torch._foreach_add_(adam, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(adam, params, alpha=self.weight_decay)
         torch._foreach_mul_(adam, lr)
-        torch._foreach_sub_(self.params, adam)
-        self.count = count_inc
+        torch._foreach_sub_(params, adam)
 
     def _leaf(self, p, g, mu, nu, bc1, bc2, lr, scale) -> None:
         """``fused_adamw._leaf``: the leaf in f32, each store rounded once."""
@@ -281,6 +423,9 @@ class AdamW(Accumulating):
 
     def state_tensors(self) -> List[torch.Tensor]:
         return self.mu + self.nu + super().state_tensors()
+
+    def _moment_lists(self) -> List[list]:
+        return [self.mu, self.nu]
 
     def _moments_state(self) -> Dict:
         return {"mu": self.mu, "nu": self.nu}
@@ -311,13 +456,13 @@ class ChainAdamW(AdamW):
     two differ as the JAX package's two paths do (optax takes b1 in bf16,
     ``fused_adamw`` in f32)."""
 
-    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
+    def _update_leaves(self, idx, grads, norm, bc1, bc2, lr) -> None:
         b1, b2 = self.b1, self.b2
-        count_inc, bc1, bc2, lr = self._scalars()
         if self.max_grad_norm is not None:
             c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
             keep = norm < c
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for i in idx:
+            p, g, mu, nu = self.params[i], grads[i], self.mu[i], self.nu[i]
             g = g.float()
             if self.max_grad_norm is not None:
                 g = torch.where(keep, g, g / norm * c)
@@ -328,13 +473,13 @@ class ChainAdamW(AdamW):
             p.add_(u * -lr)
             mu.copy_(mu_n)
             nu.copy_(nu_n)
-        self.count = count_inc
 
     def layout(self) -> Dict:
         return {**super().layout(), "no_fused_adamw": True}
 
 
-def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulation_steps: int = 1) -> Accumulating:
+def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulation_steps: int = 1,
+                    data_parallel: Optional[DataParallel] = None) -> Accumulating:
     """clip-by-global-norm -> AdamW(schedule, wd), accumulated over k micro
     steps, as the JAX package's ``build_optimizer`` composes it: the fused
     AdamW with ``--adam-mu-dtype``/``--adam-nu-dtype`` storage, or under
@@ -342,7 +487,8 @@ def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulati
     flags), both honouring ``--accum-dtype``; or under ``--no-fused-adamw``
     the optax chain (:class:`ChainAdamW`: ``--adam-mu-dtype`` only, an f32
     accumulator). ``--adam-nu-dtype bf16`` with ``--no-fused-adamw`` raises
-    the JAX package's ``ValueError``."""
+    the JAX package's ``ValueError``. ``data_parallel`` places the leaves over
+    the data group (its ``local`` leaves are what the optimizer updates)."""
     unfused = getattr(optim_cfg, "no_fused_adamw", False)
     if (unfused and not getattr(optim_cfg, "use_8bit_adam", False)
             and getattr(optim_cfg, "adam_nu_dtype", "f32") == "bf16"):
@@ -356,7 +502,7 @@ def build_optimizer(params, optim_cfg, max_train_steps: int, gradient_accumulati
     common = dict(
         b1=0.9, b2=0.999, eps=1e-8, weight_decay=optim_cfg.adam_weight_decay,
         max_grad_norm=optim_cfg.max_grad_norm, accum_steps=gradient_accumulation_steps,
-        acc_dtype=storage_dtype(getattr(optim_cfg, "accum_dtype", "f32")),
+        acc_dtype=storage_dtype(getattr(optim_cfg, "accum_dtype", "f32")), data_parallel=data_parallel,
     )
     if getattr(optim_cfg, "use_8bit_adam", False):
         from stable_diffusion_pytorch_tpu_torch.trainers.adam8bit import AdamW8bit

@@ -55,6 +55,7 @@ from stable_diffusion_pytorch_tpu_torch.models.blocks import GaussianDistributio
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_pred_noise_fn
 from stable_diffusion_pytorch_tpu_torch.models.lora import substituted
 from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
+from stable_diffusion_pytorch_tpu_torch.parallel.mesh import local_tensor
 from stable_diffusion_pytorch_tpu_torch.trainers.optim import global_norm
 from stable_diffusion_pytorch_tpu_torch.utils.preprocess import device_preprocess
 
@@ -87,7 +88,11 @@ class TrainState:
     VAE, a ControlNet) or a :class:`Trainables`. ``params`` are what the
     optimizer updates (a :class:`Trainables`' transposed leaves);
     ``state_dict`` keys them by name in the checkpoint layout, a
-    :class:`Trainables`' in their own orientation."""
+    :class:`Trainables`' in their own orientation. Under FSDP the parameters
+    are DTensors, under tensor parallelism some are this rank's slices: the
+    EMA shadows are laid out as the parameters, ``state_dict`` gathers both
+    into whole tensors (every rank calls it), and ``load_state_dict`` cuts
+    whole tensors into this rank's pieces."""
 
     def __init__(self, trainable: Union[torch.nn.Module, Trainables], optimizer, with_ema: bool = False):
         self.step = 0
@@ -99,8 +104,29 @@ class TrainState:
             self.names = [n for n, p in trainable.named_parameters() if p.requires_grad]
             self.params = [p for p in trainable.parameters() if p.requires_grad]
         self.optimizer = optimizer
+        self._dp = getattr(optimizer, "dp", None)
         with torch.no_grad():
-            self.ema_params = [p.detach().clone() for p in self.params] if with_ema else None
+            self.ema_params = [local_tensor(p).detach().clone() for p in self.params] if with_ema else None
+
+    def defer_gradient_sync(self) -> bool:
+        """Under FSDP with gradient accumulation, turn FSDP's reduce-scatter
+        off for the backward of every micro step but a window's last, so the
+        data group reduces once per optimizer step (FSDP sums the window's
+        micro gradients, unsharded, until then) -> whether it is off."""
+        if self.module is None or self._dp is None or not (self._dp.fsdp and self._dp.active):
+            return False
+        defer = not self.optimizer.applies_next()
+        self.module.set_requires_gradient_sync(not defer)
+        return defer
+
+    def local_params(self) -> List[torch.Tensor]:
+        """Each parameter's storage on this rank (a DTensor's local shard)."""
+        return [local_tensor(p) for p in self.params]
+
+    def _whole(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self._dp is None:
+            return tensors
+        return [self._dp.gather_param(i, t) for i, t in enumerate(tensors)]
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """The trainable tensors by name, as the model takes them."""
@@ -116,9 +142,9 @@ class TrainState:
     def state_dict(self) -> Dict:
         return {
             "step": self.step,
-            "params": self._saved(self.params),
+            "params": self._saved(self._whole(self.local_params())),
             "opt_state": self.optimizer.state_dict(),
-            "ema_params": None if self.ema_params is None else self._saved(self.ema_params),
+            "ema_params": None if self.ema_params is None else self._saved(self._whole(self.ema_params)),
         }
 
     @torch.no_grad()
@@ -128,17 +154,22 @@ class TrainState:
         if sorted(state["params"]) != sorted(self.names):
             raise ValueError("checkpoint parameters do not match this run's trainable tensors")
 
-        def put(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
+        def put(i: int, dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
             src = src if self.trainables is None else src.t()
+            if self._dp is not None:
+                src = self._dp.shard_param(i, src)
             if src.shape != dst.shape:
                 raise ValueError(f"checkpoint tensor {name!r} is {tuple(src.shape)}, this run's {tuple(dst.shape)}")
             dst.copy_(src)
 
         self.step = int(state["step"])
+        local = self.local_params()
         for i, name in enumerate(self.names):
-            put(self.params[i], state["params"][name], name)
+            put(i, local[i], state["params"][name], name)
             if self.ema_params is not None:
-                put(self.ema_params[i], state["ema_params"][name], name)
+                put(i, self.ema_params[i], state["ema_params"][name], name)
+        if self._dp is not None:
+            self._dp.take_params()
         self.optimizer.load_state_dict(state["opt_state"])
 
 
@@ -184,6 +215,24 @@ def split_batch(batch: Dict[str, torch.Tensor]):
     return {k: v[:half] for k, v in batch.items()}, {k: v[half:] for k, v in batch.items()}
 
 
+def take_rows(draws, start: int, stop: int):
+    """Rows ``[start, stop)`` of every draw with a batch dim (a 0-d draw,
+    whole-batch dropout's uniform, is kept whole)."""
+    return {k: (v if v.dim() == 0 else v[start:stop]) for k, v in draws.items()}
+
+
+def half_spans(rows: int, rank: int, world: int):
+    """The gradient-noise-scale halves of a global batch of ``rows * world``
+    rows, rank ``r`` holding global rows ``[r * rows, (r + 1) * rows)``:
+    -> ((start, stop) of this rank's rows inside half 1, and inside half 2),
+    each in that half's own row numbering (half 1 is the first
+    ``rows * world // 2`` global rows, as the JAX package splits the batch)."""
+    total = rows * world
+    h1 = total // 2
+    lo, hi = rank * rows, (rank + 1) * rows
+    return (min(lo, h1), min(hi, h1)), (max(lo, h1) - h1, max(hi, h1) - h1)
+
+
 def _ema_update(ema_params, params, decay: float) -> None:
     if ema_params is None or decay == 1.0:
         return
@@ -191,12 +240,16 @@ def _ema_update(ema_params, params, decay: float) -> None:
     torch._foreach_add_(ema_params, params, alpha=1.0 - decay)
 
 
-def _backward(state: TrainState, loss: torch.Tensor) -> List[torch.Tensor]:
+def _backward(state: TrainState, loss: torch.Tensor) -> Optional[List[torch.Tensor]]:
     """Backward from ``loss`` -> the gradient of each of ``state.params``
-    (zeros where none reached it)."""
+    (zeros where none reached it), or None where FSDP keeps the micro step's
+    gradients unreduced (:meth:`TrainState.defer_gradient_sync`)."""
     for p in state.params:
         p.grad = None
+    deferred = state.defer_gradient_sync()
     loss.backward()
+    if deferred:
+        return None
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
     for p in state.params:
         p.grad = None
@@ -209,7 +262,7 @@ def _apply(state: TrainState, grads: List[torch.Tensor], ema_decay: float) -> to
     applied, grad_norm = state.optimizer.step(grads)
     with torch.no_grad():
         # the EMA moves only when the optimizer applied an update
-        _ema_update(state.ema_params, state.params, ema_decay if applied else 1.0)
+        _ema_update(state.ema_params, state.local_params(), ema_decay if applied else 1.0)
     state.step += 1
     return grad_norm
 
@@ -235,14 +288,22 @@ def _mse(pred: torch.Tensor, target: torch.Tensor, prior_loss_weight: float = 0.
     return per_example.mean()
 
 
-def _gns_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequence):
+def _gns_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequence, dp=None):
     """The gradient-noise-scale split (McCandlish et al. 2018): the gradient
     of each half of the batch, ``grad_fn(half, its draws) -> (loss, grads)``
     with ``draws`` one per half, averaged into the full batch's; with
     B_small = B // 2 and B_big = 2 B_small, the estimator's two halves
     S = 2 B_small (|g_small|^2 - |g_big|^2) and G^2 = 2 |g_big|^2 - |g_small|^2,
     |g_small|^2 the mean of the halves' squared norms. The trainer smooths
-    both and reports S / G^2. -> (loss, grads, {"gns_s", "gns_g2"})."""
+    both and reports S / G^2. -> (loss, grads, {"gns_s", "gns_g2"}).
+
+    Over a data group (``dp``) the halves are those of the global batch
+    (:func:`half_spans`; at world 2 half 1 is rank 0's rows): each rank takes
+    the gradient of its rows in each half (``draws`` are its rows of each
+    half's draws), the halves' gradients are all-reduced, and the loss and
+    the gradient returned are the global batch's on every rank."""
+    if dp is not None and dp.active:
+        return _gns_grads_group(grad_fn, batch, draws, dp)
     b1, b2 = split_batch(batch)
     half = batch_rows(b1)
     l1, g1 = grad_fn(b1, draws[0])
@@ -253,6 +314,37 @@ def _gns_grads(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequenc
     torch._foreach_mul_(g1, 0.5)
     big2 = global_norm(g1) ** 2
     return (l1 + l2) * 0.5, g1, {"gns_s": 2.0 * half * (small2 - big2), "gns_g2": 2.0 * big2 - small2}
+
+
+def _gns_grads_group(grad_fn: Callable, batch: Dict[str, torch.Tensor], draws: Sequence, dp):
+    import torch.distributed as dist
+
+    rows = batch_rows(batch)
+    total = rows * dp.world
+    sizes = (total // 2, total - total // 2)
+    (s1, e1), _ = half_spans(rows, dp.rank, dp.world)
+    n1 = e1 - s1
+    parts = ({k: v[:n1] for k, v in batch.items()}, {k: v[n1:] for k, v in batch.items()})
+    halves, loss = [None, None], None
+    for k, (part, d, size) in enumerate(zip(parts, draws, sizes)):
+        n = batch_rows(part)
+        if n == 0:
+            continue
+        l, g = grad_fn(part, d)
+        torch._foreach_mul_(g, n / size)  # this rank's share of the half's mean gradient
+        halves[k] = g
+        loss = l * (n / size) if loss is None else loss + l * (n / size)
+    like = halves[0] if halves[0] is not None else halves[1]
+    halves = [h if h is not None else [torch.zeros_like(t) for t in like] for h in halves]
+    for h in halves:
+        dp.all_reduce(h, mean=False)
+    dist.all_reduce(loss, group=dp.group)
+    small2 = (global_norm(halves[0]) ** 2 + global_norm(halves[1]) ** 2) * 0.5
+    g = halves[0]
+    torch._foreach_add_(g, halves[1])
+    torch._foreach_mul_(g, 0.5)
+    big2 = global_norm(g) ** 2
+    return loss * 0.5, g, {"gns_s": 2.0 * sizes[0] * (small2 - big2), "gns_g2": 2.0 * big2 - small2}
 
 
 def _latents_and_x_t(vae, sched, batch, draws):
@@ -409,7 +501,8 @@ def make_unet_train_step(
 
     def train_step(state: TrainState, batch, uncond_ids, draws):
         if grad_noise_scale:
-            loss, grads, extras = _gns_grads(grad_fn(state, uncond_ids), batch, draws)
+            loss, grads, extras = _gns_grads(grad_fn(state, uncond_ids), batch, draws,
+                                             getattr(state.optimizer, "dp", None))
         else:
             (loss, grads), extras = grad_fn(state, uncond_ids)(batch, draws), {}
         grad_norm = _apply(state, grads, ema_decay)
@@ -561,7 +654,8 @@ def make_vae_train_step(
                 return loss.detach(), _backward(state, loss)
 
             flips = flip if flip is not None else (None, None)
-            loss, grads, extras = _gns_grads(grad_fn, batch, list(zip(eps, flips)))
+            loss, grads, extras = _gns_grads(grad_fn, batch, list(zip(eps, flips)),
+                                             getattr(state.optimizer, "dp", None))
         else:
             loss, recon_loss, kl_loss = loss_fn(batch, eps, flip)
             grads = _backward(state, loss)

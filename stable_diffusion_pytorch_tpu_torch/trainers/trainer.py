@@ -33,15 +33,43 @@ bf16; ``--no-fused-adamw`` runs the optax chain (``trainers/optim.py``).
 ``--use-pallas-attention`` changes nothing, as in the JAX package, which
 declares it and never reads it: the kernels run either way.
 
+Over several devices (one process per device, started by ``torchrun``;
+``parallel/distributed.py``), as the JAX package (``trainer.py:86-128``):
+``--train-batch-size`` is per device, so the global batch is that times the
+data size; each rank's loader takes every ``world``-th row from its rank
+(``shard_id``, ``num_shards``); each rank draws the global batch's draws from
+the step's generator and keeps its rows (rank ``r`` holds global rows
+``[r b, (r + 1) b)``, the JAX batch's device split), so a world of N at a
+per-rank batch b takes the draws of one device at batch N b; the loss and
+the metrics are the global batch's means; the gradients are averaged over
+the data group once per optimizer step (``parallel/data_parallel.py``;
+under FSDP with accumulation, FSDP's reduce-scatter runs on a window's last
+micro step only: ``TrainState.defer_gradient_sync``);
+logging, image logging, tracking and checkpoint writes happen on rank 0,
+which gathers the one-device layout. ``--num-devices N`` must equal the
+data size (a mismatch raises ``ValueError``; the JAX package takes the
+first N devices). ``--shard-optimizer-state`` (and ``--use-deepspeed``, which
+the UNet and VAE CLIs map to it) shards the optimizer state ZeRO-style,
+``--offload-optimizer`` keeps it in pinned host memory between steps (a
+no-op with a warning on the CPU, where the two memories are one), and
+``--shard-params`` shards the trainable module with FSDP2
+(``parallel/fsdp.py``; trainable tensors that are not a module, LoRA
+factors and textual-inversion vectors, shard their optimizer state
+instead). ``--tensor-parallel T`` splits the UNet trainer's attention and
+feed-forward weights over groups of T adjacent ranks
+(``parallel/tensor_parallel.py``), the data axis being the world over T.
+With one process every option but ``--tensor-parallel`` is the one-device
+run. The combinations :func:`check_parallel` names raise ``ValueError``.
+
 Still refused with ``NotImplementedError`` naming the ROADMAP item
-(:func:`check_supported`): multi-device and sharded training (item 17) and
-chained dispatch, ``--steps-per-dispatch`` (item 20).
+(:func:`check_supported`): chained dispatch, ``--steps-per-dispatch`` (item 20).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import logging
 import os
 import time
 from typing import Any, Dict, Optional
@@ -58,23 +86,27 @@ from stable_diffusion_pytorch_tpu_torch.models.build import (
     sampling_model,
 )
 from stable_diffusion_pytorch_tpu_torch.models.controlnet import init_controlnet_from_unet
+from stable_diffusion_pytorch_tpu_torch.parallel.data_parallel import DataParallel
+from stable_diffusion_pytorch_tpu_torch.parallel.distributed import host_shard_info
+from stable_diffusion_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, combined_zero_dims, get_mesh, zero_dims
+from stable_diffusion_pytorch_tpu_torch.parallel.tensor_parallel import ModelGroup
 from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_optimizer, lr_at_step
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
     Trainables,
     TrainState,
+    half_spans,
     make_controlnet_train_step,
     make_textual_inversion_train_step,
     make_unet_train_step,
     make_vae_train_step,
     sample_draws,
-    split_batch,
+    take_rows,
 )
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import CheckpointManager, resume_train_state_math
 from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, detransform, to_img
 from stable_diffusion_pytorch_tpu_torch.utils.profiling import StepTimer
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker, get_logger
 
-MULTI_DEVICE = "ROADMAP queue 1, item 17"
 CHAINED_DISPATCH = "ROADMAP queue 1, item 20"
 LOG_IMAGE_PROMPT = "a white cat wearing a hat"  # the reference's eval prompt (train_unet.py:452-465)
 LOG_IMAGE_STEPS = 50  # DDIM steps of a logged sample
@@ -83,15 +115,8 @@ LOG_IMAGE_STEPS = 50  # DDIM steps of a logged sample
 def _unsupported(cfg):
     """(flag, ROADMAP item) of every option set away from a default whose
     feature the port does not have."""
-    p, t = cfg.parallel, cfg.train
     checks = [
-        (p.num_devices not in (None, 1), "--num-devices", MULTI_DEVICE),
-        (p.shard_optimizer_state, "--shard-optimizer-state", MULTI_DEVICE),
-        (t.use_deepspeed, "--use-deepspeed", MULTI_DEVICE),
-        (p.offload_optimizer, "--offload-optimizer", MULTI_DEVICE),
-        (p.shard_params, "--shard-params", MULTI_DEVICE),
-        ((p.tensor_parallel or 1) > 1, "--tensor-parallel", MULTI_DEVICE),
-        ((t.steps_per_dispatch or 1) > 1, "--steps-per-dispatch", CHAINED_DISPATCH),
+        ((cfg.train.steps_per_dispatch or 1) > 1, "--steps-per-dispatch", CHAINED_DISPATCH),
     ]
     return [(flag, item) for bad, flag, item in checks if bad]
 
@@ -156,6 +181,26 @@ class LossSpikes:
         return spike
 
 
+def check_parallel(cfg) -> None:
+    """Raise ``ValueError`` for a combination of the multi-device options the
+    port does not run: FSDP (``--shard-params``) with the int8 optimizer
+    (FSDP2 splits 1-D leaves along their one dim, through int8 blocks);
+    FSDP or tensor parallelism with ``--log-image`` (the sampler copies the
+    whole module) or ``--log-grad-noise-scale`` (its norms would need the
+    other ranks' pieces); tensor parallelism with FSDP (the JAX package
+    ignores ``--shard-params`` under a model axis; the port refuses it)."""
+    p, optim, log = cfg.parallel, cfg.optim, cfg.log
+    tp = int(p.tensor_parallel or 1) > 1
+    rules = [(p.shard_params, getattr(optim, "use_8bit_adam", False), "--shard-params", "--use-8bit-adam")]
+    for on, name in ((p.shard_params, "--shard-params"), (tp, "--tensor-parallel")):
+        rules += [(on, log.log_image, name, "--log-image"),
+                  (on, log.log_grad_noise_scale, name, "--log-grad-noise-scale")]
+    rules += [(tp, p.shard_params, "--tensor-parallel", "--shard-params")]
+    for on, bad, flag, other in rules:
+        if on and bad:
+            raise ValueError(f"{flag} does not run with {other}")
+
+
 def step_generator(device, *seeds: int) -> torch.Generator:
     seed = int(np.random.SeedSequence(list(seeds)).generate_state(1, np.uint64)[0] >> 1)
     return torch.Generator(device=device).manual_seed(seed)
@@ -167,6 +212,7 @@ class Trainer:
 
     run_name = "trainer"
     eval_cadence_offset = 0  # evaluate when (global_step + offset) % log_interval == 0
+    tensor_parallel_ok = False  # whether --tensor-parallel applies (it splits the trained UNet's weights)
 
     def __init__(self, cfg, train_dataset, eval_dataset, logger=None, device="cuda", train_collate=None):
         if train_dataset is None:
@@ -174,26 +220,53 @@ class Trainer:
         if eval_dataset is None and cfg.train.log_interval > 0:
             raise ValueError("if passed log_interval > 0, you must specify an evaluation dataset")
         check_supported(cfg)
+        check_parallel(cfg)
         self.cfg = cfg
         self.logger = logger or get_logger(self.run_name)
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
         self.device = require_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.dtype = resolve_dtype(cfg.parallel.mixed_precision, self.device)
-        self.global_train_batch = cfg.train.train_batch_size
-        self.global_eval_batch = cfg.train.eval_batch_size
+        rank, world = host_shard_info()
+        self.is_main_process = rank == 0
+        if not self.is_main_process:
+            self.logger.setLevel(logging.WARNING)
+        tp = int(cfg.parallel.tensor_parallel or 1)
+        if tp > 1 and not self.tensor_parallel_ok:
+            raise ValueError(f"--tensor-parallel splits the UNet's weights: {self.run_name} does not train them")
+        if tp > 1 and world == 1:
+            raise ValueError(f"--tensor-parallel {tp} needs {tp} processes: start them with torchrun "
+                             f"--nproc_per_node {tp}")
+        self.mesh = get_mesh(self.device.type, tp)
+        # self.rank, self.world: this process's place on the data axis (the model group shares its rows)
+        self.group, self.model_group, self.rank, self.world = None, None, 0, 1
+        if self.mesh is not None:
+            self.group = self.mesh.get_group(DATA_AXIS)
+            self.rank, self.world = self.mesh.get_local_rank(DATA_AXIS), self.mesh.size(0)
+            if tp > 1:
+                self.model_group = ModelGroup(self.mesh.get_group(MODEL_AXIS), tp, self.mesh.get_local_rank(MODEL_AXIS))
+        if cfg.parallel.num_devices is not None and cfg.parallel.num_devices != self.world:
+            raise ValueError(
+                f"--num-devices {cfg.parallel.num_devices} does not match the data axis of {self.world} "
+                "process(es): start one process per device with torchrun --nproc_per_node "
+                f"{cfg.parallel.num_devices}, or drop --num-devices")
+        self.global_train_batch = cfg.train.train_batch_size * self.world
+        self.global_eval_batch = cfg.train.eval_batch_size * self.world
         num_workers = int(getattr(cfg.dataset, "dataloader_num_workers", 0) or 0)
         self.train_loader = DataLoader(
-            train_dataset, batch_size=self.global_train_batch, shuffle=True, seed=cfg.train.seed,
-            collate=train_collate, num_workers=num_workers,
+            train_dataset, batch_size=cfg.train.train_batch_size, shuffle=True, seed=cfg.train.seed,
+            collate=train_collate, num_workers=num_workers, shard_id=self.rank, num_shards=self.world,
         )
         self.eval_loader = (
-            DataLoader(eval_dataset, batch_size=self.global_eval_batch, shuffle=False,
-                       seed=cfg.train.seed, num_workers=num_workers)
+            DataLoader(eval_dataset, batch_size=cfg.train.eval_batch_size, shuffle=False,
+                       seed=cfg.train.seed, num_workers=num_workers, shard_id=self.rank, num_shards=self.world)
             if eval_dataset is not None else None
         )
         self.ckpt_manager = CheckpointManager(cfg.checkpoint)
-        self.tracker = Tracker(cfg.log, self.run_name, config=cfg.to_dict() if cfg.log.with_tracking else None)
+        self.tracker = Tracker(cfg.log, self.run_name, config=cfg.to_dict() if cfg.log.with_tracking else None,
+                               enabled=self.is_main_process)
         # a dataset standing in for one that failed to load marks every record
         if any(getattr(ds, "synthetic_fallback", False) for ds in (train_dataset, eval_dataset)):
             self.tracker.set_persistent(synthetic_fallback=True)
@@ -216,11 +289,59 @@ class Trainer:
         return None
 
     # shared machinery
-    def _optimizer(self, params):
-        return build_optimizer(
-            params, self.cfg.optim, max_train_steps=self.cfg.train.max_train_steps,
-            gradient_accumulation_steps=self.cfg.train.gradient_accumulation_steps,
+    def _optimizer(self, params, module_sharded: bool = False, layouts=None):
+        """The run's optimizer over ``params`` on the data group: ZeRO dims
+        under ``--shard-optimizer-state`` or ``--shard-params``, unless FSDP
+        sharded the module (``module_sharded``: its state is sharded with
+        it), int8 blocks kept whole under ``--use-8bit-adam``; ``layouts``: each leaf's split
+        over the model group (tensor parallelism: the ZeRO dims layered on
+        it, JAX ``combine_zero``); the moments offloaded under
+        ``--offload-optimizer`` on a CUDA device."""
+        p, optim = self.cfg.parallel, self.cfg.optim
+        eight = getattr(optim, "use_8bit_adam", False)
+        dp = None
+        if self.group is not None:
+            dims = None
+            if (p.shard_optimizer_state or p.shard_params) and not module_sharded:
+                shapes, block = [q.shape for q in params], 256 if eight else None
+                dims = (zero_dims(shapes, self.world, int8_block=block) if layouts is None
+                        else combined_zero_dims(shapes, layouts, self.model_group.size, self.world, int8_block=block))
+            dp = DataParallel(params, self.group, dims, model=self.model_group, layouts=layouts,
+                              whole_model_leaves=eight)
+        opt = build_optimizer(
+            params, optim, max_train_steps=self.cfg.train.max_train_steps,
+            gradient_accumulation_steps=self.cfg.train.gradient_accumulation_steps, data_parallel=dp,
         )
+        if p.offload_optimizer:
+            if self.device.type == "cpu":
+                self.logger.warning("--offload-optimizer ignored on a CPU device (host and device memory coincide)")
+            else:
+                opt.offload_moments()
+        return opt
+
+    def _place(self, module) -> bool:
+        """Under ``--shard-params`` on a data group, shard ``module`` with
+        FSDP2 (``parallel/fsdp.py``) -> whether it was sharded."""
+        if not (self.cfg.parallel.shard_params and self.group is not None):
+            return False
+        from stable_diffusion_pytorch_tpu_torch.parallel.fsdp import shard_module
+
+        shard_module(module, self.mesh)
+        return True
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` averaged over the data group (a 0-d f32 tensor)."""
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+
+        x = x.detach().float().clone()
+        dist.all_reduce(x, group=self.group)
+        return x / self.world
+
+    def _rows(self, draws, rows: int):
+        """This rank's rows (``[rank * rows, (rank + 1) * rows)``) of a global batch's draws."""
+        return take_rows(draws, self.rank * rows, (self.rank + 1) * rows)
 
     def _check_unet(self, unet, trainable: bool) -> None:
         """The UNet as ``build_models(..., for_training=True, remat=...)`` makes it:
@@ -234,29 +355,40 @@ class Trainer:
         if not trainable:
             unet.requires_grad_(False)
 
-    def _latent_shape(self, batch) -> tuple:
-        """The latents' shape for a batch of pixels, uint8 images, cached moments or latents."""
+    def _latent_shape(self, batch, rows: Optional[int] = None) -> tuple:
+        """The latents' shape for a batch of pixels, uint8 images, cached
+        moments or latents (with ``rows`` in place of the batch's)."""
         if "moments" in batch:
             m = batch["moments"].shape
-            return (*m[:-1], m[-1] // 2)
-        if "latents" in batch:
-            return tuple(batch["latents"].shape)
-        image = batch["pixel_values"] if "pixel_values" in batch else batch["raw_images"]
-        return self.model.latent_shape(image.shape[0], image.shape[1])
+            shape = (*m[:-1], m[-1] // 2)
+        elif "latents" in batch:
+            shape = tuple(batch["latents"].shape)
+        else:
+            image = batch["pixel_values"] if "pixel_values" in batch else batch["raw_images"]
+            shape = tuple(self.model.latent_shape(image.shape[0], image.shape[1]))
+        return shape if rows is None else (rows, *shape[1:])
 
     def _unet_draws(self, batch, generator, whole_batch_drop: bool = False, halves: bool = False):
-        """Every draw of one UNet-loss step for this batch (its rows, 2B under
-        prior preservation); with ``halves`` a pair, one for each half of it
-        (the gradient-noise-scale split), drawn in that order."""
+        """Every draw of one UNet-loss step for this rank's batch (its rows,
+        2B under prior preservation): the global batch's draws, this rank's
+        rows kept; with ``halves`` a pair, one for each half of the global
+        batch (the gradient-noise-scale split, :func:`half_spans`), drawn in
+        that order."""
+        rows = batch["input_ids"].shape[0]
+
+        def draws(n):
+            return sample_draws(
+                generator, n, self._latent_shape(batch, n), self.model.noise_scheduler.noise_steps, self.device,
+                noise_offset=float(self.cfg.train.noise_offset or 0.0),
+                input_perturbation=float(self.cfg.train.input_perturbation or 0.0),
+                whole_batch_drop=whole_batch_drop, random_flip=self.random_flip,
+            )
+
+        total = rows * self.world
         if halves:
-            return [self._unet_draws(half, generator, whole_batch_drop) for half in split_batch(batch)]
-        bsz = batch["input_ids"].shape[0]
-        return sample_draws(
-            generator, bsz, self._latent_shape(batch), self.model.noise_scheduler.noise_steps, self.device,
-            noise_offset=float(self.cfg.train.noise_offset or 0.0),
-            input_perturbation=float(self.cfg.train.input_perturbation or 0.0),
-            whole_batch_drop=whole_batch_drop, random_flip=self.random_flip,
-        )
+            return [take_rows(draws(n), *span)
+                    for n, span in zip((total // 2, total - total // 2), half_spans(rows, self.rank, self.world))]
+        return self._rows(draws(total), rows)
 
     def _uncond_ids(self) -> torch.Tensor:
         """The empty prompt's token ids on the device."""
@@ -294,7 +426,7 @@ class Trainer:
                 metrics = self._train_step(placed, step_generator(self.device, 0, self.cfg.train.seed, micro))
                 # reading the loss waits for the step's device work; the
                 # other metrics stay on the device until the loop reads them
-                metrics["loss"] = float(metrics["loss"])
+                metrics["loss"] = float(self._mean(metrics["loss"]))
             micro += 1
             yield metrics, fetch_dt + (time.perf_counter() - t0)
 
@@ -394,7 +526,7 @@ class Trainer:
                             f"({total_bs / max(dt, 1e-9):.1f} samples/s)"
                         )
                     if isinstance(ckpt_steps, int) and ckpt_steps > 0 and global_step % ckpt_steps == 0:
-                        path = self.ckpt_manager.save(global_step, self.state)
+                        path = self.ckpt_manager.save(global_step, self.state, write=self.is_main_process)
                         self.logger.info(f"Saved state to {path}")
 
                 # evaluation runs before the termination check, so a last step
@@ -402,7 +534,7 @@ class Trainer:
                 if (sync and global_step > 0 and cfg.train.log_interval > 0
                         and (global_step + self.eval_cadence_offset) % cfg.train.log_interval == 0):
                     self.evaluate(global_step)
-                    if cfg.log.log_image:
+                    if cfg.log.log_image and self.is_main_process:
                         self.log_images(global_step)
 
                 if global_step >= max_train_steps:
@@ -410,7 +542,7 @@ class Trainer:
                     break
 
             if ckpt_steps == "epoch":
-                path = self.ckpt_manager.save(global_step, self.state, epoch=epoch)
+                path = self.ckpt_manager.save(global_step, self.state, epoch=epoch, write=self.is_main_process)
                 self.logger.info(f"Saved state to {path}")
 
         self.tracker.finish()
@@ -420,7 +552,8 @@ class Trainer:
             return None
         self.logger.info(f"Evaluate on eval dataset [len: {len(self.eval_dataset)}]")
         losses = [
-            float(self._eval_step(self._place_batch(batch), step_generator(self.device, 1, self.cfg.train.seed, i)))
+            float(self._mean(self._eval_step(self._place_batch(batch),
+                                             step_generator(self.device, 1, self.cfg.train.seed, i))))
             for i, batch in enumerate(self.eval_loader)
         ]
         if not losses:
@@ -440,6 +573,7 @@ class UNetTrainer(Trainer):
     ``--prior-loss-weight`` times the class rows' MSE, in evaluation too."""
 
     run_name = "train_unet"
+    tensor_parallel_ok = True
 
     def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, compat=None, device="cuda",
                  train_collate=None):
@@ -458,6 +592,9 @@ class UNetTrainer(Trainer):
         unet = model.unet
         lora_rank = int(cfg.train.lora_rank or 0)
         self._check_unet(unet, trainable=lora_rank == 0)
+        sharded, layouts = False, None
+        if lora_rank > 0 and self.model_group is not None:
+            raise ValueError("--tensor-parallel splits the UNet's weights: a LoRA run keeps them frozen")
         transform = None
         self._lora = None
         if lora_rank > 0:
@@ -478,8 +615,15 @@ class UNetTrainer(Trainer):
             params = trainable.leaves
         else:
             trainable = unet
+            sharded = self._place(unet)
+            if self.model_group is not None:
+                from stable_diffusion_pytorch_tpu_torch.parallel.tensor_parallel import shard_unet
+
+                split = shard_unet(unet, self.model_group)
+                layouts = [split.get(n) for n, p in unet.named_parameters() if p.requires_grad]
             params = [p for p in unet.parameters() if p.requires_grad]
-        self.state = TrainState(trainable, self._optimizer(params), with_ema=cfg.train.ema_decay > 0)
+        self.state = TrainState(trainable, self._optimizer(params, module_sharded=sharded, layouts=layouts),
+                                with_ema=cfg.train.ema_decay > 0)
         self.whole_batch_drop = bool(compat and compat.reference_compat)
         self._train, self._eval = make_unet_train_step(
             unet, model.text_encoder.module, model.autoencoder, model.noise_scheduler,
@@ -567,9 +711,10 @@ class TextualInversionTrainer(Trainer):
             model.unet, te.module, model.autoencoder, model.noise_scheduler, [int(i) for i in pids],
             compute_dtype=self.dtype, ema_decay=cfg.train.ema_decay,
         )
-        os.makedirs(cfg.checkpoint.ckpt_dir, exist_ok=True)
-        with open(os.path.join(cfg.checkpoint.ckpt_dir, "textual_inversion.json"), "w") as f:
-            json.dump({"placeholder_token": self.placeholder, "num_vectors": int(len(pids))}, f)
+        if self.is_main_process:
+            os.makedirs(cfg.checkpoint.ckpt_dir, exist_ok=True)
+            with open(os.path.join(cfg.checkpoint.ckpt_dir, "textual_inversion.json"), "w") as f:
+                json.dump({"placeholder_token": self.placeholder, "num_vectors": int(len(pids))}, f)
 
     def _train_step(self, batch, generator):
         return self._train(self.state, batch, self._unet_draws(batch, generator))
@@ -616,7 +761,8 @@ class ControlNetTrainer(Trainer):
             raise ValueError("the ControlNet must hold f32 trainable parameters: "
                              "build_controlnet(..., for_training=True)")
         init_controlnet_from_unet(model.unet, net)
-        self.state = TrainState(net, self._optimizer([q for q in net.parameters() if q.requires_grad]),
+        sharded = self._place(net)
+        self.state = TrainState(net, self._optimizer([q for q in net.parameters() if q.requires_grad], sharded),
                                 with_ema=cfg.train.ema_decay > 0)
         self._train, self._eval = make_controlnet_train_step(
             model.unet, net, model.text_encoder.module, model.autoencoder, model.noise_scheduler,
@@ -670,7 +816,8 @@ class AutoencoderTrainer(Trainer):
         cfg, vae = self.cfg, self.vae
         if next(vae.parameters()).dtype != torch.float32 or not next(vae.parameters()).requires_grad:
             raise ValueError("the VAE must hold f32 trainable parameters: build_autoencoder(..., device)")
-        self.state = TrainState(vae, self._optimizer([p for p in vae.parameters() if p.requires_grad]),
+        sharded = self._place(vae)
+        self.state = TrainState(vae, self._optimizer([p for p in vae.parameters() if p.requires_grad], sharded),
                                 with_ema=cfg.train.ema_decay > 0)
         self.gns = bool(cfg.log.log_grad_noise_scale)
         self._train, self._eval = make_vae_train_step(
@@ -679,22 +826,34 @@ class AutoencoderTrainer(Trainer):
             grad_noise_scale=self.gns, random_flip=self.random_flip,
         )
 
-    def _eps(self, batch, generator) -> torch.Tensor:
-        """The posterior noise of one step, [B, H/f, W/f, latent_channels] f32."""
+    def _eps(self, batch, generator, rows: Optional[int] = None) -> torch.Tensor:
+        """The posterior noise of one step, [B, H/f, W/f, latent_channels] f32
+        (``rows`` rows in place of the batch's)."""
         b, h, w, _ = (batch["pixel_values"] if "pixel_values" in batch else batch["raw_images"]).shape
         f = self.vae.downsample_factor
-        return torch.randn((b, h // f, w // f, self.vae.latent_channels), generator=generator, device=self.device)
+        return torch.randn((b if rows is None else rows, h // f, w // f, self.vae.latent_channels),
+                           generator=generator, device=self.device)
 
     def _draws(self, batch, generator, halves: bool = False):
-        """(posterior noise, flips or None) of one step; with ``halves`` each a
-        pair, one for each half of the batch (drawn half by half)."""
+        """(posterior noise, flips or None) of one step for this rank's rows
+        of the global batch's draws; with ``halves`` each a pair, one for
+        each half of the global batch (drawn half by half)."""
+        rows = next(iter(batch.values())).shape[0]
+
+        def draws(n):
+            eps = self._eps(batch, generator, n)
+            flip = torch.rand((n,), generator=generator, device=self.device) < 0.5 if self.random_flip else None
+            return eps, flip
+
+        def take(pair, start, stop):
+            return tuple(None if t is None else t[start:stop] for t in pair)
+
+        total = rows * self.world
         if halves:
-            eps, flip = zip(*(self._draws(half, generator) for half in split_batch(batch)))
+            eps, flip = zip(*(take(draws(n), *span) for n, span in
+                              zip((total // 2, total - total // 2), half_spans(rows, self.rank, self.world))))
             return eps, flip if self.random_flip else None
-        eps = self._eps(batch, generator)
-        if not self.random_flip:
-            return eps, None
-        return eps, torch.rand((eps.shape[0],), generator=generator, device=self.device) < 0.5
+        return take(draws(total), self.rank * rows, (self.rank + 1) * rows)
 
     def _train_step(self, batch, generator):
         return self._train(self.state, batch, *self._draws(batch, generator, halves=self.gns))

@@ -12,6 +12,9 @@ utils/checkpoint.py; Orbax becomes ``torch.save``).
 - ``resume_from_checkpoint="latest"`` restores the ``checkpoint-*`` entry with
   the largest step; any other value is a path (or a name under ``ckpt_dir``);
 - ``keep_last_only`` removes the previous checkpoint after a save;
+- over several devices rank 0 writes the one-device layout, gathered from
+  the ranks' shards (ZeRO moments, FSDP parameters), so a checkpoint resumes
+  at any world size; every rank reads it and keeps its own shards;
 - :func:`resume_train_state_math` is the reference's step/epoch replay
   arithmetic (the reference's train_unet.py:284-312);
 - :func:`load_reference_checkpoint` reads a reference-format torch state dict
@@ -115,15 +118,22 @@ class CheckpointManager:
         self.resume_from = ckpt_cfg.resume_from_checkpoint
         self.last_ckpt: Optional[str] = None
 
-    def save(self, global_step: int, state, epoch: Optional[int] = None) -> str:
-        """Save ``state.state_dict()`` (a ``TrainState``) plus the epoch."""
+    def save(self, global_step: int, state, epoch: Optional[int] = None, write: bool = True) -> str:
+        """Save ``state.state_dict()`` (a ``TrainState``) plus the epoch. Over
+        several devices every rank calls it (the state dict gathers sharded
+        state into the one-device layout) and only the one with ``write``
+        (rank 0) writes and prunes."""
         if epoch is not None:
             path = os.path.join(self.ckpt_dir, f"epoch_{epoch}")
         else:
             path = checkpoint_path(self.ckpt_dir, global_step)
+        payload = {**state.state_dict(), "epoch": epoch}
+        if not write:
+            self.last_ckpt = path
+            return path
         os.makedirs(self.ckpt_dir, exist_ok=True)
         prune = self.last_ckpt if (self.keep_last_only and self.last_ckpt) else None
-        save_checkpoint(path, {**state.state_dict(), "epoch": epoch})
+        save_checkpoint(path, payload)
         if prune and os.path.exists(prune) and os.path.abspath(prune) != os.path.abspath(path):
             shutil.rmtree(prune)
         self.last_ckpt = path
@@ -149,6 +159,8 @@ class CheckpointManager:
         if path is None:
             return False, 0
         device = state.params[0].device if state.params else "cpu"
+        if getattr(state.optimizer, "offload", False):  # the moments go to the host: none pass through the card
+            device = "cpu"
         state.load_state_dict(load_checkpoint(path, map_location=device))
         base = os.path.basename(path.rstrip("/"))
         try:

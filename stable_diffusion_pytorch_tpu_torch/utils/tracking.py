@@ -29,11 +29,17 @@ def get_logger(name: str) -> logging.Logger:
 
 
 class Tracker:
-    """Metrics sink: one JSON line per ``log`` call; wandb under ``with_tracking``."""
+    """Metrics sink: one JSON line per ``log`` call; wandb under ``with_tracking``.
+    ``enabled=False`` (every rank but rank 0 of a multi-device run) makes a
+    sink that writes nothing."""
 
-    def __init__(self, log_cfg, run_name: str, config: Optional[Dict] = None):
+    def __init__(self, log_cfg, run_name: str, config: Optional[Dict] = None, enabled: bool = True):
         self.wandb = None
         self._persistent: Dict[str, Any] = {}
+        self.jsonl_path = os.path.join(log_cfg.logging_dir, f"{run_name}_metrics.jsonl")
+        self._jsonl = None
+        if not enabled:
+            return
         if log_cfg.with_tracking:
             if log_cfg.report_to != "wandb":
                 raise NotImplementedError("Currently only support wandb; add an init for your platform")
@@ -48,7 +54,6 @@ class Tracker:
                        group=run_name, resume=log_cfg.resume, config=config or {})
             self.wandb = wandb
         os.makedirs(log_cfg.logging_dir, exist_ok=True)
-        self.jsonl_path = os.path.join(log_cfg.logging_dir, f"{run_name}_metrics.jsonl")
         self._jsonl = open(self.jsonl_path, "a")
 
     def set_persistent(self, **fields) -> None:
@@ -56,6 +61,8 @@ class Tracker:
         self._persistent.update(fields)
 
     def log(self, metrics: Dict[str, Any], step: int) -> None:
+        if self._jsonl is None:
+            return
         record = {"step": step, "time": time.time(), **self._persistent, **{k: float(v) for k, v in metrics.items()}}
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
@@ -69,6 +76,8 @@ class Tracker:
                             for k, v in images.items()}, step=step)
 
     def finish(self) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.close()
         if self.wandb is not None:
             self.wandb.finish()

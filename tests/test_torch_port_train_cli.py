@@ -215,12 +215,16 @@ def test_entry_points_run_on_cuda_unless_given_the_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize(
-    "flags,item",
-    [(["--steps-per-dispatch", "2"], "item 20"), (["--num-devices", "4"], "item 17")],
+    "flags,error,match",
+    [(["--steps-per-dispatch", "2"], NotImplementedError, "ROADMAP queue 1, item 20"),
+     (["--num-devices", "4"], ValueError, "--num-devices 4 does not match the data axis of 1 process")],
     ids=["steps_per_dispatch", "multi_device"],
 )
-def test_unported_training_options_raise(tmp_path, monkeypatch, flags, item):
+def test_unported_training_options_raise(tmp_path, monkeypatch, flags, error, match):
+    """Chained dispatch is not ported; ``--num-devices`` must equal the data
+    size, one process per device (the JAX package takes the first N devices
+    instead), so 4 asked of one process raises, naming both numbers."""
     monkeypatch.chdir(tmp_path)
     argv = [*TRAIN, "--ckpt-dir", "ckpt", "--dataset", "synthetic", *flags]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+    with pytest.raises(error, match=match):
         train_unet.main(argv)

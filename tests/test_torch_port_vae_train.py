@@ -275,7 +275,19 @@ def test_vae_cli_takes_the_lean_optimizer(runs):
 
 @pytest.mark.parametrize("flags", [["--num-devices", "4"], ["--shard-params"], ["--offload-optimizer"]],
                          ids=["num_devices", "shard_params", "offload_optimizer"])
-def test_unported_vae_options_raise(tmp_path, monkeypatch, flags):
+def test_unported_vae_options_raise(tmp_path, monkeypatch, capfd, flags):
+    """The multi-device options on one CPU process: ``--num-devices 4`` raises
+    naming 4 and the data size 1; ``--shard-params`` (nothing to shard over
+    one process) and ``--offload-optimizer`` (a no-op with the JAX package's
+    warning on the CPU, where host and device memory are one) build and step."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 17"):
-        train_autoencoder.main([*TRAIN, "--ckpt-dir", "ckpt", *flags])
+    argv = [*TRAIN, "--ckpt-dir", "ckpt", "--max-train-steps", "1", "--log-interval", "0", *flags]
+    if flags[0] == "--num-devices":
+        with pytest.raises(ValueError, match="--num-devices 4 does not match the data axis of 1 process"):
+            train_autoencoder.main(argv)
+        return
+    trainer = train_autoencoder.main(argv)
+    assert trainer.state.optimizer.count == 1 and trainer.world == 1
+    assert all(t.device.type == "cpu" for t in trainer.state.optimizer.state_tensors())
+    warned = "--offload-optimizer ignored on a CPU device (host and device memory coincide)" in capfd.readouterr().err
+    assert warned == (flags[0] == "--offload-optimizer")

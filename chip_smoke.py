@@ -39,8 +39,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
    agree bit for bit), the VAE's single head of 512 included;
    GroupNorm (K6), GroupNorm-concat (K8) and their backward (K7, which also
    serves the concat form's backward), CUDA C++ on thread-block clusters,
-   each of which must queue exactly one device kernel per call (counted by
-   torch.profiler) and, K7 and K8, give the same bits from two launches;
+   each of which must queue exactly one device kernel per call (the
+   device's records under torch.profiler, ``device_kernels``) and, K7 and
+   K8, give the same bits from two launches;
    their bfloat16 records also hold ``graph_ms``, the device time of a call
    read from a replayed CUDA graph of 10 calls (the eager ``ms`` of a small
    call is the wrapper's host time);
@@ -56,7 +57,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
    the clip active and not (``adam8bit_step_lora``: the same over the LoRA's
    256 factor leaves), against ``adam8bit_step_plain`` on the card:
    parameters, codes and scales bit-identical, one device kernel a step
-   (torch.profiler); no PyTorch call computes it (``library_ms`` null); its
+   and it K9's (the device's records; the same check must fail, and fails,
+   for a wrapper whose launch is elided: ``elided_launch_control``, the
+   launch captured into a CUDA graph never replayed); no PyTorch call
+   computes it (``library_ms`` null); its
    bound counts bytes and the f32 peak. Then, as context, the whole optimizer
    step over the 686 leaves: the f32 foreach ``AdamW._update`` and
    ``AdamW8bit._update``, the fused step against the per-leaf loop it
@@ -66,8 +70,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
    on the tensor cores, ``wgmma``; float32 on FMAs, ``fma``; any other pairing
    fails), max-abs error with its tolerance (of each output's max(1,
    max|plain|); bfloat16 attention of its own max|plain|, ``scale`` in the
-   record); the kernel's, the plain version's and the library call's times (CUDA events,
-   median of 5 runs of 5 launches); and the bound: the larger of bytes / 3.35
+   record); the kernel's and the library call's times (CUDA events, median
+   of 5 runs of 5 launches) and the plain version's (median of 3 single
+   launches after one: context, not a yardstick); and the bound: the larger of bytes / 3.35
    TB/s and FLOPs / peak (989 TFLOP/s bf16, 67 TFLOP/s f32; H100 SXM data
    sheet); for attention also bf16 sums by group (K1 at kv <= 9216 and at
    the K2 shapes, the split backward at K3's shapes and at its own). The
@@ -79,9 +84,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    shapes of head dims 40, 80 and 160, each output within 2e-2 of its own
    max|plain|; and K3 against the split set at K3's shapes, with the route
    ``backward_route`` takes there.
-3. unet_parity: one SD-1.5-size UNet forward (full widths, 64x64 latent) in
-   float32 on the card with the kernels, against the same weights and inputs
-   on the CPU through the plain path (a deliberate CPU reference).
+3. unet_parity: one SD-1.5-size UNet forward (full widths, 64x64 latent,
+   32 groups) in float32 on the card with the kernels, against the same
+   weights and inputs on the CPU through the plain path (a deliberate CPU
+   reference), within 1e-4 of the output's scale, and the bf16 forward's
+   drift from it (recorded): ``scripts/full_scale_parity.py:unet_parity``.
 4. train_parity: one SD-1.5-size UNet forward and backward (32x32 latent,
    batch 1) in float32, card with the kernels vs CPU through the plain path:
    the relative gradient error overall and of the worst tensor (float32
@@ -246,13 +253,36 @@ Phases, each printing one JSON line; any failure exits nonzero:
    bit for bit to one launch over the whole leaves (parameters, codes,
    scales); ms and the int8 state's bytes per simulated rank. Two ranks on
    the one card are not run (NCCL puts one rank on a device).
+9g. tools (run after 9e, before 9f): the evaluation and interop tools
+   (``scripts/``) on the card, each sub-check failing the run: (a) ``stage_check`` over symlinks to the
+   staged artifacts, a synthetic ``tokenizer/`` and the SD-1.5
+   ``unet_config.json``: all six ``ok``, exit 0, the UNet's 1x16x16x4 probe
+   card vs CPU (``cpu-parity``, 1e-3); (b) an empty directory exits 2 with
+   all six missing, ``--only unet`` over a ``unet.pt`` of wrong keys exits
+   1; (c) ``full_scale_parity``: the reference's default UNet on a 64x64
+   latent, the SD-1.5 VAE at ``TOOLS_VAE_SIZE`` and the 5-step compat loop
+   on a ``TOOLS_LOOP_LATENT`` latent, card vs CPU within 1e-4 (forwards)
+   and 2e-3 (the loop) of scale, the bf16 drift recorded; (d) ``fid_eval``
+   at ``FID_RUN`` with the random-Inception ensemble: fid(compat, default)
+   above ``FID_ORDER`` times the compat floor, latent and image; (e)
+   ``fid_samplers`` cut to ``FS_RUN``: the quick-train's loss falls, DDIM's
+   RMSE to the target falls with steps; (f) ``export_torch`` of a
+   checkpoint of the staged UNet, reloaded strictly, and
+   ``convert_inception`` of the staged ``.pth``, loaded back: both
+   bit-equal; (g) ``--config-file zero2.json`` by name: the UNet trainer
+   at SD-1.5 width, 256x256, batch 4, one optimizer step; ``perf.json``
+   raises naming item 20. Then (``tools_kernels``) every kernel at each
+   launch shape of 9g that phase 2 did not hold, in the dtype 9g launched
+   it in, against its plain version (no timings).
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
 
-Then, each on its own line: the ``nvidia-smi`` name/power-limit line, the
-``{"kernels": [...]}`` summary, and ``{"ok": true, "device": ...}`` last. In
-the summary, ``launches`` counts phases 5 to 9f, 6b, 6c and 6d included (each
+After each phase, its wall seconds on a line of their own: ``{"phase":
+..., "seconds": ...}`` (``total`` the whole run's). Then, each on its own
+line: the ``nvidia-smi`` name/power-limit line, the ``{"kernels": [...]}``
+summary, and ``{"ok": true, "device": ...}`` last. In the summary,
+``launches`` counts phases 5 to 9g, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
 record; 9f's comparison of K9 per shard is not counted); ``max_abs_err``,
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
@@ -269,6 +299,8 @@ proj_out) filled too, so every path contributes to the outputs and gradients.
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import functools
 import json
 import math
@@ -482,12 +514,12 @@ def launch_counts() -> dict:
     return counts
 
 
-def cuda_ms(fn, iters: int = 5, repeats: int = 5) -> float:
+def cuda_ms(fn, iters: int = 5, repeats: int = 5, warmup: int = 3) -> float:
     """Median over ``repeats`` of the mean CUDA-event time of ``iters`` launches,
-    after 3 warm-up calls (the median keeps one host stall out of the number)."""
+    after ``warmup`` calls (the median keeps one host stall out of the number)."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -535,46 +567,47 @@ def graph_ms(fn, calls: int = 10, repeats: int = 5) -> float:
 
 
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's ~2 GHz
+# kineto keeps no device record stamped outside its profile's window, and the
+# device's timestamps were seen ~1.2 ms behind the host's early in a run and
+# further off late in one (a late profile then lost every record of short
+# calls): each profile pads the calls with ~10 ms spins on both sides, and
+# doubles the pads for each profile that saw less than a kernel a call
+PAD_CYCLES = 10 * SPIN_CYCLES
+PLAIN_TIMING = dict(iters=1, repeats=3, warmup=1)  # a plain version's time: context, not a yardstick
 
 
-LAUNCH_API = "cudaLaunch"  # the runtime API's kernel launches (the spins' too), as the profiler records them
-
-
-def device_kernels(fn, calls: int = 2, attempts: int = 32) -> tuple:
+def device_kernels(fn, calls: int = 2, attempts: int = 8) -> tuple:
     """({kernel name: (launches, device ms) per ``fn()``}, kernels launched
-    per ``fn()``) by torch.profiler over ``calls`` calls, copies and fills
-    aside. The names and times come from the device's records: the fullest
-    of up to ``attempts`` profiles (a profile now and then misses a kernel
-    and never adds one; each opens and closes with a spin kernel of ~1 ms,
-    left out, and the calls are spun apart, so that no call's kernels are the
-    profile's first or its last), stopping at the first that saw a kernel a
-    call. The launches per call are the larger of the device's count and the
-    host's: the ``LAUNCH_API`` calls less the spins, which the profiler
-    records on the host without loss (the LoRA step's 0.01 ms K9 kernel once
-    lost one device record of two in all of 32 profiles while the host
-    recorded both launches)."""
+    per ``fn()``, that profile's pad in ms), both counts from the device's records of
+    ``calls`` calls under torch.profiler, copies, fills and the spins aside:
+    the fullest of up to ``attempts`` profiles (a profile may lose records,
+    never adds one), stopping at the first that saw a kernel a call. Each
+    profile spins ``pad`` cycles before the first call and after the last
+    (``PAD_CYCLES``, doubled after each profile that saw less than a kernel
+    a call) and ``SPIN_CYCLES`` between calls, so that no call's kernels are
+    the profile's first or its last. Only the device is traced (no host
+    ops: their records cost seconds to read and count nothing here)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    best, host = {}, 0.0
+    best, best_pad, pad = {}, PAD_CYCLES, PAD_CYCLES
     for _ in range(attempts):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                torch.cuda._sleep(SPIN_CYCLES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(pad)
+            for i in range(calls):
                 fn()
-            torch.cuda._sleep(SPIN_CYCLES)
+                torch.cuda._sleep(SPIN_CYCLES if i + 1 < calls else pad)
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        found = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / calls) for e in events
+        found = {e.key: (e.count / calls, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
                  if "cuda" in str(getattr(e, "device_type", "")).lower() and e.self_device_time_total > 0
                  and not e.key.startswith(("Memcpy", "Memset")) and "spin_kernel" not in e.key}
-        host = max(host, (sum(e.count for e in events if e.key.startswith(LAUNCH_API)) - (calls + 1)) / calls)
         if sum(n for n, _ in found.values()) > sum(n for n, _ in best.values()):
-            best = found
+            best, best_pad = found, pad
         if sum(n for n, _ in best.values()) >= 1:
             break
-    return best, max(sum(n for n, _ in best.values()), host)
+        pad *= 2
+    return best, sum(n for n, _ in best.values()), best_pad / SPIN_CYCLES
 
 
 def fill_zero_weights(module, generator) -> None:
@@ -1061,7 +1094,7 @@ def adam_step_record(leaf_shapes) -> dict:
     plan = adam8bit_plan(shapes, 256)
     n = sum(p.numel() for p in params)
     n_scales = sum(leaf.nb * leaf.r for leaf in plan.leaves)
-    cases, failures = [], []
+    cases, failures, control = [], [], None
     for dname, g in grads.items():
         norm = global_norm(g)
         for clip in (True, False):
@@ -1084,26 +1117,59 @@ def adam_step_record(leaf_shapes) -> dict:
             for name, i in (("codes", 0), ("scales", 1)):
                 differ[name] = sum(not torch.equal(a[i], b[i]) for a, b in states)
             err = max((a - b).abs().max().item() for a, b in zip(fused[0], plain[0]))
-            kernels, launches = device_kernels(run_fused)
+            kernels, launches, pad_ms = device_kernels(run_fused)
             ms = cuda_ms(run_fused)
-            plain_ms = cuda_ms(run_plain, iters=1, repeats=3)
+            plain_ms = cuda_ms(run_plain, iters=1, repeats=1, warmup=0)  # ~1 s a call; it ran just above
             nbytes = n * (_elem(dname) + 2 + 2 + 4 + 4) + 16 * n_scales
             bound_ms, bound_by = _bound(40 * n, nbytes, "float32")
             rec = {"dtype": dname, "clip_active": clip, "n_leaves": len(shapes), "n_params": n,
                    "n_items": len(plan.items), "leaves_differ": differ, "max_abs_err": err,
                    "device_kernels": {k: count for k, (count, _) in kernels.items()}, "launches_per_call": launches,
+                   "profile_pad_ms": pad_ms,
                    "device_ms": sum(t for _, t in kernels.values()), "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
-            rec["ok"] = (not any(differ.values()) and launches == 1 and kernels
-                         and all("adam8bit_step_kernel" in k for k in kernels))
+            rec["ok"] = not any(differ.values()) and one_k9_launch(kernels, launches)
             cases.append(rec)
             if not rec["ok"]:
                 failures.append(rec)
+            if dname == "bfloat16" and clip:
+                control = elided_launch_control(step, g, norm, limit, wd)
+                if control["check_passes"]:
+                    failures.append({"elided_launch_control": control})
             del fused, plain, step
             free_cuda()
     del params, grads, mu, nu
     free_cuda()
-    return {"cases": cases, "failures": failures}
+    return {"cases": cases, "elided_launch_control": control, "failures": failures}
+
+
+def one_k9_launch(kernels: dict, launches: float) -> bool:
+    """The step's check: one device kernel a call, and it is K9's."""
+    k9 = sum(n for name, (n, _) in kernels.items() if "adam8bit_step_kernel" in name)
+    return launches == 1 and k9 == 1
+
+
+def elided_launch_control(step, g, norm, limit: float, wd: float) -> dict:
+    """The K9 step as a wrapper whose launch is elided: it counts its launch
+    and issues it into a CUDA graph that is never replayed, so the host's
+    runtime records a kernel launch that the device never runs (capturing
+    also runs the graph's own two fill kernels). The device count must fail
+    the step's check (``one_k9_launch``)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import adam8bit_update as k9
+
+    def elided():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            k9._launch(g[0].dtype, step.params[0].device, step._table, step.plan, step._words, norm, limit, 0.9,
+                       0.999, 1e-8, wd)
+        k9.LAUNCHES.hit(("step", len(step.params), len(step.plan.items), str(g[0].dtype)))
+
+    before = k9.LAUNCHES.count
+    kernels, launches, _ = device_kernels(elided)
+    return {"counted": k9.LAUNCHES.count - before, "device_kernels": {k: n for k, (n, _) in kernels.items()},
+            "launches_per_call": launches, "check_passes": one_k9_launch(kernels, launches)}
 
 
 # Tolerances on max|kernel - plain| of each output, relative to max(1, max|plain|)
@@ -1340,15 +1406,69 @@ def _attention_groups(rows, shapes) -> dict:
     return groups
 
 
-def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
+def hold_shape(name: str, key, dname: str, gen, wall=None) -> tuple:
+    """Kernel ``name`` at launch shape ``key`` in ``dname`` against its plain
+    version on the same inputs -> (its record, whether it passed): the error
+    within ``TOLERANCE``, the implementation ``EXPECTED_IMPL`` names, the
+    bits of a second launch where ``REPEAT_IDENTICAL`` asks, one device
+    kernel a call where ``ONE_LAUNCH`` asks. With ``wall`` (seconds by
+    activity, added to), also the kernel's, the plain version's and the
+    library call's times, K6-K8's ``graph_ms`` and the bound."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    kernel, plain, library, flops, nbytes, *record = CASES[name](key, dname, gen)
+    record = dict(record[0]) if record else {}
+    compare = record.pop("compare", None)
+    counter = native.COUNTERS[name]
+    before = dict(counter.impls)
+    out = kernel()
+    ran = sorted(k for k, n in counter.impls.items() if n > before.get(k, 0))
+    impl = ran[0] if len(ran) == 1 else (ran or None)
+    ref = plain()
+    # the attention backward sums in a fixed order: a second launch must agree bit for bit
+    again = kernel() if name in REPEAT_IDENTICAL else out
+    torch.cuda.synchronize()
+    err, rel, *detail = compare(out, ref) if compare else _max_err(out, ref)
+    record.update(detail[0] if detail else {})
+    identical = again is out or all(torch.equal(a, b) for a, b in zip(_flat([again]), _flat([out])))
+    tol = TOLERANCE[name][dname]
+    del out, ref, again
+    t0 = time.perf_counter()
+    if name in ONE_LAUNCH:
+        _, record["device_launches"], record["profile_pad_ms"] = device_kernels(kernel)
+        if dname == "bfloat16" and wall is not None:
+            record["graph_ms"] = graph_ms(kernel)
+    bound_ms, bound_by = _bound(flops, nbytes, record.pop("peak", dname))
+    row = {"k": name, "shape": list(key), "dtype": dname, "impl": impl, "err": err, "rel_err": rel, "tol": tol,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes, "repeat_identical": identical,
+           **record}
+    if wall is not None:
+        t1 = time.perf_counter()
+        row["ms"] = cuda_ms(kernel)
+        t2 = time.perf_counter()
+        row["plain_ms"] = cuda_ms(plain, **PLAIN_TIMING)
+        t3 = time.perf_counter()
+        row["library_ms"] = None if library is None else cuda_ms(library)
+        t4 = time.perf_counter()
+        for part, dt in (("profiles", t1 - t0), ("kernel_ms", t2 - t1), ("plain_ms", t3 - t2),
+                         ("library_ms", t4 - t3)):
+            wall[part] += dt
+    ok = (rel <= tol and identical and impl == EXPECTED_IMPL.get(name, {}).get(dname)
+          and record.get("device_launches", 1) == 1)
+    return row, ok
+
+
+def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows, failures = [], []
+    wall = collections.defaultdict(float)  # seconds by activity
+    t_phase = time.perf_counter()
     summary = {name: {"max_rel_err": {}, "impl": {}, "ms_bf16": 0.0, "plain_ms_bf16": 0.0, "library_ms_bf16": 0.0,
                       "bound_ms_bf16": 0.0, "ops_bound_ms_bf16": 0.0, "bytes_bound_ms_bf16": 0.0,
                       "max_abs_err_bf16": 0.0}
@@ -1356,61 +1476,36 @@ def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
     for name, keys in shapes.items():
         for key in keys:
             for dname in ("float32", "bfloat16"):
-                kernel, plain, library, flops, nbytes, *record = CASES[name](key, dname, gen)
-                record = dict(record[0]) if record else {}
-                compare = record.pop("compare", None)
-                counter = native.COUNTERS[name]
-                before = dict(counter.impls)
-                out = kernel()
-                ran = sorted(k for k, n in counter.impls.items() if n > before.get(k, 0))
-                impl = ran[0] if len(ran) == 1 else (ran or None)
-                ref = plain()
-                # the attention backward sums in a fixed order: a second launch must agree bit for bit
-                again = kernel() if name in REPEAT_IDENTICAL else out
-                torch.cuda.synchronize()
-                err, rel, *detail = compare(out, ref) if compare else _max_err(out, ref)
-                record.update(detail[0] if detail else {})
-                identical = again is out or all(torch.equal(a, b) for a, b in zip(_flat([again]), _flat([out])))
-                tol = TOLERANCE[name][dname]
-                del out, ref, again
-                if name in ONE_LAUNCH:
-                    record["device_launches"] = device_kernels(kernel)[1]
-                    if dname == "bfloat16":
-                        record["graph_ms"] = graph_ms(kernel)
-                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-                library_ms = None if library is None else cuda_ms(library)
-                bound_ms, bound_by = _bound(flops, nbytes, record.pop("peak", dname))
-                row = {"k": name, "shape": list(key), "dtype": dname, "impl": impl, "err": err, "rel_err": rel,
-                       "tol": tol, "ms": ms,
-                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "flops": flops, "bytes": nbytes, "repeat_identical": identical, **record}
+                row, ok = hold_shape(name, key, dname, gen, wall)
                 rows.append(row)
                 s = summary[name]
-                s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), rel)
+                s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), row["rel_err"])
                 if dname == "bfloat16":
-                    s["ms_bf16"] += ms
-                    s["plain_ms_bf16"] += plain_ms
-                    s["library_ms_bf16"] = None if library_ms is None else s["library_ms_bf16"] + library_ms
-                    s["bound_ms_bf16"] += bound_ms
-                    s["ops_bound_ms_bf16" if bound_by == "operations" else "bytes_bound_ms_bf16"] += bound_ms
-                    s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
-                    if "graph_ms" in record:
-                        s["graph_ms_bf16"] = s.get("graph_ms_bf16", 0.0) + record["graph_ms"]
-                want_impl = EXPECTED_IMPL.get(name, {}).get(dname)
-                if want_impl:
-                    s["impl"][dname] = impl
-                if not (rel <= tol and identical and impl == want_impl
-                        and record.get("device_launches", 1) == 1):
+                    s["ms_bf16"] += row["ms"]
+                    s["plain_ms_bf16"] += row["plain_ms"]
+                    s["library_ms_bf16"] = (None if row["library_ms"] is None
+                                            else s["library_ms_bf16"] + row["library_ms"])
+                    s["bound_ms_bf16"] += row["bound_ms"]
+                    s["ops_bound_ms_bf16" if row["bound_by"] == "operations" else "bytes_bound_ms_bf16"] += \
+                        row["bound_ms"]
+                    s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], row["err"])
+                    if "graph_ms" in row:
+                        s["graph_ms_bf16"] = s.get("graph_ms_bf16", 0.0) + row["graph_ms"]
+                if EXPECTED_IMPL.get(name, {}).get(dname):
+                    s["impl"][dname] = row["impl"]
+                if not ok:
                     failures.append(row)
-                del kernel, plain, library
             torch.cuda.empty_cache()
     # K9 as the main path launches it: the whole step in one launch; its bf16
     # (clip active) numbers stand for K9 in the summary, the one-leaf sums beside them
+    wall["shapes"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
     step = adam_step_record(leaf_shapes)
     failures += step["failures"]
     # and over the DreamBooth LoRA's factor leaves, as its trainer launches it
     lora_step = adam_step_record(lora_leaf_shapes)
     failures += lora_step["failures"]
+    wall["adam8bit_steps"] = time.perf_counter() - t0
     s = summary["adam8bit_update"]
     main = next(c for c in step["cases"] if c["dtype"] == "bfloat16" and c["clip_active"])
     s.update({"per_leaf_ms_bf16": s["ms_bf16"], "per_leaf_plain_ms_bf16": s["plain_ms_bf16"],
@@ -1419,7 +1514,7 @@ def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
               "max_abs_err_bf16": max(s["max_abs_err_bf16"], main["max_abs_err"]), "library_ms_bf16": None})
     result = {"phase": "kernels", "ok": not failures, "n_shapes": {k: len(v) for k, v in shapes.items()},
               "summary": summary, "groups_bf16": _attention_groups(rows, shapes), "adam8bit_step": step,
-              "adam8bit_step_lora": lora_step,
+              "adam8bit_step_lora": lora_step, "wall_s": dict(wall),
               "failures": failures, "shapes": rows}
     emit({k: v for k, v in result.items() if k != "shapes"})
     check(all(shapes.get(name) for name in TPU_KERNELS), f"a kernel recorded no shape in the probe runs: "
@@ -1572,36 +1667,25 @@ def _sd15_unet_pair(seed: int):
 
 
 def phase_unet_parity(seed: int) -> dict:
-    """SD-1.5 UNet in float32: CUDA (kernels, TF32 off) vs CPU (plain path)."""
-    import torch
-
+    """SD-1.5 UNet on a 64x64 latent in float32: CUDA (kernels, TF32 off) vs
+    CPU (plain path), within ``full_scale_parity.F32_TOL`` of the output's
+    scale, and its bf16 forward's drift from the f32 one on the card
+    (recorded): ``scripts/full_scale_parity.py:unet_parity`` at the
+    pipeline's 32 groups."""
+    from stable_diffusion_pytorch_tpu_torch.models import presets
     from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.scripts import full_scale_parity
 
-    unet, cpu_unet = _sd15_unet_pair(seed)
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(1, 64, 64, 4, generator=g)
-    t = torch.tensor([601], dtype=torch.int32)
-    ctx = torch.randn(1, 77, 768, generator=g)
     native.reset_counters()
-    with torch.inference_mode():
-        out = unet(x.cuda(), t.cuda(), ctx.cuda()).cpu()
-        torch.cuda.synchronize()
-        launches = {k: native.COUNTERS[k].count for k in SLICE_KERNELS}
-        t0 = time.perf_counter()
-        ref = cpu_unet(x, t, ctx)
-        cpu_s = time.perf_counter() - t0
-    err = (out - ref).abs().max().item()
-    scale = max(1.0, ref.abs().max().item())
-    # f32 on both sides; sums over up to 11520 terms per conv output taken in
-    # another order, through ~60 normalized layers: 1e-3 of the output scale
-    tol = 1e-3 * scale
-    res = {"phase": "unet_parity", "cpu_reference": True, "shape": list(out.shape), "max_abs_err": err,
-           "max_abs_ref": ref.abs().max().item(), "tol": tol, "cuda_launches": launches,
-           "cpu_forward_s": cpu_s, "ok": err <= tol and all(launches.values())}
+    t0 = time.perf_counter()
+    rec = full_scale_parity.unet_parity(presets.sd15_unet_config(), seed, "cuda", latent=64, groups=32)
+    launches = {k: native.COUNTERS[k].count for k in SLICE_KERNELS}
+    res = {"phase": "unet_parity", "cpu_reference": True, "latent": [1, 64, 64, 4], **rec, "cuda_launches": launches,
+           "seconds": time.perf_counter() - t0, "ok": rec["ok"] and all(launches.values())}
     emit(res)
-    check(bool(torch.isfinite(out).all()), "non-finite UNet output on CUDA")
+    check(rec["finite"], "non-finite UNet output on CUDA")
     check(all(launches.values()), f"a kernel was not launched by the CUDA UNet forward: {launches}")
-    check(err <= tol, f"UNet f32 CUDA vs CPU max abs err {err} > {tol}")
+    check(rec["ok"], f"UNet f32 CUDA vs CPU max abs err {rec['max_delta']} > {rec['tol']}")
     return res
 
 
@@ -2539,7 +2623,9 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
     check(launches["adam8bit_update"] == k9_want,
           f"K9 ran {launches['adam8bit_update']} times in the {name} run, want {k9_want} (once per optimizer step)")
     check(res["ok"], f"{name} phase check failed")
+    t_profile = time.perf_counter()
     res["profile"] = profile_window(trainer)
+    res["profile_s"] = time.perf_counter() - t_profile
     emit({"phase": f"{name}_profile", **{k: v for k, v in res["profile"].items() if k != "top_kernels"}})
     # one more micro step, counted alone (no update: the window restarts)
     batch_in = trainer._place_batch(next(iter(trainer.train_loader)))
@@ -2574,12 +2660,15 @@ PROFILE_CATEGORIES = [
 def profile_device(fn, units: int, unit: str) -> dict:
     """torch.profiler around ``fn()``, a window of ``units`` steps: device ms
     per step by kernel category, and the device's busy share of the window's
-    wall time (the profiler's own cost included)."""
+    wall time (the profiler's own cost included). Only the device is traced:
+    with the host's ops traced too, reading one SD-1.5 training window's
+    records took ~19 s against ~5 s, and the window's wall time grew by
+    about half."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3338,6 +3427,288 @@ def phase_eval(stage: str, work: str) -> dict:
     return out
 
 
+# phase 9g: the evaluation and interop tools (scripts/), at the sizes below
+TOOLS_SEED = 3
+FID_RUN = dict(n_images=16, steps=4, res=32, deep_cache=(3,))  # FID_N, FID_STEPS, FID_RES, FID_DEEP_CACHE
+FID_ORDER = 3.0  # fid(compat, default) above this many times the compat floor's magnitude
+# fid_samplers cut from FS_N 256, FS_TRAIN_STEPS 400, FS_TARGET_STEPS 200 and
+# FS_GRID "ddim:10,20,25,50;dpmpp:10,15,20,25,50;ddpm:25,50"
+FS_RUN = dict(n=32, res=32, train_steps=60, target_steps=50, grid="ddim:4,8,16;dpmpp:4,8;ddpm:8", guidance=2.0,
+              pool=8)
+FS_DDIM = ("ddim", (4, 8, 16))  # its RMSE to the target must fall with the steps
+TOOLS_VAE_SIZE = 256  # full_scale_parity's VAE check, cut from the tool's 512
+TOOLS_LOOP_LATENT = 32  # its compat loop's latent side, cut from the tool's 64
+
+
+def _synthetic_tokenizer(root: str) -> None:
+    """A CLIP tokenizer directory of the byte vocab and five merges (the JAX
+    package's stage-check test recipe)."""
+    from stable_diffusion_pytorch_tpu_torch.models.bpe import bytes_to_unicode
+
+    merges = [("c", "a"), ("ca", "t</w>"), ("t", "h"), ("th", "e</w>"), ("o", "n</w>")]
+    base = list(bytes_to_unicode().values())
+    vocab = {tok: i for i, tok in enumerate(base)}
+    vocab.update({tok + "</w>": 256 + i for i, tok in enumerate(base)})
+    vocab.update({a + b: 512 + i for i, (a, b) in enumerate(merges)})
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+
+
+def _tools_stage_check(stage: str, work: str) -> dict:
+    """(a) every artifact of the staged directory, linked (not copied) with a
+    synthetic tokenizer and the SD-1.5 UNet's ``unet_config.json``: all ok,
+    exit 0, the UNet card vs CPU; (b) an empty directory exits 2 with all six
+    missing, a ``unet.pt`` of wrong keys exits 1 with it failed."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.scripts import stage_check
+
+    linked = os.path.join(work, "staged")
+    os.makedirs(linked)
+    for name in ("unet.pt", "vae", "text_encoder", "inception", "clip_full"):
+        os.symlink(os.path.join(stage, name), os.path.join(linked, name))
+    _synthetic_tokenizer(linked)
+    with open(os.path.join(linked, "unet_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(presets.sd15_unet_config()), f)
+    report = stage_check.run(linked, device="cuda")
+    unet = report["checks"]["unet"]
+    empty = os.path.join(work, "empty")
+    os.makedirs(empty)
+    missing = stage_check.run(empty, device="cuda")
+    bad = os.path.join(work, "bad")
+    os.makedirs(bad)
+    torch.save({"conv_in.weight": torch.zeros(320, 4, 3, 3), "time_embedding.0.weight": torch.zeros(1280, 320),
+                "not_a_unet.weight": torch.zeros(1)}, os.path.join(bad, "unet.pt"))
+    wrong = stage_check.run(bad, ["unet"], device="cuda")
+    code, code_empty, code_bad = (stage_check.exit_code(r) for r in (report, missing, wrong))
+    out = {"exit": code, "checks_report": {k: {kk: v for kk, v in r.items() if kk != "traceback"}
+                                            for k, r in report["checks"].items()},
+           "statuses": {k: r["status"] for k, r in report["checks"].items()}, "unet": unet,
+           "exit_empty": code_empty, "missing_empty": missing["missing"], "exit_wrong_keys": code_bad,
+           "failed_wrong_keys": wrong["failed"]}
+    out["checks"] = {"all_ok": code == 0 and set(out["statuses"]) == set(stage_check.CHECKS)
+                     and set(out["statuses"].values()) == {"ok"},
+                     "unet_cpu_parity": unet.get("mode") == "cpu-parity" and unet.get("max_abs_delta", 1.0) <= unet.get(
+                         "tol", 0.0),
+                     "empty_exits_2": code_empty == 2 and sorted(out["missing_empty"]) == sorted(stage_check.CHECKS),
+                     "wrong_keys_exit_1": code_bad == 1 and out["failed_wrong_keys"] == ["unet"]}
+    return out
+
+
+def _tools_full_scale(seed: int) -> dict:
+    """(c) the reference's default UNet on a 64x64 latent, the SD-1.5 VAE at
+    ``TOOLS_VAE_SIZE`` and the 5-step compat loop on a ``TOOLS_LOOP_LATENT``
+    latent, card vs CPU within the tool's bars, and the default UNet's bf16
+    drift (recorded)."""
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.scripts import full_scale_parity as fsp
+
+    out = {"unet_reference_config": fsp.unet_parity(presets.reference_unet_config(), seed, "cuda"),
+           "vae_sd15": fsp.vae_parity(seed + 1, "cuda", TOOLS_VAE_SIZE),
+           "sampling_loop": fsp.loop_parity(seed, "cuda", TOOLS_LOOP_LATENT)}
+    out["checks"] = {"unet": out["unet_reference_config"]["ok"], "vae_encode": out["vae_sd15"]["encode"]["ok"],
+                     "vae_decode": out["vae_sd15"]["decode"]["ok"], "loop": out["sampling_loop"]["ok"]}
+    return out
+
+
+def _tools_fid_eval(seed: int) -> dict:
+    """(d) fid_eval at ``FID_RUN`` with the random-Inception ensemble: the
+    compat sets apart from the default one by more than ``FID_ORDER`` times
+    their own floor, in latent and in image features."""
+    from stable_diffusion_pytorch_tpu_torch.scripts import fid_eval
+
+    t0 = time.perf_counter()
+    stack = fid_eval.Stack.seeded(seed, "cuda")
+    r = fid_eval.run(stack, FID_RUN["n_images"], FID_RUN["steps"], FID_RUN["res"], FID_RUN["deep_cache"],
+                     fid_eval.ImageFID("random_inception", stack, "cuda"), seed)
+    r["seconds"] = time.perf_counter() - t0
+    r["checks"] = {
+        "latent_order": r["fid_latent_compat_vs_default"] > FID_ORDER * abs(r["fid_latent_compat_vs_compat"]),
+        "image_order": r["fid_compat_vs_default"] > FID_ORDER * abs(r["fid_compat_vs_compat"]),
+        "deep_cache_finite": r["fid_latent_exact_vs_dc3"] is not None}
+    return r
+
+
+def _tools_fid_samplers(seed: int) -> dict:
+    """(e) fid_samplers cut to ``FS_RUN``: the quick-train's loss falls
+    (last tenth below the first), DDIM's RMSE to the target falls with steps."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.config import DDPMConfig
+    from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
+    from stable_diffusion_pytorch_tpu_torch.scripts import fid_samplers as fs
+
+    t0 = time.perf_counter()
+    schedule = make_schedule(DDPMConfig(noise_steps=1000))
+    basis = fs.make_basis(FS_RUN["res"])
+    unet = fs.build_unet(seed, "cuda")
+    losses = fs.quick_train(unet, schedule, basis, FS_RUN["train_steps"])
+    ctx_bank = fs.make_batch(basis, torch.Generator().manual_seed(1234), FS_RUN["n"])[1].numpy()
+    r = {"cuts": {k: v for k, v in FS_RUN.items() if k in ("n", "train_steps", "target_steps", "grid")},
+         "train_loss_first": losses[0], "train_loss_last": losses[-1],
+         **fs.curve(unet, schedule, fs.parse_grid(FS_RUN["grid"]), ctx_bank, FS_RUN["n"], FS_RUN["res"],
+                    FS_RUN["target_steps"], FS_RUN["guidance"], FS_RUN["pool"]),
+         "seconds": time.perf_counter() - t0}
+    tenth = max(1, len(losses) // 10)
+    ddim = [row["rmse_latent_vs_target"] for row in r["curve"] if row["sampler"] == FS_DDIM[0]]
+    r["checks"] = {"loss_falls": sum(losses[-tenth:]) < sum(losses[:tenth]),
+                   "ddim_rmse_falls": len(ddim) == len(FS_DDIM[1]) and all(a > b for a, b in zip(ddim, ddim[1:]))}
+    return r
+
+
+def _tools_export_convert(stage: str, work: str) -> dict:
+    """(f) export_torch of a checkpoint holding the staged SD-1.5 UNet (phase
+    9e's weights), reloaded ``strict=True``: every tensor bit-equal;
+    convert_inception of the staged ``.pth``: the ``.npz`` loads through
+    ``load_inception_state`` bit-equal to the ``.pth`` path."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.build import without_default_init
+    from stable_diffusion_pytorch_tpu_torch.models.inception import (
+        convert_torchvision_inception,
+        load_inception_state,
+    )
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
+    from stable_diffusion_pytorch_tpu_torch.scripts import convert_inception, export_torch
+    from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import (
+        load_reference_checkpoint,
+        read_weights,
+        save_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    staged = load_reference_checkpoint(os.path.join(stage, "unet.pt"))
+    save_checkpoint(os.path.join(work, "ckpt", "checkpoint-0"),
+                    {"step": 0, "params": staged, "opt_state": {}, "ema_params": None})
+    out_pt = os.path.join(work, "unet_export.pt")
+    line = export_torch.main(["--checkpoint", os.path.join(work, "ckpt"), "--export-model", "unet", "--output", out_pt,
+                              "--device", "cuda", *SD15_FLAGS])
+    with without_default_init():
+        unet = UNetModel(4, 32, presets.sd15_unet_config())
+    unet.load_state_dict(torch.load(out_pt, weights_only=True), strict=True)
+    differ = [k for k, v in unet.state_dict().items() if not torch.equal(v, staged[k])]
+    del unet, staged
+    npz = os.path.join(work, "converted", "inception", "inception_v3.npz")
+    conv = convert_inception.main([os.path.join(stage, "inception", "inception_v3.pth"), npz])
+    from_npz = load_inception_state(os.path.join(work, "converted"))
+    from_pth = convert_torchvision_inception(read_weights(os.path.join(stage, "inception", "inception_v3.pth")))
+    inception_differ = sorted(set(from_npz) ^ set(from_pth)) + [k for k in from_pth if k in from_npz and not
+                                                                 torch.equal(from_npz[k], from_pth[k])]
+    return {"export": line, "export_tensors_differ": differ[:5], "convert": conv,
+            "inception_tensors_differ": inception_differ[:5], "seconds": time.perf_counter() - t0,
+            "checks": {"export_bit_equal": not differ and line["exported"] > 0,
+                       "convert_bit_equal": not inception_differ and conv["arrays"] > 0}}
+
+
+def _tools_presets(work: str) -> dict:
+    """(g) ``--config-file zero2.json`` found by name: the UNet trainer at
+    SD-1.5 width, 256x256, batch 4, takes one optimizer step (4 micro steps);
+    ``perf.json`` raises ``NotImplementedError`` naming item 20."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
+
+    t0 = time.perf_counter()
+    trainer = build_sd15_trainer(os.path.join(work, "zero2"), PREPROCESS_SIZE, TRAIN_BATCH,
+                                 ("--config-file", "zero2.json", "--max-train-steps", "1"))
+    cfg = trainer.cfg
+    before = [p.detach().clone() for p in trainer.state.params[:4]]
+    trainer.train()
+    moved = any(not torch.equal(a, b) for a, b in zip(before, trainer.state.params[:4]))
+    with open(trainer.tracker.jsonl_path) as f:
+        losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
+    res = {"zero2": {"gradient_accumulation_steps": cfg.train.gradient_accumulation_steps,
+                     "shard_optimizer_state": cfg.parallel.shard_optimizer_state,
+                     "max_grad_norm": cfg.optim.max_grad_norm, "optimizer_steps": trainer.state.optimizer.count,
+                     "params_moved": moved, "losses": losses}}
+    del trainer, before
+    free_cuda()
+    try:
+        build_trainer(train_argv(os.path.join(work, "perf"), *TINY_FLAGS, "--config-file", "perf.json"))
+        res["perf_error"] = None
+    except NotImplementedError as exc:  # the expected refusal
+        res["perf_error"] = str(exc)
+    res["seconds"] = time.perf_counter() - t0
+    z = res["zero2"]
+    res["checks"] = {"zero2_fields": (z["gradient_accumulation_steps"], z["shard_optimizer_state"],
+                                      z["max_grad_norm"]) == (4, True, 1.0),
+                     "zero2_step": z["optimizer_steps"] == 1 and z["params_moved"] and len(z["losses"]) == 1
+                     and all(math.isfinite(v) for v in z["losses"]),
+                     "perf_names_item_20": bool(res["perf_error"]) and "item 20" in res["perf_error"]}
+    return res
+
+
+def phase_tools(stage: str, work: str) -> dict:
+    """Phase 9g: the evaluation and interop tools on the card, (a)-(g) of
+    ``_tools_*``, each with its checks; the launches of every run, then each
+    kernel held against its plain version at every launch shape phase 2 did
+    not hold (``hold_shape``, no timings)."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    native.reset_counters()
+    runs = {}
+    for name, fn, args in (("stage_check", _tools_stage_check, (stage, os.path.join(work, "stage_check"))),
+                           ("full_scale_parity", _tools_full_scale, (TOOLS_SEED,)),
+                           ("fid_eval", _tools_fid_eval, (TOOLS_SEED,)),
+                           ("fid_samplers", _tools_fid_samplers, (TOOLS_SEED,)),
+                           ("export_convert", _tools_export_convert, (stage, work)),
+                           ("presets", _tools_presets, (work,))):
+        t1 = time.perf_counter()
+        runs[name] = fn(*args)
+        runs[name]["seconds"] = time.perf_counter() - t1
+        free_cuda()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    seen = {name: {(k[:-1], str(k[-1]).replace("torch.", "")) for k in native.COUNTERS[name].shapes}
+            for name in TPU_KERNELS}
+    failures = {k: [c for c, ok in r["checks"].items() if not ok] for k, r in runs.items()}
+    failures = {k: v for k, v in failures.items() if v}
+    out = {"phase": "tools", "gpu": gpu_line(), "runs": runs, "launches": launches,
+           "run_seconds": time.perf_counter() - t0}
+    emit({**out, "ok": not failures})
+    check(not failures, f"tools checks failed: {failures}")
+    return out, seen
+
+
+def hold_new_shapes(seen: dict, held: dict) -> dict:
+    """Every kernel at each (launch shape, dtype) of ``seen`` whose shape
+    phase 2 did not hold (``held``), against its plain version
+    (``hold_shape``); K3's on the split set too, as phase 2 holds them."""
+    import torch
+
+    new = {name: sorted(k for k in keys if k[0] not in {tuple(h) for h in held.get(name, [])})
+           for name, keys in seen.items()}
+    new["flash_attention_bwd_split"] = sorted(set(new["flash_attention_bwd_split"]) | set(new["flash_attention_bwd"]))
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows, failures = [], []
+    for name, keys in new.items():
+        for key, dname in keys:
+            row, ok = hold_shape(name, key, dname, gen)
+            rows.append(row)
+            if not ok:
+                failures.append(row)
+        torch.cuda.empty_cache()
+    res = {"phase": "tools_kernels", "n_shapes": {k: len(v) for k, v in new.items()}, "failures": failures,
+           "ok": not failures}
+    emit(res)
+    check(not failures, f"kernel disagrees with its plain version at a tools shape: {failures}")
+    return {**res, "shapes": rows}
+
+
 def _checkpoint_round_trip(work: str, flags) -> dict:
     """Train 2 steps saving checkpoint-2, resume ``latest`` in a new trainer
     and compare every tensor of the parameters, EMA and optimizer state."""
@@ -3783,53 +4154,77 @@ def main(argv=None) -> int:
     os.chdir(REPO)
     work = os.path.join(REPO, "build", "chip_smoke_train")
 
-    env = phase_env()
-    staged = stage_pretrained(os.path.join(REPO, "build", "chip_smoke_pretrained"))
+    seconds = {}
+
+    def timed(name: str, fn, *args):
+        """``fn(*args)``, its wall seconds printed on a line of their own."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": name, "seconds": seconds[name]})
+        return out
+
+    t_start = time.perf_counter()
+    env = timed("env", phase_env)
+    staged = timed("stage", stage_pretrained, os.path.join(REPO, "build", "chip_smoke_pretrained"))
     env["staged"] = staged
     emit({"phase": "stage", **staged})
     model = build_sd15("cuda", torch.bfloat16, SEED)
-    shapes, leaf_shapes, lora_leaf_shapes = record_shapes(model, work, staged["root"])
-    kernels = phase_kernels(shapes, leaf_shapes, lora_leaf_shapes)
-    correlated = phase_correlated(kernels)
-    optimizer = phase_optimizer(leaf_shapes, kernels)
-    parity = phase_unet_parity(SEED)
-    train_parity = phase_train_parity(SEED)
-    vae_parity = phase_vae_train_parity(SEED)
-    slice_res = phase_slice(model, STEPS, NUM_IMAGES)
-    hires_res = phase_hires(model, STEPS)
-    samplers_res = phase_samplers(model, STEPS)
-    features_res = phase_features(model, STEPS, os.path.join(REPO, "build", "chip_smoke_features"))
+    shapes, leaf_shapes, lora_leaf_shapes = timed("probes", record_shapes, model, work, staged["root"])
+    kernels = timed("kernels", phase_kernels, shapes, leaf_shapes, lora_leaf_shapes)
+    correlated = timed("correlated", phase_correlated, kernels)
+    optimizer = timed("optimizer", phase_optimizer, leaf_shapes, kernels)
+    parity = timed("unet_parity", phase_unet_parity, SEED)
+    train_parity = timed("train_parity", phase_train_parity, SEED)
+    vae_parity = timed("vae_train_parity", phase_vae_train_parity, SEED)
+    slice_res = timed("slice", phase_slice, model, STEPS, NUM_IMAGES)
+    hires_res = timed("hires", phase_hires, model, STEPS)
+    samplers_res = timed("samplers", phase_samplers, model, STEPS)
+    features_res = timed("features", phase_features, model, STEPS, os.path.join(REPO, "build", "chip_smoke_features"))
     del model
     free_cuda()
-    serve_res = phase_serve(os.path.join(REPO, "build", "chip_smoke_serve"), STEPS)
+    serve_res = timed("serve", phase_serve, os.path.join(REPO, "build", "chip_smoke_serve"), STEPS)
     free_cuda()
     trains = {}
     for name, size, batch, flags, required in TRAIN_PHASES:
+        t0 = time.perf_counter()
         trainer = build_sd15_trainer(f"{work}_{name}", size, batch, flags)
         trains[name] = phase_train(trainer, name, size, batch, required, free_cuda())
         del trainer
         free_cuda()
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": name, "seconds": seconds[name]})
+    t0 = time.perf_counter()
     trainer = build_sd15_vae_trainer(f"{work}_vae_train", VAE_TRAIN, VAE_TRAIN_BATCH)
     trains["vae_train"] = phase_train(trainer, "vae_train", VAE_TRAIN, VAE_TRAIN_BATCH, VAE_TRAIN_KERNELS,
                                       free_cuda())
     del trainer
     free_cuda()
-    personalize = phase_personalize(os.path.join(REPO, "build", "chip_smoke_personalize"))
+    seconds["vae_train"] = time.perf_counter() - t0
+    emit({"phase": "vae_train", "seconds": seconds["vae_train"]})
+    personalize = timed("personalize", phase_personalize, os.path.join(REPO, "build", "chip_smoke_personalize"))
     free_cuda()
-    options = phase_train_options(os.path.join(REPO, "build", "chip_smoke_options"), trains["train"])
+    options = timed("train_options", phase_train_options, os.path.join(REPO, "build", "chip_smoke_options"),
+                    trains["train"])
     free_cuda()
-    eval_res = phase_eval(staged["root"], os.path.join(REPO, "build", "chip_smoke_eval"))
+    eval_res = timed("eval", phase_eval, staged["root"], os.path.join(REPO, "build", "chip_smoke_eval"))
     free_cuda()
-    parallel = phase_parallel(os.path.join(REPO, "build", "chip_smoke_parallel"), staged["root"], leaf_shapes)
+    tools, tools_seen = timed("tools", phase_tools, staged["root"], os.path.join(REPO, "build", "chip_smoke_tools"))
     free_cuda()
-    ckpt = phase_checkpoint(os.path.join(REPO, "build", "chip_smoke_ckpt"))
+    tools_kernels = timed("tools_kernels", hold_new_shapes, tools_seen, shapes)
+    free_cuda()
+    parallel = timed("parallel", phase_parallel, os.path.join(REPO, "build", "chip_smoke_parallel"), staged["root"],
+                     leaf_shapes)
+    free_cuda()
+    ckpt = timed("checkpoint", phase_checkpoint, os.path.join(REPO, "build", "chip_smoke_ckpt"))
+    seconds["total"] = time.perf_counter() - t_start
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
                  *(r["launches"] for r in samplers_res["runs"].values()),
                  *(r["launches"] for r in features_res["runs"].values()), serve_res["launches"],
                  *(r["launches"] for r in trains.values()), *(r["launches"] for r in personalize["runs"].values()),
                  *(r["launches"] for r in options["runs"].values()),
-                 *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score")),
+                 *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score")), tools["launches"],
                  *(r["launches"] for r in parallel["baselines"].values()),
                  *(r["launches"] for r in parallel["runs"].values())]
     summary = []
@@ -3855,8 +4250,9 @@ def main(argv=None) -> int:
                        "train_parity": train_parity, "vae_train_parity": vae_parity, "slice": slice_res,
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
                        "serve": serve_res, **trains, "personalize": personalize, "train_options": options,
-                       "eval": eval_res, "parallel": parallel,
-                       "checkpoint": ckpt, "summary": summary}, f, indent=1)
+                       "eval": eval_res, "tools": tools, "tools_kernels": tools_kernels, "parallel": parallel,
+                       "checkpoint": ckpt, "seconds": seconds, "summary": summary}, f, indent=1)
+    emit({"phase": "total", "seconds": seconds["total"]})
     print(env["gpu"], flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,11 +16,14 @@ import argparse
 import ast
 import dataclasses
 import json
+import os
 import re
 import sys
 from dataclasses import MISSING, dataclass, field, fields
 from enum import Enum
 from typing import Any, Dict, List, Optional, Tuple, Type
+
+PRESET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "config_presets")
 
 __all__ = [
     "AutoencoderConfig",
@@ -349,14 +352,17 @@ def load_config(
     entry point's own groups (the server's ``cfg.serve``), as in the JAX package.
 
     ``--config-file preset.json`` loads a JSON dict of {field_name: value}
-    defaults applied below explicit CLI flags (a path; the JAX package's preset
-    directory is not searched). ``parser_hook(parser)`` may add entry-point
-    flags (the port's ``--device``)."""
+    defaults applied below explicit CLI flags: a path, or when no such file
+    exists the name of one of the port's presets (``config_presets/``:
+    ``base.json``, ``zero2.json``, ``fsdp.json``, ``perf.json``), as in the
+    JAX package. ``parser_hook(parser)`` may add entry-point flags (the
+    port's ``--device``)."""
     base_dcs, extra_dcs = _train_data_classes(), _extra_data_classes() + list(extra_data_classes or [])
     model_dcs = [UnetConfig, AutoencoderConfig, ClipConfig, DDPMConfig]
     parser = argparse.ArgumentParser(description="stable_diffusion_pytorch_tpu_torch: stable diffusion in PyTorch")
     parser.add_argument("--config-file", type=str, default=None,
-                        help="JSON file of flag defaults (CLI flags still win)")
+                        help="JSON file of flag defaults (CLI flags still win), or a preset's name in "
+                        "stable_diffusion_pytorch_tpu_torch/config_presets/")
     # the JAX package's order: a flag two groups share goes to the first
     for dc in base_dcs + model_dcs + extra_dcs:
         add_dataclass_args(parser, dc)
@@ -365,6 +371,9 @@ def load_config(
     peek_argv = list(argv) if argv is not None else sys.argv[1:]
     if "--config-file" in peek_argv:
         path = peek_argv[peek_argv.index("--config-file") + 1]
+        if not os.path.exists(path):
+            candidate = os.path.join(PRESET_DIR, path)
+            path = candidate if os.path.exists(candidate) else path
         with open(path) as f:
             preset = json.load(f)
         values = {k: v for k, v in preset.items() if not k.startswith("_")}

@@ -229,6 +229,23 @@ def inception_state_from_tree(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Te
     return out
 
 
+def inception_tree(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """:class:`InceptionV3Pool3`'s state dict -> the JAX package's parameter
+    tree flattened with ``/``, as ``tools/convert_inception.py`` writes it
+    (the inverse of :func:`inception_state_from_tree`): for each
+    ``BasicConv2d`` in the tower's order, ``<block>/conv/kernel`` [kh, kw, I,
+    O], ``<block>/bn_scale``, ``<block>/bn_bias``, float32."""
+    with torch.device("meta"):
+        names = [n for n, m in InceptionV3Pool3().named_modules() if isinstance(m, BasicConv2d)]
+    flat = {}
+    for name in names:
+        path = name.replace(".", "/")
+        value = lambda key: state[f"{name}.{key}"].detach().cpu().numpy().astype(np.float32)  # noqa: E731
+        flat[f"{path}/conv/kernel"] = np.ascontiguousarray(value("conv.weight").transpose(2, 3, 1, 0))
+        flat[f"{path}/bn_scale"], flat[f"{path}/bn_bias"] = value("bn_scale"), value("bn_bias")
+    return flat
+
+
 def load_inception_state(model_dir: Optional[str] = "data/pretrained") -> Optional[Dict[str, torch.Tensor]]:
     """Staged Inception weights under ``{model_dir}/inception/``, in the JAX
     package's order: ``inception_v3.npz`` (the JAX tree), then

@@ -90,7 +90,10 @@ def _scale_minor_first(scale, shape):
 
 
 def _t(x):
-    return torch.from_numpy(np.ascontiguousarray(x))
+    """A tensor with memory of its own: ``jax.device_get`` on the CPU returns
+    views of the live JAX buffers, which the port's optimizers would update in
+    place while a dispatched JAX call may still read them."""
+    return torch.from_numpy(np.array(x, copy=True, order="C"))
 
 
 def _xla_leaf(g, mu_q, nu_q, bc1, bc2, block, b1=0.9, b2=0.999, eps=1e-8):
@@ -257,6 +260,7 @@ def test_adamw8bit_matches_the_jax_chain_from_a_carried_state(kind):
         applied, _ = opt.step(port_list(g))
         assert applied == (i % 2 == 0)
     assert opt.count == 5
+    jp, state = jax.block_until_ready((jp, state))
 
     flips = 0
     for name, got, ref in zip(names, ours, port_list(jp)):
@@ -274,6 +278,24 @@ def test_adamw8bit_matches_the_jax_chain_from_a_carried_state(kind):
             moment_off += int(_off(got, ref, **DEQ).sum())
             assert (got - ref).abs().max() <= CODE_STEP * rs.abs().max(), (m, name)
     assert flips <= FLIPS and moment_off <= MOMENT_OFF, (flips, moment_off)
+
+
+def test_port_leaves_share_no_memory_with_the_jax_buffers():
+    """The parameters and the carried state the port's optimizer updates in
+    place are copies, not views of the JAX arrays they were converted from
+    (the converter passes untransposed leaves, biases and norm scales,
+    through unchanged)."""
+    cfg, params, all_names = tiny_unet()
+    names = [n for n in all_names if n.startswith(SUBSET_PORT)]
+    tx = _jax_tx("int8_f32_acc")
+    jp = jax.tree_util.tree_map(jnp.asarray, _subset(params))
+    host_params, host_state = jax.device_get((jp, tx.init(jp)))
+    buffers = jax.tree_util.tree_leaves((host_params, host_state))
+    ours = _to_port_list(_whole(host_params, params), cfg, names)
+    state = _torch_state(_carried(host_state, params, cfg, names))
+    tensors = [*zip(names, ours), *((k, t) for k, v in state.items() if isinstance(v, list) for t in v)]
+    shared = [n for n, t in tensors if any(np.shares_memory(t.numpy(), b) for b in buffers)]
+    assert not shared, shared
 
 
 @pytest.mark.parametrize("kind", ["bf16_moments_f32_acc", "bf16_moments_bf16_acc"])

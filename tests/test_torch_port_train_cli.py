@@ -16,6 +16,7 @@
 
 import ast
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -176,6 +177,52 @@ def test_load_config_builds_the_jax_tree(tmp_path):
         **dataclasses.asdict(jax_config.compat_from_cfg(ref)))
 
 
+PRESETS = ("base.json", "zero2.json", "fsdp.json", "perf.json")
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_load_config_builds_the_jax_tree_from_a_preset_name(name):
+    """``--config-file NAME`` finds the port's preset as the JAX package finds
+    its own: the same fields, the same tree; the port's comment quotes no TPU
+    figure."""
+    jax_dir = pathlib.Path(jax_config.__file__).parent / "config_presets"
+    ours_file, jax_file = pathlib.Path(port_config.PRESET_DIR) / name, jax_dir / name
+    ours_preset, jax_preset = (json.loads(f.read_text()) for f in (ours_file, jax_file))
+    fields = lambda preset: {k: v for k, v in preset.items() if not k.startswith("_")}  # noqa: E731
+    assert fields(ours_preset) == fields(jax_preset)
+    assert not any(word in ours_preset["_comment"] for word in ("v5e", "TPU", "NamedSharding", " ms "))
+    argv = ["--dataset", "synthetic", "--config-file", name]
+    _, ours = port_config.load_config(argv)
+    _, ref = jax_config.load_config(argv)
+    assert ours.to_dict() == {k: v for k, v in ref.to_dict().items() if k in ours.to_dict()}
+    assert ours.parallel.mixed_precision == "bf16"
+
+
+def test_preset_by_name_yields_to_flags_and_rejects_unknown_fields(tmp_path):
+    _, cfg = port_config.load_config(["--config-file", "zero2.json", "--gradient-accumulation-steps", "2"])
+    assert (cfg.train.gradient_accumulation_steps, cfg.optim.max_grad_norm) == (2, 1.0)
+    assert cfg.parallel.shard_optimizer_state
+    bad = tmp_path / "bad.json"
+    bad.write_text('{"steps_per_dispatch": 2, "no_such_field": 1}')
+    with pytest.raises(SystemExit):
+        port_config.load_config(["--config-file", str(bad)])
+    with pytest.raises(FileNotFoundError):
+        port_config.load_config(["--config-file", "no_such_preset.json"])
+
+
+@pytest.mark.parametrize("flags", [[], ["--steps-per-dispatch", "1"]], ids=["preset", "one_step_per_dispatch"])
+def test_perf_preset_trainer_raises_naming_item_20_until_given_one_step(tmp_path, monkeypatch, flags):
+    monkeypatch.chdir(tmp_path)
+    argv = [*TRAIN, "--ckpt-dir", "ckpt", "--config-file", "perf.json", *flags]
+    if not flags:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 20"):
+            train_unet.build_trainer(argv)
+        return
+    trainer = train_unet.build_trainer(argv)
+    assert trainer.cfg.train.steps_per_dispatch == 1
+    assert {m.dtype for m in (*trainer.state.optimizer.mu, *trainer.state.optimizer.nu)} == {torch.bfloat16}
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -187,6 +234,8 @@ def _imports(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "stable_diffusion_pytorch_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
+    tools = {"stage_check", "full_scale_parity", "fid_eval", "fid_samplers", "export_torch", "convert_inception"}
+    assert {f"{name}.py" for name in tools} <= {p.name for p in files if p.parent.name == "scripts"}
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]

@@ -70,9 +70,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
    on the tensor cores, ``wgmma``; float32 on FMAs, ``fma``; any other pairing
    fails), max-abs error with its tolerance (of each output's max(1,
    max|plain|); bfloat16 attention of its own max|plain|, ``scale`` in the
-   record); the kernel's and the library call's times (CUDA events, median
-   of 5 runs of 5 launches) and the plain version's (median of 3 single
-   launches after one: context, not a yardstick); and the bound: the larger of bytes / 3.35
+   record); the kernel's time (CUDA events, median of 5 runs of 5
+   launches), the library call's (median of 3 runs of 3) and the plain
+   version's (median of 3 single launches after one; both context, not a
+   yardstick); and the bound: the larger of bytes / 3.35
    TB/s and FLOPs / peak (989 TFLOP/s bf16, 67 TFLOP/s f32; H100 SXM data
    sheet); for attention also bf16 sums by group (K1 at kv <= 9216 and at
    the K2 shapes, the split backward at K3's shapes and at its own). The
@@ -271,20 +272,44 @@ Phases, each printing one JSON line; any failure exits nonzero:
    ``convert_inception`` of the staged ``.pth``, loaded back: both
    bit-equal; (g) ``--config-file zero2.json`` by name: the UNet trainer
    at SD-1.5 width, 256x256, batch 4, one optimizer step; ``perf.json``
-   raises naming item 20. Then (``tools_kernels``) every kernel at each
-   launch shape of 9g that phase 2 did not hold, in the dtype 9g launched
-   it in, against its plain version (no timings).
+   builds (bf16 moments) and a tiny trainer from it takes its chunk: 8
+   optimizer steps in one dispatch, on the graph route. Then
+   (``tools_kernels``) every kernel at each launch shape of 9g that phase 2
+   did not hold, in the dtype 9g launched it in, against its plain version
+   (no timings).
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
+11. chained: chained dispatch (``--steps-per-dispatch``), each optimizer
+   step captured once as a CUDA graph and replayed, at SD-1.5 width,
+   cuDNN deterministic (``CHAINED_RUNS``): (a) the ``perf.json`` preset, UNet
+   512 batch 4, accumulation 1, 10 steps, a checkpoint and an evaluation at
+   step 8 (a chunk of 8 replays, then two boundary replays); (b) the lean
+   run (int8 Adam: K9 in the graph, a bf16 accumulator, conv-save remat),
+   batch 16, accumulation 2, 4 steps in chunks of 2; (c) the VAE trainer at
+   256 batch 4, accumulation 2, 4 steps (a chunk of 2, two boundary
+   replays). Each trainer is built once and runs per step, chained and per
+   step again (the control) from the same starting state, restored in
+   place: the chained losses and parameters must equal the per-step run's
+   bit for bit or lie within the two per-step runs' own gap; its evaluation
+   and checkpoint steps are the per-step run's; the launches the capture
+   recorded for one replay equal the per-step run's launches of K1, the
+   split set, K6, K7, K8 (and K9 in (b)) per optimizer step, the replays are
+   counted, and a device profile of one replay sees each of them. Per route:
+   ms per optimizer step (the median of 2 windows: a chunk of N replays and
+   its one pull, or per-step windows of 2 steps), the idle share of a
+   profiled optimizer step, peak GB of the run, the warm-up's and the
+   capture's seconds. Last, a step whose body syncs with the host must
+   raise when captured (no eager fallback).
 
 After each phase, its wall seconds on a line of their own: ``{"phase":
 ..., "seconds": ...}`` (``total`` the whole run's). Then, each on its own
 line: the ``nvidia-smi`` name/power-limit line, the ``{"kernels": [...]}``
 summary, and ``{"ok": true, "device": ...}`` last. In the summary,
-``launches`` counts phases 5 to 9g, 6b, 6c and 6d included (each
+``launches`` counts phases 5 to 9g and 11, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
-record; 9f's comparison of K9 per shard is not counted); ``max_abs_err``,
+record; 9f's comparison of K9 per shard is not counted; phase 11's replays
+count each launch their graph recorded at capture); ``max_abs_err``,
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are phase 2's bfloat16
 numbers summed over the kernel's distinct shapes (one launch of each; for K9
 the whole step's one launch over the 686 leaves with a bfloat16 gradient,
@@ -504,13 +529,15 @@ def gpu_line() -> str:
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches since the counts were last set to 0, and those
-    of K1 at kv > 9216 (the shapes the TPU's streaming forward, K2, took)."""
+    """Each kernel's launches since the counts were last set to 0 (the host's
+    and those of replayed CUDA graphs), and those of K1 at kv > 9216 (the
+    shapes the TPU's streaming forward, K2, took)."""
     from stable_diffusion_pytorch_tpu_torch.ops import native
 
-    counts = {name: native.COUNTERS[name].count for name in TPU_KERNELS}
+    counts = {name: native.COUNTERS[name].count + native.COUNTERS[name].replays for name in TPU_KERNELS}
+    fa = native.COUNTERS["flash_attention"]
     counts["flash_attention_kv_past_9216"] = sum(
-        n for key, n in native.COUNTERS["flash_attention"].shapes.items() if key[2] > 9216)
+        n for shapes in (fa.shapes, fa.replay_shapes) for key, n in shapes.items() if key[2] > 9216)
     return counts
 
 
@@ -574,6 +601,7 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's ~2 GHz
 # doubles the pads for each profile that saw less than a kernel a call
 PAD_CYCLES = 10 * SPIN_CYCLES
 PLAIN_TIMING = dict(iters=1, repeats=3, warmup=1)  # a plain version's time: context, not a yardstick
+LIBRARY_TIMING = dict(iters=3, repeats=3, warmup=1)  # the library call's: context too
 
 
 def device_kernels(fn, calls: int = 2, attempts: int = 8) -> tuple:
@@ -1162,8 +1190,8 @@ def elided_launch_control(step, g, norm, limit: float, wd: float) -> dict:
     def elided():
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            k9._launch(g[0].dtype, step.params[0].device, step._table, step.plan, step._words, norm, limit, 0.9,
-                       0.999, 1e-8, wd)
+            k9._launch(g[0].dtype, step.params[0].device, step._table, step.plan, step._words.data_ptr() + 16,
+                       step._words.data_ptr(), norm, limit, 0.9, 0.999, 1e-8, wd)
         k9.LAUNCHES.hit(("step", len(step.params), len(step.plan.items), str(g[0].dtype)))
 
     before = k9.LAUNCHES.count
@@ -1450,7 +1478,7 @@ def hold_shape(name: str, key, dname: str, gen, wall=None) -> tuple:
         t2 = time.perf_counter()
         row["plain_ms"] = cuda_ms(plain, **PLAIN_TIMING)
         t3 = time.perf_counter()
-        row["library_ms"] = None if library is None else cuda_ms(library)
+        row["library_ms"] = None if library is None else cuda_ms(library, **LIBRARY_TIMING)
         t4 = time.perf_counter()
         for part, dt in (("profiles", t1 - t0), ("kernel_ms", t2 - t1), ("plain_ms", t3 - t2),
                          ("library_ms", t4 - t3)):
@@ -1586,7 +1614,7 @@ def _per_leaf_update(opt, grads, norm) -> None:
 
     from stable_diffusion_pytorch_tpu_torch.ops.adam8bit_update import adam8bit_update
 
-    _, bc1, bc2, lr = opt._scalars()
+    bc1, bc2, lr = (float(x) for x in opt.scalar_rows(1)[0, :3])
     c = torch.tensor(opt.max_grad_norm, dtype=torch.float32, device=norm.device)
     keep = norm < c
     mu, nu = list(opt.mu), list(opt.nu)
@@ -3610,7 +3638,9 @@ def _tools_export_convert(stage: str, work: str) -> dict:
 def _tools_presets(work: str) -> dict:
     """(g) ``--config-file zero2.json`` found by name: the UNet trainer at
     SD-1.5 width, 256x256, batch 4, takes one optimizer step (4 micro steps);
-    ``perf.json`` raises ``NotImplementedError`` naming item 20."""
+    ``perf.json`` builds (8 steps a dispatch, bf16 moments) and its tiny
+    trainer takes its chunk: 8 optimizer steps in one dispatch, replayed as
+    a CUDA graph."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
@@ -3630,18 +3660,30 @@ def _tools_presets(work: str) -> dict:
                      "params_moved": moved, "losses": losses}}
     del trainer, before
     free_cuda()
-    try:
-        build_trainer(train_argv(os.path.join(work, "perf"), *TINY_FLAGS, "--config-file", "perf.json"))
-        res["perf_error"] = None
-    except NotImplementedError as exc:  # the expected refusal
-        res["perf_error"] = str(exc)
+    trainer = build_trainer(train_argv(os.path.join(work, "perf"), *TINY_FLAGS, "--config-file", "perf.json",
+                                       "--resolution", "64", "--train-batch-size", "2", "--max-train-samples", "16",
+                                       "--max-train-steps", "8", "--gradient-accumulation-steps", "1",
+                                       "--log-interval", "0", "--checkpointing-steps", "8"))
+    chunks = []
+    inner = trainer._dispatch
+    trainer._dispatch = lambda window, micro0, steps: chunks.append(steps) or inner(window, micro0, steps)
+    trainer.train()
+    with open(trainer.tracker.jsonl_path) as f:
+        perf_losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
+    res["perf"] = {"steps_per_dispatch": trainer.cfg.train.steps_per_dispatch, "route": trainer._route,
+                   "dispatches": chunks, "optimizer_steps": trainer.state.optimizer.count, "losses": perf_losses,
+                   "moments": sorted({str(m.dtype) for m in (*trainer.state.optimizer.mu, *trainer.state.optimizer.nu)})}
+    del trainer, inner
+    free_cuda()
     res["seconds"] = time.perf_counter() - t0
-    z = res["zero2"]
+    z, p = res["zero2"], res["perf"]
     res["checks"] = {"zero2_fields": (z["gradient_accumulation_steps"], z["shard_optimizer_state"],
                                       z["max_grad_norm"]) == (4, True, 1.0),
                      "zero2_step": z["optimizer_steps"] == 1 and z["params_moved"] and len(z["losses"]) == 1
                      and all(math.isfinite(v) for v in z["losses"]),
-                     "perf_names_item_20": bool(res["perf_error"]) and "item 20" in res["perf_error"]}
+                     "perf_chunk": (p["steps_per_dispatch"], p["route"], p["dispatches"], p["optimizer_steps"],
+                                    p["moments"]) == (8, "graph", [8], 8, ["torch.bfloat16"])
+                     and len(p["losses"]) == 8 and all(math.isfinite(v) for v in p["losses"])}
     return res
 
 
@@ -4122,6 +4164,281 @@ def phase_parallel(work: str, stage: str, leaf_shapes) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: chained dispatch, each optimizer step replayed as a CUDA graph
+# --------------------------------------------------------------------------- #
+
+# (name, trainer kind, image side, batch, steps per dispatch, optimizer steps, flags, kernels its graph must hold)
+CHAINED_RUNS = (
+    ("perf_preset", "unet", 512, TRAIN_BATCH, 8, 10,
+     ("--config-file", "perf.json", "--gradient-accumulation-steps", "1", "--checkpointing-steps", "8",
+      "--log-interval", "8"), TRAIN_KERNELS),
+    ("lean", "unet", 512, LEAN_TRAIN_BATCH, 2, 4,
+     (*LEAN_FLAGS, "--gradient-accumulation-steps", "2", "--log-interval", "4"), LEAN_TRAIN_KERNELS),
+    ("vae", "vae", VAE_TRAIN, VAE_TRAIN_BATCH, 2, 4, ("--gradient-accumulation-steps", "2", "--log-interval", "4"),
+     VAE_TRAIN_KERNELS),
+)
+CHAINED_WINDOWS = 2  # timed windows of each route, the median kept
+CHAINED_PER_STEP_WINDOW = 2  # optimizer steps of a per-step route's window (at most)
+# kernel-name substrings of each ported kernel in a device profile
+DEVICE_NAMES = {"flash_attention": ("fa_forward",), "flash_attention_bwd_split": ("split_dq", "split_dkv"),
+                "group_norm": ("gn_fwd_cluster",), "group_norm_bwd": ("gn_bwd_cluster",),
+                "group_norm_cat": ("gn_cat_cluster",), "adam8bit_update": ("adam8bit",)}
+
+
+def _host_state(trainer) -> dict:
+    """The trainer's state (parameters, optimizer state, EMA, counts) copied to the host."""
+    import torch
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(host(v) for v in x)
+        return x
+
+    return host(trainer.state.state_dict())
+
+
+def _windows(trainer, steps: int, windows: int):
+    """``windows`` lists of ``steps`` optimizer steps' host batches from the
+    loader, epoch after epoch."""
+    accum = trainer.cfg.train.gradient_accumulation_steps
+
+    def batches():
+        while True:
+            yield from trainer.train_loader
+
+    it = batches()
+    return [[next(it) for _ in range(steps * accum)] for _ in range(windows)]
+
+
+def _per_step_window(trainer, batches, micro0: int = 0):
+    """The per-step route over ``batches``: one micro step at a time, each
+    loss read -> the wall seconds of each optimizer step."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
+
+    accum = trainer.cfg.train.gradient_accumulation_steps
+    walls, t0 = [], time.perf_counter()
+    for m, batch in enumerate(batches):
+        metrics = trainer._train_step(trainer._place_batch(batch), step_generator("cuda", 0, SEED, micro0 + m))
+        float(metrics["loss"])
+        if (m + 1) % accum == 0:
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return walls
+
+
+def _route_timing(trainer, chained: bool, steps: int) -> dict:
+    """ms per optimizer step of the run's route after its run: the median of
+    ``CHAINED_WINDOWS`` windows of ``steps`` steps (chained: one chunk of
+    ``steps`` replays and its one pull, per step), the launches of one window
+    (the host's and the replays') per optimizer step, and a device profile
+    of one optimizer step (its idle share)."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    wins = _windows(trainer, steps, CHAINED_WINDOWS)
+    accum = trainer.cfg.train.gradient_accumulation_steps
+
+    def run(batches):
+        if chained:
+            t0 = time.perf_counter()
+            trainer._dispatch(batches, 0, len(batches) // accum)
+            return [(time.perf_counter() - t0) / (len(batches) // accum)]
+        return _per_step_window(trainer, batches)
+
+    torch.cuda.synchronize()
+    native.reset_counters()
+    per_step = run(wins[0])
+    torch.cuda.synchronize()
+    launches = {k: v / steps for k, v in launch_counts().items()}
+    for batches in wins[1:]:
+        per_step += run(batches)
+    out = {"ms_per_optimizer_step_p50": statistics.median(per_step) * 1e3,
+           "ms_per_optimizer_step": [t * 1e3 for t in per_step], "launches_per_optimizer_step": launches}
+    profiled = wins[0][:accum]
+    out["profile"] = {k: v for k, v in profile_device(lambda: run(profiled), 1, "optimizer_step").items()
+                      if k != "top_kernels"}
+    return out
+
+
+def _chained_config(name, kind, size, batch, spd, steps, flags, required, work) -> dict:
+    """One configuration of phase 11: its trainer built once, then runs from
+    the same starting state (restored in place, so a captured graph's
+    pointers stay valid): per step, chained, and per step again (the
+    control) for the ``perf.json`` run or where the chained run's bits
+    differ. Only the chained run writes its checkpoints (the per-step runs'
+    would be the same bits; each costs seconds at SD-1.5 width); the
+    parameters compared are held on the host, so every run has the card's
+    memory alike."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+    from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker
+
+    t_build = time.perf_counter()
+    flags = (*flags, "--max-train-steps", str(steps), "--steps-per-dispatch", str(spd))
+    trainer = (build_sd15_trainer(work, size, batch, flags) if kind == "unet"
+               else build_sd15_vae_trainer(work, size, batch, flags))
+    res = {"image_size": size, "batch": batch, "steps_per_dispatch": spd, "optimizer_steps": steps,
+           "gradient_accumulation_steps": trainer.cfg.train.gradient_accumulation_steps,
+           "optimizer": type(trainer.state.optimizer).__name__, "build_s": time.perf_counter() - t_build,
+           "runs": {}}
+    start = _host_state(trainer)
+    ckpt_dir, ckpt_steps = trainer.cfg.checkpoint.ckpt_dir, trainer.cfg.checkpoint.checkpointing_steps
+    state = trainer.state
+    base = None
+    for tag, n in (("per_step", 1), ("chained", spd), ("per_step_control", 1)):
+        if tag == "per_step_control" and name != "perf_preset" and not res["runs"]["chained"]["leaves_differ"] \
+                and res["runs"]["chained"]["losses"] == res["runs"]["per_step"]["losses"]:
+            break  # bit-identical: nothing for a control to bound
+        t0 = time.perf_counter()
+        state.load_state_dict(start)
+        trainer.cfg.train.steps_per_dispatch = n
+        trainer.cfg.checkpoint.checkpointing_steps = ckpt_steps if n > 1 else None
+        trainer._graph = None
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        dispatches = []
+        inner = type(trainer)._dispatch
+
+        def recorded(window, micro0, k, inner=inner):
+            dispatches.append(k)
+            return inner(trainer, window, micro0, k)
+
+        trainer._dispatch = recorded
+        trainer.tracker = Tracker(trainer.cfg.log, trainer.run_name)  # train() closes its tracker
+        with open(trainer.tracker.jsonl_path) as f:
+            seen = len(f.readlines())
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_counters()
+        t1 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+        launches = launch_counts()
+        del trainer._dispatch
+        with open(trainer.tracker.jsonl_path) as f:
+            records = [json.loads(line) for line in f.readlines()[seen:]]
+        run = {"losses": [r["train_loss"] for r in records if "train_loss" in r],
+               "eval_steps": [r["step"] for r in records if "eval_loss" in r],
+               "checkpoints": sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else [],
+               "dispatches": dispatches, "train_s": train_s, "peak_gb": peak, "peak_reserved_gb": peak_reserved,
+               "launches": launches,
+               "route": trainer._route}
+        params = [p.detach().cpu() for p in state.local_params()]
+        if base is None:
+            base = params
+        else:
+            differ = [i for i, (a, b) in enumerate(zip(params, base)) if not torch.equal(a, b)]
+            run["leaves_differ"] = len(differ)
+            run["max_abs_diff"] = max(((params[i] - base[i]).abs().max().item() for i in differ), default=0.0)
+        del params
+        graph = trainer._graph
+        if graph is not None:
+            run["warmup_s"], run["capture_s"] = graph.warmup_s, graph.capture_s
+            run["tally_per_replay"] = {k: sum(v.values()) for k, v in graph.tally.items()}
+        if tag != "per_step_control":
+            run["timing"] = _route_timing(trainer, n > 1, spd if n > 1 else min(spd, CHAINED_PER_STEP_WINDOW))
+        if graph is not None:
+            kernels, count, pad = device_kernels(graph.graph.replay, calls=1)
+            run["replay_device_kernels"] = {k: sum(n for key, (n, _) in kernels.items() if any(s in key for s in subs))
+                                            for k, subs in DEVICE_NAMES.items()}
+            run["replay_kernels_total"] = count
+        run["seconds"] = time.perf_counter() - t0
+        res["runs"][tag] = run
+    del base
+    runs = res["runs"]
+    ref, got = runs["per_step"], runs["chained"]
+    ctl = runs.get("per_step_control", {"losses": ref["losses"], "max_abs_diff": 0.0})
+    loss_gap = max((abs(a - b) for a, b in zip(got["losses"], ref["losses"])), default=0.0)
+    ctl_gap = max((abs(a - b) for a, b in zip(ctl["losses"], ref["losses"])), default=0.0)
+    per_opt_step = ref["timing"]["launches_per_optimizer_step"]
+    res["checks"] = {
+        "losses_finite": all(math.isfinite(v) for r in runs.values() for v in r["losses"]),
+        "steps": all(len(r["losses"]) == steps for r in runs.values()),
+        "graph_route": got["route"] == "graph" and ref["route"] is None and spd in got["dispatches"],
+        "losses": got["losses"] == ref["losses"] or loss_gap <= ctl_gap,
+        "params": got["leaves_differ"] == 0 or got["max_abs_diff"] <= ctl["max_abs_diff"],
+        "eval_steps": got["eval_steps"] == ref["eval_steps"],
+        "checkpoints": got["checkpoints"] == ([f"checkpoint-{c}" for c in range(int(ckpt_steps), steps + 1,
+                                                                                 int(ckpt_steps))]
+                                              if str(ckpt_steps).isdigit() else []),
+        "tally": all(got.get("tally_per_replay", {}).get(k, 0) == per_opt_step[k] > 0 for k in required),
+        "replays_counted": all(got["timing"]["launches_per_optimizer_step"][k] == per_opt_step[k] for k in required),
+        "replay_on_device": all(got.get("replay_device_kernels", {}).get(k, 0) > 0 for k in required),
+    }
+    res["loss_gap"], res["control_loss_gap"] = loss_gap, ctl_gap
+    del trainer, state, start
+    free_cuda()
+    return res
+
+
+def _capture_control() -> dict:
+    """A step whose body syncs with the host (``float`` of a device tensor)
+    cannot be captured: the chained route must raise, not run it eagerly."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.trainers import chain
+
+    x = {"x": torch.ones(4, device="cuda")}
+    try:
+        chain.StepGraph(lambda inp: inp["x"] * float(inp["x"].sum()), x, lambda: (lambda: None), lambda: [])
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        return {"raised": True, "message": str(exc)[:300]}
+    return {"raised": False}
+
+
+def phase_chained(work: str) -> dict:
+    """Phase 11: chained dispatch at SD-1.5 width (``CHAINED_RUNS``): (a) the
+    ``perf.json`` preset (8 steps a dispatch, bf16 moments), UNet 512 batch 4,
+    10 optimizer steps, a checkpoint and an evaluation at step 8: one chunk
+    of 8, then two boundary steps; (b) the lean run (int8 Adam, K9, a bf16
+    accumulator, conv-save remat), batch 16, accumulation 2, chunks of 2; (c)
+    the VAE trainer at 256 batch 4, accumulation 2, a chunk of 2 and two
+    boundary steps. Each run per step, chained and per step again from the
+    same state, cuDNN deterministic: the chained losses and parameters equal
+    the per-step run's bit for bit, or lie within the two per-step runs'
+    own gap; the graph's launches per replay (recorded at capture) equal the
+    per-step launches of each kernel per optimizer step, the replays are
+    counted, and a device profile of one replay sees each kernel; ms per
+    optimizer step, the idle share (a profiled optimizer step), peak GB and
+    the capture's seconds of each route. Then a step that cannot be
+    captured must raise."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        configs = {name: _chained_config(name, kind, size, batch, spd, steps, flags, required,
+                                         os.path.join(work, name))
+                   for name, kind, size, batch, spd, steps, flags, required in CHAINED_RUNS}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    control = _capture_control()
+    failures = {name: [c for c, ok in r["checks"].items() if not ok] for name, r in configs.items()}
+    failures = {k: v for k, v in failures.items() if v}
+    if not control["raised"]:
+        failures["capture_control"] = ["a capture that syncs with the host did not raise"]
+    res = {"phase": "chained", "gpu": gpu_line(), "configs": configs, "capture_control": control,
+           "ok": not failures}
+    emit(res)
+    check(not failures, f"chained dispatch checks failed: {failures}")
+    return res
+
+
 def phase_checkpoint(work: str) -> dict:
     """Small width on the card, the f32 optimizer and the lean one (int8 Adam,
     bf16 accumulator): each saves checkpoint-2 and is resumed exactly."""
@@ -4217,6 +4534,8 @@ def main(argv=None) -> int:
                      leaf_shapes)
     free_cuda()
     ckpt = timed("checkpoint", phase_checkpoint, os.path.join(REPO, "build", "chip_smoke_ckpt"))
+    free_cuda()
+    chained = timed("chained", phase_chained, os.path.join(REPO, "build", "chip_smoke_chained"))
     seconds["total"] = time.perf_counter() - t_start
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
@@ -4226,7 +4545,8 @@ def main(argv=None) -> int:
                  *(r["launches"] for r in options["runs"].values()),
                  *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score")), tools["launches"],
                  *(r["launches"] for r in parallel["baselines"].values()),
-                 *(r["launches"] for r in parallel["runs"].values())]
+                 *(r["launches"] for r in parallel["runs"].values()),
+                 *(r["launches"] for c in chained["configs"].values() for r in c["runs"].values())]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -4251,7 +4571,8 @@ def main(argv=None) -> int:
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
                        "serve": serve_res, **trains, "personalize": personalize, "train_options": options,
                        "eval": eval_res, "tools": tools, "tools_kernels": tools_kernels, "parallel": parallel,
-                       "checkpoint": ckpt, "seconds": seconds, "summary": summary}, f, indent=1)
+                       "checkpoint": ckpt, "chained": chained, "seconds": seconds, "summary": summary}, f,
+                      indent=1)
     emit({"phase": "total", "seconds": seconds["total"]})
     print(env["gpu"], flush=True)
     emit({"kernels": summary})

@@ -145,6 +145,7 @@ class UNetModel(nn.Module):
         if remat not in ("none", *REMAT_CONTEXTS):
             raise ValueError(f"unknown remat policy {remat!r}")
         self.remat = remat
+        self.dropout = cfg.dropout
         channels = list(cfg.channels_list)
         ch0 = channels[0]
         t_dim = cfg.time_emb_dim or ch0 * 4
@@ -270,7 +271,10 @@ class UNetModel(nn.Module):
         """A ResBlock or SpatialTransformer, under the remat policy when autograd records."""
         if self.remat == "none" or not torch.is_grad_enabled():
             return layer(*args, **kwargs)
-        return checkpoint(layer, *args, use_reentrant=False, context_fn=REMAT_CONTEXTS[self.remat], **kwargs)
+        # the RNG state is kept for the recompute only where a block draws
+        # (dropout): reading it is refused under CUDA graph capture
+        return checkpoint(layer, *args, use_reentrant=False, context_fn=REMAT_CONTEXTS[self.remat],
+                          preserve_rng_state=self.training and self.dropout > 0, **kwargs)
 
     def _run(self, layer: nn.Module, x, t_emb, context_emb):
         if isinstance(layer, ResBlock):

@@ -121,16 +121,16 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def adam8bit_update_plain(
-    g: torch.Tensor, mu: QState, nu: QState, bc1: float, bc2: float,
+    g: torch.Tensor, mu: QState, nu: QState, bc1, bc2,
     b1: float, b2: float, eps: float, block_size: int,
 ) -> Tuple[torch.Tensor, QState, QState]:
     """-> (update in g's dtype, new mu codes and scales, new nu codes and
     scales); the op order of the JAX package's XLA leaf path. The bias
-    corrections divide as 0-d tensors on g's device: PyTorch's CUDA division
-    by a Python scalar multiplies by its reciprocal, which is not IEEE
-    division (JAX's and the kernel's)."""
+    corrections (floats or 0-d f32 tensors) divide as 0-d tensors on g's
+    device: PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal, which is not IEEE division (JAX's and the kernel's)."""
     g32 = g.float()
-    bc1, bc2 = (torch.tensor(b, dtype=torch.float32, device=g.device) for b in (bc1, bc2))
+    bc1, bc2 = (torch.as_tensor(b, dtype=torch.float32, device=g.device) for b in (bc1, bc2))
     m = b1 * dequantize(*mu) + (1.0 - b1) * g32
     v = b2 * dequantize(*nu) ** 2 + (1.0 - b2) * g32 * g32
     upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
@@ -139,7 +139,7 @@ def adam8bit_update_plain(
 
 def adam8bit_step_plain(
     params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], mu: Sequence[QState], nu: Sequence[QState],
-    norm: Optional[torch.Tensor], bc1: float, bc2: float, lr: float, b1: float, b2: float, eps: float,
+    norm: Optional[torch.Tensor], bc1, bc2, lr, b1: float, b2: float, eps: float,
     weight_decay: float, max_grad_norm: Optional[float], block_size: int,
 ) -> None:
     """The whole step in place, leaf by leaf, in the JAX chain's order: the
@@ -147,9 +147,10 @@ def adam8bit_step_plain(
     ``(g / norm) * c`` in the gradient's dtype), :func:`adam8bit_update_plain`,
     and ``p += -lr * (p * wd + update)`` in f32 (``add_decayed_weights``,
     ``scale_by_learning_rate``, ``apply_updates``); the new codes and scales
-    are copied into the state's tensors."""
+    are copied into the state's tensors. ``bc1``, ``bc2``, ``lr``: floats or
+    0-d f32 tensors, the same bits either way."""
     if max_grad_norm is not None:
-        c = torch.tensor(max_grad_norm, dtype=torch.float32, device=norm.device)
+        c = torch.full((), max_grad_norm, dtype=torch.float32, device=norm.device)
         keep = norm < c
     for p, g, m, n in zip(params, grads, mu, nu):
         if max_grad_norm is not None:
@@ -278,17 +279,17 @@ def _upload(host: np.ndarray, device) -> torch.Tensor:
     return torch.empty(host.shape, dtype=torch.int64, device=device).copy_(staged, non_blocking=True)
 
 
-def _launch(dtype, device, table: torch.Tensor, plan: Adam8bitPlan, words: torch.Tensor, norm,
+def _launch(dtype, device, table: torch.Tensor, plan: Adam8bitPlan, grad_words: int, scalars: int, norm,
             max_grad_norm: Optional[float], b1: float, b2: float, eps: float, wd: float) -> None:
-    """One launch over ``plan``'s items; ``words`` holds the scalars, then one
-    gradient pointer per leaf."""
+    """One launch over ``plan``'s items; ``grad_words``: the device address of
+    one gradient pointer per leaf, ``scalars``: of the f32 {bc1, bc2, lr}."""
     leaves = table.data_ptr()
     items = leaves + 8 * len(LEAF_FIELDS) * len(plan.leaves)
     lib = native.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.sd_adam8bit_step(
-            _G_CODES[dtype], leaves, items, len(plan.items), words.data_ptr() + 16, words.data_ptr(),
+            _G_CODES[dtype], leaves, items, len(plan.items), grad_words, scalars,
             None if max_grad_norm is None else norm.data_ptr(), _f32(max_grad_norm or 0.0), _f32(b1),
             _f32(1.0 - b1), _f32(b2), _f32(1.0 - b2), _f32(eps), _f32(wd), plan.smem_elems, stream,
         )
@@ -340,9 +341,23 @@ def adam8bit_update(
     row = [t.data_ptr() for t in (*mu, *nu, *new_mu, *new_nu)] + [0, upd.data_ptr(), leaf.r, leaf.block]
     host = np.concatenate([_scalar_words(bc1, bc2, 0.0), [g.data_ptr()], _table(plan, [row])])
     buf = _upload(host, g.device)
-    _launch(g.dtype, g.device, buf[3:], plan, buf, None, None, b1, b2, eps, 0.0)
+    _launch(g.dtype, g.device, buf[3:], plan, buf.data_ptr() + 16, buf.data_ptr(), None, None, b1, b2, eps, 0.0)
     LAUNCHES.hit((leaf.o, leaf.r, leaf.block, str(g.dtype)))
     return upd, new_mu, new_nu
+
+
+def _buffer_address(bc1, bc2, lr, device) -> Optional[int]:
+    """The device address of the step's scalars when ``bc1``, ``bc2``, ``lr``
+    are 0-d f32 tensors on ``device`` in one buffer, one after the other (the
+    optimizer's ``scalars``); None when they are Python floats."""
+    if not isinstance(bc1, torch.Tensor):
+        return None
+    ok = all(isinstance(x, torch.Tensor) and x.dtype == torch.float32 and x.numel() == 1 and x.device == device
+             for x in (bc1, bc2, lr))
+    if not ok or bc2.data_ptr() != bc1.data_ptr() + 4 or lr.data_ptr() != bc1.data_ptr() + 8:
+        raise ValueError(f"adam8bit step: bc1, bc2 and lr must be three f32 values in a row of one buffer on {device} "
+                         "(the optimizer's scalars), or Python floats")
+    return bc1.data_ptr()
 
 
 class Adam8bitStep:
@@ -353,13 +368,27 @@ class Adam8bitStep:
     leaves (state and parameter pointers, ``[O, R]`` views) and work items
     (:func:`adam8bit_plan`) is built and uploaded once, when the step is made
     on CUDA parameters, and again only when a pointer of the parameters or the
-    state changes. The gradients are kept out of that table: their pointers,
-    with the step's bias corrections and learning rate, go to the device in
-    one host-to-device copy per call, out of one pinned buffer that every call
-    reuses (the gradient list may hold other tensors each step; a bf16
-    accumulator holds the same ones, checked once). The global norm is read
-    on the device. Any CUDA tensor the table does not describe raises;
-    nothing falls back.
+    state changes. The gradients are kept out of that table: their pointers go
+    to the device in one host-to-device copy when the gradient tensors change,
+    out of one pinned buffer that every call reuses (the gradient list may
+    hold other tensors each step; a bf16 accumulator holds the same ones,
+    checked once). The step's bias corrections and learning rate are read on
+    the device from the optimizer's ``scalars`` buffer (``bc1``, ``bc2``, ``lr``
+    its 0-d views), or, given as Python floats, staged with the pointers. The
+    global norm is read on the device. Any CUDA tensor the table does not
+    describe raises; nothing falls back.
+
+    Under CUDA graph capture (chained dispatch) the launch must be replayable:
+    the host sync on the staging buffer and its copy, which a replay would
+    repeat with whatever the buffer then held, are left out. The scalars must
+    come from the device buffer and the table must be current (else it
+    raises); the gradients' pointers, the graph's own tensors, go into a
+    device buffer of their own that ``native.end_capture`` fills once the
+    capture has ended and that stays as it is for the graph's life. That
+    buffer is made by an eager call, outside the graph's memory pool: made
+    under capture, it could share memory with a temporary of the graph's
+    earlier work (its global norm), which each replay writes before the
+    launch reads the pointers.
 
     On CPU tensors, :func:`adam8bit_step_plain`."""
 
@@ -373,25 +402,31 @@ class Adam8bitStep:
         self._grad_refs: List[weakref.ref] = []
         self._grad_words = np.zeros(len(params), np.int64)
         self._grad_dtype: Optional[torch.dtype] = None
-        self._words: Optional[torch.Tensor] = None       # on the device: the scalars, then the gradient pointers
-        self._host_words: Optional[torch.Tensor] = None  # their pinned staging buffer, rewritten every call
+        self._words: Optional[torch.Tensor] = None       # on the device: two words of scalars, then the gradient pointers
+        self._host_words: Optional[torch.Tensor] = None  # their pinned staging buffer
         self._copied: Optional[torch.cuda.Event] = None  # the last copy out of it
+        self._graph_words: List[torch.Tensor] = []       # the gradient pointers of each captured launch
+        self._spare_words: Optional[torch.Tensor] = None  # the next capture's, made outside capture
         if params and params[0].is_cuda:
             self._refresh_table()
 
     def _state(self):
         return [(p, *m, *n) for p, m, n in zip(self.params, self.mu, self.nu)]
 
-    def _refresh_table(self) -> None:
+    def _refresh_table(self, capturing: bool = False) -> None:
         """Build and upload the leaf table if a parameter's pointer changed or
         the state lists hold other tensors (the table holds the ones it was
         built from, so an identity test suffices; the state is only ever
-        updated in place)."""
+        updated in place). Under capture a table that is not current raises:
+        its upload would not be part of the graph."""
         state = [t for m, n in zip(self.mu, self.nu) for t in (*m, *n)]
         ptrs = [p.data_ptr() for p in self.params]
         if (ptrs == self._param_ptrs and len(state) == len(self._state_held)
                 and all(a is b for a, b in zip(state, self._state_held))):
             return
+        if capturing:
+            raise RuntimeError("adam8bit step: a parameter or a state tensor moved since the leaf table was built; "
+                               "run the step once outside CUDA graph capture first")
         device = self.params[0].device
         if device.type != "cuda":
             raise ValueError(f"adam8bit step: the parameters lie on {device}, not on a CUDA device")
@@ -403,58 +438,92 @@ class Adam8bitStep:
         self._table = _upload(_table(self.plan, rows), device)
         self._words = torch.empty(2 + len(self.params), dtype=torch.int64, device=device)
         self._host_words = torch.empty(2 + len(self.params), dtype=torch.int64, pin_memory=True)
+        self._copied = None
         self._param_ptrs, self._state_held = ptrs, state
         self._grad_refs = []  # checked again against the new table
 
-    def _refresh_grads(self, grads: Sequence[torch.Tensor]) -> torch.dtype:
-        """Check the gradients and take their pointers, unless they are the
-        tensors of the last call; -> their dtype."""
+    def _check_grads(self, grads: Sequence[torch.Tensor]) -> torch.dtype:
+        """Check the gradients against the table -> their dtype."""
         if len(grads) != len(self.params):
             raise ValueError(f"adam8bit step: {len(grads)} gradients for {len(self.params)} parameters")
-        if len(self._grad_refs) == len(grads) and all(r() is g for r, g in zip(self._grad_refs, grads)):
-            return self._grad_dtype
         dtype = grads[0].dtype
         device = self.params[0].device
         for i, (g, p, m, n) in enumerate(zip(grads, self.params, self.mu, self.nu)):
             if g.dtype != dtype:
                 raise TypeError(f"adam8bit step: gradients of one dtype only (leaf 0 {dtype}, leaf {i} {g.dtype})")
             _check_leaf(i, p, g, m, n, self.block_size, device)
-        self._grad_words = np.array([g.data_ptr() for g in grads], dtype=np.int64)
-        self._grad_refs = [weakref.ref(g) for g in grads]
-        self._grad_dtype = dtype
         return dtype
 
+    def _stage(self, scalars: Optional[np.ndarray]) -> None:
+        """Copy the gradient pointers (and the float scalars, if given) to
+        ``_words`` through the one pinned staging buffer, after waiting for its
+        last copy (queued a step ago) so that no step allocates pinned memory."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        host = self._host_words.numpy()
+        if scalars is not None:
+            host[:2] = scalars
+        host[2:] = self._grad_words
+        device = self.params[0].device
+        with torch.cuda.device(device):
+            self._words.copy_(self._host_words, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def _captured_words(self, grads: Sequence[torch.Tensor]) -> int:
+        """Under capture: the spare device buffer for these gradients' pointers,
+        filled when the capture ends -> its address."""
+        words, self._spare_words = self._spare_words, None
+        if words is None:
+            raise RuntimeError("adam8bit step: no pointer buffer made outside CUDA graph capture; run the step "
+                               "once outside capture first")
+        ptrs = np.array([g.data_ptr() for g in grads], dtype=np.int64)
+        self._graph_words.append(words)
+        native.after_capture(lambda: words.copy_(torch.from_numpy(ptrs)))
+        return words.data_ptr()
+
     def __call__(
-        self, grads: Sequence[torch.Tensor], norm: Optional[torch.Tensor], bc1: float, bc2: float, lr: float,
+        self, grads: Sequence[torch.Tensor], norm: Optional[torch.Tensor], bc1, bc2, lr,
         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
         max_grad_norm: Optional[float] = None,
     ) -> None:
         """Clip ``grads`` by ``norm`` (when ``max_grad_norm`` is set), update the
-        moments and apply to the parameters, in place."""
+        moments and apply to the parameters, in place. ``bc1``, ``bc2``, ``lr``:
+        Python floats, or the optimizer's scalars buffer as three 0-d views."""
         if not self.params:
             return
         if not grads[0].is_cuda:
             adam8bit_step_plain(self.params, grads, self.mu, self.nu, norm, bc1, bc2, lr, b1, b2, eps,
                                 weight_decay, max_grad_norm, self.block_size)
             return
-        self._refresh_table()
-        dtype = self._refresh_grads(grads)
+        capturing = torch.cuda.is_current_stream_capturing()
+        self._refresh_table(capturing)
         device = self.params[0].device
         if max_grad_norm is not None and (norm.dtype != torch.float32 or norm.numel() != 1
                                           or norm.device != device):
             raise ValueError(f"adam8bit step: the global norm must be one f32 value on {device} "
                              f"(got {norm.dtype} {tuple(norm.shape)} on {norm.device})")
-        # one staging buffer, reused: wait for its last copy (queued a step ago)
-        # before rewriting it, so no step allocates pinned memory
-        if self._copied is not None:
-            self._copied.synchronize()
-        host = self._host_words.numpy()
-        host[:2] = _scalar_words(bc1, bc2, lr)
-        host[2:] = self._grad_words
-        with torch.cuda.device(device):
-            self._words.copy_(self._host_words, non_blocking=True)
-            self._copied = torch.cuda.Event()
-            self._copied.record()
-        _launch(dtype, device, self._table, self.plan, self._words, norm, max_grad_norm, b1, b2, eps,
+        scalars = _buffer_address(bc1, bc2, lr, device)
+        same = len(self._grad_refs) == len(grads) and all(r() is g for r, g in zip(self._grad_refs, grads))
+        dtype = self._grad_dtype if same else self._check_grads(grads)
+        if capturing:
+            if scalars is None:
+                raise RuntimeError("adam8bit step: under CUDA graph capture the step's scalars must come from a "
+                                   "device buffer (the optimizer's scalars), not Python floats")
+            grad_words = self._captured_words(grads)
+        else:
+            if self._spare_words is None:
+                self._spare_words = torch.empty(len(self.params), dtype=torch.int64, device=device)
+            if not same:
+                self._grad_words = np.array([g.data_ptr() for g in grads], dtype=np.int64)
+                self._grad_refs = [weakref.ref(g) for g in grads]
+                self._grad_dtype = dtype
+            if scalars is None:
+                self._stage(_scalar_words(bc1, bc2, lr))
+                scalars = self._words.data_ptr()
+            elif not same:
+                self._stage(None)
+            grad_words = self._words.data_ptr() + 16
+        _launch(dtype, device, self._table, self.plan, grad_words, scalars, norm, max_grad_norm, b1, b2, eps,
                 weight_decay)
         LAUNCHES.hit(("step", len(self.params), len(self.plan.items), str(dtype)))

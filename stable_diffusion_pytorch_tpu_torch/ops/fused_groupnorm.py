@@ -223,13 +223,18 @@ def _check(parts, scale, bias, num_groups) -> None:
 # K7's per-slice counters, one array per device: zero when made (at the first
 # call, which a CUDA graph's capture follows after its warm-up), and every
 # launch leaves them zero. Launches on a device run in stream order: the port
-# queues its work on one stream.
+# queues its work on one stream, and a captured graph replays on it.
 _BWD_COUNTERS: dict = {}
 
 
 def _bwd_counter(device, n_slices: int) -> torch.Tensor:
     ctr = _BWD_COUNTERS.get(device)
     if ctr is None or ctr.numel() < n_slices:
+        if torch.cuda.is_current_stream_capturing():
+            # made under capture, the array would live in the graph's pool and
+            # its zero fill would run only at replays: the warm-up makes it
+            raise RuntimeError("group norm backward: K7's slice counters must exist before CUDA graph capture; "
+                               "run the step once outside capture first")
         ctr = _BWD_COUNTERS[device] = torch.zeros(max(64, n_slices), dtype=torch.int32, device=device)
     return ctr
 

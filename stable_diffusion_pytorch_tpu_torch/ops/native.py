@@ -6,6 +6,12 @@ library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use (never at import), from the sources in the checkout, into ``build/``
 at the repository root, keyed by a hash of the sources so an edit rebuilds.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+
+Launches under CUDA graph capture are recorded, not launched: a wrapper's
+``hit`` during capture goes to the counter's ``captured`` tally, which
+:func:`end_capture` hands to the graph; each replay of the graph adds that
+tally to ``replays`` (:func:`add_replays`). ``count`` stays the launches
+made by the host's calls, ``count + replays`` is every launch.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -37,15 +45,19 @@ class LaunchCounter:
     ``"fma"`` for f32, as the C entry point reports it).
 
     A wrapper calls :meth:`hit` once per kernel launch, after the launch
-    succeeded, and nowhere else: the plain CPU path does not count."""
+    succeeded, and nowhere else: the plain CPU path does not count. Under
+    CUDA graph capture the launch is only recorded: it goes to ``captured``
+    (by launch shape), and ``replays`` counts the launches that replays of a
+    captured graph made (:func:`add_replays`)."""
 
     def __init__(self, name: str):
         self.name = name
-        self.count = 0
-        self.shapes: Dict[Tuple, int] = collections.Counter()
-        self.impls: Dict[str, int] = collections.Counter()
+        self.reset()
 
     def hit(self, key: Tuple, impl: Optional[str] = None) -> None:
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[key] += 1
+            return
         self.count += 1
         self.shapes[key] += 1
         if impl is not None:
@@ -53,8 +65,11 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
-        self.shapes = collections.Counter()
-        self.impls = collections.Counter()
+        self.shapes: Dict[Tuple, int] = collections.Counter()
+        self.impls: Dict[str, int] = collections.Counter()
+        self.captured: Dict[Tuple, int] = collections.Counter()
+        self.replays = 0
+        self.replay_shapes: Dict[Tuple, int] = collections.Counter()
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -68,6 +83,50 @@ def counter(name: str) -> LaunchCounter:
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+_AFTER_CAPTURE: List[Callable[[], None]] = []
+
+
+def after_capture(fn: Callable[[], None]) -> None:
+    """Run ``fn`` once the current capture has ended (:func:`end_capture`):
+    host-to-device work a wrapper needs for the graph that capture itself
+    cannot hold."""
+    _AFTER_CAPTURE.append(fn)
+
+
+def begin_capture() -> None:
+    """Before a capture: drop launches recorded under an earlier capture that
+    no graph took, and its pending work."""
+    _AFTER_CAPTURE.clear()
+    for c in COUNTERS.values():
+        c.captured = collections.Counter()
+
+
+def end_capture(ok: bool = True) -> Dict[str, Dict[Tuple, int]]:
+    """After a capture: run the wrappers' pending work (only when it
+    succeeded) -> the launches recorded under it, {counter: {launch shape:
+    n}}, which each replay of the graph makes."""
+    pending = list(_AFTER_CAPTURE)
+    _AFTER_CAPTURE.clear()
+    if ok:
+        for fn in pending:
+            fn()
+    tally = {}
+    for name, c in COUNTERS.items():
+        if c.captured:
+            tally[name] = dict(c.captured)
+        c.captured = collections.Counter()
+    return tally
+
+
+def add_replays(tally: Dict[str, Dict[Tuple, int]], replays: int = 1) -> None:
+    """Count ``replays`` replays of a graph whose capture recorded ``tally``."""
+    for name, keys in tally.items():
+        c = COUNTERS[name]
+        for key, n in keys.items():
+            c.replays += n * replays
+            c.replay_shapes[key] += n * replays
 
 
 def _nvcc() -> str:

@@ -52,7 +52,7 @@ from stable_diffusion_pytorch_tpu_torch.config import (
 )
 from stable_diffusion_pytorch_tpu_torch.models.build import build_models, require_device, resolve_dtype
 from stable_diffusion_pytorch_tpu_torch.parallel.distributed import main_first, maybe_initialize
-from stable_diffusion_pytorch_tpu_torch.trainers.trainer import UNetTrainer, check_supported
+from stable_diffusion_pytorch_tpu_torch.trainers.trainer import UNetTrainer
 from stable_diffusion_pytorch_tpu_torch.utils.data import get_dataset
 from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 from stable_diffusion_pytorch_tpu_torch.utils.latent_cache import (
@@ -78,7 +78,6 @@ def parse_training_flags(argv, name: str, logger, map_deepspeed: bool = False):
         device = require_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"{name}: {exc}") from None
-    check_supported(cfg)
     if map_deepspeed and cfg.train.use_deepspeed:
         logger.info("--use-deepspeed requested: mapping to optimizer-state sharding over the data group "
                     "(ZeRO-2 analog)")

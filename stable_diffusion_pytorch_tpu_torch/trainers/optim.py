@@ -17,6 +17,16 @@ running mean ``acc += (g - acc) / (i + 1)`` of the micro gradients, and the
 update from that mean on the k-th. The JAX package has no Pallas kernel here;
 the scalars stay on the device, so a step does not wait on the host.
 
+The step's scalars (the bias corrections and the learning rate) are
+computed on the host in f32, as optax does (:meth:`Accumulating.scalar_rows`),
+and every update reads them from one device buffer, ``scalars`` (f32
+``[bc1, bc2, lr, 0]``), never as Python floats: a CUDA graph that captured a
+step would replay the floats it saw at capture. The per-step path uploads
+the update's row into that buffer; chained dispatch (``trainers/chain.py``)
+uploads a chunk's rows at once and copies row i into it before step i
+(``fed``). CUDA divides by a Python float through its reciprocal, by a
+tensor exactly, so the buffer is also IEEE division, as in JAX.
+
 Narrow storage (``--adam-mu-dtype``, ``--adam-nu-dtype``, ``--accum-dtype``
 bf16) keeps the math of ``fused_adamw._leaf`` and ``fused_accumulate._accumulate``:
 each leaf is computed in f32 and each store rounds once. The update then runs
@@ -51,6 +61,7 @@ import math
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from stable_diffusion_pytorch_tpu_torch.parallel.data_parallel import DataParallel
@@ -118,6 +129,16 @@ def f32(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.float32))
 
 
+def upload(host: np.ndarray, out: torch.Tensor) -> torch.Tensor:
+    """Copy ``host`` into ``out``: on a CUDA device from pinned memory, queued on
+    the current stream (the caching host allocator keeps the staging buffer
+    until the copy has run), so the host does not wait. -> ``out``."""
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    if out.is_cuda:
+        return out.copy_(src.pin_memory(), non_blocking=True)
+    return out.copy_(src)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over leaves of ``sum(x * x)``, in f32 (a 0-d tensor)
     whatever the leaves' dtype. For a bf16 accumulator this departs from the
@@ -125,6 +146,13 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     bf16, one by one in tree order, so its value depends on the leaf order
     and a leaf below 1/512 of the running total adds nothing."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors, dtype=torch.float32)))
+
+
+def clip_limit(max_grad_norm: float, device) -> torch.Tensor:
+    """The clip's limit as a 0-d f32 tensor on ``device``, made by a fill (a
+    tensor built from a Python number would be a host-to-device copy, which
+    a CUDA graph cannot capture)."""
+    return torch.full((), max_grad_norm, dtype=torch.float32, device=device)
 
 
 class Accumulating:
@@ -173,6 +201,11 @@ class Accumulating:
         self.count = 0
         self.mini_step = 0
         self.deferred = 0  # micro steps of this window whose gradients FSDP holds
+        device = self.params[0].device if self.params else torch.device("cpu")
+        # f32 [bc1, bc2, lr, 0] of the next update, on the device; ``fed``: the
+        # caller copies each update's row in (chained dispatch), else _apply uploads it
+        self.scalars = torch.zeros(4, dtype=torch.float32, device=device)
+        self.fed = False
         with torch.no_grad():
             self.acc = ([torch.zeros_like(local_tensor(p), dtype=acc_dtype) for p in self.dp.params]
                         if accum_steps > 1 else None)
@@ -218,25 +251,26 @@ class Accumulating:
         """The update (group by group, offloaded moments brought in for each),
         and the sharded leaves gathered after it."""
         if self.offload:
-            count_inc, bc1, bc2, lr = self._scalars()
+            bc1, bc2, lr = self._load_scalars()
             device = self.params[0].device
             for idx in self._offload_groups():
                 host = self._move_moments(lambda t: t.to(device, non_blocking=True), idx)
                 self._update_leaves(idx, grads, norm, bc1, bc2, lr)
                 self._move_moments(None, idx, host)
-            self.count = count_inc
+            self.count += 1
         else:
             self._update(grads, norm)
         self.dp.after_update()
 
     def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
         """The update of every leaf in place (the moments where they lie)."""
-        count_inc, bc1, bc2, lr = self._scalars()
-        self._update_leaves(range(len(self.params)), grads, norm, bc1, bc2, lr)
-        self.count = count_inc
+        self._update_leaves(range(len(self.params)), grads, norm, *self._load_scalars())
+        self.count += 1
 
-    def _update_leaves(self, idx, grads: List[torch.Tensor], norm: torch.Tensor, bc1: float, bc2: float,
-                       lr: float) -> None:
+    def _update_leaves(self, idx, grads: List[torch.Tensor], norm: torch.Tensor, bc1, bc2, lr) -> None:
+        """The update of the leaves ``idx``; ``bc1``, ``bc2``, ``lr`` are 0-d f32
+        tensors on the device (views of ``scalars``) or, equal in value, Python
+        floats: on the CPU the two give the same bits."""
         raise NotImplementedError
 
     def _offload_groups(self) -> List[List[int]]:
@@ -294,13 +328,24 @@ class Accumulating:
         self.transfer_s += time.perf_counter() - t0
         return before
 
-    def _scalars(self):
-        """(count + 1, bc1, bc2, lr): the f32 scalars of the next update, the
-        bias corrections ``1 - b^(count + 1)`` computed in f32 as optax does."""
-        count_inc = self.count + 1
-        c = torch.tensor(float(count_inc))
-        bc1, bc2 = (float(torch.tensor(1.0) - torch.tensor(b) ** c) for b in (self.b1, self.b2))
-        return count_inc, bc1, bc2, f32(self.schedule(self.count))
+    def scalar_rows(self, n: int = 1) -> np.ndarray:
+        """f32 ``[n, 4]``: ``[bc1, bc2, lr, 0]`` of the next ``n`` updates (from
+        update ``count``), the bias corrections ``1 - b^(count + 1)`` computed in
+        f32 on the host as optax does, the rate at ``count``."""
+        rows = np.zeros((n, 4), np.float32)
+        for i in range(n):
+            count = self.count + i
+            c = torch.tensor(float(count + 1))
+            bc1, bc2 = (float(torch.tensor(1.0) - torch.tensor(b) ** c) for b in (self.b1, self.b2))
+            rows[i, :3] = (bc1, bc2, f32(self.schedule(count)))
+        return rows
+
+    def _load_scalars(self):
+        """Upload the next update's row into ``scalars`` unless the caller fed
+        it -> (bc1, bc2, lr) as 0-d views of the buffer."""
+        if not self.fed:
+            upload(self.scalar_rows(1)[0], self.scalars)
+        return self.scalars[0], self.scalars[1], self.scalars[2]
 
     def layout(self) -> Dict:
         """The state's layout, by the flags that set it."""
@@ -377,7 +422,7 @@ class AdamW(Accumulating):
 
     def _clip_scale(self, norm: torch.Tensor) -> torch.Tensor:
         """1 when ``norm < c``, else ``c / norm`` (f32)."""
-        c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
+        c = clip_limit(self.max_grad_norm, norm.device)
         return torch.where(norm < c, torch.ones_like(norm), c / norm)
 
     def _update_leaves(self, idx, grads, norm, bc1, bc2, lr) -> None:
@@ -459,7 +504,7 @@ class ChainAdamW(AdamW):
     def _update_leaves(self, idx, grads, norm, bc1, bc2, lr) -> None:
         b1, b2 = self.b1, self.b2
         if self.max_grad_norm is not None:
-            c = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
+            c = clip_limit(self.max_grad_norm, norm.device)
             keep = norm < c
         for i in idx:
             p, g, mu, nu = self.params[i], grads[i], self.mu[i], self.nu[i]

@@ -61,8 +61,16 @@ feed-forward weights over groups of T adjacent ranks
 With one process every option but ``--tensor-parallel`` is the one-device
 run. The combinations :func:`check_parallel` names raise ``ValueError``.
 
-Still refused with ``NotImplementedError`` naming the ROADMAP item
-(:func:`check_supported`): chained dispatch, ``--steps-per-dispatch`` (item 20).
+Chained dispatch, ``--steps-per-dispatch N`` (``trainers/chain.py``): where
+the JAX package's rule allows (:func:`~stable_diffusion_pytorch_tpu_torch.trainers.chain.chunk_safe`),
+N optimizer steps run as one chunk whose metrics reach the host in one pull;
+checkpoint and evaluation boundaries, an epoch's remainder and a resume's
+partial window run one optimizer step at a time. On a CUDA device with one
+process each optimizer step is one CUDA graph, captured at the first step
+and replayed (boundary steps replay it too, with a pull after each); on the
+CPU and over a process group the chunks run without a graph; under
+``--offload-optimizer`` every step is dispatched alone, as in the JAX
+package. The loss stream is the per-step path's, bit for bit on the CPU.
 """
 
 from __future__ import annotations
@@ -90,7 +98,8 @@ from stable_diffusion_pytorch_tpu_torch.parallel.data_parallel import DataParall
 from stable_diffusion_pytorch_tpu_torch.parallel.distributed import host_shard_info
 from stable_diffusion_pytorch_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, combined_zero_dims, get_mesh, zero_dims
 from stable_diffusion_pytorch_tpu_torch.parallel.tensor_parallel import ModelGroup
-from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_optimizer, lr_at_step
+from stable_diffusion_pytorch_tpu_torch.trainers import chain
+from stable_diffusion_pytorch_tpu_torch.trainers.optim import build_optimizer, lr_at_step, upload
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
     Trainables,
     TrainState,
@@ -107,24 +116,8 @@ from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, detransfor
 from stable_diffusion_pytorch_tpu_torch.utils.profiling import StepTimer
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker, get_logger
 
-CHAINED_DISPATCH = "ROADMAP queue 1, item 20"
 LOG_IMAGE_PROMPT = "a white cat wearing a hat"  # the reference's eval prompt (train_unet.py:452-465)
 LOG_IMAGE_STEPS = 50  # DDIM steps of a logged sample
-
-
-def _unsupported(cfg):
-    """(flag, ROADMAP item) of every option set away from a default whose
-    feature the port does not have."""
-    checks = [
-        ((cfg.train.steps_per_dispatch or 1) > 1, "--steps-per-dispatch", CHAINED_DISPATCH),
-    ]
-    return [(flag, item) for bad, flag, item in checks if bad]
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for the first option the port cannot honour."""
-    for flag, item in _unsupported(cfg):
-        raise NotImplementedError(f"{flag} is not ported to the PyTorch trainer yet ({item})")
 
 
 class GradNoiseScale:
@@ -219,7 +212,6 @@ class Trainer:
             raise ValueError("must specify a training dataset")
         if eval_dataset is None and cfg.train.log_interval > 0:
             raise ValueError("if passed log_interval > 0, you must specify an evaluation dataset")
-        check_supported(cfg)
         check_parallel(cfg)
         self.cfg = cfg
         self.logger = logger or get_logger(self.run_name)
@@ -271,14 +263,25 @@ class Trainer:
         if any(getattr(ds, "synthetic_fallback", False) for ds in (train_dataset, eval_dataset)):
             self.tracker.set_persistent(synthetic_fallback=True)
         self.random_flip = bool(cfg.dataset.random_flip and cfg.dataset.device_preprocess)
+        # chained dispatch (train() sets the route): the captured step, the metrics' order
+        self._route, self._graph, self._metric_keys = None, None, []
+        self._chunk_warm = self._single_warm = False
         self._build()
 
     # subclass surface
     def _build(self) -> None:
         raise NotImplementedError
 
-    def _train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, Any]:
+    def _train_draws(self, batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        """Every random draw of one micro step on this rank's ``batch``."""
         raise NotImplementedError
+
+    def _step(self, batch: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
+        """One micro step from its batch and draws -> its metrics (0-d tensors)."""
+        raise NotImplementedError
+
+    def _train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, Any]:
+        return self._step(batch, self._train_draws(batch, generator))
 
     def _eval_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
         raise NotImplementedError
@@ -406,20 +409,59 @@ class Trainer:
                 out[k] = t.to(self.device, non_blocking=non_blocking)
         return out
 
-    def _micro_steps(self, epoch_iter, *, skip_until: int, micro_step0: int, step_timer):
+    def _micro_steps(self, epoch_iter, *, skip_until: int, micro_step0: int, step_timer, max_train_steps: int,
+                     ckpt_steps):
         """Yield (metrics as floats, step wall seconds incl. the batch fetch)
-        for each micro step of one epoch."""
+        for each micro step of one epoch: one micro step at a time, or under
+        chained dispatch chunks of optimizer steps (:meth:`_dispatch`) where
+        :func:`chain.chunk_safe` allows, and on the graph route every
+        optimizer step whose window the epoch holds (JAX ``_micro_steps``)."""
+        cfg = self.cfg
+        accum = cfg.train.gradient_accumulation_steps
+        spd = int(cfg.train.steps_per_dispatch or 1)
+        route = self._route
         micro = micro_step0
+        buf: list = []
         it = enumerate(epoch_iter)
+        exhausted = False
         while True:
+            steps = 0
+            if route is not None and chain.chunk_safe(micro, spd, accum, max_train_steps, ckpt_steps,
+                                                      cfg.train.log_interval, self.eval_cadence_offset):
+                steps = spd
+            elif route == "graph" and micro % accum == 0:
+                steps = 1
+            want = steps * accum if steps else 1
             t_fetch0 = time.perf_counter()
-            try:
-                s, batch = next(it)
-                while s < skip_until:
+            while len(buf) < want and not exhausted:
+                try:
                     s, batch = next(it)
-            except StopIteration:
-                return
+                except StopIteration:
+                    exhausted = True
+                    break
+                if s >= skip_until:
+                    buf.append(batch)
             fetch_dt = time.perf_counter() - t_fetch0
+            if not buf:
+                return
+            if steps > 1 and len(buf) < want and route == "graph" and len(buf) >= accum:
+                steps, want = 1, accum  # the epoch's rest: one replay at a time
+            if steps and len(buf) >= want:
+                window, buf = buf[:want], buf[want:]
+                t0 = time.perf_counter()
+                rows = self._dispatch(window, micro, steps)
+                per_step = (time.perf_counter() - t0) / want
+                warm, self._chunk_warm = self._chunk_warm, True
+                for i in range(want):
+                    if warm:  # the first dispatch captures: left out, as JAX leaves out its compile
+                        step_timer.add(per_step)
+                    micro += 1
+                    yield dict(zip(self._metric_keys, map(float, rows[i]))), per_step + fetch_dt / want
+                continue
+            batch = buf.pop(0)
+            if route is not None and not self._single_warm:
+                self._single_warm = True  # a chained run's first step alone builds what it builds
+                step_timer.skip_next()
             t0 = time.perf_counter()
             placed = self._place_batch(batch)
             with step_timer:
@@ -429,6 +471,69 @@ class Trainer:
                 metrics["loss"] = float(self._mean(metrics["loss"]))
             micro += 1
             yield metrics, fetch_dt + (time.perf_counter() - t0)
+
+    def _window_inputs(self, window, micro0: int) -> list:
+        """The micro steps' (placed batch, draws) of one optimizer step, the
+        draws from the per-step path's generators."""
+        out = []
+        for m, batch in enumerate(window):
+            placed = self._place_batch(batch)
+            out.append((placed, self._train_draws(placed, step_generator(self.device, 0, self.cfg.train.seed,
+                                                                         micro0 + m))))
+        return out
+
+    def _window(self, inputs) -> torch.Tensor:
+        """One optimizer step over its micro steps' inputs -> f32 [micro
+        steps, K], the metrics in the order of ``_metric_keys``."""
+        rows = []
+        for batch, draws in inputs:
+            metrics = self._step(batch, draws)
+            metrics["loss"] = self._mean(metrics["loss"])
+            self._metric_keys = sorted(metrics)
+            rows.append(torch.stack([metrics[k].detach().float().reshape(()) for k in self._metric_keys]))
+        return torch.stack(rows)
+
+    def _save_counters(self):
+        """The host's counts a step moves -> a function that puts them back."""
+        state, opt = self.state, self.state.optimizer
+        saved = (state.step, opt.count, opt.mini_step)
+
+        def restore():
+            state.step, opt.count, opt.mini_step = saved
+
+        return restore
+
+    def _graph_tensors(self) -> list:
+        """What the captured step reads and writes in place: the parameters,
+        the optimizer state, the EMA."""
+        return [*self.state.local_params(), *self.state.optimizer.state_tensors(), *(self.state.ema_params or [])]
+
+    def _dispatch(self, window, micro0: int, steps: int):
+        """Run ``steps`` optimizer steps of ``window`` (their micro batches) ->
+        the metrics of each micro step, f32 [micro steps, K] on the host, in
+        one pull. The optimizer's scalars of the chunk go up in one copy; row
+        i reaches its buffer before step i."""
+        accum = self.cfg.train.gradient_accumulation_steps
+        opt = self.state.optimizer
+        rows = upload(opt.scalar_rows(steps), torch.empty((steps, 4), dtype=torch.float32, device=opt.scalars.device))
+        outs = []
+        opt.fed = True
+        try:
+            for i in range(steps):
+                inputs = self._window_inputs(window[i * accum:(i + 1) * accum], micro0 + i * accum)
+                opt.scalars.copy_(rows[i])
+                if self._route != "graph":
+                    outs.append(self._window(inputs))
+                elif self._graph is None:
+                    self._graph = chain.StepGraph(self._window, inputs, self._save_counters, self._graph_tensors)
+                    outs.append(self._graph.first)
+                else:
+                    outs.append(self._graph.replay(inputs).clone())
+                    self.state.step += accum
+                    opt.count += 1
+        finally:
+            opt.fed = False
+        return torch.cat(outs).cpu().numpy()
 
     def _resume(self) -> dict:
         restored, resumed_step = self.ckpt_manager.restore(self.state)
@@ -474,6 +579,19 @@ class Trainer:
         self.logger.info(f"Resume from epoch={start_epoch}, step={resume_step}")
         self.logger.info("**********************************************")
 
+        spd = int(cfg.train.steps_per_dispatch or 1)
+        self._route = chain.route(spd, self.device, self.state.optimizer.offload, self.group)
+        self._chunk_warm = self._single_warm = False
+        if spd > 1:
+            self.logger.info({
+                None: f"--steps-per-dispatch {spd}: the optimizer is offloaded, so every step is dispatched alone",
+                "graph": f"--steps-per-dispatch {spd}: each optimizer step runs as one CUDA graph, {spd} replays "
+                         "a chunk and one pull of the metrics",
+                "eager": f"--steps-per-dispatch {spd}: chunks of {spd} optimizer steps and one pull of the metrics, "
+                         "run without a CUDA graph (" + ("a process group" if self.group is not None
+                                                          else f"a {self.device.type} device") + ")",
+            }[self._route])
+
         micro_step = global_step * accum
         window_losses = []
         window_wall = 0.0
@@ -492,6 +610,8 @@ class Trainer:
                 skip_until=resume_step if (resumed and epoch == start_epoch) else -1,
                 micro_step0=micro_step,
                 step_timer=step_timer,
+                max_train_steps=max_train_steps,
+                ckpt_steps=ckpt_steps,
             )
             for metrics, step_wall in stepper:
                 micro_step += 1
@@ -656,8 +776,11 @@ class UNetTrainer(Trainer):
     def _draws(self, batch, generator, halves: bool = False):
         return self._unet_draws(batch, generator, self.whole_batch_drop, halves=halves)
 
-    def _train_step(self, batch, generator):
-        return self._train(self.state, batch, self.uncond_train, self._draws(batch, generator, halves=self.gns))
+    def _train_draws(self, batch, generator):
+        return self._draws(batch, generator, halves=self.gns)
+
+    def _step(self, batch, draws):
+        return self._train(self.state, batch, self.uncond_train, draws)
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, self.uncond_ids, self._draws(batch, generator), params=self.state.tensors())
@@ -716,8 +839,11 @@ class TextualInversionTrainer(Trainer):
             with open(os.path.join(cfg.checkpoint.ckpt_dir, "textual_inversion.json"), "w") as f:
                 json.dump({"placeholder_token": self.placeholder, "num_vectors": int(len(pids))}, f)
 
-    def _train_step(self, batch, generator):
-        return self._train(self.state, batch, self._unet_draws(batch, generator))
+    def _train_draws(self, batch, generator):
+        return self._unet_draws(batch, generator)
+
+    def _step(self, batch, draws):
+        return self._train(self.state, batch, draws)
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, self._unet_draws(batch, generator), self.state.tensors())
@@ -771,8 +897,11 @@ class ControlNetTrainer(Trainer):
         )
         self.uncond_ids = self._uncond_ids()
 
-    def _train_step(self, batch, generator):
-        return self._train(self.state, batch, self.uncond_ids, self._unet_draws(batch, generator))
+    def _train_draws(self, batch, generator):
+        return self._unet_draws(batch, generator)
+
+    def _step(self, batch, draws):
+        return self._train(self.state, batch, self.uncond_ids, draws)
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, self.uncond_ids, self._unet_draws(batch, generator))
@@ -855,8 +984,11 @@ class AutoencoderTrainer(Trainer):
             return eps, flip if self.random_flip else None
         return take(draws(total), self.rank * rows, (self.rank + 1) * rows)
 
-    def _train_step(self, batch, generator):
-        return self._train(self.state, batch, *self._draws(batch, generator, halves=self.gns))
+    def _train_draws(self, batch, generator):
+        return self._draws(batch, generator, halves=self.gns)
+
+    def _step(self, batch, draws):
+        return self._train(self.state, batch, *draws)
 
     def _eval_step(self, batch, generator):
         return self._eval(batch, *self._draws(batch, generator))

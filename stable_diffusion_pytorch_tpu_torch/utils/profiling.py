@@ -2,7 +2,9 @@
 
 :class:`StepTimer` keeps step durations after ``warmup`` steps and reports
 p50/p90/mean in ms. The caller makes a timed step end with the device work
-done (the trainer reads the loss).
+done (the trainer reads the loss). ``skip_next`` drops samples the fixed
+warm-up cannot foresee: under chained dispatch, the first step a run
+dispatches alone.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ class StepTimer:
         self.durations: List[float] = []
         self.warmup = warmup
         self._seen = 0
+        self._skip = 0
         self._t0: Optional[float] = None
 
     def __enter__(self) -> "StepTimer":
@@ -26,9 +29,16 @@ class StepTimer:
         self.add(time.perf_counter() - self._t0)
 
     def add(self, dt: float) -> None:
+        if self._skip:
+            self._skip -= 1
+            return
         self._seen += 1
         if self._seen > self.warmup:
             self.durations.append(dt)
+
+    def skip_next(self, n: int = 1) -> None:
+        """Drop the next ``n`` samples."""
+        self._skip += n
 
     def percentile(self, q: float) -> float:
         if not self.durations:

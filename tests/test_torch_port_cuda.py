@@ -38,6 +38,7 @@ products in another order.
 """
 
 import functools
+import json
 
 import pytest
 
@@ -819,3 +820,41 @@ def test_serve_path_on_cuda_launches_the_sampling_kernels(cuda):
         httpd.shutdown()
         httpd.server_close()
         service.stop()
+
+
+@pytest.mark.parametrize("lean", [False, True], ids=["adamw", "adamw8bit"])
+def test_chained_dispatch_replays_the_step_as_a_cuda_graph(cuda, tmp_path, lean):
+    """``--steps-per-dispatch 2`` on the card (tiny UNet trainer, bf16 over f32,
+    accumulation 2, cuDNN deterministic): each optimizer step is one CUDA
+    graph, captured at the first and replayed; the losses and parameters
+    equal the per-step run's bit for bit; the capture's tally per replay
+    equals the per-step launches per optimizer step (K9 in it under int8
+    Adam)."""
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
+
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for spd in (1, 2):
+        work = tmp_path / str(spd)
+        trainer = build_trainer([
+            "--device", "cuda", "--dataset", "synthetic", "--resolution", "32", "--train-batch-size", "2",
+            "--max-train-samples", "8", "--max-train-steps", "4", "--gradient-accumulation-steps", "2",
+            "--log-interval", "0", "--steps-per-dispatch", str(spd), "--ckpt-dir", str(work / "ckpt"),
+            "--logging-dir", str(work / "logs"), "--dataloader-num-workers", "0", "--channels-list", "32,64",
+            "--n-heads", "4", "--time-emb-dim", "64", "--n-layers", "1", "--autoencoder-channels-list", "16,32",
+            "--groups", "8", *(["--use-8bit-adam", "--accum-dtype", "bf16"] if lean else [])])
+        native.reset_counters()
+        trainer.train()
+        torch.cuda.synchronize()
+        with open(trainer.tracker.jsonl_path) as f:
+            losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
+        runs[spd] = {"losses": losses, "params": [p.detach().clone() for p in trainer.state.params],
+                     "launches": {k: c.count + c.replays for k, c in native.COUNTERS.items()},
+                     "graph": trainer._graph, "route": trainer._route}
+    assert runs[1]["route"] is None and runs[2]["route"] == "graph" and runs[2]["graph"] is not None
+    assert runs[2]["losses"] == runs[1]["losses"] and len(runs[1]["losses"]) == 4
+    assert all(torch.equal(a, b) for a, b in zip(runs[2]["params"], runs[1]["params"]))
+    tally = {k: sum(v.values()) for k, v in runs[2]["graph"].tally.items()}
+    kernels = ["flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd", "group_norm_cat"]
+    for k in kernels + (["adam8bit_update"] if lean else []):
+        assert tally[k] * 4 == runs[1]["launches"][k] == runs[2]["launches"][k], (k, tally, runs[1]["launches"])

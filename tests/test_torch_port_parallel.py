@@ -81,10 +81,12 @@ TINY_RUN = ["--dataset", "synthetic", "--resolution", "32", "--max-train-steps",
 MAIN_ARGV = [*TINY_RUN, "--num-devices", str(WORLD), "--shard-optimizer-state"]
 TPZERO_WORLD = 4  # a (data 2, model 2) group: ZeRO on top of tensor parallelism
 TPZERO_ARGV = [*TINY_RUN, "--tensor-parallel", "2", "--shard-optimizer-state"]
-VAE_ARGV = ["--dataset", "synthetic", "--resolution", "32", "--max-train-steps", "2", "--train-batch-size", "1",
+VAE_BASE = ["--dataset", "synthetic", "--resolution", "32", "--max-train-steps", "2", "--train-batch-size", "1",
             "--eval-batch-size", "1", "--max-train-samples", "8", "--max-val-samples", "2", "--max-test-samples", "1",
             "--log-interval", "0", "--gradient-accumulation-steps", "1", "--autoencoder-channels-list", "16,32",
-            "--groups", "8", "--num-devices", str(WORLD), "--use-deepspeed"]
+            "--groups", "8", "--num-devices", str(WORLD)]
+VAE_ARGV = [*VAE_BASE, "--use-deepspeed", "--steps-per-dispatch", "2"]  # ZeRO, chained
+VAE_DDP_ARGV = [*VAE_BASE, "--max-train-steps", "4"]  # data parallelism
 # per-row prompt dropout, so that each rank keeps its rows' uniforms, and an EMA
 STEP_KW = dict(cfg_dropout_prob=0.5, ema_decay=0.9)
 
@@ -264,24 +266,58 @@ def jax_gradient_step():
     return jax.jit(train_step), mesh, jax_mesh.put_replicated(mesh, c), jax_mesh.put_replicated(mesh, v)
 
 
+_jax_ema_update = jax.jit(jax_steps._ema_update)  # as the package's jitted train step runs it
+
+
+def jax_gradient_compiled() -> None:
+    """Compile the gradient step: its first call, on the first step's inputs."""
+    step, mesh, c, v = jax_gradient_step()
+    batch, uncond, key = _steps(1)[0]
+    params = jax_mesh.put_replicated(mesh, ts.jax_models()[3][0])
+    jax.block_until_ready(step(jax_steps.TrainState.create(params, _GradsOut()), c, v,
+                               jax_mesh.put_batch(mesh, {k: jnp.asarray(a) for k, a in batch.items()}),
+                               jnp.asarray(uncond), key))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_update(use_8bit: bool):
+    """The package's optimizer (``build_optimizer``'s transform) and its update
+    (``_optimizer_step``) compiled ahead of time for replicated leaves on the
+    2-device mesh -> (transform, compiled update). Compiling runs nothing on
+    the devices, so it may overlap the other JAX work."""
+    _, mesh, _, _ = jax_gradient_step()
+    tx = jax_optim.build_optimizer(jax_args.OptimConfig(**ts.OPTIM, use_8bit_adam=use_8bit), max_train_steps=10)
+    rep = jax_mesh.replicated(mesh)
+
+    def spec(tree):
+        return jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(np.shape(a), a.dtype, sharding=rep), tree)
+
+    params = spec(ts.jax_models()[3][0])
+    update = jax.jit(functools.partial(jax_steps._optimizer_step, tx))
+    return tx, update.lower(params, spec(jax.eval_shape(tx.init, params)), params).compile()
+
+
 @functools.lru_cache(maxsize=None)
 def jax_on_two_devices(use_8bit: bool):
     """Two JAX steps on the 2-device mesh -> (metrics, params, EMA): the
     package's gradient (one compile for both optimizers), then its optimizer
-    (``build_optimizer``'s transform, ``_optimizer_step``) and EMA update."""
+    (``build_optimizer``'s transform, ``_optimizer_step``) and EMA update.
+    Its device work runs on the calling thread alone: two threads running
+    programs on the CPU mesh at once have deadlocked (their eager EMA
+    updates)."""
     step, mesh, c, v = jax_gradient_step()
     u = ts.jax_models()[3][0]
-    tx = jax_optim.build_optimizer(jax_args.OptimConfig(**ts.OPTIM, use_8bit_adam=use_8bit), max_train_steps=10)
+    tx, update = jax_update(use_8bit)
+    rep = jax_mesh.replicated(mesh)
     params = ema = jax_mesh.put_replicated(mesh, u)
-    opt_state = tx.init(params)
-    update = jax.jit(functools.partial(jax_steps._optimizer_step, tx))
+    opt_state = jax.device_put(tx.init(params), rep)
     metrics = []
     for batch, uncond, key in _steps(2):
         grads_state, m = step(jax_steps.TrainState.create(params, _GradsOut()), c, v,
                               jax_mesh.put_batch(mesh, {k: jnp.asarray(a) for k, a in batch.items()}),
                               jnp.asarray(uncond), key)
-        params, opt_state = update(grads_state.opt_state, opt_state, params)
-        ema = jax_steps._ema_update(ema, params, STEP_KW["ema_decay"])
+        params, opt_state = update(jax.device_put(grads_state.opt_state, rep), opt_state, params)
+        ema = _jax_ema_update(ema, params, STEP_KW["ema_decay"])
         metrics.append(m)
     return metrics, params, ema
 
@@ -299,6 +335,7 @@ def _port_inputs(work):
         "steps": torch_steps, "gns_step": (ts._torch_batch(batch), torch.from_numpy(uncond), halves),
         "forward": tuple(torch.from_numpy(np.asarray(a)) for a in forward_inputs()),
         "ckpt_w1": str(work / "ckpt_w1"), "main_argv": MAIN_ARGV, "vae_argv": VAE_ARGV, "tpzero_argv": TPZERO_ARGV,
+        "vae_ddp_argv": VAE_DDP_ARGV,
     }
 
 
@@ -359,10 +396,18 @@ def group(tmp_path_factory):
                                str(work)], stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(work))
              for (w, r), log in zip(ranks, logs)]
     try:
-        jax_tensor_parallel_forward()
+        # the JAX side, while the ranks run: both optimizer updates compile on
+        # other threads (XLA compiles without the GIL) while this one runs
+        # every program on the devices, one at a time
         jax_gradient_step()
-        with ThreadPoolExecutor(2) as pool:  # the JAX side, while the ranks run (XLA compiles without the GIL)
-            list(pool.map(jax_on_two_devices, (False, True)))
+        with ThreadPoolExecutor(2) as pool:
+            compiles = [pool.submit(jax_update, use_8bit) for use_8bit in (True, False)]
+            jax_tensor_parallel_forward()
+            jax_gradient_compiled()
+            for c in compiles:
+                c.result()
+        jax_on_two_devices(False)
+        jax_on_two_devices(True)
         for p in procs:
             p.wait(timeout=GROUP_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -555,6 +600,22 @@ def test_train_unet_main_under_two_gloo_ranks(group):
         records = [line for line in f if "train_loss" in line]
     assert len(records) == 2
     assert os.path.isdir(work / "main" / "ckpt" / "checkpoint-2")
+
+
+def test_chained_dispatch_under_two_ranks_takes_the_chunk_rule_with_one_pull(group):
+    """``--steps-per-dispatch 2`` under the group runs chunks without a CUDA
+    graph (no collective is captured), by the JAX rule, one device-to-host
+    pull each, through the VAE entry point: under ZeRO its 2 steps in one
+    chunk; under data parallelism its 4 steps in two chunks, the losses
+    those of the per-step run, bit for bit."""
+    _, r0, r1, _ = group
+    for res in (r0, r1):
+        assert res["vae_main"]["chained"] == {"route": "eager", "dispatches": [(0, 2, 1)]}
+        per_step, chained = res["vae_ddp"][1], res["vae_ddp"][2]
+        assert per_step["route"] is None and per_step["dispatches"] == [] and not per_step["zero"]
+        assert chained["route"] == "eager" and chained["dispatches"] == [(0, 2, 1), (2, 2, 1)]
+    assert r0["vae_ddp"][2]["losses"] == r0["vae_ddp"][1]["losses"] and len(r0["vae_ddp"][1]["losses"]) == 4
+    assert r1["vae_ddp"][2]["losses"] == r1["vae_ddp"][1]["losses"] == []  # rank 1 logs nothing
 
 
 def test_train_autoencoder_main_maps_use_deepspeed_to_zero_under_two_ranks(group):

@@ -33,6 +33,7 @@ optimizer is the JAX AdamW wrapped to keep each step's gradients in its state.
   script's, from an initializer token and from noise.
 """
 
+import functools
 import sys
 import types
 
@@ -167,10 +168,8 @@ def uncond():
     return ids
 
 
-def draws(key, splits, rows, drop_index=None):
-    """The draws a JAX step takes from its key: the posterior noise, the
-    noise and the timesteps from the first three of ``splits`` keys, the
-    per-row dropout uniforms from ``drop_index``."""
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _jax_draws(key, splits, rows, drop_index):
     keys = jax.random.split(key, splits)
     latent = (rows, 8, 8, 4)
     out = {"posterior_eps": jax.random.normal(keys[0], latent, jnp.float32),
@@ -178,7 +177,15 @@ def draws(key, splits, rows, drop_index=None):
            "timesteps": jax.random.randint(keys[2], (rows,), 0, 1000)}
     out["drop_u"] = (jax.random.uniform(keys[drop_index], (rows, 1))[:, 0] if drop_index is not None
                      else jnp.ones((rows,)))
-    return {k: torch.from_numpy(np.array(a)) for k, a in out.items()}
+    return out
+
+
+def draws(key, splits, rows, drop_index=None):
+    """The draws a JAX step takes from its key: the posterior noise, the
+    noise and the timesteps from the first three of ``splits`` keys, the
+    per-row dropout uniforms from ``drop_index`` (one jitted program a
+    signature: ``jax.random`` gives the same bits under jit)."""
+    return {k: torch.from_numpy(np.array(a)) for k, a in _jax_draws(key, splits, rows, drop_index).items()}
 
 
 def _t(b):

@@ -249,7 +249,8 @@ def test_stage_check_reports_as_jax_on_a_staged_directory(staged, capsys):
     compat = jax_compat.CompatConfig(flipped_time_embedding=True, bottleneck_default_groups=True)
     j_unet = jax_unet.UNetModel.from_config(4, 4, _jax_cfg(STAGED_UNET), compat=compat)
     x, t, ctx = stage_check.unet_probe_inputs(24)
-    ref = j_unet.apply(_jax_params(unet, STAGED_UNET), jnp.asarray(x), jnp.asarray(t, jnp.int32), jnp.asarray(ctx))
+    ref = jax.jit(j_unet.apply)(_jax_params(unet, STAGED_UNET), jnp.asarray(x), jnp.asarray(t, jnp.int32),
+                                jnp.asarray(ctx))
     np.testing.assert_allclose(ours, np.asarray(ref), rtol=0, atol=1e-4)
 
 

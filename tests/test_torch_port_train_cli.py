@@ -10,8 +10,9 @@
   ``load_config`` builds the JAX package's tree from the same flags.
 - The port imports nothing of jax, flax, optax or the JAX package (AST scan),
   and its copy of the BPE tokenizer tokenizes as the JAX package's does.
-- Entry points run on the card unless asked for the CPU; the options still
-  unported (multi-device, item 17; chained dispatch, item 20) raise naming their item.
+- Entry points run on the card unless asked for the CPU; ``--num-devices``
+  other than the data axis raises naming both; chained dispatch
+  (``--steps-per-dispatch 2``, and the ``perf.json`` preset's 8) trains.
 """
 
 import ast
@@ -212,15 +213,23 @@ def test_preset_by_name_yields_to_flags_and_rejects_unknown_fields(tmp_path):
 
 @pytest.mark.parametrize("flags", [[], ["--steps-per-dispatch", "1"]], ids=["preset", "one_step_per_dispatch"])
 def test_perf_preset_trainer_raises_naming_item_20_until_given_one_step(tmp_path, monkeypatch, flags):
+    """The ``perf.json`` preset builds and trains: 8 optimizer steps a
+    dispatch (one chunk here, ``--log-interval 0`` and no checkpoint inside
+    it), bf16 moments; ``--steps-per-dispatch 1`` yields to the preset."""
     monkeypatch.chdir(tmp_path)
-    argv = [*TRAIN, "--ckpt-dir", "ckpt", "--config-file", "perf.json", *flags]
-    if not flags:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 20"):
-            train_unet.build_trainer(argv)
-        return
+    argv = [*TRAIN, "--ckpt-dir", "ckpt", "--config-file", "perf.json", "--max-train-steps", "8",
+            "--gradient-accumulation-steps", "1", "--checkpointing-steps", "8", "--log-interval", "0",
+            "--max-train-samples", "16", "--resolution", "16", *flags]
     trainer = train_unet.build_trainer(argv)
-    assert trainer.cfg.train.steps_per_dispatch == 1
+    assert trainer.cfg.train.steps_per_dispatch == (1 if flags else 8)
     assert {m.dtype for m in (*trainer.state.optimizer.mu, *trainer.state.optimizer.nu)} == {torch.bfloat16}
+    if flags:
+        return
+    chunks = []
+    inner = trainer._dispatch
+    trainer._dispatch = lambda window, micro0, steps: chunks.append(steps) or inner(window, micro0, steps)
+    trainer.train()
+    assert chunks == [8] and trainer.state.optimizer.count == 8
 
 
 def _imports(path):
@@ -265,15 +274,22 @@ def test_entry_points_run_on_cuda_unless_given_the_cpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize(
     "flags,error,match",
-    [(["--steps-per-dispatch", "2"], NotImplementedError, "ROADMAP queue 1, item 20"),
+    [(["--steps-per-dispatch", "2"], None, None),
      (["--num-devices", "4"], ValueError, "--num-devices 4 does not match the data axis of 1 process")],
     ids=["steps_per_dispatch", "multi_device"],
 )
 def test_unported_training_options_raise(tmp_path, monkeypatch, flags, error, match):
-    """Chained dispatch is not ported; ``--num-devices`` must equal the data
-    size, one process per device (the JAX package takes the first N devices
+    """Chained dispatch is ported: the entry point trains with it (a
+    checkpoint every step leaves no room for a chunk, so each of 2 steps is
+    dispatched alone, its checkpoint written). ``--num-devices`` must equal the data size,
+    one process per device (the JAX package takes the first N devices
     instead), so 4 asked of one process raises, naming both numbers."""
     monkeypatch.chdir(tmp_path)
     argv = [*TRAIN, "--ckpt-dir", "ckpt", "--dataset", "synthetic", *flags]
+    if error is None:
+        trainer = train_unet.main([*argv, "--max-train-steps", "2", "--log-interval", "0"])
+        assert trainer.state.optimizer.count == 2 and trainer._route == "eager"
+        assert sorted(os.listdir("ckpt")) == ["checkpoint-1", "checkpoint-2"]
+        return
     with pytest.raises(error, match=match):
         train_unet.main(argv)

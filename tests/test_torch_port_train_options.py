@@ -31,7 +31,7 @@
   only).
 - The repairs: zero-terminal SNR with the epsilon objective raises JAX's
   ``ValueError``; ``--use-pallas-attention`` is accepted and changes nothing;
-  ``--steps-per-dispatch`` names ROADMAP item 20.
+  ``--steps-per-dispatch 2`` trains (chained dispatch, ``trainers/chain.py``).
 - The training CLIs with every new option on, in this process (jax not used
   by the port): the metrics stream, the cache, the logged images (also the
   textual-inversion and ControlNet trainers'), the crash report.
@@ -68,11 +68,7 @@ from stable_diffusion_pytorch_tpu_torch.trainers import optim as port_optim  # n
 from stable_diffusion_pytorch_tpu_torch.trainers import trainer as trainer_mod  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import TrainState, make_unet_train_step  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.trainers.steps import make_vae_train_step  # noqa: E402
-from stable_diffusion_pytorch_tpu_torch.trainers.trainer import (  # noqa: E402
-    GradNoiseScale,
-    LossSpikes,
-    check_supported,
-)
+from stable_diffusion_pytorch_tpu_torch.trainers.trainer import GradNoiseScale, LossSpikes  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.utils.latent_cache import LatentCacheDataset  # noqa: E402
 from test_torch_port_train_step import OPTIM, _KeepGrads, random_params  # noqa: E402
 from test_torch_port_vae_train import _Record  # noqa: E402
@@ -440,25 +436,35 @@ def test_zero_terminal_snr_with_epsilon_raises_as_jax(tmp_path, monkeypatch):
 def test_use_pallas_attention_flag_is_accepted_and_changes_nothing():
     _, cfg = load_config(["--use-pallas-attention"])
     assert cfg.parallel.use_pallas_attention is False
-    check_supported(cfg)  # as the JAX package, which declares the field and never reads it
+    # as the JAX package, which declares the field and never reads it: the
+    # entry point's flag check takes it
+    got, _ = train_unet.parse_training_flags(["--use-pallas-attention", "--device", "cpu"], "t",
+                                             trainer_mod.get_logger("t"))
+    assert got.parallel.use_pallas_attention is False
 
 
-@pytest.mark.parametrize("flags,item", [(["--steps-per-dispatch", "2"], "item 20"),
+@pytest.mark.parametrize("flags,item", [(["--steps-per-dispatch", "2"], None),
                                         (["--tensor-parallel", "2"], None)],
                          ids=["steps_per_dispatch", "tensor_parallel"])
 def test_still_refused_options_name_their_item(tmp_path, monkeypatch, flags, item):
-    """Chained dispatch is not ported (item 20). Tensor parallelism is: it
-    passes the check, and one process, which has no model group to split the
+    """No option is refused any longer. Chained dispatch trains: two
+    optimizer steps in one chunk (one dispatch). Tensor parallelism passes
+    the flag check, and one process, which has no model group to split the
     weights over, raises naming the processes it needs."""
-    _, cfg = load_config(flags)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-            check_supported(cfg)
-        return
-    check_supported(cfg)
     monkeypatch.chdir(tmp_path)
+    argv = [*TINY, "--max-train-steps", "2", "--gradient-accumulation-steps", "1", "--log-interval", "0",
+            "--ckpt-dir", "ckpt", *flags]
+    if flags[0] == "--steps-per-dispatch":
+        trainer = train_unet.build_trainer(argv)
+        chunks = []
+        inner = trainer._dispatch
+        trainer._dispatch = lambda window, micro0, steps: chunks.append(steps) or inner(window, micro0, steps)
+        trainer.train()
+        assert chunks == [2] and trainer.state.optimizer.count == 2
+        assert len([r for r in _records("logs/train_unet_metrics.jsonl") if "train_loss" in r]) == 2
+        return
     with pytest.raises(ValueError, match="--tensor-parallel 2 needs 2 processes"):
-        train_unet.main([*TINY, "--max-train-steps", "1", "--ckpt-dir", "ckpt", *flags])
+        train_unet.main(argv)
 
 
 def _records(path):
@@ -527,11 +533,11 @@ def test_vae_cli_gns_device_preprocess_log_image_and_crash_report(tmp_path, monk
     train = [r for r in _records("logs/train_autoencoder_metrics.jsonl") if "train_loss" in r]
     assert len(train) == 5 and "grad_noise_scale" in train[-1]
     assert os.path.exists("output/autoencoder.png")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 20"):
-        train_autoencoder.main([*vae_flags, "--steps-per-dispatch", "2"])
+    with pytest.raises(ValueError, match="--num-devices 4 does not match"):
+        train_autoencoder.main([*vae_flags, "--num-devices", "4"])
     reports = os.listdir("logs/crashes")
     assert len(reports) == 1
     with open(os.path.join("logs/crashes", reports[0])) as f:
         report = json.load(f)
     assert report["host"] == 0 and report["fn"] == "_main"
-    assert report["exception"].startswith("NotImplementedError: --steps-per-dispatch")
+    assert report["exception"].startswith("ValueError: --num-devices 4 does not match")

@@ -164,10 +164,10 @@ def batch_and_uncond(seed):
     return batch, uncond
 
 
-def jax_draws(key, whole_batch_drop=False, bsz=2, latent=(2, 8, 8, 4), steps=1000):
-    """The draws ``make_unet_train_step`` takes from its step key."""
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _jax_draws(key, whole_batch_drop, bsz, latent, steps):
     k_sample, k_noise, k_t, k_drop, _, k_off, k_ip = jax.random.split(key, 7)
-    draws = {
+    return {
         "posterior_eps": jax.random.normal(k_sample, latent, jnp.float32),
         "noise": jax.random.normal(k_noise, latent, jnp.float32),
         "timesteps": jax.random.randint(k_t, (bsz,), 0, steps),
@@ -175,6 +175,12 @@ def jax_draws(key, whole_batch_drop=False, bsz=2, latent=(2, 8, 8, 4), steps=100
         "offset": jax.random.normal(k_off, (bsz, 1, 1, latent[-1]), jnp.float32),
         "perturb": jax.random.normal(k_ip, latent, jnp.float32),
     }
+
+
+def jax_draws(key, whole_batch_drop=False, bsz=2, latent=(2, 8, 8, 4), steps=1000):
+    """The draws ``make_unet_train_step`` takes from its step key (one jitted
+    program a signature: ``jax.random`` gives the same bits under jit)."""
+    draws = _jax_draws(key, bool(whole_batch_drop), int(bsz), tuple(latent), int(steps))
     return {k: torch.from_numpy(np.array(a)) for k, a in draws.items()}
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import json
 import os
 import sys
 import time
@@ -150,6 +151,31 @@ def tensor_parallel_with_zero(inp, rank, out_dir):
     dist.destroy_process_group()
 
 
+def record_dispatches() -> list:
+    """Record each chained dispatch of the trainers: (first micro step,
+    optimizer steps, device-to-host pulls) -> the list they land in."""
+    from stable_diffusion_pytorch_tpu_torch.trainers import trainer as trainer_mod
+
+    out, inner, pull = [], trainer_mod.Trainer._dispatch, torch.Tensor.cpu
+    pulls = [0]
+
+    def counted(self, *a, **k):
+        pulls[0] += 1
+        return pull(self, *a, **k)
+
+    def recorded(self, window, micro0, steps):
+        pulls[0] = 0
+        torch.Tensor.cpu = counted
+        try:
+            return inner(self, window, micro0, steps)
+        finally:
+            torch.Tensor.cpu = pull
+            out.append((micro0, steps, pulls[0]))
+
+    trainer_mod.Trainer._dispatch = recorded
+    return out
+
+
 def main():
     inputs, rank, world, port, out_dir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
@@ -258,14 +284,30 @@ def main():
     res["main"] = {"step": trainer.state.step, "count": trainer.state.optimizer.count,
                    "global_batch": trainer.global_train_batch, "loader_batches": len(trainer.train_loader),
                    "is_main": trainer.is_main_process}
-    # the VAE entry point under the group, --use-deepspeed mapped to ZeRO
+    # the VAE entry point under the group, --use-deepspeed mapped to ZeRO, chained
+    # dispatch on: each dispatch recorded with the device-to-host pulls it made
     from stable_diffusion_pytorch_tpu_torch.scripts import train_autoencoder
 
+    dispatches = record_dispatches()
     os.makedirs(os.path.join(out_dir, "vae"), exist_ok=True)
     os.chdir(os.path.join(out_dir, "vae"))
     vae = train_autoencoder.main(["--device", "cpu", *inp["vae_argv"]])
     res["vae_main"] = {"count": vae.state.optimizer.count, "zero": vae.cfg.parallel.shard_optimizer_state,
-                       "cut_leaves": sum(d is not None for d in vae.state.optimizer.dp.dims)}
+                       "cut_leaves": sum(d is not None for d in vae.state.optimizer.dp.dims),
+                       "chained": {"route": vae._route, "dispatches": list(dispatches)}}
+    # the VAE entry point under data parallelism, per step and chained
+    res["vae_ddp"] = {}
+    for spd in (1, 2):
+        dispatches.clear()
+        os.makedirs(os.path.join(out_dir, f"vae_ddp{spd}"), exist_ok=True)
+        os.chdir(os.path.join(out_dir, f"vae_ddp{spd}"))
+        vae = train_autoencoder.main(["--device", "cpu", *inp["vae_ddp_argv"], "--steps-per-dispatch", str(spd)])
+        losses = []
+        if vae.is_main_process:  # rank 0 alone writes the metrics
+            with open(vae.tracker.jsonl_path) as f:
+                losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
+        res["vae_ddp"][spd] = {"route": vae._route, "dispatches": list(dispatches), "losses": losses,
+                               "zero": any(d is not None for d in vae.state.optimizer.dp.dims)}
     res["seconds"]["main"] = time.perf_counter() - t0
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier(group=group)

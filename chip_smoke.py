@@ -70,10 +70,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
    on the tensor cores, ``wgmma``; float32 on FMAs, ``fma``; any other pairing
    fails), max-abs error with its tolerance (of each output's max(1,
    max|plain|); bfloat16 attention of its own max|plain|, ``scale`` in the
-   record); the kernel's time (CUDA events, median of 5 runs of 5
-   launches), the library call's (median of 3 runs of 3) and the plain
-   version's (median of 3 single launches after one; both context, not a
-   yardstick); and the bound: the larger of bytes / 3.35
+   record); in bfloat16 (the summary's dtype; K9 in both) the kernel's
+   time (CUDA events, median of 5 runs of 5 launches), the library call's
+   (one call after one) and the plain version's (the median of 3 single
+   calls after one; both context, not a yardstick); and the bound: the larger of bytes / 3.35
    TB/s and FLOPs / peak (989 TFLOP/s bf16, 67 TFLOP/s f32; H100 SXM data
    sheet); for attention also bf16 sums by group (K1 at kv <= 9216 and at
    the K2 shapes, the split backward at K3's shapes and at its own). The
@@ -114,11 +114,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    difference between the tiled and the whole decode (no limit: the JAX
    package calls tiled decode an approximation); ``torch.profiler`` over two
    1024x1024 DDIM steps: device ms per step by kernel category.
-6b. samplers: ``pipeline.sample`` at 512x512, batch 1, CFG 7.5, 10 steps,
-   once per sampler (ddim, ddpm, dpmpp, euler, euler_a, heun, dpmpp_sde),
-   the four sigma-space ones also on Karras spacing, dpmpp with
+6b. samplers: ``pipeline.sample`` at 512x512, batch 1, CFG 7.5, 10 steps:
+   the four sigma-space samplers on Karras spacing, dpmpp with
    v-prediction and trailing spacing on the zero-terminal-SNR schedule, and
-   dpmpp with guidance rescale 0.7: each decodes to a finite [1,512,512,3],
+   dpmpp with guidance rescale 0.7 (the seven samplers on their default
+   spacing run in phase 12): each decodes to a finite [1,512,512,3],
    launches K1, K6 and K8, and calls the UNet once a step (heun twice, once
    on its last step); seconds per step of each loop alone.
 6c. serve: the port's HTTP server (``scripts/serve.py``, ``build_service``
@@ -146,8 +146,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
    times the nets; another image); txt2img on the same seeded model with a
    rank-8 LoRA merged into its f32 weights before the cast (another image);
    a textual-inversion prompt loaded from a checkpoint in the port's layout.
-   Each run's s/step is CUDA-event time from its first model call to the
-   VAE decode, over its UNet calls.
+   Each run's s/step is CUDA-event time from its first model call to its
+   last UNet call's end, over its UNet calls. Each run's loop is its
+   signature's first call on the graph route: the eager warm-up (which
+   the hooks time and count), then its capture (which they skip).
 7. train: the UNet trainer in process at SD-1.5 width, 512x512, batch 4,
    synthetic data, bf16 compute over f32 parameters, gradient accumulation 4
    (the default), two optimizer steps and one evaluation; checks a finite
@@ -227,8 +229,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
    [16, 257, 257, 16, 64] only, 48 times, every launch ``fma``; the card's
    similarities within ``CLIP_SIM_TOL`` of the CPU's; seconds per image.
 9f. parallel: multi-device training on the one card, at SD-1.5 width,
-   512x512, batch 4, accumulation 1, 8 optimizer steps a run (2 warm-up,
-   6 timed), cuDNN's deterministic convolutions, every run from the staged
+   512x512, batch 4, accumulation 1, 4 optimizer steps a run (2 warm-up,
+   2 timed), cuDNN's deterministic convolutions, every run from the staged
    weights (``--model-dir``): (a) the UNet entry point (``build_trainer``)
    in one subprocess under ``python -m torch.distributed.run
    --nproc_per_node 1`` (this script with ``--parallel-child``), over NCCL,
@@ -301,12 +303,41 @@ Phases, each printing one JSON line; any failure exits nonzero:
    profiled optimizer step, peak GB of the run, the warm-up's and the
    capture's seconds. Last, a step whose body syncs with the host must
    raise when captured (no eager fallback).
+12. sample_graph (run last, on the slice's model built anew): the reverse
+   loop as one CUDA graph per signature, cuDNN deterministic, 512x512 batch
+   1, CFG 7.5, 10 steps, through the entry points: every sampler (ddim at
+   eta 0 and 0.5, ddpm, dpmpp, euler, euler_a, heun, dpmpp_sde), img2img at
+   0.75, inpaint with a half mask, DeepCache at 3, one ControlNet, the hires
+   fix (512 x2: K1 at kv 16384). Each case runs once (each loop's warm-up,
+   the eager body, then its capture) and again (the replays), and each loop
+   call once more through the per-step eager loop (draws made when each
+   step needs them): every loop's x_0 equal bit for bit by the three; each
+   graph's tally, and the replays counted, equal to the per-step loop's K1,
+   K6 and K8 launches (and K1 at kv 16384 in the hires refine); a device
+   profile of each graph's replay sees K1, K6 and K8; the reserved GB once
+   each case is captured (the graphs of one model share one pool and one
+   side stream); s/step replayed and of the warm-up (the eager body),
+   warm-up and capture seconds, and for ``GRAPH_PROFILED`` s/step and the
+   idle share of the eager route (a model built with ``capture=False`` on
+   the same modules) and the replayed one. Then A, B, A replayed, each its
+   eager bits; peak allocated and reserved GB with every signature
+   captured; the server (``--max-batch 4``): solo p50 and burst requests/s
+   replayed and eager, the same PNG bytes by both, a replay after
+   ``/reload`` (of 6c's perturbed checkpoint) the eager render with the new
+   weights; last, a loop that syncs with the host must raise at capture,
+   naming the loop, and leave the process usable: a CUDA draw, a module
+   initialized on the card, and the same signature captured and replayed
+   once its UNet no longer syncs. The earlier sampling phases run the
+   graph route too: 6b and 6d empty the cache before each run, so that the
+   run's loop is its signature's eager warm-up (counted and timed by their
+   hooks, which skip the capture), and 6's profile reads the eager 1024
+   step and the replayed one.
 
 After each phase, its wall seconds on a line of their own: ``{"phase":
 ..., "seconds": ...}`` (``total`` the whole run's). Then, each on its own
 line: the ``nvidia-smi`` name/power-limit line, the ``{"kernels": [...]}``
 summary, and ``{"ok": true, "device": ...}`` last. In the summary,
-``launches`` counts phases 5 to 9g and 11, 6b, 6c and 6d included (each
+``launches`` counts phases 5 to 9g, 11 and 12, 6b, 6c and 6d included (each
 run with the counts set to 0 just before it; the split is in the JSON
 record; 9f's comparison of K9 per shard is not counted; phase 11's replays
 count each launch their graph recorded at capture); ``max_abs_err``,
@@ -352,10 +383,7 @@ VAE_TRAIN_BATCH = 4
 VAE_PARITY = 64   # image side of the f32 VAE gradient parity: its bottleneck [1, 64, 64, 1, 512] runs K3
 # the samplers phase: (run, pipeline.sample arguments), 512x512, batch 1, CFG 7.5,
 # STEPS steps; "zt" runs on the zero-terminal-SNR schedule
-SAMPLER_RUNS = (
-    ("ddim", {"sampler": "ddim"}), ("ddpm", {"sampler": "ddpm"}), ("dpmpp", {"sampler": "dpmpp"}),
-    ("euler", {"sampler": "euler"}), ("euler_a", {"sampler": "euler_a"}), ("heun", {"sampler": "heun"}),
-    ("dpmpp_sde", {"sampler": "dpmpp_sde"}),
+SAMPLER_RUNS = (  # the seven on their default spacing run in phase 12 (``GRAPH_SAMPLERS``)
     ("euler_karras", {"sampler": "euler", "karras": True}), ("euler_a_karras", {"sampler": "euler_a", "karras": True}),
     ("heun_karras", {"sampler": "heun", "karras": True}),
     ("dpmpp_sde_karras", {"sampler": "dpmpp_sde", "karras": True}),
@@ -466,7 +494,7 @@ FID_SELF_RATIO = 0.01  # |FID(set, itself)| below this share of FID(set, shifted
 # flag: DDP, ZeRO and offload run the same kernels on the same data and must
 # give the same bits; FSDP (other conv layouts, so other cuDNN algorithms) is
 # held by the update it applied, PARALLEL_UPDATE_TOL
-PARALLEL_STEPS = 8
+PARALLEL_STEPS = 4  # cut from 8 for the run's time limit
 PARALLEL_LR = 1e-4
 PARALLEL_RUNS = (
     ("ddp", ("--num-devices", "1")),
@@ -601,7 +629,7 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's ~2 GHz
 # doubles the pads for each profile that saw less than a kernel a call
 PAD_CYCLES = 10 * SPIN_CYCLES
 PLAIN_TIMING = dict(iters=1, repeats=3, warmup=1)  # a plain version's time: context, not a yardstick
-LIBRARY_TIMING = dict(iters=3, repeats=3, warmup=1)  # the library call's: context too
+LIBRARY_TIMING = dict(iters=1, repeats=1, warmup=1)  # the library call's: context too, one timed call
 
 
 def device_kernels(fn, calls: int = 2, attempts: int = 8) -> tuple:
@@ -665,6 +693,17 @@ def build_sd15(device, dtype, seed: int, lora=None):
     for m in (model.unet, model.autoencoder):
         fill_zero_weights(m, gen)
     return model
+
+
+def eager_twin(model):
+    """``model``'s modules (shared, not copied) in a model built to run the
+    eager loop on the card (``capture=False``): the graph route's control."""
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+
+    twin = LatentDiffusion(model.unet, model.autoencoder, model.text_encoder, model.noise_scheduler,
+                           compat=model.compat, compute_dtype=model.dtype, capture=False)
+    twin.controlnet = model.controlnet
+    return twin
 
 
 def train_argv(work: str, *flags: str):
@@ -1237,9 +1276,10 @@ class _NoUpdate:
 
 
 def record_shapes(model, work: str, stage: str):
-    """The distinct launch shapes of each kernel: one-step runs of txt2img at
-    512x512 and at 1024x1024, of the hires fix (a one-step base and a
-    one-step refine), of the server's buckets of 2 and 4 requests at
+    """The distinct launch shapes of each kernel (the sampling runs on the
+    eager route, which launches what a graph would hold): one-step runs of
+    txt2img at 512x512 and at 1024x1024, of the hires fix (a one-step base
+    and a one-step refine), of the server's buckets of 2 and 4 requests at
     512x512 (the samplers phase runs the slice's shapes), of a weighted
     2-chunk prompt and of img2img at 512x512 (the features phase's new
     shapes: K1 at kv 154, the VAE encoder), and one training
@@ -1270,24 +1310,25 @@ def record_shapes(model, work: str, stage: str):
         native.reset_counters()
 
     native.reset_counters()
+    eager = eager_twin(model)  # shape probes: the eager body launches what a graph would hold
     with torch.inference_mode():
         for size, hires in ((512, {}), (HIRES, {}),
                             (HIRES_BASE, {"hires_scale": 2.0, "hires_strength": 0.6, "vae_tile": HIRES_TILE})):
-            pipeline.sample(model, image_size=size, prompt="a photo of a cat", time_steps=1,
+            pipeline.sample(eager, image_size=size, prompt="a photo of a cat", time_steps=1,
                             guidance_scale=7.5, save_dir=None, num_images=NUM_IMAGES, seed=0, **hires)
             collect()
         # the server's larger buckets (1 is the slice's): UNet batch 4 and 8 with CFG
         for bucket in SERVE_BUCKETS[1:]:
-            pipeline.sample(model, image_size=512, prompt=["a photo of a cat"] * bucket, time_steps=1,
+            pipeline.sample(eager, image_size=512, prompt=["a photo of a cat"] * bucket, time_steps=1,
                             guidance_scale=7.5, save_dir=None, seed=list(range(bucket)))
             collect()
         # the features' own shapes: K1 at kv 154 (a 2-chunk prompt), the VAE
         # encoder's (img2img; inpaint's are the same; ControlNet and DeepCache
         # run the UNet's)
-        pipeline.sample(model, image_size=512, prompt=weighted_long_prompt(model), time_steps=1, guidance_scale=7.5,
+        pipeline.sample(eager, image_size=512, prompt=weighted_long_prompt(eager), time_steps=1, guidance_scale=7.5,
                         save_dir=None)
         collect()
-        pipeline.img2img(model, smoke_image(1), prompt="a photo of a cat", strength=1.0, image_size=512,
+        pipeline.img2img(eager, smoke_image(1), prompt="a photo of a cat", strength=1.0, image_size=512,
                          time_steps=1, guidance_scale=7.5, save_dir=None)
         collect()
     leaf_shapes = None
@@ -1504,7 +1545,10 @@ def phase_kernels(shapes: dict, leaf_shapes, lora_leaf_shapes) -> dict:
     for name, keys in shapes.items():
         for key in keys:
             for dname in ("float32", "bfloat16"):
-                row, ok = hold_shape(name, key, dname, gen, wall)
+                # timed in bfloat16, the summary's and the groups' dtype (K9 in both:
+                # the optimizer phase reads its one-leaf times per gradient dtype)
+                timed_row = dname == "bfloat16" or name == "adam8bit_update"
+                row, ok = hold_shape(name, key, dname, gen, wall if timed_row else None)
                 rows.append(row)
                 s = summary[name]
                 s["max_rel_err"][dname] = max(s["max_rel_err"].get(dname, 0.0), row["rel_err"])
@@ -2000,8 +2044,10 @@ def phase_hires(model, steps: int) -> dict:
         whole, whole_s = _timed(lambda: model.decode_latent(x1))
         tile_diff = (tiled.float() - whole.float()).abs().max().item()
         noise = torch.randn(model.latent_shape(1, HIRES), device="cuda", generator=gen).to(model.dtype)
-        profile = profile_device(lambda: model.sample(noise, ctx, guidance_scale=7.5, time_steps=2, sampler="ddim"),
-                                 2, "step")
+        two_steps = lambda m: m.sample(noise, ctx, guidance_scale=7.5, time_steps=2, sampler="ddim")  # noqa: E731
+        profile = profile_device(lambda: two_steps(eager_twin(model)), 2, "step")  # the eager loop's step
+        two_steps(model)  # the signature's warm-up and capture, outside the profile
+        profile_replayed = profile_device(lambda: two_steps(model), 2, "step")
     refine_steps = max(min(round(steps * 0.6), steps), 1)
     a, b = runs["txt2img_1024"], runs["hires_fix"]
     res = {
@@ -2011,10 +2057,11 @@ def phase_hires(model, steps: int) -> dict:
                                "whole_decode": whole_s},
         "refine_steps": refine_steps, "refine_s_per_step": refine_s / refine_steps,
         "tiled_vs_whole_decode_max_abs": tile_diff, "tiled_vs_whole_image_max_abs": whole.float().abs().max().item(),
-        "profile_1024_step": profile,
+        "profile_1024_step": profile, "profile_1024_step_replayed": profile_replayed,
     }
-    emit({k: v for k, v in res.items() if k != "profile_1024_step"})
+    emit({k: v for k, v in res.items() if not k.startswith("profile_1024_step")})
     emit({"phase": "hires_profile", **{k: v for k, v in profile.items() if k != "top_kernels"}})
+    emit({"phase": "hires_profile_replayed", **{k: v for k, v in profile_replayed.items() if k != "top_kernels"}})
     full = [1, HIRES, HIRES, 3]
     check(a["decoder_outputs"] == [full] and a["finite"] and a["image_shape"] == full[1:],
           f"1024x1024 txt2img: decoder outputs {a['decoder_outputs']}, finite {a['finite']}")
@@ -2048,7 +2095,8 @@ def phase_samplers(model, steps: int) -> dict:
                          compat=model.compat, compute_dtype=model.dtype)
     decoded, calls = [], [0]
     hooks = [model.autoencoder.decoder.register_forward_hook(lambda m, i, o: decoded.append(o.detach())),
-             model.unet.register_forward_pre_hook(lambda m, i: calls.__setitem__(0, calls[0] + 1))]
+             model.unet.register_forward_pre_hook(
+                 lambda m, i: None if torch.cuda.is_current_stream_capturing() else calls.__setitem__(0, calls[0] + 1))]
     prompt = "a photograph of an astronaut riding a horse"
     runs = {}
     try:
@@ -2056,6 +2104,7 @@ def phase_samplers(model, steps: int) -> dict:
             ctx = model.encode_prompts([prompt])
             for name, kw in SAMPLER_RUNS:
                 m = zt if name.endswith("_zt") else model
+                m.clear_loop_cache()  # the run's loop is its signature's warm-up, then captured
                 decoded.clear()
                 calls[0] = 0
                 native.reset_counters()
@@ -2152,7 +2201,8 @@ def feature_plans(unet_cfg) -> dict:
 def _feature_run(model, name: str, fn, nets=()) -> dict:
     """One feature run: counts set to 0 before ``fn()``, read after it; CUDA
     events at each UNet (and ControlNet) call and at the VAE decode give
-    s/step (first model call to the decode, over the UNet calls) and each
+    s/step (first model call to the last UNet call's end, over the UNet
+    calls; the cache emptied first, so the loop is the warm-up) and each
     UNet call's launches (K1, K6, K8, from one call's start to the next)."""
     import torch
 
@@ -2162,13 +2212,16 @@ def _feature_run(model, name: str, fn, nets=()) -> dict:
     marks, decoded, latents = [], [], []
 
     def mark(kind):
-        def hook(module, args, kwargs=None):
+        def hook(module, args, kwargs=None, out=None):
+            if torch.cuda.is_current_stream_capturing():  # the capture's host pass: not a call that runs
+                return
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks.append((kind, ev, {k: native.COUNTERS[k].count for k in kernels}))
         return hook
 
-    hooks = [model.unet.register_forward_pre_hook(mark("unet")),
+    model.clear_loop_cache()  # each run's loops are their signatures' warm-ups, then captured
+    hooks = [model.unet.register_forward_pre_hook(mark("unet")), model.unet.register_forward_hook(mark("unet_end")),
              model.autoencoder.post_quant_conv.register_forward_pre_hook(
                  lambda m, a: latents.append(a[0].detach())),
              model.autoencoder.decoder.register_forward_pre_hook(mark("decode")),
@@ -2192,7 +2245,9 @@ def _feature_run(model, name: str, fn, nets=()) -> dict:
         # a ControlNet call before the next UNet call belongs to the next step
         nxt = next((k for k in range(i + 1, nxt) if marks[k][0] == "controlnet"), nxt)
         per_call.append({k: marks[nxt][2][k] - marks[i][2][k] for k in kernels})
-    loop_ms = marks[0][1].elapsed_time(marks[end][1])
+    # first model call to the last UNet call's end (the capture follows the warm-up)
+    last = max(i for i, m in enumerate(marks) if m[0] == "unet_end")
+    loop_ms = marks[0][1].elapsed_time(marks[last][1])
     img = decoded[-1]
     return {"run": name, "launches": launches, "unet_calls": len(unet_marks), "per_unet_call": per_call,
             "flash_kv_lengths": kv, "decoded_shape": list(img.shape), "finite": bool(torch.isfinite(img).all()),
@@ -2264,6 +2319,7 @@ def phase_features(model, steps: int, work: str) -> dict:
         run(f"controlnet_{n}", lambda: pipeline.sample(model, prompt=prompt, control_image=hints, control_scale=0.8,
                                                        **kw), nets[:n])
     model.controlnet = None
+    model.clear_loop_cache()
     del nets
     # textual inversion from a checkpoint in the port's layout
     ti_dir = os.path.join(work, "ti")
@@ -2569,7 +2625,8 @@ def phase_serve(work: str, steps: int) -> dict:
         "batched_vs_solo_max_uint8_levels": max(gaps.values()), "batched_vs_solo_uint8_levels": gaps,
         "bucket_vs_solo_bf16": gap_bf16, "bucket_vs_solo_f32": gap_f32,
         "per_sampler": per_sampler, "async_states": sorted(set(states)), "async_image_shape": async_shape,
-        "reload": reload_info, "reload_changed_image": after_png != before_png,
+        "reload": reload_info, "reload_checkpoint": os.path.join(work, "ckpt"),
+        "reload_changed_image": after_png != before_png,
         "reload_repeat_identical": repeat_png == after_png, "serving_after_bad_reload": still_png == after_png,
         "requests_served": final["requests_served"], "batches_run": final["batches_run"], "reloads": final["reloads"],
         "requests": len(statuses), "phase_s": phase_s, "launches": launches,
@@ -4451,6 +4508,443 @@ def phase_checkpoint(work: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the reverse loop as one CUDA graph per signature
+# --------------------------------------------------------------------------- #
+
+GRAPH_SAMPLERS = (("ddim", {"sampler": "ddim"}), ("ddim_eta", {"sampler": "ddim", "eta": 0.5}),
+                  ("ddpm", {"sampler": "ddpm"}), ("dpmpp", {"sampler": "dpmpp"}), ("euler", {"sampler": "euler"}),
+                  ("euler_a", {"sampler": "euler_a"}), ("heun", {"sampler": "heun"}),
+                  ("dpmpp_sde", {"sampler": "dpmpp_sde"}))
+GRAPH_PROFILED = ("ddim", "controlnet", "hires_fix")
+GRAPH_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
+GRAPH_ABA = ("ddim", "euler_a", "ddim")
+GRAPH_SERVE_SEEDS = (51, 52, 53, 54)
+
+
+class _LoopCalls:
+    """While entered, every ``CachedLoop`` call is recorded: its entry, its
+    inputs (the generator as its state), its output (cloned) and its host
+    seconds (the device synchronized on both sides)."""
+
+    def __enter__(self):
+        import torch
+
+        from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import CachedLoop
+
+        self.calls, self._real = [], CachedLoop.__call__
+        real, calls = self._real, self.calls
+
+        def recorded(entry, x_T, ctx, uncond, generator=None, mask=None, init_latents=None, hints=None):
+            state = None if generator is None else generator.get_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(entry, x_T, ctx, uncond, generator, mask, init_latents, hints)
+            torch.cuda.synchronize()
+            calls.append({"entry": entry, "args": (x_T, ctx, uncond, state, mask, init_latents, hints),
+                          "out": out.clone(), "s": time.perf_counter() - t0})
+            return out
+
+        CachedLoop.__call__ = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import CachedLoop
+
+        CachedLoop.__call__ = self._real
+        return False
+
+
+def _replay_call(call):
+    """One recorded loop call again, from its generator's recorded state."""
+    import torch
+
+    x_T, ctx, uncond, state, mask, init, hints = call["args"]
+    gen = None
+    if state is not None:
+        gen = torch.Generator()
+        gen.set_state(state)
+    return call["entry"](x_T, ctx, uncond, gen, mask, init, hints)
+
+
+def pool_gb(pool):
+    """GB of the segments the caching allocator holds for the graph pool
+    ``pool`` (None where the snapshot does not say a segment's pool)."""
+    import torch
+
+    segments = torch.cuda.memory_snapshot()
+    if pool is None or not any("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments if tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 2**30
+
+
+def _loop_steps(entry) -> int:
+    loop = entry.loop
+    return len(loop.steps) if hasattr(loop, "steps") else len(loop.plan)
+
+
+def _graph_case(model, name: str, fn) -> dict:
+    """One case of phase 12: the entry point ``fn`` at its first call (each
+    loop's warm-up, the eager body, then its capture) and again (replays);
+    then each recorded loop call through the per-step eager loop
+    (``SampleLoop.__call__``, draws made when each step needs them), its
+    launches counted alone. Every loop call's x_0 by the warm-up, the replay
+    and the per-step loop bit for bit equal; each graph's tally, summed over
+    the replayed calls, the per-step loop's launches of K1, K6 and K8 (and
+    K1 at kv > 9216); a device profile of each graph's replay; the reserved
+    GB once the case's graphs are captured; s/step replayed and of the
+    warm-up (the eager body on the side stream), and for ``GRAPH_PROFILED``
+    s/step and the idle share of the eager route (:func:`eager_twin`) and of
+    the replayed one."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import CachedLoop
+    from stable_diffusion_pytorch_tpu_torch.ops import native
+
+    def kv_past(shapes) -> int:
+        return sum(n for key, n in shapes.items() if key[2] > 9216)
+
+    runs, marks = {}, [("start", time.perf_counter())]
+    captured_before = {key for key, e in model._loops.items() if e.graph is not None}
+    for tag in ("first", "replay"):
+        torch.cuda.synchronize()
+        native.reset_counters()
+        with torch.inference_mode(), _LoopCalls() as rec:
+            fn()
+        torch.cuda.synchronize()
+        marks.append((tag, time.perf_counter()))
+        runs[tag] = {"calls": rec.calls, "launches": launch_counts(),
+                     "replays": {k: native.COUNTERS[k].replays for k in GRAPH_KERNELS},
+                     "reserved_gb": torch.cuda.memory_reserved() / 2**30, "pool_gb": pool_gb(model._graph_pool)}
+        marks.append((f"{tag}_memory", time.perf_counter()))
+    first, replay = runs["first"]["calls"], runs["replay"]["calls"]
+    entries = [c["entry"] for c in replay]
+    torch.cuda.synchronize()
+    native.reset_counters()
+    with torch.inference_mode():
+        per_step = []
+        for c in first:
+            x_T, ctx, uncond, state, mask, init, _ = c["args"]
+            gen = None if state is None else torch.Generator().set_state(state)
+            per_step.append(c["entry"].loop(x_T, ctx, uncond, gen, mask=mask, init_latents=init))
+    torch.cuda.synchronize()
+    marks.append(("per_step", time.perf_counter()))
+    loop_launches = {k: native.COUNTERS[k].count for k in GRAPH_KERNELS}
+    loop_kv_past = kv_past(native.COUNTERS["flash_attention"].shapes)
+    res = {"loop_calls": len(replay), "steps": sum(_loop_steps(e) for e in entries),
+           "signatures": [e.describe() for e in entries]}
+    tally = {k: sum(sum(e.graph.tally.get(k, {}).values()) for e in entries) for k in GRAPH_KERNELS}
+    tally_kv_past = sum(kv_past(e.graph.tally.get("flash_attention", {})) for e in entries)
+    checks = {
+        "same_loop_calls": len(first) == len(replay) > 0,
+        "every_call_replayed": all(e.graph is not None for e in entries),
+        "graph_equals_eager_bit_for_bit": all(torch.equal(a["out"], p) and torch.equal(b["out"], p)
+                                              for a, b, p in zip(first, replay, per_step)),
+        "tally_equals_eager_loop_launches": (tally == loop_launches and tally_kv_past == loop_kv_past
+                                             and all(v > 0 for v in tally.values())),
+        "replays_counted": runs["replay"]["replays"] == tally,
+    }
+    res["tally_per_call"], res["eager_loop_launches"] = tally, loop_launches
+    res["tally_kv_past_9216"], res["eager_loop_kv_past_9216"] = tally_kv_past, loop_kv_past
+    seen = {}
+    for e in dict.fromkeys(entries):
+        kernels, _, _ = device_kernels(e.graph.graph.replay, calls=1)
+        seen[e.describe()] = {k: sum(n for key, (n, _) in kernels.items() if any(s in key for s in DEVICE_NAMES[k]))
+                              for k in GRAPH_KERNELS}
+    checks["replay_on_device"] = all(all(v > 0 for v in s.values()) for s in seen.values())
+    marks.append(("replay_profiles", time.perf_counter()))
+    res["replay_device_kernels"] = seen
+    graphs = list(dict.fromkeys(e.graph for e in entries if e.key not in captured_before))
+    res["warmup_s"] = sum(g.warmup_s for g in graphs)
+    res["capture_s"] = sum(g.capture_s for g in graphs)
+    res["first_call_s"] = sum(c["s"] for c in first)
+    res["reserved_gb_after_capture"] = runs["first"]["reserved_gb"]
+    res["pool_gb_after_capture"] = runs["first"]["pool_gb"]
+    eager = eager_twin(model)
+    routes = {"replay": [c["entry"] for c in first],
+              "eager": [CachedLoop(eager, c["entry"].loop, c["entry"].key) for c in first]}
+
+    def loops(route: str):
+        with torch.inference_mode():
+            for entry, c in zip(routes[route], first):
+                _replay_call({**c, "entry": entry})
+
+    timed = ("eager", "replay") if name in GRAPH_PROFILED else ("replay",)
+    res["s_per_step"] = {tag: _timed(lambda: loops(tag))[1] / res["steps"] for tag in timed}
+    marks.append(("timing", time.perf_counter()))
+    if graphs and len(graphs) == len(entries):
+        res["s_per_step"]["warmup"] = res["warmup_s"] / res["steps"]
+    if name in GRAPH_PROFILED:
+        res["profile"] = {tag: profile_device(lambda: loops(tag), res["steps"], "step")
+                          for tag in ("eager", "replay")}
+        res["idle_share"] = {tag: p.get("idle_share") for tag, p in res["profile"].items()}
+        for p in res["profile"].values():
+            p.pop("top_kernels", None)
+        marks.append(("profiles", time.perf_counter()))
+    res["seconds"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    res["launches"] = runs["replay"]["launches"]
+    res["checks"] = checks
+    res["_outs"] = per_step
+    res["_calls"] = first
+    return res
+
+
+def _graph_server(steps: int, reload_checkpoint: str) -> dict:
+    """The server at SD-1.5 width, 512x512, ``--max-batch 4``, in process:
+    per route (replayed, then eager: the service's model swapped for its
+    :func:`eager_twin` while no request is in flight, and back) solo requests
+    (the first captures its signature on the graph route, then two timed)
+    and bursts of 4 (the first captures bucket 4; the second timed), each
+    burst one batch (retried when the batcher split it: a bucket's bf16
+    bits depend on its size): the same PNG bytes by both routes; then
+    ``/reload`` of ``reload_checkpoint`` (phase 6c's perturbed UNet, made
+    from the same seeded weights): the next replay gives another image, the
+    eager render with the new weights' bytes."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.scripts import serve
+
+    service, _ = serve.build_service([
+        *SD15_FLAGS, "--device", "cuda", "--seed", str(SEED), "--mixed-precision", "bf16",
+        "--max-batch", str(SERVE_MAX_BATCH), "--default-image-size", "512", "--default-steps", str(steps),
+        "--batch-window-ms", str(SERVE_WINDOW_MS)])
+    model = service.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for m in (model.unet, model.autoencoder):
+        fill_zero_weights(m, gen)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            check(resp.status == 200, f"{path}: status {resp.status}")
+            return resp.read(), time.perf_counter() - t0
+
+    def burst():
+        out, errors = {}, []
+
+        def worker(s):
+            try:
+                out[s] = post("/txt2img", {"prompt": SERVE_PROMPT, "seed": s})[0]
+            except Exception as exc:  # noqa: BLE001 — collected, and the phase fails on it below
+                errors.append(f"seed {s}: {exc}")
+
+        threads = [threading.Thread(target=worker, args=(s,)) for s in GRAPH_SERVE_SEEDS]
+        batches = service.batches_run
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not errors and len(out) == len(GRAPH_SERVE_SEEDS), f"burst requests failed: {errors}")
+        return out, time.perf_counter() - t0, service.batches_run - batches
+
+    def one_batch_burst():
+        """A burst that the batcher ran as one bucket of 4 (its rows' bf16
+        bits depend on the bucket), at most three tries."""
+        for _ in range(3):
+            got = burst()
+            if got[2] == 1:
+                break
+        return got
+
+    res = {"max_batch": SERVE_MAX_BATCH, "steps": steps}
+    eager = eager_twin(model)
+    try:
+        pngs = {}
+        for route, capture in (("replay", True), ("eager", False)):
+            service.model = model if capture else eager
+            solo = [post("/txt2img", {"prompt": SERVE_PROMPT, "seed": 41}) for _ in range(3)]
+            bursts = [one_batch_burst() for _ in range(2 if capture else 1)]
+            pngs[route] = (solo[-1][0], bursts[-1][0])
+            res[route] = {"first_solo_s": solo[0][1], "solo_p50_s": statistics.median(s for _, s in solo[1:]),
+                          "burst_requests_per_s": len(GRAPH_SERVE_SEEDS) / bursts[-1][1],
+                          "first_burst_s": bursts[0][1], "burst_batches": [b[2] for b in bursts]}
+        res["graphs"] = len([e for e in model._loops.values() if e.graph is not None])
+        res["same_solo_bytes"] = pngs["replay"][0] == pngs["eager"][0]
+        res["same_burst_bytes"] = pngs["replay"][1] == pngs["eager"][1]
+        res["same_bytes_by_both_routes"] = (res["same_solo_bytes"] and res["same_burst_bytes"]
+                                            and res["replay"]["burst_batches"][-1] == 1
+                                            and res["eager"]["burst_batches"][-1] == 1)
+        post("/reload", {"unet_checkpoint": reload_checkpoint})  # into the shared UNet, in place
+        service.model = model
+        replayed = post("/txt2img", {"prompt": SERVE_PROMPT, "seed": 41})[0]
+        service.model = eager
+        eager_png = post("/txt2img", {"prompt": SERVE_PROMPT, "seed": 41})[0]
+        service.model = model
+        res["reload_changed_the_image"] = replayed != pngs["replay"][0]
+        res["reload_replay_equals_eager"] = replayed == eager_png
+        res["graphs_after_reload"] = len([e for e in model._loops.values() if e.graph is not None])
+        torch.cuda.synchronize()
+        res["launches"] = launch_counts()
+    finally:
+        service.model = model
+        httpd.shutdown()
+        httpd.server_close()
+        service.stop()
+        thread.join(timeout=60)
+    del service, model, eager
+    return res
+
+
+def _graph_capture_control(model) -> dict:
+    """A loop whose UNet syncs with the host (``float`` of a device tensor)
+    cannot be captured: ``sample`` must raise, naming the sampling loop, not
+    run it eagerly. After it the process must be as it was: the caller's
+    stream current, the default CUDA generator drawing and initializing a
+    module, and the same signature, its UNet no longer syncing, captured
+    (into a new pool: the failed one takes no further capture) and replaying
+    its warm-up's bits."""
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+
+    class _MaybeSyncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv_in = torch.nn.Conv2d(4, 4, 1)  # initialized on the CPU
+            self.sync = True
+
+        def forward(self, x, t, c):
+            return x * (float(x.abs().max()) if self.sync else 0.5)
+
+    unet = _MaybeSyncing().cuda()
+    syncing = LatentDiffusion(unet, model.autoencoder, model.text_encoder, model.noise_scheduler)
+    x = torch.randn(1, 8, 8, 4, generator=torch.Generator().manual_seed(0)).cuda()
+    ctx = torch.zeros(1, 77, 768, device="cuda")
+    kw = dict(guidance_scale=1.0, time_steps=2, sampler="ddim")
+    res = {"raised": False}
+    with torch.inference_mode():
+        try:
+            syncing.sample(x, ctx, **kw)
+        except RuntimeError as exc:
+            torch.cuda.synchronize()
+            res = {"raised": True, "names_the_loop": "capturing the sampling loop" in str(exc),
+                   "message": str(exc)[:300]}
+        if not res["raised"]:
+            return res
+        after = {"stream_restored": torch.cuda.current_stream() == torch.cuda.default_stream()}
+        try:
+            after["cuda_draw"] = bool(torch.isfinite(torch.randn(16, device="cuda")).all())
+            after["cuda_init"] = bool(torch.isfinite(torch.nn.Linear(8, 8, device="cuda").weight).all())
+            unet.sync = False
+            first = syncing.sample(x, ctx, **kw)
+            after["captured_again"] = all(e.graph is not None for e in syncing._loops.values())
+            after["replay_equals_warmup"] = bool(torch.equal(syncing.sample(x, ctx, **kw), first))
+        except RuntimeError as exc:
+            after["error"] = str(exc)[:300]
+    res["after"] = after
+    res["usable_after"] = "error" not in after and all(after.values())
+    return res
+
+
+def phase_sample_graph(steps: int, reload_checkpoint: str) -> dict:
+    """Phase 12: the reverse loop as one CUDA graph per signature, on the
+    slice's model built anew (SD-1.5 width, bf16, random weights from seed
+    0), cuDNN deterministic, 512x512 batch 1, CFG 7.5, ``steps`` steps, through the
+    entry points: every sampler (``GRAPH_SAMPLERS``: ddim at eta 0 and 0.5,
+    ddpm, dpmpp, euler, euler_a, heun, dpmpp_sde); img2img at strength 0.75,
+    inpaint with a half mask, DeepCache at 3, one ControlNet; the hires fix
+    (512 x2: K1 at kv 16384, the K2 shapes); each ``_graph_case``. Then A, B
+    and A again replayed, each its eager bits; the server
+    (``_graph_server``, reloading ``reload_checkpoint``); a loop that syncs
+    must raise at capture and leave the process usable
+    (``_graph_capture_control``). Peak allocated and reserved GB with every
+    signature of the phase captured, and the reserved GB after each case."""
+    import numpy as np
+    import torch
+
+    from stable_diffusion_pytorch_tpu_torch import pipeline
+    from stable_diffusion_pytorch_tpu_torch.models import presets
+    from stable_diffusion_pytorch_tpu_torch.models.build import build_controlnet
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    model = build_sd15("cuda", torch.bfloat16, SEED)
+    prompt = "a photograph of an astronaut riding a horse"
+    kw = dict(image_size=512, time_steps=steps, guidance_scale=7.5, save_dir=None, seed=42)
+    init, hint = smoke_image(1), smoke_image(2)
+    mask = np.zeros((512, 512), np.uint8)
+    mask[:, :256] = 255
+    net = build_controlnet(presets.sd15_unet_config(), presets.sd15_autoencoder_config(), dtype=model.dtype,
+                           device="cuda", seed=SEED + 3)
+    fill_zero_weights(net, torch.Generator(device="cuda").manual_seed(SEED + 2))
+    model.attach_controlnet(net)  # and the cache starts empty
+    cases = {name: (lambda o=o: pipeline.sample(model, prompt=prompt, **o, **kw)) for name, o in GRAPH_SAMPLERS}
+    cases.update({
+        "img2img": lambda: pipeline.img2img(model, init, prompt=prompt, strength=0.75, image_size=512,
+                                            time_steps=steps, guidance_scale=7.5, save_dir=None, seed=42),
+        "inpaint": lambda: pipeline.inpaint(model, init, mask, prompt=prompt, image_size=512, time_steps=steps,
+                                            guidance_scale=7.5, save_dir=None, seed=42),
+        "deep_cache": lambda: pipeline.sample(model, prompt=prompt, deep_cache_interval=DEEP_CACHE_INTERVAL, **kw),
+        "controlnet": lambda: pipeline.sample(model, prompt=prompt, control_image=hint, control_scale=0.8, **kw),
+        "hires_fix": lambda: pipeline.sample(model, prompt=prompt, hires_scale=2.0, hires_strength=0.6,
+                                             vae_tile=HIRES_TILE, **kw),
+    })
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved0 = torch.cuda.memory_reserved() / 2**30
+    marks = [("start", time.perf_counter())]
+    try:
+        results = {name: _graph_case(model, name, fn) for name, fn in cases.items()}
+        marks.append(("cases", time.perf_counter()))
+        aba = []
+        for name in GRAPH_ABA:
+            call = results[name]["_calls"][0]
+            with torch.inference_mode():
+                aba.append(bool(torch.equal(_replay_call(call), results[name]["_outs"][0])))
+        memory = {"peak_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+                  "peak_reserved_gb": torch.cuda.max_memory_reserved() / 2**30,
+                  "reserved_before_gb": reserved0, "reserved_after_gb": torch.cuda.memory_reserved() / 2**30,
+                  "graphs": len([e for e in model._loops.values() if e.graph is not None]),
+                  "reserved_gb_after_each_case": {n: r["reserved_gb_after_capture"] for n, r in results.items()},
+                  "pool_gb_after_each_case": {n: r["pool_gb_after_capture"] for n, r in results.items()}}
+        dtype = str(model.dtype)
+        model.controlnet = None
+        model.clear_loop_cache()
+        del net
+        free_cuda()
+        marks.append(("a_b_a", time.perf_counter()))
+        server = _graph_server(steps, reload_checkpoint)
+        marks.append(("server", time.perf_counter()))
+        control = _graph_capture_control(model)
+        marks.append(("capture_control", time.perf_counter()))
+        del model
+        free_cuda()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for r in results.values():
+        r.pop("_outs")
+        r.pop("_calls")
+    failures = {name: [c for c, ok in r["checks"].items() if not ok] for name, r in results.items()}
+    failures = {k: v for k, v in failures.items() if v}
+    if results["hires_fix"]["tally_kv_past_9216"] <= 0:
+        failures["hires_fix_k2_shapes"] = ["the refine graph holds no K1 launch at kv > 9216"]
+    if not all(aba):
+        failures["a_b_a"] = aba
+    if not (server["same_bytes_by_both_routes"] and server["reload_changed_the_image"]
+            and server["reload_replay_equals_eager"]):
+        failures["server"] = {k: server[k] for k in ("same_bytes_by_both_routes", "reload_changed_the_image",
+                                                     "reload_replay_equals_eager")}
+    if not (control["raised"] and control.get("names_the_loop") and control.get("usable_after")):
+        failures["capture_control"] = control
+    res = {"phase": "sample_graph", "gpu": gpu_line(), "steps": steps, "image_size": 512, "guidance_scale": 7.5,
+           "dtype": dtype, "cases": results, "a_b_a": aba, "memory": memory, "server": server,
+           "capture_control": control, "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])},
+           "ok": not failures}
+    emit(res)
+    check(not failures, f"sample graph checks failed: {failures}")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default=None, help="also write every phase's JSON to DIR/chip_smoke.json")
@@ -4536,6 +5030,8 @@ def main(argv=None) -> int:
     ckpt = timed("checkpoint", phase_checkpoint, os.path.join(REPO, "build", "chip_smoke_ckpt"))
     free_cuda()
     chained = timed("chained", phase_chained, os.path.join(REPO, "build", "chip_smoke_chained"))
+    free_cuda()
+    graph_res = timed("sample_graph", phase_sample_graph, STEPS, serve_res["reload_checkpoint"])
     seconds["total"] = time.perf_counter() - t_start
 
     main_path = [slice_res["launches"], *(r["launches"] for r in hires_res["runs"].values()),
@@ -4546,7 +5042,8 @@ def main(argv=None) -> int:
                  *(eval_res["runs"][k]["launches"] for k in ("txt2img", "clip_score")), tools["launches"],
                  *(r["launches"] for r in parallel["baselines"].values()),
                  *(r["launches"] for r in parallel["runs"].values()),
-                 *(r["launches"] for c in chained["configs"].values() for r in c["runs"].values())]
+                 *(r["launches"] for c in chained["configs"].values() for r in c["runs"].values()),
+                 *(c["launches"] for c in graph_res["cases"].values()), graph_res["server"]["launches"]]
     summary = []
     for name, (route, source, replaces) in TPU_KERNELS.items():
         s = kernels["summary"][name]
@@ -4571,7 +5068,8 @@ def main(argv=None) -> int:
                        "hires": hires_res, "samplers": samplers_res, "features": features_res,
                        "serve": serve_res, **trains, "personalize": personalize, "train_options": options,
                        "eval": eval_res, "tools": tools, "tools_kernels": tools_kernels, "parallel": parallel,
-                       "checkpoint": ckpt, "chained": chained, "seconds": seconds, "summary": summary}, f,
+                       "checkpoint": ckpt, "chained": chained, "sample_graph": graph_res, "seconds": seconds,
+                       "summary": summary}, f,
                       indent=1)
     emit({"phase": "total", "seconds": seconds["total"]})
     print(env["gpu"], flush=True)

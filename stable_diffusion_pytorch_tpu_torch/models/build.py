@@ -291,14 +291,21 @@ def build_models(
     )
 
 
-def sampling_model(model: LatentDiffusion, weights: Optional[Dict[str, torch.Tensor]] = None) -> LatentDiffusion:
+def sampling_model(model: LatentDiffusion, weights: Optional[Dict[str, torch.Tensor]] = None,
+                   capture: bool = False) -> LatentDiffusion:
     """A training build (f32 UNet computing under autocast) as the sampling
     path takes it: the UNet copied, ``weights`` (by parameter name, e.g. a
     LoRA's merged weights) copied over its parameters in float32, and cast
     to the compute dtype as :func:`build_models` casts for inference; the
     frozen VAE and text encoder (cast already) and any attached ControlNets
-    shared. The trainers sample with it (DreamBooth's class images, the
-    images ``--log-image`` logs)."""
+    shared. ``capture`` is :class:`LatentDiffusion`'s. The rule: a model made
+    for one render runs the eager loop (the default, off): the trainers'
+    ``log_images`` (the UNet's, textual inversion's and the ControlNet's)
+    each build a fresh one mid-training, where a captured loop would be a
+    warm-up and a capture for a single use and its graph pool would sit on
+    the card beside the training step's. A model that renders many batches of one signature
+    captures it: DreamBooth's class images (``scripts/train_dreambooth.py``,
+    before training starts) replay one graph per batch size."""
     unet = copy.deepcopy(model.unet)
     if weights:
         with torch.no_grad():
@@ -307,7 +314,7 @@ def sampling_model(model: LatentDiffusion, weights: Optional[Dict[str, torch.Ten
                 params[name].copy_(w)
     unet = cast_for_inference(unet, model.dtype)
     out = LatentDiffusion(unet, model.autoencoder, model.text_encoder, model.noise_scheduler, compat=model.compat,
-                          compute_dtype=model.dtype)
+                          compute_dtype=model.dtype, capture=capture)
     out.controlnet = model.controlnet
     return out
 

@@ -110,6 +110,16 @@ def add_noise(
     return a * original_samples + b * noise
 
 
+def q_sample_coefs(sched: DiffusionSchedule, timesteps, device, dtype) -> torch.Tensor:
+    """[len(timesteps), 2]: (sqrt(abar_t), sqrt(1 - abar_t)) of each
+    timestep, gathered from the CPU tables and moved to ``device`` in
+    ``dtype`` in one copy: :func:`add_noise`'s coefficients for a loop that
+    runs ``add_noise`` at host-known timesteps without a copy per step (a
+    captured loop cannot copy from the host)."""
+    t = torch.as_tensor(list(timesteps), dtype=torch.long)
+    return torch.stack([sched.sqrt_alpha_bar[t], sched.sqrt_1m_alpha_bar[t]], dim=1).to(device=device, dtype=dtype)
+
+
 def schedule_on(sched: DiffusionSchedule, device) -> DiffusionSchedule:
     """The schedule with every table moved to ``device``."""
     return dataclasses.replace(sched, **{

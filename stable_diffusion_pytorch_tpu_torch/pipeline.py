@@ -11,7 +11,10 @@ once per step on the doubled batch), optionally through attached ControlNets
 ``img2img`` and ``inpaint`` start from an init image's VAE posterior. Every
 random draw is float32 on the CPU from the seeded generator, moved to the
 card, so a seed gives the same image on every device; it does not reproduce
-JAX's key stream.
+JAX's key stream. Every reverse loop here (txt2img, img2img, inpaint and
+both stages of the hires fix) goes through the model's loop cache
+(``LatentDiffusion.sample_loop``): on a card each signature is captured as
+one CUDA graph at its first call and replayed after it.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 
 from stable_diffusion_pytorch_tpu_torch.config import BaseConfig
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
-from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import SAMPLERS, LatentDiffusion, make_sample_fn
+from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import SAMPLERS, LatentDiffusion
 from stable_diffusion_pytorch_tpu_torch.utils.data import detransform, read_image, to_img, transform_image
 
 
@@ -250,13 +253,14 @@ def img2img(
     ``control_image`` steers through the attached ControlNet(s)."""
     generator = torch.Generator().manual_seed(int(seed))
     init_latents = _init_latents(model, init_image, image_size, generator)
-    fn = make_sample_fn(model.denoiser(_hints(control_image, image_size), control_scale), model.noise_scheduler,
-                        time_steps, sampler=sampler, guidance_scale=guidance_scale, eta=eta, strength=strength)
-    noise = torch.randn(init_latents.shape, generator=generator, dtype=torch.float32)
-    t0 = torch.full((1,), fn.start_timestep, dtype=torch.int32)
-    x_t = sched_lib.add_noise(model.noise_scheduler, init_latents, noise.to(init_latents), t0)
     ctx = model.encode_prompts([prompt]).to(model.dtype)
-    x_0 = fn(x_t, ctx, model.uncond_for(ctx, guidance_scale, negative_prompt), generator)
+    hints = _hints(control_image, image_size)
+    loop = model.sample_loop(init_latents, ctx, time_steps, hints, control_scale, sampler=sampler,
+                             guidance_scale=guidance_scale, eta=eta, strength=strength)
+    noise = torch.randn(init_latents.shape, generator=generator, dtype=torch.float32)
+    t0 = torch.full((1,), loop.start_timestep, dtype=torch.int32)
+    x_t = sched_lib.add_noise(model.noise_scheduler, init_latents, noise.to(init_latents), t0)
+    x_0 = loop(x_t, ctx, model.uncond_for(ctx, guidance_scale, negative_prompt), generator, hints=hints)
     return _decode_one(model, x_0, save_dir, name)
 
 
@@ -275,12 +279,13 @@ def inpaint(
     generator = torch.Generator().manual_seed(int(seed))
     init_latents = _init_latents(model, init_image, image_size, generator)
     mask = load_mask(mask_image, init_latents.shape[1:3]).to(device=model.device, dtype=model.dtype)
-    fn = make_sample_fn(model.denoiser(_hints(control_image, image_size), control_scale), model.noise_scheduler,
-                        time_steps, sampler=sampler, guidance_scale=guidance_scale, inpaint=True)
-    noise = torch.randn(init_latents.shape, generator=generator, dtype=torch.float32).to(init_latents)
     ctx = model.encode_prompts([prompt]).to(model.dtype)
-    x_0 = fn(noise, ctx, model.uncond_for(ctx, guidance_scale, negative_prompt), generator,
-             mask=mask, init_latents=init_latents)
+    hints = _hints(control_image, image_size)
+    loop = model.sample_loop(init_latents, ctx, time_steps, hints, control_scale, sampler=sampler,
+                             guidance_scale=guidance_scale, inpaint=True)
+    noise = torch.randn(init_latents.shape, generator=generator, dtype=torch.float32).to(init_latents)
+    x_0 = loop(noise, ctx, model.uncond_for(ctx, guidance_scale, negative_prompt), generator,
+               mask=mask, init_latents=init_latents, hints=hints)
     return _decode_one(model, x_0, save_dir, name)
 
 
@@ -300,17 +305,16 @@ def hires_refine(
     image on every device; it does not reproduce JAX's ``fold_in`` stream."""
     dtype = model.dtype
     x_up = upscale_latent(x0, hires_scale).to(dtype)
-    fn = make_sample_fn(model.unet, model.noise_scheduler, time_steps, sampler=sampler,
-                        guidance_scale=guidance_scale, eta=eta, strength=hires_strength,
-                        prediction_type=prediction_type, timestep_spacing=timestep_spacing,
-                        guidance_rescale=guidance_rescale)
+    loop = model.sample_loop(x_up, context_emb, time_steps, sampler=sampler, guidance_scale=guidance_scale, eta=eta,
+                             strength=hires_strength, prediction_type=prediction_type,
+                             timestep_spacing=timestep_spacing, guidance_rescale=guidance_rescale)
     if noise is None:
         noise = torch.randn(x_up.shape, generator=generator, dtype=torch.float32)
     noise = noise.to(device=x_up.device, dtype=dtype)
     b = x_up.shape[0]
-    t0 = torch.full((b,), fn.start_timestep, dtype=torch.int32, device=x_up.device)
+    t0 = torch.full((b,), loop.start_timestep, dtype=torch.int32, device=x_up.device)
     x_t = sched_lib.add_noise(model.noise_scheduler, x_up, noise, t0)
-    return fn(x_t, context_emb, model.uncond_for(context_emb, guidance_scale, negative_prompt), generator)
+    return loop(x_t, context_emb, model.uncond_for(context_emb, guidance_scale, negative_prompt), generator)
 
 
 def sample(

@@ -18,6 +18,16 @@ at another batch size, and the sampling loop can carry that far. The handler thr
 touch no CUDA tensor: they queue requests and encode the uint8 images the
 batcher hands back.
 
+On a card each signature's reverse loop (a bucket's batch, the size, steps,
+sampler, guidance, karras) is captured once as a CUDA graph at its first
+batch, a warm-up run and a capture on the batcher thread, and replayed by
+every later batch of that signature (the JAX server's jit cache:
+``LatentDiffusion.sample_loop``); the graphs share one memory pool.
+``--warmup`` and ``--warmup-sizes`` capture the signatures they name before
+the server listens. ``/reload`` copies the weights in place, so the
+captured graphs stay valid and replay with the new weights, with no
+capture. On the CPU the loop runs eagerly.
+
 API (routes and status codes as the JAX server's):
     GET  /healthz                  -> {"status": "ok", "queue_depth": N, "samplers": [...], ...}
     POST /txt2img {"prompt": ...}  -> image/png; optional fields: negative_prompt, steps,
@@ -90,13 +100,14 @@ class ServeConfig(BaseConfig):
     )
     warmup: bool = field(
         default=False,
-        metadata={"help": "compile the default request signature at startup."},
+        metadata={"help": "capture the default request signature's sampling loop at startup (on a card: a "
+                  "warm-up run and a CUDA graph capture)."},
     )
     warmup_sizes: Optional[List[int]] = field(
         default=None,
         metadata={
-            "help": "extra image resolutions to compile at startup (e.g. "
-            "64,128,256) so the first request at each size pays no compile."
+            "help": "extra image resolutions to capture at startup (e.g. "
+            "64,128,256) so the first request at each size pays no capture."
         },
     )
 
@@ -150,7 +161,10 @@ def _bucket(n: int, max_batch: int) -> int:
 
 
 class SDService:
-    """Builds the model once; one batcher thread drives the device."""
+    """Builds the model once; one batcher thread drives the device: it alone
+    makes CUDA calls, so it alone runs the sampling loops' captures (each
+    capture in ``thread_local`` mode besides, so no other thread's CUDA call
+    could break it)."""
 
     def __init__(self, cfg, compat, dtype: torch.dtype, device):
         self.cfg = cfg
@@ -258,8 +272,10 @@ class SDService:
     def _do_reload(self, job: _ReloadJob) -> None:
         """Copy a checkpoint's UNet weights, with a LoRA merged in when the
         request names one, into the live UNet in place: the modules, their
-        dtype and device stay, so nothing is rebuilt. A bad checkpoint or LoRA
-        leaves the live UNet as it was."""
+        dtype and device stay, so nothing is rebuilt, and the parameters keep
+        their storage, so the captured sampling graphs stay valid and their
+        next replays read the new weights (the JAX server's warm jit cache).
+        A bad checkpoint or LoRA leaves the live UNet as it was."""
         try:
             path = load_unet_weights(self.model.unet, job.req["unet_checkpoint"],
                                      lora=job.req.get("lora_checkpoint"),

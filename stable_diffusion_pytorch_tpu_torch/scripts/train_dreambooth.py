@@ -46,7 +46,8 @@ def ensure_class_images(model, cfg_train, resolution: int, logger) -> int:
     (the prior is the model's own class distribution, Ruiz et al. 2022 §3.2),
     ``CLASS_BATCH`` a call, image ``n`` from seed ``seed + n``, written as
     ``class_{n:05d}.png``; the UNet computes in the run's dtype
-    (``models/build.py:sampling_model``). -> how many were made."""
+    (``models/build.py:sampling_model``), and on a card every batch of one
+    size replays the loop captured at the first. -> how many were made."""
     folder = cfg_train.class_data_dir
     os.makedirs(folder, exist_ok=True)
     have = sorted(f for f in os.listdir(folder) if f.lower().endswith(FolderPromptDataset.EXTS))
@@ -56,7 +57,7 @@ def ensure_class_images(model, cfg_train, resolution: int, logger) -> int:
         return 0
     logger.info(f"prior preservation: generating {need} class image(s) for {cfg_train.class_prompt!r} into "
                 f"{folder!r} ({cfg_train.class_sampling_steps} DDIM steps)")
-    sampler = sampling_model(model)
+    sampler = sampling_model(model, capture=True)
     done = 0
     while done < need:
         n = min(CLASS_BATCH, need - done)

@@ -7,7 +7,8 @@ JAX scans N optimizer steps inside one XLA program. On a CUDA device, with
 one process and the moments on the card, the counterpart is one CUDA graph
 per optimizer step (its accumulation micro steps and the update), captured
 once and replayed N times a chunk with no host sync between the replays
-(:class:`StepGraph`). Each step's draws are made outside the graph with the
+(:class:`StepGraph`, on the mechanism the sampling loop shares,
+``utils/graphs.py``). Each step's draws are made outside the graph with the
 per-step path's generators and copied, with the batches, into the graph's
 static inputs; the optimizer's scalars are a chunk's rows uploaded at once,
 row i copied into the optimizer's buffer before step i
@@ -23,12 +24,11 @@ no checkpoint or evaluation step falls strictly inside it.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, List, Optional
 
 import torch
 
-from stable_diffusion_pytorch_tpu_torch.ops import native
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import CapturedGraph
 
 
 def chunk_safe(micro: int, steps: int, accum: int, max_train_steps: int, ckpt_steps, log_interval: int,
@@ -51,100 +51,24 @@ def chunk_safe(micro: int, steps: int, accum: int, max_train_steps: int, ckpt_st
     return True
 
 
-def tensors(tree) -> List[torch.Tensor]:
-    """The tensors of a tree of dicts, lists and tuples, in order (None skipped)."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in tensors(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [t for x in tree for t in tensors(x)]
-    if tree is None:
-        return []
-    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
-
-
-def _map(fn, tree):
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, x) for x in tree)
-    return tree
-
-
-def _signature(tree) -> list:
-    return [(tuple(t.shape), t.dtype, t.device) for t in tensors(tree)]
-
-
-class StepGraph:
-    """One optimizer step as a CUDA graph: ``body(inputs) -> metrics`` (f32
-    ``[micro steps, K]``) over static ``inputs`` (a tree of the step's
-    batches and draws).
+class StepGraph(CapturedGraph):
+    """One optimizer step as a CUDA graph (``utils/graphs.py:CapturedGraph``):
+    ``body(inputs) -> metrics`` (f32 ``[micro steps, K]``) over static
+    ``inputs`` (a tree of the step's batches and draws), in a private pool.
 
     Made with the first step's inputs: that step runs eagerly on a side
     stream (the warm-up, a real step: it makes what a step makes once, the
     GroupNorm backward's slice counters, library handles and workspaces for
-    the stream), its metrics in ``first``; then the same body is captured
-    into a graph with a private memory pool, which holds the step's
-    activations for the graph's life. Capture runs the body's host code once
-    and the device work not at all, so the host's counters the body moves
-    (``save_counters`` -> a restore function) are put back after it. The
-    kernel launches recorded under capture (``native.end_capture``) are added
-    to the launch counters at each replay. A failed capture raises: nothing
-    falls back to the eager step.
-
-    :meth:`replay` copies the next step's inputs into the static ones and
-    replays the graph on the current stream; the returned metrics are the
-    graph's own buffer, rewritten by the next replay. ``warmup_s`` and
-    ``capture_s``: the host's seconds of the warm-up step (waited for) and of
-    the capture."""
+    the stream), its metrics in ``first``; then the same body is captured.
+    The host's counters the step moves (``save_counters``) are put back after
+    the capture, and ``pinned`` (the parameters, the optimizer state, the
+    EMA) must not move between replays. A failed capture raises: nothing
+    falls back to the eager step."""
 
     def __init__(self, body: Callable[[Any], torch.Tensor], inputs, save_counters: Callable[[], Callable[[], None]],
                  pinned: Callable[[], List[torch.Tensor]]):
-        device = tensors(inputs)[0].device
-        self.static = _map(lambda t: t.clone(), inputs)
-        self._signature = _signature(inputs)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            self.first = body(self.static)
-        torch.cuda.current_stream(device).wait_stream(side)
-        side.synchronize()
-        self.warmup_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        restore = save_counters()
-        graph = torch.cuda.CUDAGraph()
-        native.begin_capture()
-        try:
-            with torch.cuda.graph(graph, stream=side):
-                self.out = body(self.static)
-        except Exception as exc:
-            native.end_capture(ok=False)
-            raise RuntimeError(f"chained dispatch: capturing the optimizer step as a CUDA graph failed ({exc}); "
-                               "run with --steps-per-dispatch 1 for the per-step path") from exc
-        finally:
-            restore()
-        self.tally = native.end_capture()
-        self.capture_s = time.perf_counter() - t0
-        self.graph = graph
-        self._pinned = pinned
-        self._pointers = [t.data_ptr() for t in pinned()]
-
-    def replay(self, inputs) -> torch.Tensor:
-        if _signature(inputs) != self._signature:
-            raise RuntimeError(f"chained dispatch: the step's inputs {_signature(inputs)} differ from the captured "
-                               f"graph's {self._signature}")
-        if [t.data_ptr() for t in self._pinned()] != self._pointers:
-            raise RuntimeError("chained dispatch: a parameter or an optimizer state tensor moved since the step "
-                               "was captured")
-        for dst, src in zip(tensors(self.static), tensors(inputs)):
-            dst.copy_(src)
-        self.graph.replay()
-        native.add_replays(self.tally)
-        return self.out
+        super().__init__(body, inputs, what="the optimizer step (chained dispatch)", save_counters=save_counters,
+                         pinned=pinned, advice="run with --steps-per-dispatch 1 for the per-step path")
 
 
 def route(spd: int, device: torch.device, offload: bool, group) -> Optional[str]:

@@ -25,7 +25,12 @@ one leaf's update at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp
 rounding boundary), dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere;
 the whole step (clip, K9 and apply in one launch over every leaf) gives
 ``adam8bit_step_plain``'s parameters, codes and scales bit for bit, with one
-device kernel per step.
+device kernel per step. The sampling loop's graphs (a tiny model, cuDNN
+deterministic): each signature's warm-up and its replays give the eager
+loop's x_0 bit for bit, the capture's tally its launches, A-B-A each its
+own, a replay after an in-place weight load the new weights' render; a
+changed input, a moved parameter and a loop that syncs with the host
+raise.
 
 bfloat16 attention runs on the tensor-core (wgmma) kernels and float32 on the
 FMA kernels; the bf16 tests check which one each launch reports and hold the
@@ -858,3 +863,139 @@ def test_chained_dispatch_replays_the_step_as_a_cuda_graph(cuda, tmp_path, lean)
     kernels = ["flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd", "group_norm_cat"]
     for k in kernels + (["adam8bit_update"] if lean else []):
         assert tally[k] * 4 == runs[1]["launches"][k] == runs[2]["launches"][k], (k, tally, runs[1]["launches"])
+
+
+def _tiny_sampling_model(dtype=torch.bfloat16):
+    """A tiny txt2img model on the card, random weights from seed 0."""
+    from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, ClipConfig, DDPMConfig, UnetConfig
+    from stable_diffusion_pytorch_tpu_torch.models.build import build_models
+
+    return build_models(UnetConfig(channels_list=[32, 64], n_heads=4, time_emb_dim=64, n_layers=1),
+                        AutoencoderConfig(autoencoder_channels_list=[16, 32], groups=8), ClipConfig(),
+                        DDPMConfig(noise_steps=50), dtype=dtype, device="cuda", pretrained_dir=None)
+
+
+GRAPH_CASES = {"ddim": dict(sampler="ddim"), "euler_a": dict(sampler="euler_a"),
+               "dpmpp_sde": dict(sampler="dpmpp_sde", karras=True), "deep_cache": dict(sampler="ddpm",
+                                                                                    deep_cache_interval=2)}
+
+
+def _eager_x0(model, x_T, ctx, seed, **kw):
+    """The eager loop (``make_sample_fn``) from a seeded generator."""
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_sample_fn
+
+    fn = make_sample_fn(model.unet, model.noise_scheduler, 4, guidance_scale=7.5, **kw)
+    with torch.no_grad():
+        return fn(x_T, ctx, model.uncond_for(ctx, 7.5), torch.Generator().manual_seed(seed))
+
+
+def test_sample_graph_replays_the_eager_loop_bit_for_bit(cuda):
+    """Each signature's first ``sample`` call (the warm-up) and its replays
+    give the eager loop's x_0 bit for bit (cuDNN deterministic); a replay's
+    tally of K1, K6 and K8 equals the eager loop's launches; A, B, then A
+    again each give their own eager result from one shared pool."""
+    torch.backends.cudnn.deterministic = True
+    model = _tiny_sampling_model()
+    ctx = model.encode_prompts(["a cat", "a dog"]).to(model.dtype)
+    x_T = torch.randn(model.latent_shape(2, 32), generator=torch.Generator().manual_seed(1)).to(cuda, model.dtype)
+    eager = {}
+    for name, kw in GRAPH_CASES.items():
+        native.reset_counters()
+        eager[name] = _eager_x0(model, x_T, ctx, 5, **kw)
+        launches = {k: native.COUNTERS[k].count for k in ("flash_attention", "group_norm", "group_norm_cat")}
+        known = set(model._loops)
+        for call in range(3):
+            out = model.sample(x_T, ctx, time_steps=4, generator=torch.Generator().manual_seed(5), **kw)
+            assert torch.equal(out, eager[name]), (name, call)
+        (key,) = set(model._loops) - known
+        graph = model._loops[key].graph
+        assert graph is not None and graph.capture_s > 0
+        assert {k: sum(graph.tally.get(k, {}).values()) for k in launches} == launches, (name, launches)
+    for name in ("ddim", "euler_a", "ddim"):  # A-B-A
+        out = model.sample(x_T, ctx, time_steps=4, generator=torch.Generator().manual_seed(5), **GRAPH_CASES[name])
+        assert torch.equal(out, eager[name]), name
+    assert len(model._loops) == len(GRAPH_CASES)
+
+
+def test_sample_graph_replays_new_weights_and_refuses_what_moved(cuda):
+    """A weight load copies in place: the next replay renders with the new
+    weights (the eager loop's bits). A replay whose inputs differ from the
+    captured ones, or after a parameter's storage moved, raises; a loop that
+    syncs with the host cannot be captured and raises, naming the loop."""
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+    from stable_diffusion_pytorch_tpu_torch.utils.graphs import CapturedGraph
+
+    torch.backends.cudnn.deterministic = True
+    model = _tiny_sampling_model()
+    ctx = model.encode_prompts(["a cat"]).to(model.dtype)
+    x_T = torch.randn(model.latent_shape(1, 32), generator=torch.Generator().manual_seed(2)).to(cuda, model.dtype)
+    kw = dict(sampler="ddim", time_steps=4)
+    before = model.sample(x_T, ctx, **kw)
+    assert torch.equal(model.sample(x_T, ctx, **kw), before)
+    g = torch.Generator().manual_seed(3)
+    state = {n: (p.float().cpu() + 0.05 * torch.randn(p.shape, generator=g)).to(p.dtype)
+             for n, p in model.unet.state_dict().items()}
+    model.unet.load_state_dict(state)
+    after = model.sample(x_T, ctx, **kw)
+    assert not torch.equal(after, before)
+    assert torch.equal(after, _eager_x0(model, x_T, ctx, 0, sampler="ddim"))
+    entry = next(iter(model._loops.values()))
+    with pytest.raises(RuntimeError, match="differ from the captured"):
+        entry(x_T.float(), ctx, model.uncond_for(ctx, 7.5), torch.Generator())
+    p = next(model.unet.parameters())
+    p.data = p.data.clone()
+    with pytest.raises(RuntimeError, match="moved since the graph was captured"):
+        model.sample(x_T, ctx, **kw)
+
+    class _Syncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv_in = torch.nn.Conv2d(4, 4, 1)
+
+        def forward(self, x, t, c):
+            return x * float(x.abs().max())
+
+    syncing = LatentDiffusion(_Syncing().to(cuda), model.autoencoder, model.text_encoder, model.noise_scheduler)
+    with pytest.raises(RuntimeError, match="capturing"):
+        CapturedGraph(lambda inp: inp["x"] * float(inp["x"].sum()), {"x": torch.ones(4, device=cuda)}, what="a sync")
+    with pytest.raises(RuntimeError, match="capturing the sampling loop"):
+        syncing.sample(x_T.float(), ctx.float(), guidance_scale=1.0, **kw)
+
+
+def test_sample_graph_failed_capture_leaves_the_process_usable(cuda):
+    """A loop whose capture fails (its UNet syncs with the host) raises, and
+    the process stays as it was: the caller's stream is current, the default
+    CUDA generator draws and initializes modules, and the same model's next
+    capture, into a new pool on the same stream (the failed one takes no
+    further capture), succeeds and replays the warm-up's bits."""
+    from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion
+
+    class _MaybeSyncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv_in = torch.nn.Conv2d(4, 4, 1)
+            self.sync = True
+
+        def forward(self, x, t, c):
+            return x * (float(x.abs().max()) if self.sync else 0.5)
+
+    tiny = _tiny_sampling_model()
+    unet = _MaybeSyncing().to(cuda)
+    model = LatentDiffusion(unet, tiny.autoencoder, tiny.text_encoder, tiny.noise_scheduler)
+    x_T = torch.randn(1, 8, 8, 4, generator=torch.Generator().manual_seed(0)).to(cuda)
+    ctx = torch.zeros(1, 77, 768, device=cuda)
+    kw = dict(guidance_scale=1.0, sampler="ddim", time_steps=3)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="capturing the sampling loop"):
+            model.sample(x_T, ctx, **kw)
+        stream = model._graph_stream
+        assert model._graph_pool is None and stream is not None
+        assert torch.cuda.current_stream() == torch.cuda.default_stream()
+        assert torch.isfinite(torch.randn(16, device=cuda)).all()
+        assert torch.isfinite(torch.nn.Linear(8, 8, device=cuda).weight).all()
+        unet.sync = False
+        first = model.sample(x_T, ctx, **kw)
+        (entry,) = model._loops.values()
+        assert entry.graph is not None and model._graph_pool is not None and model._graph_stream is stream
+        assert torch.equal(model.sample(x_T, ctx, **kw), first)
+        assert torch.isfinite(torch.randn(16, device=cuda)).all()

@@ -15,11 +15,14 @@
   agree only if the two step sequences do (1e-4 relative: f32 steps whose
   values grow to ~40; one step more or less moves them by far more).
 - The latent upscale against ``jax.image.resize`` at factors 2 and 1.5; 1e-6.
-- Tiled decode against JAX's ``decode_latent`` on the same tiny VAE; 1e-4, as
-  the whole decode in ``test_torch_port_slice.py``.
+- Tiled decode against JAX's ``decode_latent`` through a stand-in decoder
+  whose output depends on its tile; 1e-4, as the whole decode in
+  ``test_torch_port_slice.py``, which holds the tiny VAE itself.
 - The refine stage with JAX's own noise passed in: q-sample to
   ``start_timestep``, then 3 DDIM + CFG 7.5 steps at 16x16 against JAX's
-  ``_hires_refine``; as the 5-step loop there (1e-4 relative, 2e-4 absolute).
+  ``_hires_refine``, both through the samplers' stand-in UNet (the UNet is
+  held to JAX's in the slice and model tests); as the 5-step loop there
+  (1e-4 relative, 2e-4 absolute).
 - The txt2img CLI with ``--hires-scale 2 --vae-tile`` in a process without jax.
 """
 
@@ -43,7 +46,7 @@ from stable_diffusion_pytorch_tpu.ops import flash_attention as jax_fa  # noqa: 
 from stable_diffusion_pytorch_tpu.ops import flash_attention_bwd as jax_fa_bwd  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch import pipeline  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.config import DDPMConfig  # noqa: E402
-from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_sample_fn  # noqa: E402
+from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion, make_sample_fn  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E402
     backward_route,
@@ -51,7 +54,8 @@ from stable_diffusion_pytorch_tpu_torch.ops.flash_attention import (  # noqa: E4
     flash_attention_bwd_plain,
 )
 from test_torch_port_cli import _NO_JAX, REPO, TINY, _read_png  # noqa: E402
-from test_torch_port_slice import PROMPTS, models  # noqa: E402,F401  (module-scoped tiny JAX + port models)
+from test_torch_port_samplers import _StandIn, _stand_in  # noqa: E402
+from test_torch_port_slice import PROMPTS, text_encoders  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -136,8 +140,43 @@ def test_upscale_latent_matches_jax_image_resize(scale):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
-def test_tiled_decode_matches_jax(models):
-    jax_model, port_model = models
+class _JaxTileVAE:
+    """A stand-in decoder (x2, as the tiny VAE's) whose output depends on the
+    tile it is given (its mean), so that the tiles' placement and blending
+    show: JAX ``apply`` form."""
+
+    channels_list = (8, 16)
+
+    @staticmethod
+    def decode(z):
+        up = jnp.repeat(jnp.repeat(z, 2, axis=1), 2, axis=2)
+        return jnp.tanh(up[..., :3]) - 0.5 * jnp.mean(z, axis=(1, 2), keepdims=True)[..., :3]
+
+    def apply(self, params, z, method):
+        return method(z)
+
+
+class _PortTileVAE:
+    downsample_factor = 2
+
+    @staticmethod
+    def decode(z):
+        up = z.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return torch.tanh(up[..., :3]) - 0.5 * z.mean(dim=(1, 2), keepdim=True)[..., :3]
+
+
+@pytest.fixture(scope="module")
+def text_models():
+    """The slice test's tiny text encoders alone (these tests stand in the
+    UNet and the VAE)."""
+    return text_encoders()
+
+
+def test_tiled_decode_matches_jax():
+    """The tiles' placement and ramps through a stand-in decoder (the VAE's
+    own decode is held to JAX's in the slice test)."""
+    jax_model = jax_ld.LatentDiffusion(None, None, _JaxTileVAE(), None, None, None)
+    port_model = LatentDiffusion(None, _PortTileVAE(), None, None, compute_dtype=torch.float32)
     lat = _rand(4, (1, 14, 12, 4))[0] * 0.5
     ref = jax.jit(lambda z: jax_model.decode_latent(z, tile=10, tile_overlap=4))(jnp.asarray(lat))
     out = port_model.decode_latent(torch.from_numpy(lat), tile=10, tile_overlap=4)
@@ -149,8 +188,14 @@ def test_tiled_decode_matches_jax(models):
         port_model.decode_latent(torch.from_numpy(lat), tile=8, tile_overlap=4)
 
 
-def test_hires_refine_matches_jax(models):
-    jax_model, port_model = models
+def test_hires_refine_matches_jax(text_models):
+    """The refine stage (upscale, q-sample, the truncated loop) through the
+    samplers' stand-in UNet."""
+    j_te, p_te = text_models
+    stand_in = type("StandIn", (_StandIn,), {"dtype": jnp.float32})()  # _hires_refine reads the UNet's dtype
+    jax_model = jax_ld.LatentDiffusion(stand_in, None, None, None, j_te,
+                                       jax_schedule.make_schedule(jax_schedule.DDPMConfig()))
+    port_model = LatentDiffusion(_stand_in, None, p_te, make_schedule(DDPMConfig()), compute_dtype=torch.float32)
     x0 = _rand(5, (2, 8, 8, 4))[0] * 0.5
     key = jax.random.PRNGKey(5)
     kw = dict(guidance_scale=7.5, sampler="ddim", time_steps=5, hires_scale=2.0, hires_strength=0.6,

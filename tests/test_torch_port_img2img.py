@@ -9,7 +9,9 @@ of every channel count, masks too), the VAE posterior sample with JAX's eps
 (1e-4), and 5-step loops at the slice's bar (rtol 1e-4, atol 2e-4): img2img
 with ddim and dpmpp, inpaint with ddim and euler_a fed JAX's step and blend
 draws (``split(k, 3)`` per step), where the kept region is the init latent
-exactly after the last step. Then the port's pipelines, and its img2img CLI
+exactly after the last step; ddim through the tiny UNet, the other sampler
+of each through the samplers' stand-in UNet, whose loop's pre-drawn body
+(what a CUDA graph captures) is held to the same JAX result. Then the port's pipelines, and its img2img CLI
 in img2img mode (in a process without jax) and in inpaint mode.
 """
 
@@ -34,6 +36,8 @@ from stable_diffusion_pytorch_tpu_torch.config import DDPMConfig  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.models import latent_diffusion as port_ld  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.utils.data import encode_png, read_image  # noqa: E402
+from test_torch_port_sample_graph import body_draws  # noqa: E402
+from test_torch_port_samplers import _StandIn, _stand_in  # noqa: E402
 from test_torch_port_slice import PROMPTS, models  # noqa: E402,F401  (module-scoped tiny JAX + port models)
 
 torch.set_num_threads(2)
@@ -115,45 +119,66 @@ def _ctx(jax_model):
     return ctx, uncond, torch.from_numpy(np.array(ctx)), torch.from_numpy(np.array(uncond))
 
 
+def _unets(models, tiny: bool):
+    """(JAX UNet, port UNet, JAX params): the tiny UNet, or the samplers'
+    stand-in (the loop under test at a fraction of the tiny UNet's compile)."""
+    jax_model, port_model = models
+    if tiny:
+        return jax_model.unet, port_model.unet, jax_model.unet_params
+    return _StandIn(), _stand_in, None
+
+
 @pytest.mark.parametrize("sampler", ["ddim", "dpmpp"])
 def test_img2img_loop_matches_jax(models, sampler):
     """strength 0.75 of 7 steps: the final 5, from the init latent q-sampled
-    to the first of them."""
+    to the first of them; ddim through the tiny UNet, dpmpp through the
+    stand-in."""
     jax_model, port_model = models
+    j_unet, p_unet, params = _unets(models, tiny=sampler == "ddim")
     rng = np.random.default_rng(4)
     init, noise = (rng.standard_normal((2, 8, 8, 4)).astype(np.float32) for _ in range(2))
-    j_fn = jax_ld.make_sample_fn(jax_model.unet, JS, 7, sampler=sampler, guidance_scale=7.5, strength=0.75)
-    p_fn = port_ld.make_sample_fn(port_model.unet, PS, 7, sampler=sampler, guidance_scale=7.5, strength=0.75)
+    j_fn = jax_ld.make_sample_fn(j_unet, JS, 7, sampler=sampler, guidance_scale=7.5, strength=0.75)
+    p_fn = port_ld.make_sample_fn(p_unet, PS, 7, sampler=sampler, guidance_scale=7.5, strength=0.75)
     assert p_fn.start_timestep == j_fn.start_timestep
     t0 = np.full((2,), j_fn.start_timestep, np.int32)
     j_xt = jax_schedule.add_noise(JS, jnp.asarray(init), jnp.asarray(noise), jnp.asarray(t0))
     p_xt = sched.add_noise(PS, torch.from_numpy(init), torch.from_numpy(noise), torch.from_numpy(t0))
     np.testing.assert_allclose(p_xt.numpy(), np.asarray(j_xt), rtol=1e-5, atol=1e-5)
     ctx, uncond, p_ctx, p_uncond = _ctx(jax_model)
-    ref = jax.jit(j_fn)(jax_model.unet_params, j_xt, ctx, uncond, jax.random.PRNGKey(0))
+    ref = jax.jit(j_fn)(params, j_xt, ctx, uncond, jax.random.PRNGKey(0))
     with torch.no_grad():
         out = p_fn(p_xt, p_ctx, p_uncond)
+        body = None if sampler == "ddim" else p_fn.body(p_xt, p_ctx, p_uncond, body_draws(p_fn, None))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **LOOP)
+    if body is not None:
+        np.testing.assert_allclose(body.numpy(), np.asarray(ref), **LOOP)
 
 
 @pytest.mark.parametrize("sampler", ["ddim", "euler_a"])
 def test_inpaint_loop_matches_jax(models, sampler):
+    """ddim through the tiny UNet, euler_a through the stand-in."""
     jax_model, port_model = models
+    j_unet, p_unet, params = _unets(models, tiny=sampler == "ddim")
     rng = np.random.default_rng(5)
     init, x_T = (rng.standard_normal((2, 8, 8, 4)).astype(np.float32) for _ in range(2))
     mask = np.zeros((2, 8, 8, 1), np.float32)
     mask[:, :, :4] = 1.0  # repaint the left half
-    j_fn = jax_ld.make_sample_fn(jax_model.unet, JS, 5, sampler=sampler, guidance_scale=7.5, inpaint=True)
-    p_fn = port_ld.make_sample_fn(port_model.unet, PS, 5, sampler=sampler, guidance_scale=7.5, inpaint=True)
+    j_fn = jax_ld.make_sample_fn(j_unet, JS, 5, sampler=sampler, guidance_scale=7.5, inpaint=True)
+    p_fn = port_ld.make_sample_fn(p_unet, PS, 5, sampler=sampler, guidance_scale=7.5, inpaint=True)
     ctx, uncond, p_ctx, p_uncond = _ctx(jax_model)
     key = jax.random.PRNGKey(6)
-    ref = np.asarray(jax.jit(j_fn)(jax_model.unet_params, jnp.asarray(x_T), ctx, uncond, key,
+    ref = np.asarray(jax.jit(j_fn)(params, jnp.asarray(x_T), ctx, uncond, key,
                                    jnp.asarray(mask), jnp.asarray(init)))
     step, blend = jax_draws(key, 5, x_T.shape)
     with torch.no_grad():
         out = p_fn(torch.from_numpy(x_T), p_ctx, p_uncond, noise=step, blend_noise=blend,
                    mask=torch.from_numpy(mask), init_latents=torch.from_numpy(init)).numpy()
+        body = None if sampler == "ddim" else p_fn.body(
+            torch.from_numpy(x_T), p_ctx, p_uncond, body_draws(p_fn, step, blend), mask=torch.from_numpy(mask),
+            init_latents=torch.from_numpy(init)).numpy()
     np.testing.assert_allclose(out, ref, **LOOP)
+    if body is not None:
+        np.testing.assert_allclose(body, ref, **LOOP)
     keep = np.broadcast_to(mask == 0, out.shape)
     np.testing.assert_array_equal(out[keep], init[keep])
     np.testing.assert_array_equal(ref[keep], init[keep])

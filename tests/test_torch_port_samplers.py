@@ -17,7 +17,9 @@ the tiny UNet of ``test_torch_port_slice.py`` (one JAX model for the module): 2e
 latents, the slice test's bar (CFG multiplies each step's eps difference by
 7.5, and the two schedules' cumprods differ by ~3e-5 relative). ``ddpm``,
 ``euler_a`` and ``dpmpp_sde`` take JAX's per-step draws (``split(k, 3)`` per
-step, as its scan draws them). The pipeline: a row of a batch with per-row
+step, as its scan draws them). Each stand-in loop's pre-drawn body (what a
+CUDA graph captures, ``SampleLoop.body``) is held to the same JAX result,
+JAX's draws laid out in its draw order. The pipeline: a row of a batch with per-row
 seeds gives its solo render's bytes.
 """
 
@@ -42,6 +44,7 @@ from stable_diffusion_pytorch_tpu_torch.models import latent_diffusion as port_l
 from stable_diffusion_pytorch_tpu_torch.models import schedule as sched  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion  # noqa: E402
 from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig  # noqa: E402
+from test_torch_port_sample_graph import body_draws  # noqa: E402
 from test_torch_port_slice import PROMPTS, models  # noqa: E402,F401  (module-scoped tiny JAX + port models)
 
 torch.set_num_threads(2)
@@ -337,8 +340,15 @@ def test_sample_loop_matches_jax(models, case, unet):
     with torch.no_grad():
         out = p_fn(torch.from_numpy(x_T), torch.from_numpy(np.array(ctx)), torch.from_numpy(np.array(uncond)),
                    noise=noise)
+        # the loop a CUDA graph captures, JAX's draws laid out for it (the
+        # tiny UNet's cases run the same loop code: their eager loop is held)
+        body = None if unet == "tiny" else p_fn.body(
+            torch.from_numpy(x_T), torch.from_numpy(np.array(ctx)), torch.from_numpy(np.array(uncond)),
+            body_draws(p_fn, noise))
     assert np.isfinite(np.asarray(ref)).all()
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **LOOP)
+    if body is not None:
+        np.testing.assert_allclose(body.numpy(), np.asarray(ref), **LOOP)
 
 
 def test_latent_diffusion_sample_defaults_to_ddpm_and_reads_compat(models, monkeypatch):

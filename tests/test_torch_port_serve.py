@@ -6,7 +6,8 @@ hot-swap), at the JAX test's tiny flags with ``--device cpu``. Plus: a
 weights (``lora_scale`` applied), and one whose LoRA does not fit, or is
 missing, is refused with 400 before any weight changes; the swap prefers the
 checkpoint's EMA weights, a checkpoint of another module is refused before
-any weight changes, and ``ServeConfig`` is the JAX server's.
+any weight changes, and ``ServeConfig`` is the JAX server's (its warm-up help
+says capture where JAX's says compile).
 """
 
 import dataclasses
@@ -257,5 +258,12 @@ def test_serve_config_and_buckets_are_the_jax_servers():
     def table(cls):
         return [(f.name, f.default, dict(f.metadata)) for f in dataclasses.fields(cls)]
 
-    assert table(serve.ServeConfig) == table(jax_serve.ServeConfig)
+    # the warm-up flags are JAX's; on a card they capture the sampling loop
+    # where JAX's compile it, and their help says so
+    expected = [(name, default, {**meta, "help": meta["help"].replace("compile", "capture")})
+                for name, default, meta in table(jax_serve.ServeConfig)]
+    expected[[row[0] for row in expected].index("warmup")][2]["help"] = (
+        "capture the default request signature's sampling loop at startup (on a card: a warm-up run and a CUDA "
+        "graph capture).")
+    assert table(serve.ServeConfig) == expected
     assert [serve._bucket(n, 4) for n in range(1, 7)] == [jax_serve._bucket(n, 4) for n in range(1, 7)]

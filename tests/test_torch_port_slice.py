@@ -75,36 +75,38 @@ def random_params(module, seed, *args):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+def text_encoders():
+    """The tiny CLIP tower's JAX text-encoder facade, with the offline BPE
+    tokenizer its resolver picks when no vocab files are staged, and the
+    port's ``CLIPModel`` of the same weights."""
+    j_clip = jax_clip.CLIPTextTransformer(**CLIP_KW)
+    c_params = random_params(j_clip, 2, jnp.zeros((1, 77), jnp.int32))
+    te = jax_clip.CLIPModel.__new__(jax_clip.CLIPModel)
+    te.cfg, te.max_seq_len, te.module, te.params, te._ti = jax_clip.ClipConfig(model_dir=None), 77, j_clip, c_params, None
+    te.tokenizer = CLIPBPETokenizer(max_seq_len=77)
+    te._encode = jax.jit(j_clip.apply)
+    p_clip = CLIPTextTransformer(**CLIP_KW)
+    p_clip.load_state_dict(convert.to_torch(convert.clip_state_dict(c_params)), strict=True)
+    return te, CLIPModel(ClipConfig(model_dir=None), p_clip.eval())
+
+
 @pytest.fixture(scope="module")
 def models():
     unet_cfg, vae_cfg = jax_unet.UnetConfig(**UNET_KW), jax_vae.AutoencoderConfig(**VAE_KW)
     j_unet = jax_unet.UNetModel.from_config(4, 4, unet_cfg)
     j_vae = jax_vae.AutoEncoderKL.from_config(vae_cfg)
-    j_clip = jax_clip.CLIPTextTransformer(**CLIP_KW)
     u_params = random_params(j_unet, 0, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32), jnp.zeros((1, 77, 32)))
     v_params = random_params(j_vae, 1, jnp.zeros((1, 16, 16, 3)))
-    c_params = random_params(j_clip, 2, jnp.zeros((1, 77), jnp.int32))
-
-    # the JAX text-encoder facade around the tiny tower, with the offline BPE
-    # tokenizer its resolver picks when no vocab files are staged
-    te = jax_clip.CLIPModel.__new__(jax_clip.CLIPModel)
-    te.cfg, te.max_seq_len, te.module, te.params, te._ti = jax_clip.ClipConfig(model_dir=None), 77, j_clip, c_params, None
-    te.tokenizer = CLIPBPETokenizer(max_seq_len=77)
-    te._encode = jax.jit(j_clip.apply)
+    j_te, p_te = text_encoders()
     jax_model = jax_ld.LatentDiffusion(
-        j_unet, u_params, j_vae, v_params, te, jax_schedule.make_schedule(jax_schedule.DDPMConfig())
+        j_unet, u_params, j_vae, v_params, j_te, jax_schedule.make_schedule(jax_schedule.DDPMConfig())
     )
 
     p_unet = UNetModel(4, 4, UnetConfig(**UNET_KW))
     p_unet.load_state_dict(convert.to_torch(convert.unet_state_dict(u_params, unet_cfg)), strict=True)
     p_vae = AutoEncoderKL(AutoencoderConfig(**VAE_KW))
     p_vae.load_state_dict(convert.to_torch(convert.autoencoder_state_dict(v_params, vae_cfg)), strict=True)
-    p_clip = CLIPTextTransformer(**CLIP_KW)
-    p_clip.load_state_dict(convert.to_torch(convert.clip_state_dict(c_params)), strict=True)
-    port_model = LatentDiffusion(
-        p_unet.eval(), p_vae.eval(), CLIPModel(ClipConfig(model_dir=None), p_clip.eval()),
-        make_schedule(DDPMConfig()),
-    )
+    port_model = LatentDiffusion(p_unet.eval(), p_vae.eval(), p_te, make_schedule(DDPMConfig()))
     return jax_model, port_model
 
 

@@ -159,9 +159,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
    samples/s, step ms p50, peak memory and the optimizer state's bytes. The trainer is built where its
    phase runs, after every other phase's model and trainer is freed, so the
    peak (after ``reset_peak_memory_stats``) is this configuration's own.
-   Then ``torch.profiler`` over one more accumulation window: device ms per
-   micro step by kernel category and the device's idle share (the
-   profiler's own cost included).
+   It runs the default route: each optimizer step one replayed
+   CUDA graph, captured at the first (whose warm-up and capture the step
+   timer leaves out), the evaluation step one graph per batch signature;
+   the capture's tally per replay, and reserved GB at the phase's start,
+   after the run and at its end (each trainer's graph pool goes with it).
+   Then ``torch.profiler`` over one more optimizer step on that route (one
+   replay with its placement and pull): device ms per micro step by kernel
+   category and the device's idle share (the profiler's own cost
+   included).
 8. hires_train: the same at 1024x1024, batch 1, the 16384-token
    self-attention's backward included.
 9. lean_train: the same at 512x512, batch 16, with ``--use-8bit-adam
@@ -180,8 +186,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
    one evaluation, each built where it runs and freed: DreamBooth with a
    rank-8 LoRA, prior preservation (4 class images sampled first) and int8
    Adam; textual inversion (2 vectors); ControlNet (the encoder copy, edge
-   hints). Each takes phase 7's checks and record (K9 once per optimizer step
-   in the DreamBooth run), the launches of one more micro step, the frozen
+   hints), each on phase 7's graph route (the parameters read after each
+   dispatch, one optimizer step a dispatch). Each takes phase 7's checks and
+   record (K9 once per optimizer step in the DreamBooth run), the launches of one more micro step, the frozen
    UNet, VAE and CLIP bit-identical after it, which tensors moved at each
    step (LoRA's B and the zero convs at step 1, A and the encoder copy only
    at step 2), and its checkpoint loaded by the sampling side's loaders into
@@ -209,7 +216,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
    another order: 2.4e-5 at [4,300,400,3] -> 256). (d) ``--no-fused-adamw`` at accumulation 2, 2 steps,
    a fused ``AdamW`` over copies of the starting parameters fed the same
    gradients: the parameters within 1e-3 of the learning rate beyond 2^-22
-   of their size after step 2.
+   of their size after step 2 (the trainer built with ``capture=False``:
+   the shadow optimizer and the host's reading of both sit inside the step).
+   (a)-(c) run phase 7's graph route.
    Hugging Face datasets and wandb are absent on the card's machine (and it
    has no network): those paths are held by the CPU tests only.
 9e. eval: from the staged directory, (a) the port's txt2img ``main`` with
@@ -224,10 +233,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
    extractor (``utils/fid.py:InceptionFeatureExtractor``, f32 without TF32,
    299x299) on the card and on the CPU, features within ``FID_FEATURE_TOL``
    of their scale; |FID(set, itself)| below 1 % of FID(set, the set shifted
-   by 0.5); seconds per 32 images and peak GB. (c) ``CLIPScorer`` over the
-   32 images and prompts with the staged ViT-L/14, f32: K1 ran at
-   [16, 257, 257, 16, 64] only, 48 times, every launch ``fma``; the card's
-   similarities within ``CLIP_SIM_TOL`` of the CPU's; seconds per image.
+   by 0.5); seconds per 32 images and peak GB; the extractor one CUDA graph
+   for its batch signature, its features bit-identical to an eager
+   extractor's (``capture=False``), seconds per 32 images by both. (c)
+   ``CLIPScorer`` over the 32 images and prompts with the staged ViT-L/14,
+   f32, one graph per tower: K1 ran at [16, 257, 257, 16, 64] only, 48
+   times (host launches and replays), every host launch ``fma``; the card's
+   similarities within ``CLIP_SIM_TOL`` of the CPU's and bit-identical to an
+   eager scorer's; seconds per image by both. (b) and (c) cuDNN
+   deterministic.
 9f. parallel: multi-device training on the one card, at SD-1.5 width,
    512x512, batch 4, accumulation 1, 4 optimizer steps a run (2 warm-up,
    2 timed), cuDNN's deterministic convolutions, every run from the staged
@@ -269,7 +283,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
    at ``FID_RUN`` with the random-Inception ensemble: fid(compat, default)
    above ``FID_ORDER`` times the compat floor, latent and image; (e)
    ``fid_samplers`` cut to ``FS_RUN``: the quick-train's loss falls, DDIM's
-   RMSE to the target falls with steps; (f) ``export_torch`` of a
+   RMSE to the target falls with steps; (d) and (e) through their graphs
+   (the loops through a ``LatentDiffusion``'s loop cache, the decode and the
+   features per signature, the quick-train step one graph) and again with
+   ``capture=False``, cuDNN deterministic: the same record, number for
+   number, and the seconds of both; (f) ``export_torch`` of a
    checkpoint of the staged UNet, reloaded strictly, and
    ``convert_inception`` of the staged ``.pth``, loaded back: both
    bit-equal; (g) ``--config-file zero2.json`` by name: the UNet trainer
@@ -282,30 +300,34 @@ Phases, each printing one JSON line; any failure exits nonzero:
 10. checkpoint: small-width runs on the card, the f32 optimizer and the lean
    one (int8 Adam, bf16 accumulator), each save ``checkpoint-2``; a second
    trainer resumed from ``latest`` holds exactly the saved state.
-11. chained: chained dispatch (``--steps-per-dispatch``), each optimizer
-   step captured once as a CUDA graph and replayed, at SD-1.5 width,
-   cuDNN deterministic (``CHAINED_RUNS``): (a) the ``perf.json`` preset, UNet
-   512 batch 4, accumulation 1, 10 steps, a checkpoint and an evaluation at
-   step 8 (a chunk of 8 replays, then two boundary replays); (b) the lean
-   run (int8 Adam: K9 in the graph, a bf16 accumulator, conv-save remat),
-   batch 16, accumulation 2, 4 steps in chunks of 2; (c) the VAE trainer at
-   256 batch 4, accumulation 2, 4 steps (a chunk of 2, two boundary
-   replays). Each trainer is built once and runs per step, chained and per
-   step again (the control) from the same starting state, restored in
-   place: the chained losses and parameters must equal the per-step run's
-   bit for bit or lie within the two per-step runs' own gap; its evaluation
-   and checkpoint steps are the per-step run's; the launches the capture
-   recorded for one replay equal the per-step run's launches of K1, the
-   split set, K6, K7, K8 (and K9 in (b)) per optimizer step, the replays are
-   counted, and a device profile of one replay sees each of them. Per route:
-   ms per optimizer step (the median of 2 windows: a chunk of N replays and
-   its one pull, or per-step windows of 2 steps), the idle share of a
-   profiled optimizer step, peak GB of the run, the warm-up's and the
-   capture's seconds. Last, a step whose body syncs with the host must
-   raise when captured (no eager fallback).
-12. sample_graph (run last, on the slice's model built anew): the reverse
-   loop as one CUDA graph per signature, cuDNN deterministic, 512x512 batch
-   1, CFG 7.5, 10 steps, through the entry points: every sampler (ddim at
+11. chained: the training step as one program, each optimizer step
+   captured once as a CUDA graph and replayed, at SD-1.5 width, cuDNN
+   deterministic (``CHAINED_RUNS``): (a) the ``perf.json`` preset, UNet 512
+   batch 4, accumulation 1, 10 steps, a checkpoint and an evaluation at
+   step 8 (chained: a chunk of 8 replays, then two boundary replays); (b)
+   the VAE trainer at 256 batch 4, accumulation 2, 4 steps (chained: a
+   chunk of 2, two boundary replays). Each runs eager (a trainer built with
+   ``capture=False``: the control), replayed (``--steps-per-dispatch 1``,
+   the default: one replay an optimizer step) and chained, from one
+   starting state: losses, evaluation losses and parameters bit for bit
+   the eager run's; evaluation and checkpoint steps the same; the launches
+   the capture recorded for one replay equal the eager run's launches of
+   K1, the split set, K6, K7, K8 per optimizer step, the replays are
+   counted, and a device profile of one replay sees each of them. Per
+   route: ms per optimizer step (the median of 2 windows: eager windows of
+   2 steps, each step a dispatch, or a chunk of N replays and its one
+   pull), the idle share of a profiled optimizer step, peak and reserved
+   GB, the warm-up's and the capture's seconds; (a)'s eager and replayed
+   runs under ``SD_TRAIN_PROFILE=1``, their host phases (fetch, place,
+   dispatch, sync) from the last record. Last, a step whose body syncs with
+   the host must raise when captured (no eager fallback).
+12. sample_graph (run last, on the slice's model built anew): first the
+   text encoder's graphs, one per signature: a prompt and the empty one, a
+   weighted prompt, a 2-chunk prompt and a bucket of 4, each context
+   bit-identical to the eager twin's (three calls), the first prompt's
+   again after the others, three graphs, ms per encode by both; then the
+   reverse loop as one CUDA graph per signature, cuDNN deterministic,
+   512x512 batch 1, CFG 7.5, 10 steps, through the entry points: every sampler (ddim at
    eta 0 and 0.5, ddpm, dpmpp, euler, euler_a, heun, dpmpp_sde), img2img at
    0.75, inpaint with a half mask, DeepCache at 3, one ControlNet, the hires
    fix (512 x2: K1 at kv 16384). Each case runs once (each loop's warm-up,
@@ -356,6 +378,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -711,8 +734,9 @@ def train_argv(work: str, *flags: str):
             "--logging-dir", os.path.join(work, "logs"), "--ckpt-dir", os.path.join(work, "ckpt"), *flags]
 
 
-def build_sd15_trainer(work: str, resolution: int, batch: int, flags=()):
-    """The training entry point's trainer at SD-1.5 width."""
+def build_sd15_trainer(work: str, resolution: int, batch: int, flags=(), capture: bool = True):
+    """The training entry point's trainer at SD-1.5 width (``capture``: the
+    trainer's route, fixed at build; False builds the eager control)."""
     import shutil
 
     import torch
@@ -725,14 +749,14 @@ def build_sd15_trainer(work: str, resolution: int, batch: int, flags=()):
         "--eval-batch-size", str(batch), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
         "--learning-rate", "1e-4", "--max-train-samples", str(16 * batch), "--max-val-samples", str(batch),
         "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4", *flags,
-    ))
+    ), capture=capture)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     fill_zero_weights(trainer.model.unet, gen)
     fill_zero_weights(trainer.model.autoencoder, gen)
     return trainer
 
 
-def build_sd15_vae_trainer(work: str, resolution: int, batch: int, flags=()):
+def build_sd15_vae_trainer(work: str, resolution: int, batch: int, flags=(), capture: bool = True):
     """The autoencoder training entry point's trainer at the SD-1.5 VAE's width."""
     import shutil
 
@@ -746,7 +770,7 @@ def build_sd15_vae_trainer(work: str, resolution: int, batch: int, flags=()):
         "--eval-batch-size", str(batch), "--max-train-steps", str(TRAIN_STEPS), "--lr-warmup-steps", "0",
         "--learning-rate", "1e-4", "--max-train-samples", str(16 * batch), "--max-val-samples", str(batch),
         "--max-test-samples", "2", "--log-interval", str(TRAIN_STEPS), "--dataloader-num-workers", "4", *flags,
-    ))
+    ), capture=capture)
     fill_zero_weights(trainer.vae, torch.Generator(device="cuda").manual_seed(SEED + 1))
     return trainer
 
@@ -810,6 +834,27 @@ def build_personalize_trainer(kind: str, work: str, class_steps: int = STEPS):
         check(trainer.state.ema_params is None, "the ControlNet run keeps no EMA to re-copy")
         init_controlnet_from_unet(trainer.model.unet, trainer.controlnet)
     return trainer
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside: a graph against its eager
+    control is bit for bit only so."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def reserved_gb() -> float:
+    """GB the caching allocator holds on the card (graph pools included)."""
+    import torch
+
+    return torch.cuda.memory_reserved() / 2**30
 
 
 def free_cuda() -> float:
@@ -2650,16 +2695,22 @@ def phase_serve(work: str, steps: int) -> dict:
 
 
 def phase_train(trainer, name: str, image_size: int, batch: int, required, allocated_before_gb: float,
-                steps: int = TRAIN_STEPS) -> dict:
+                steps: int = TRAIN_STEPS, route="graph") -> dict:
     """Train ``steps`` optimizer steps with the trainer, alone on the card
-    (``allocated_before_gb``: what its own build holds), then profile one
-    more accumulation window and count the launches of one more micro step
-    alone (``launches_per_micro_step``, with each kernel's batch sizes)."""
+    (``allocated_before_gb``: what its own build holds), on the route it was
+    built with (``route``: ``"graph"``, each optimizer step one replayed CUDA
+    graph and the evaluation step too, or None, eager), then profile one
+    more optimizer step on that route and count the launches of one more
+    micro step alone, eagerly (``launches_per_micro_step``, with each
+    kernel's batch sizes); the capture's tally per replay, reserved GB at
+    the start and the end."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
     from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
 
+    check(trainer._route == route, f"the {name} trainer runs the {trainer._route} route, want {route}")
+    reserved0 = reserved_gb()
     state = trainer.state
     watch = [n for n in state.names if n.endswith(("conv_in.weight", "out.2.weight", "middle_block.1.proj_in.weight"))]
     watch += [state.names[i] for i in range(0, len(state.names), 97)]
@@ -2695,7 +2746,13 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
         "optimizer": type(state.optimizer).__name__, "optimizer_layout": state.optimizer.layout(),
         "optimizer_state_bytes": state.optimizer.state_bytes(),
         "remat": trainer.model.unet.remat if hasattr(trainer, "model") else None,
+        "route": trainer._route, "reserved_at_start_gb": reserved0, "reserved_after_train_gb": reserved_gb(),
+        "eval_graphs": sum(k[0] == "eval" for k in trainer._graphs.graphs),
     }
+    graph = trainer._graph
+    if graph is not None:
+        res.update(tally_per_replay={k: sum(v.values()) for k, v in graph.tally.items()}, warmup_s=graph.warmup_s,
+                   capture_s=graph.capture_s)
     k9_want = steps if "adam8bit_update" in required else 0  # one launch per optimizer step
     res["ok"] = (res["finite"] and len(train_recs) == steps and len(eval_recs) == 1
                  and state.step == micro and all(v > 0 for v in changed.values())
@@ -2720,6 +2777,9 @@ def phase_train(trainer, name: str, image_size: int, batch: int, required, alloc
     torch.cuda.synchronize()
     res["launches_per_micro_step"] = launch_counts()
     res["micro_step_batch_sizes"] = {k: sorted({key[0] for key in native.COUNTERS[k].shapes}) for k in TPU_KERNELS}
+    res["reserved_at_end_gb"] = reserved_gb()
+    emit({"phase": f"{name}_memory", **{k: res[k] for k in ("reserved_at_start_gb", "reserved_after_train_gb",
+                                                            "reserved_at_end_gb", "route", "step_ms_p50")}})
     return res
 
 
@@ -2782,14 +2842,20 @@ def profile_device(fn, units: int, unit: str) -> dict:
 
 
 def profile_window(trainer) -> dict:
-    """One accumulation window (its micro steps and the optimizer update)
-    after the train run, profiled."""
+    """One optimizer step (its accumulation window's micro steps and the
+    update) after the train run, profiled on the trainer's route: one replay
+    of the captured step with its placement and its pull (``_dispatch``), or
+    the micro steps eagerly."""
     from stable_diffusion_pytorch_tpu_torch.trainers.trainer import step_generator
 
     accum = trainer.cfg.train.gradient_accumulation_steps
     it = iter(trainer.train_loader)
-    batches = [trainer._place_batch(next(it)) for _ in range(accum)]
+    host = [next(it) for _ in range(accum)]
     del it
+    if trainer._route == "graph":
+        micro0 = trainer.state.step
+        return profile_device(lambda: trainer._dispatch(host, micro0, 1), accum, "micro_step")
+    batches = [trainer._place_batch(b) for b in host]
 
     def window():
         for i, batch in enumerate(batches):
@@ -2895,17 +2961,16 @@ def phase_personalize(work: str) -> dict:
         frozen = {"unet": model.unet, "text_encoder": model.text_encoder.module, "autoencoder": model.autoencoder}
         before = _host_copy(frozen)
         start = [p.detach().clone() for p in state.params]
-        after_update, orig_step = [], state.optimizer.step
+        after_update = []
 
-        def step(grads, orig_step=orig_step, after_update=after_update, state=state):
-            applied, norm = orig_step(grads)
-            if applied:
-                after_update.append([p.detach().clone() for p in state.params])
-            return applied, norm
+        def dispatch(window, micro0, steps, trainer=trainer, after_update=after_update, state=state):
+            rows = type(trainer)._dispatch(trainer, window, micro0, steps)  # one optimizer step a dispatch
+            after_update.append([p.detach().clone() for p in state.params])
+            return rows
 
-        state.optimizer.step = step
+        trainer._dispatch = dispatch
         res = phase_train(trainer, kind, PERSONALIZE_SIZE, PERSONALIZE_BATCH, PERSONALIZE_KERNELS[kind], free_cuda())
-        state.optimizer.step = orig_step
+        del trainer._dispatch
         after = _host_copy(frozen)
         res["frozen_unchanged"] = {name: all(torch.equal(t, after[name][k]) for k, t in tensors.items())
                                    for name, tensors in before.items()}
@@ -3115,14 +3180,16 @@ def _chain_run(work: str) -> dict:
     ``AdamW`` over copies of the starting parameters takes the same gradients
     at every micro step: after step 2 the two paths' parameters agree within
     ``CHAIN_TOL_LR`` of the learning rate beyond ``CHAIN_TOL_REL`` of their
-    size (``trainers/optim.py:ChainAdamW``)."""
+    size (``trainers/optim.py:ChainAdamW``). The trainer is built with
+    ``capture=False``: the shadow optimizer and the host's reading of both
+    at step 2 sit inside the step, where a capture cannot hold them."""
     import types
 
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.trainers import optim
 
-    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH, CHAIN_FLAGS)
+    trainer = build_sd15_trainer(work, 512, TRAIN_BATCH, CHAIN_FLAGS, capture=False)
     state, cfg = trainer.state, trainer.cfg
     check(isinstance(state.optimizer, optim.ChainAdamW), f"--no-fused-adamw built {type(state.optimizer).__name__}")
     shadow_params = [p.detach().clone() for p in state.params]
@@ -3145,7 +3212,7 @@ def _chain_run(work: str) -> dict:
 
     state.optimizer.step = step
     try:
-        res = phase_train(trainer, "train_options_chain", 512, TRAIN_BATCH, TRAIN_KERNELS, free_cuda())
+        res = phase_train(trainer, "train_options_chain", 512, TRAIN_BATCH, TRAIN_KERNELS, free_cuda(), route=None)
     finally:
         state.optimizer.step = chain_step
     lr = float(cfg.optim.learning_rate)
@@ -3429,7 +3496,10 @@ def _staged_txt2img(stage: str, work: str) -> dict:
 
 
 def _fid_run(stage: str) -> dict:
-    """(b) the canonical extractor on the card vs the CPU, FID self vs shifted."""
+    """(b) the canonical extractor on the card vs the CPU, FID self vs
+    shifted; on the card one graph for its batch signature, the features
+    bit-identical to the eager extractor's (``capture=False``), s per 32
+    images by both."""
     import numpy as np
     import torch
 
@@ -3440,27 +3510,39 @@ def _fid_run(stage: str) -> dict:
     def feats(ext, x):
         return np.concatenate([ext(x[i:i + EVAL_BATCH]) for i in range(0, len(x), EVAL_BATCH)])
 
-    card = InceptionFeatureExtractor(model_dir=stage, device="cuda")
-    card_shifted = feats(card, shifted)  # the first call also warms cuDNN up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    card_feats, secs = _timed(lambda: feats(card, images))
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    with cudnn_deterministic():
+        card = InceptionFeatureExtractor(model_dir=stage, device="cuda")
+        card_shifted = feats(card, shifted)  # the first call also warms cuDNN up and captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        card_feats, secs = _timed(lambda: feats(card, images))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        eager = InceptionFeatureExtractor(model_dir=stage, device="cuda", capture=False)
+        feats(eager, shifted)
+        eager_feats, eager_secs = _timed(lambda: feats(eager, images))
+        graphs = len(card._graphs.graphs)
+        del card, eager
     cpu_feats, cpu_s = _timed(lambda: feats(InceptionFeatureExtractor(model_dir=stage, device="cpu"), images))
     err = float(np.abs(card_feats - cpu_feats).max())
     scale = max(1.0, float(np.abs(cpu_feats).max()))
     fid_self, fid_shift = fid_from_features(card_feats, card_feats), fid_from_features(card_feats, card_shifted)
-    res = {"s_per_32_images": secs * 32 / EVAL_IMAGES, "peak_gb": peak, "cpu_s": cpu_s, "feature_err": err,
+    res = {"s_per_32_images": secs * 32 / EVAL_IMAGES, "eager_s_per_32_images": eager_secs * 32 / EVAL_IMAGES,
+           "graphs": graphs, "graph_equals_eager": bool(np.array_equal(card_feats, eager_feats)),
+           "peak_gb": peak, "cpu_s": cpu_s, "feature_err": err,
            "feature_scale": scale, "feature_rel_err": err / scale, "tol": FID_FEATURE_TOL,
            "fid_self": fid_self, "fid_shifted": fid_shift, "feature_shape": list(card_feats.shape)}
     res["checks"] = {"card_vs_cpu": err / scale <= FID_FEATURE_TOL, "finite": bool(np.isfinite(card_feats).all()),
+                     "graph_equals_eager": res["graph_equals_eager"] and graphs == 1,
                      "shape": res["feature_shape"] == [EVAL_IMAGES, 2048],
                      "self_below_shifted": abs(fid_self) < FID_SELF_RATIO * fid_shift}
     return res
 
 
 def _clip_score_run(stage: str) -> dict:
-    """(c) CLIPScorer with the staged ViT-L/14, f32, on the card vs the CPU."""
+    """(c) CLIPScorer with the staged ViT-L/14, f32, on the card vs the CPU;
+    on the card one graph per tower (K1's launches counted by host and
+    replays, each host launch ``fma``), the similarities bit-identical to
+    the eager scorer's (``capture=False``), s per image by both."""
     import numpy as np
 
     from stable_diffusion_pytorch_tpu_torch.config import ClipConfig
@@ -3471,15 +3553,22 @@ def _clip_score_run(stage: str) -> dict:
     tok = resolve_tokenizer(ClipConfig(model_dir=stage))
     images = ((eval_images() + 1.0) * 127.5).round().astype(np.uint8)
     prompts = eval_prompts()
-    scorer = CLIPScorer(tok, model_dir=stage, device="cuda")
-    native.reset_counters()
-    sims, first_s = _timed(lambda: scorer.similarities(images, prompts, batch=EVAL_BATCH))
-    launches = launch_counts()
-    k1 = native.COUNTERS["flash_attention"]
-    k1_shapes, k1_impls = {str(k): n for k, n in k1.shapes.items()}, dict(k1.impls)
-    _, secs = _timed(lambda: scorer.similarities(images, prompts, batch=EVAL_BATCH))
-    del scorer
-    free_cuda()
+    with cudnn_deterministic():
+        scorer = CLIPScorer(tok, model_dir=stage, device="cuda")
+        native.reset_counters()
+        sims, first_s = _timed(lambda: scorer.similarities(images, prompts, batch=EVAL_BATCH))
+        launches = launch_counts()
+        k1 = native.COUNTERS["flash_attention"]
+        k1_shapes = {str(k): k1.shapes.get(k, 0) + k1.replay_shapes.get(k, 0)
+                     for k in {*k1.shapes, *k1.replay_shapes}}
+        k1_impls, k1_host = dict(k1.impls), k1.count
+        _, secs = _timed(lambda: scorer.similarities(images, prompts, batch=EVAL_BATCH))
+        graphs = len(scorer._graphs.graphs)
+        del scorer
+        eager = CLIPScorer(tok, model_dir=stage, device="cuda", capture=False)
+        eager_sims, eager_secs = _timed(lambda: eager.similarities(images, prompts, batch=EVAL_BATCH))
+        del eager
+        free_cuda()
     cpu = CLIPScorer(tok, model_dir=stage, device="cpu")
     cpu_sims, cpu_s = _timed(lambda: cpu.similarities(images, prompts, batch=EVAL_BATCH))
     score, cpu_score = (float(100.0 * np.maximum(s, 0.0).mean()) for s in (sims, cpu_sims))
@@ -3487,8 +3576,10 @@ def _clip_score_run(stage: str) -> dict:
     key = str((EVAL_BATCH, 257, 257, 16, 64, "torch.float32"))
     res = {"launches": launches, "k1_shapes": k1_shapes, "k1_impls": k1_impls, "score": score,
            "cpu_score": cpu_score, "max_sim_err": float(np.abs(sims - cpu_sims).max()), "tol": CLIP_SIM_TOL,
-           "s_per_image": secs / EVAL_IMAGES, "first_call_s": first_s, "cpu_s": cpu_s}
-    res["checks"] = {"k1_vision_fma": k1_shapes == {key: layers} and k1_impls == {"fma": layers},
+           "s_per_image": secs / EVAL_IMAGES, "eager_s_per_image": eager_secs / EVAL_IMAGES, "graphs": graphs,
+           "graph_equals_eager": bool(np.array_equal(sims, eager_sims)), "first_call_s": first_s, "cpu_s": cpu_s}
+    res["checks"] = {"k1_vision_fma": k1_shapes == {key: layers} and k1_impls == {"fma": k1_host} and k1_host > 0,
+                     "graph_equals_eager": res["graph_equals_eager"] and graphs == 2,
                      "card_vs_cpu": res["max_sim_err"] <= CLIP_SIM_TOL and abs(score - cpu_score) <= 100 * CLIP_SIM_TOL,
                      "finite": bool(np.isfinite(sims).all())}
     return res
@@ -3605,15 +3696,27 @@ def _tools_full_scale(seed: int) -> dict:
 def _tools_fid_eval(seed: int) -> dict:
     """(d) fid_eval at ``FID_RUN`` with the random-Inception ensemble: the
     compat sets apart from the default one by more than ``FID_ORDER`` times
-    their own floor, in latent and in image features."""
+    their own floor, in latent and in image features; its loops, decodes
+    and features through their graphs, then all eagerly (``capture=False``):
+    the same record, number for number."""
     from stable_diffusion_pytorch_tpu_torch.scripts import fid_eval
 
-    t0 = time.perf_counter()
-    stack = fid_eval.Stack.seeded(seed, "cuda")
-    r = fid_eval.run(stack, FID_RUN["n_images"], FID_RUN["steps"], FID_RUN["res"], FID_RUN["deep_cache"],
-                     fid_eval.ImageFID("random_inception", stack, "cuda"), seed)
-    r["seconds"] = time.perf_counter() - t0
+    def one(capture):
+        t0 = time.perf_counter()
+        stack = fid_eval.Stack.seeded(seed, "cuda", capture=capture)
+        out = fid_eval.run(stack, FID_RUN["n_images"], FID_RUN["steps"], FID_RUN["res"], FID_RUN["deep_cache"],
+                           fid_eval.ImageFID("random_inception", stack, "cuda"), seed)
+        del stack
+        free_cuda()
+        return out, time.perf_counter() - t0
+
+    with cudnn_deterministic():
+        r, seconds = one(True)
+        eager, eager_s = one(False)
+    r.update(seconds=seconds, eager_seconds=eager_s, eager_equal=eager == {k: v for k, v in r.items()
+                                                                            if k not in ("seconds", "eager_seconds")})
     r["checks"] = {
+        "graphs_equal_eager": r["eager_equal"],
         "latent_order": r["fid_latent_compat_vs_default"] > FID_ORDER * abs(r["fid_latent_compat_vs_compat"]),
         "image_order": r["fid_compat_vs_default"] > FID_ORDER * abs(r["fid_compat_vs_compat"]),
         "deep_cache_finite": r["fid_latent_exact_vs_dc3"] is not None}
@@ -3622,27 +3725,41 @@ def _tools_fid_eval(seed: int) -> dict:
 
 def _tools_fid_samplers(seed: int) -> dict:
     """(e) fid_samplers cut to ``FS_RUN``: the quick-train's loss falls
-    (last tenth below the first), DDIM's RMSE to the target falls with steps."""
+    (last tenth below the first), DDIM's RMSE to the target falls with steps;
+    its quick-train step and loops through their graphs, then all eagerly
+    (``capture=False``): the same losses and record, number for number."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.config import DDPMConfig
     from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
     from stable_diffusion_pytorch_tpu_torch.scripts import fid_samplers as fs
 
-    t0 = time.perf_counter()
     schedule = make_schedule(DDPMConfig(noise_steps=1000))
     basis = fs.make_basis(FS_RUN["res"])
-    unet = fs.build_unet(seed, "cuda")
-    losses = fs.quick_train(unet, schedule, basis, FS_RUN["train_steps"])
     ctx_bank = fs.make_batch(basis, torch.Generator().manual_seed(1234), FS_RUN["n"])[1].numpy()
+
+    def one(capture):
+        t0 = time.perf_counter()
+        unet = fs.build_unet(seed, "cuda")
+        losses = fs.quick_train(unet, schedule, basis, FS_RUN["train_steps"], capture=capture)
+        out = {"train_losses": losses,
+               **fs.curve(fs.loop_model(unet, schedule, capture), schedule, fs.parse_grid(FS_RUN["grid"]),
+                          ctx_bank, FS_RUN["n"], FS_RUN["res"], FS_RUN["target_steps"], FS_RUN["guidance"],
+                          FS_RUN["pool"])}
+        del unet
+        free_cuda()
+        return out, time.perf_counter() - t0
+
+    with cudnn_deterministic():
+        graphs, seconds = one(True)
+        eager, eager_s = one(False)
+    losses = graphs.pop("train_losses")
     r = {"cuts": {k: v for k, v in FS_RUN.items() if k in ("n", "train_steps", "target_steps", "grid")},
-         "train_loss_first": losses[0], "train_loss_last": losses[-1],
-         **fs.curve(unet, schedule, fs.parse_grid(FS_RUN["grid"]), ctx_bank, FS_RUN["n"], FS_RUN["res"],
-                    FS_RUN["target_steps"], FS_RUN["guidance"], FS_RUN["pool"]),
-         "seconds": time.perf_counter() - t0}
+         "train_loss_first": losses[0], "train_loss_last": losses[-1], **graphs, "seconds": seconds,
+         "eager_seconds": eager_s, "eager_equal": eager.pop("train_losses") == losses and eager == graphs}
     tenth = max(1, len(losses) // 10)
     ddim = [row["rmse_latent_vs_target"] for row in r["curve"] if row["sampler"] == FS_DDIM[0]]
-    r["checks"] = {"loss_falls": sum(losses[-tenth:]) < sum(losses[:tenth]),
+    r["checks"] = {"graphs_equal_eager": r["eager_equal"], "loss_falls": sum(losses[-tenth:]) < sum(losses[:tenth]),
                    "ddim_rmse_falls": len(ddim) == len(FS_DDIM[1]) and all(a > b for a, b in zip(ddim, ddim[1:]))}
     return r
 
@@ -4230,8 +4347,6 @@ CHAINED_RUNS = (
     ("perf_preset", "unet", 512, TRAIN_BATCH, 8, 10,
      ("--config-file", "perf.json", "--gradient-accumulation-steps", "1", "--checkpointing-steps", "8",
       "--log-interval", "8"), TRAIN_KERNELS),
-    ("lean", "unet", 512, LEAN_TRAIN_BATCH, 2, 4,
-     (*LEAN_FLAGS, "--gradient-accumulation-steps", "2", "--log-interval", "4"), LEAN_TRAIN_KERNELS),
     ("vae", "vae", VAE_TRAIN, VAE_TRAIN_BATCH, 2, 4, ("--gradient-accumulation-steps", "2", "--log-interval", "4"),
      VAE_TRAIN_KERNELS),
 )
@@ -4291,12 +4406,14 @@ def _per_step_window(trainer, batches, micro0: int = 0):
     return walls
 
 
-def _route_timing(trainer, chained: bool, steps: int) -> dict:
-    """ms per optimizer step of the run's route after its run: the median of
-    ``CHAINED_WINDOWS`` windows of ``steps`` steps (chained: one chunk of
-    ``steps`` replays and its one pull, per step), the launches of one window
-    (the host's and the replays') per optimizer step, and a device profile
-    of one optimizer step (its idle share)."""
+def _route_timing(trainer, route: str, steps: int) -> dict:
+    """ms per optimizer step of a run's route after its run: the median of
+    ``CHAINED_WINDOWS`` windows of ``steps`` steps (``"eager"``: each micro
+    step run and its loss read; ``"replayed"``: each optimizer step one
+    dispatch, a replay and its pull; ``"chained"``: one chunk of ``steps``
+    replays and its one pull, per step), the launches of one window (the
+    host's and the replays') per optimizer step, and a device profile of one
+    optimizer step (its idle share)."""
     import torch
 
     from stable_diffusion_pytorch_tpu_torch.ops import native
@@ -4305,10 +4422,18 @@ def _route_timing(trainer, chained: bool, steps: int) -> dict:
     accum = trainer.cfg.train.gradient_accumulation_steps
 
     def run(batches):
-        if chained:
+        n = len(batches) // accum
+        if route == "chained":
             t0 = time.perf_counter()
-            trainer._dispatch(batches, 0, len(batches) // accum)
-            return [(time.perf_counter() - t0) / (len(batches) // accum)]
+            trainer._dispatch(batches, 0, n)
+            return [(time.perf_counter() - t0) / n]
+        if route == "replayed":
+            walls = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                trainer._dispatch(batches[i * accum:(i + 1) * accum], i * accum, 1)
+                walls.append(time.perf_counter() - t0)
+            return walls
         return _per_step_window(trainer, batches)
 
     torch.cuda.synchronize()
@@ -4326,15 +4451,14 @@ def _route_timing(trainer, chained: bool, steps: int) -> dict:
     return out
 
 
-def _chained_config(name, kind, size, batch, spd, steps, flags, required, work) -> dict:
-    """One configuration of phase 11: its trainer built once, then runs from
-    the same starting state (restored in place, so a captured graph's
-    pointers stay valid): per step, chained, and per step again (the
-    control) for the ``perf.json`` run or where the chained run's bits
-    differ. Only the chained run writes its checkpoints (the per-step runs'
-    would be the same bits; each costs seconds at SD-1.5 width); the
-    parameters compared are held on the host, so every run has the card's
-    memory alike."""
+def _train_run(trainer, tag: str, spd: int, start: dict, ckpt_dir: str, ckpt_steps, profile: bool) -> dict:
+    """One run of phase 11: ``trainer`` from the state ``start`` (restored in
+    place, so a captured graph's pointers stay valid; None: the trainer as
+    built) at ``spd`` steps a
+    dispatch, checkpoints only where ``ckpt_steps`` is given, under
+    ``SD_TRAIN_PROFILE=1`` where ``profile`` -> its losses, evaluation
+    losses, steps, dispatches, peak and reserved GB, launches, route and the
+    last record's phase keys."""
     import shutil
 
     import torch
@@ -4342,59 +4466,91 @@ def _chained_config(name, kind, size, batch, spd, steps, flags, required, work) 
     from stable_diffusion_pytorch_tpu_torch.ops import native
     from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker
 
+    if start is not None:
+        trainer.state.load_state_dict(start)
+    trainer.cfg.train.steps_per_dispatch = spd
+    trainer.cfg.checkpoint.checkpointing_steps = ckpt_steps
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dispatches = []
+    inner = type(trainer)._dispatch
+
+    def recorded(window, micro0, k):
+        dispatches.append(k)
+        return inner(trainer, window, micro0, k)
+
+    trainer._dispatch = recorded
+    trainer.tracker = Tracker(trainer.cfg.log, trainer.run_name)  # train() closes its tracker
+    with open(trainer.tracker.jsonl_path) as f:
+        seen = len(f.readlines())
+    free_cuda()
+    reserved0 = reserved_gb()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_counters()
+    if profile:
+        os.environ["SD_TRAIN_PROFILE"] = "1"
+    try:
+        t1 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+    finally:
+        os.environ.pop("SD_TRAIN_PROFILE", None)
+        del trainer._dispatch
+    with open(trainer.tracker.jsonl_path) as f:
+        records = [json.loads(line) for line in f.readlines()[seen:]]
+    train_recs = [r for r in records if "train_loss" in r]
+    run = {"losses": [r["train_loss"] for r in train_recs],
+           "eval_steps": [r["step"] for r in records if "eval_loss" in r],
+           "eval_losses": [r["eval_loss"] for r in records if "eval_loss" in r],
+           "checkpoints": sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else [],
+           "dispatches": dispatches, "train_s": train_s, "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 2**30, "reserved_at_start_gb": reserved0,
+           "reserved_at_end_gb": reserved_gb(), "launches": launch_counts(), "route": trainer._route,
+           "step_ms_p50": train_recs[-1].get("step_ms_p50") if train_recs else None}
+    if profile:
+        run["phase_breakdown_ms"] = {k: v for k, v in train_recs[-1].items() if k.endswith(("_ms_p50", "_ms_mean"))}
+    return run
+
+
+def _chained_config(name, kind, size, batch, spd, steps, flags, required, work) -> dict:
+    """One configuration of phase 11, three runs of ``steps`` optimizer
+    steps from one starting state: ``eager`` (a trainer built with
+    ``capture=False``, one micro step at a time: the control), ``replayed``
+    (the trainer as built by default, at ``--steps-per-dispatch 1``: each
+    optimizer step one replay of the graph captured at its first, JAX's
+    ``_jit_step``) and ``chained`` (the same trainer and graph at ``spd``).
+    The eager trainer is freed before the other is built, so each run has
+    the card to itself; the parameters compared are held on the host. Only
+    the chained run writes its checkpoints (the others' would be the same
+    bits; each costs seconds at SD-1.5 width). ``perf_preset``'s eager and
+    replayed runs log ``SD_TRAIN_PROFILE=1``'s host phases."""
+    import torch
+
+    flags = (*flags, "--max-train-steps", str(steps), "--steps-per-dispatch", "1")
+
+    def build(capture):
+        return (build_sd15_trainer(work, size, batch, flags, capture=capture) if kind == "unet"
+                else build_sd15_vae_trainer(work, size, batch, flags, capture=capture))
+
     t_build = time.perf_counter()
-    flags = (*flags, "--max-train-steps", str(steps), "--steps-per-dispatch", str(spd))
-    trainer = (build_sd15_trainer(work, size, batch, flags) if kind == "unet"
-               else build_sd15_vae_trainer(work, size, batch, flags))
+    trainer = build(False)
     res = {"image_size": size, "batch": batch, "steps_per_dispatch": spd, "optimizer_steps": steps,
            "gradient_accumulation_steps": trainer.cfg.train.gradient_accumulation_steps,
            "optimizer": type(trainer.state.optimizer).__name__, "build_s": time.perf_counter() - t_build,
            "runs": {}}
     start = _host_state(trainer)
     ckpt_dir, ckpt_steps = trainer.cfg.checkpoint.ckpt_dir, trainer.cfg.checkpoint.checkpointing_steps
-    state = trainer.state
+    profile = name == "perf_preset"
     base = None
-    for tag, n in (("per_step", 1), ("chained", spd), ("per_step_control", 1)):
-        if tag == "per_step_control" and name != "perf_preset" and not res["runs"]["chained"]["leaves_differ"] \
-                and res["runs"]["chained"]["losses"] == res["runs"]["per_step"]["losses"]:
-            break  # bit-identical: nothing for a control to bound
+    for tag, n in (("eager", 1), ("replayed", 1), ("chained", spd)):
         t0 = time.perf_counter()
-        state.load_state_dict(start)
-        trainer.cfg.train.steps_per_dispatch = n
-        trainer.cfg.checkpoint.checkpointing_steps = ckpt_steps if n > 1 else None
-        trainer._graph = None
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        dispatches = []
-        inner = type(trainer)._dispatch
-
-        def recorded(window, micro0, k, inner=inner):
-            dispatches.append(k)
-            return inner(trainer, window, micro0, k)
-
-        trainer._dispatch = recorded
-        trainer.tracker = Tracker(trainer.cfg.log, trainer.run_name)  # train() closes its tracker
-        with open(trainer.tracker.jsonl_path) as f:
-            seen = len(f.readlines())
-        free_cuda()
-        torch.cuda.reset_peak_memory_stats()
-        native.reset_counters()
-        t1 = time.perf_counter()
-        trainer.train()
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t1
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        peak_reserved = torch.cuda.max_memory_reserved() / 2**30
-        launches = launch_counts()
-        del trainer._dispatch
-        with open(trainer.tracker.jsonl_path) as f:
-            records = [json.loads(line) for line in f.readlines()[seen:]]
-        run = {"losses": [r["train_loss"] for r in records if "train_loss" in r],
-               "eval_steps": [r["step"] for r in records if "eval_loss" in r],
-               "checkpoints": sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else [],
-               "dispatches": dispatches, "train_s": train_s, "peak_gb": peak, "peak_reserved_gb": peak_reserved,
-               "launches": launches,
-               "route": trainer._route}
-        params = [p.detach().cpu() for p in state.local_params()]
+        if tag == "replayed":
+            del trainer
+            free_cuda()
+            trainer = build(True)
+        run = _train_run(trainer, tag, n, None if tag == "eager" else start, ckpt_dir,
+                         ckpt_steps if tag == "chained" else None, profile and tag != "chained")
+        params = [p.detach().cpu() for p in trainer.state.local_params()]
         if base is None:
             base = params
         else:
@@ -4406,9 +4562,8 @@ def _chained_config(name, kind, size, batch, spd, steps, flags, required, work) 
         if graph is not None:
             run["warmup_s"], run["capture_s"] = graph.warmup_s, graph.capture_s
             run["tally_per_replay"] = {k: sum(v.values()) for k, v in graph.tally.items()}
-        if tag != "per_step_control":
-            run["timing"] = _route_timing(trainer, n > 1, spd if n > 1 else min(spd, CHAINED_PER_STEP_WINDOW))
-        if graph is not None:
+        run["timing"] = _route_timing(trainer, tag, spd if tag == "chained" else CHAINED_PER_STEP_WINDOW)
+        if graph is not None and tag == "replayed":
             kernels, count, pad = device_kernels(graph.graph.replay, calls=1)
             run["replay_device_kernels"] = {k: sum(n for key, (n, _) in kernels.items() if any(s in key for s in subs))
                                             for k, subs in DEVICE_NAMES.items()}
@@ -4417,27 +4572,30 @@ def _chained_config(name, kind, size, batch, spd, steps, flags, required, work) 
         res["runs"][tag] = run
     del base
     runs = res["runs"]
-    ref, got = runs["per_step"], runs["chained"]
-    ctl = runs.get("per_step_control", {"losses": ref["losses"], "max_abs_diff": 0.0})
-    loss_gap = max((abs(a - b) for a, b in zip(got["losses"], ref["losses"])), default=0.0)
-    ctl_gap = max((abs(a - b) for a, b in zip(ctl["losses"], ref["losses"])), default=0.0)
+    ref, rep_, got = runs["eager"], runs["replayed"], runs["chained"]
     per_opt_step = ref["timing"]["launches_per_optimizer_step"]
     res["checks"] = {
         "losses_finite": all(math.isfinite(v) for r in runs.values() for v in r["losses"]),
         "steps": all(len(r["losses"]) == steps for r in runs.values()),
-        "graph_route": got["route"] == "graph" and ref["route"] is None and spd in got["dispatches"],
-        "losses": got["losses"] == ref["losses"] or loss_gap <= ctl_gap,
-        "params": got["leaves_differ"] == 0 or got["max_abs_diff"] <= ctl["max_abs_diff"],
-        "eval_steps": got["eval_steps"] == ref["eval_steps"],
+        "routes": ref["route"] is None and rep_["route"] == got["route"] == "graph"
+        and set(rep_["dispatches"]) == {1} and spd in got["dispatches"],
+        "losses": got["losses"] == rep_["losses"] == ref["losses"],
+        "params": rep_["leaves_differ"] == got["leaves_differ"] == 0,
+        "eval_losses": len(ref["eval_losses"]) == 1 and got["eval_losses"] == rep_["eval_losses"] == ref["eval_losses"],
+        "eval_steps": got["eval_steps"] == rep_["eval_steps"] == ref["eval_steps"],
         "checkpoints": got["checkpoints"] == ([f"checkpoint-{c}" for c in range(int(ckpt_steps), steps + 1,
                                                                                  int(ckpt_steps))]
                                               if str(ckpt_steps).isdigit() else []),
-        "tally": all(got.get("tally_per_replay", {}).get(k, 0) == per_opt_step[k] > 0 for k in required),
-        "replays_counted": all(got["timing"]["launches_per_optimizer_step"][k] == per_opt_step[k] for k in required),
-        "replay_on_device": all(got.get("replay_device_kernels", {}).get(k, 0) > 0 for k in required),
+        "tally": all(rep_.get("tally_per_replay", {}).get(k, 0) == per_opt_step[k] > 0 for k in required),
+        "replays_counted": all(r["timing"]["launches_per_optimizer_step"][k] == per_opt_step[k]
+                               for r in (rep_, got) for k in required),
+        "replay_on_device": all(rep_.get("replay_device_kernels", {}).get(k, 0) > 0 for k in required),
     }
-    res["loss_gap"], res["control_loss_gap"] = loss_gap, ctl_gap
-    del trainer, state, start
+    if profile:
+        res["checks"]["phase_breakdown"] = all(
+            {f"{p}_ms_{q}" for p in ("fetch", "place", "dispatch", "sync") for q in ("p50", "mean")}
+            <= set(r.get("phase_breakdown_ms", {})) for r in (ref, rep_))
+    del trainer, start
     free_cuda()
     return res
 
@@ -4459,21 +4617,24 @@ def _capture_control() -> dict:
 
 
 def phase_chained(work: str) -> dict:
-    """Phase 11: chained dispatch at SD-1.5 width (``CHAINED_RUNS``): (a) the
-    ``perf.json`` preset (8 steps a dispatch, bf16 moments), UNet 512 batch 4,
-    10 optimizer steps, a checkpoint and an evaluation at step 8: one chunk
-    of 8, then two boundary steps; (b) the lean run (int8 Adam, K9, a bf16
-    accumulator, conv-save remat), batch 16, accumulation 2, chunks of 2; (c)
-    the VAE trainer at 256 batch 4, accumulation 2, a chunk of 2 and two
-    boundary steps. Each run per step, chained and per step again from the
-    same state, cuDNN deterministic: the chained losses and parameters equal
-    the per-step run's bit for bit, or lie within the two per-step runs'
-    own gap; the graph's launches per replay (recorded at capture) equal the
-    per-step launches of each kernel per optimizer step, the replays are
-    counted, and a device profile of one replay sees each kernel; ms per
-    optimizer step, the idle share (a profiled optimizer step), peak GB and
-    the capture's seconds of each route. Then a step that cannot be
-    captured must raise."""
+    """Phase 11: the training step as one program at SD-1.5 width
+    (``CHAINED_RUNS``): (a) the ``perf.json`` preset (bf16 moments), UNet 512
+    batch 4, 10 optimizer steps, a checkpoint and an evaluation at step 8:
+    chained, one chunk of 8, then two boundary steps; (b) the VAE trainer at
+    256 batch 4, accumulation 2, a chunk of 2 and two boundary steps (the
+    lean run of PRs 17-18 is cut for the run's time: its step replays in
+    the lean train phase and 9c's DreamBooth run, and the ``cuda`` tests
+    hold its int8 Adam, bf16 accumulator and conv-save remat to eager). Each eager (the trainer built with
+    ``capture=False``), replayed (``--steps-per-dispatch 1``: each optimizer
+    step one replay) and chained from the same state, cuDNN deterministic:
+    losses, evaluation losses and parameters bit-identical across the three;
+    the graph's launches per replay (recorded at capture) equal the eager
+    launches of each kernel per optimizer step, the replays are counted, and
+    a device profile of one replay sees each kernel; ms per optimizer step,
+    the idle share (a profiled optimizer step), peak and reserved GB and the
+    capture's seconds; (a)'s eager and replayed runs under
+    ``SD_TRAIN_PROFILE=1`` (each run's host phases). Then a step that cannot
+    be captured must raise."""
     import torch
 
     deterministic = torch.backends.cudnn.deterministic
@@ -4520,6 +4681,7 @@ GRAPH_PROFILED = ("ddim", "controlnet", "hires_fix")
 GRAPH_KERNELS = ("flash_attention", "group_norm", "group_norm_cat")
 GRAPH_ABA = ("ddim", "euler_a", "ddim")
 GRAPH_SERVE_SEEDS = (51, 52, 53, 54)
+BURST_ORDER_S = 0.03  # between an ordered burst's requests, inside the batcher's SERVE_WINDOW_MS
 
 
 class _LoopCalls:
@@ -4615,7 +4777,7 @@ def _graph_case(model, name: str, fn) -> dict:
         marks.append((tag, time.perf_counter()))
         runs[tag] = {"calls": rec.calls, "launches": launch_counts(),
                      "replays": {k: native.COUNTERS[k].replays for k in GRAPH_KERNELS},
-                     "reserved_gb": torch.cuda.memory_reserved() / 2**30, "pool_gb": pool_gb(model._graph_pool)}
+                     "reserved_gb": torch.cuda.memory_reserved() / 2**30, "pool_gb": pool_gb(model._graphs.pool)}
         marks.append((f"{tag}_memory", time.perf_counter()))
     first, replay = runs["first"]["calls"], runs["replay"]["calls"]
     entries = [c["entry"] for c in replay]
@@ -4696,7 +4858,11 @@ def _graph_server(steps: int, reload_checkpoint: str) -> dict:
     (the first captures its signature on the graph route, then two timed)
     and bursts of 4 (the first captures bucket 4; the second timed), each
     burst one batch (retried when the batcher split it: a bucket's bf16
-    bits depend on its size): the same PNG bytes by both routes; then
+    bits depend on its size); then one burst whose requests leave
+    ``BURST_ORDER_S`` apart, inside the batch window, so that both routes
+    batch them in one order (a row's bf16 bits depend on its place in the
+    bucket, and unordered threads arrive in any order): the same PNG bytes
+    by both routes, solo and that burst; then
     ``/reload`` of ``reload_checkpoint`` (phase 6c's perturbed UNet, made
     from the same seeded weights): the next replay gives another image, the
     eager render with the new weights' bytes."""
@@ -4728,16 +4894,17 @@ def _graph_server(steps: int, reload_checkpoint: str) -> dict:
             check(resp.status == 200, f"{path}: status {resp.status}")
             return resp.read(), time.perf_counter() - t0
 
-    def burst():
+    def burst(stagger_s: float = 0.0):
         out, errors = {}, []
 
-        def worker(s):
+        def worker(i, s):
+            time.sleep(i * stagger_s)
             try:
                 out[s] = post("/txt2img", {"prompt": SERVE_PROMPT, "seed": s})[0]
             except Exception as exc:  # noqa: BLE001 — collected, and the phase fails on it below
                 errors.append(f"seed {s}: {exc}")
 
-        threads = [threading.Thread(target=worker, args=(s,)) for s in GRAPH_SERVE_SEEDS]
+        threads = [threading.Thread(target=worker, args=(i, s)) for i, s in enumerate(GRAPH_SERVE_SEEDS)]
         batches = service.batches_run
         t0 = time.perf_counter()
         for t in threads:
@@ -4747,11 +4914,11 @@ def _graph_server(steps: int, reload_checkpoint: str) -> dict:
         check(not errors and len(out) == len(GRAPH_SERVE_SEEDS), f"burst requests failed: {errors}")
         return out, time.perf_counter() - t0, service.batches_run - batches
 
-    def one_batch_burst():
+    def one_batch_burst(stagger_s: float = 0.0):
         """A burst that the batcher ran as one bucket of 4 (its rows' bf16
         bits depend on the bucket), at most three tries."""
         for _ in range(3):
-            got = burst()
+            got = burst(stagger_s)
             if got[2] == 1:
                 break
         return got
@@ -4764,16 +4931,19 @@ def _graph_server(steps: int, reload_checkpoint: str) -> dict:
             service.model = model if capture else eager
             solo = [post("/txt2img", {"prompt": SERVE_PROMPT, "seed": 41}) for _ in range(3)]
             bursts = [one_batch_burst() for _ in range(2 if capture else 1)]
-            pngs[route] = (solo[-1][0], bursts[-1][0])
+            ordered = one_batch_burst(BURST_ORDER_S)
+            pngs[route] = (solo[-1][0], ordered[0], bursts[-1][0])
             res[route] = {"first_solo_s": solo[0][1], "solo_p50_s": statistics.median(s for _, s in solo[1:]),
                           "burst_requests_per_s": len(GRAPH_SERVE_SEEDS) / bursts[-1][1],
-                          "first_burst_s": bursts[0][1], "burst_batches": [b[2] for b in bursts]}
+                          "first_burst_s": bursts[0][1], "burst_batches": [b[2] for b in bursts],
+                          "ordered_burst_batches": ordered[2]}
         res["graphs"] = len([e for e in model._loops.values() if e.graph is not None])
         res["same_solo_bytes"] = pngs["replay"][0] == pngs["eager"][0]
         res["same_burst_bytes"] = pngs["replay"][1] == pngs["eager"][1]
+        res["unordered_burst_same_bytes"] = pngs["replay"][2] == pngs["eager"][2]  # a record, not a check
         res["same_bytes_by_both_routes"] = (res["same_solo_bytes"] and res["same_burst_bytes"]
-                                            and res["replay"]["burst_batches"][-1] == 1
-                                            and res["eager"]["burst_batches"][-1] == 1)
+                                            and res["replay"]["ordered_burst_batches"] == 1
+                                            and res["eager"]["ordered_burst_batches"] == 1)
         post("/reload", {"unet_checkpoint": reload_checkpoint})  # into the shared UNet, in place
         service.model = model
         replayed = post("/txt2img", {"prompt": SERVE_PROMPT, "seed": 41})[0]
@@ -4846,6 +5016,46 @@ def _graph_capture_control(model) -> dict:
     return res
 
 
+def _graph_encoder(model) -> dict:
+    """The text encoder's graphs (``CLIPModel.encode_text``): each prompt
+    set's context through ``model`` (its signature's first encode is the
+    warm-up and the capture, then two replays) against its eager twin's
+    (``capture=False``) bit for bit: a prompt and the empty one (one
+    signature: a request's cond and uncond), a weighted prompt, a 2-chunk
+    weighted prompt (the tower at batch 2), a server bucket of 4; the first
+    prompt again after the others (each output cloned out). Wall ms per
+    encode (prompt to context on the card, the tokenizer included), eager
+    and replayed, median of 10."""
+    import torch
+
+    twin = eager_twin(model)
+    prompt = "a photograph of an astronaut riding a horse"
+    sets = {"prompt": [prompt], "empty": [""], "weighted": ["a (photograph:1.3) of an astronaut on the [moon]"],
+            "two_chunks": [weighted_long_prompt(model)], "bucket_4": [prompt, "a cat", "a dog", ""]}
+    res, same = {"cases": {}}, {}
+    for name, prompts in sets.items():
+        eager = twin.encode_prompts(prompts)
+        got = [model.encode_prompts(prompts) for _ in range(3)]
+        same[name] = all(torch.equal(g, eager) for g in got)
+        walls = {}
+        for route, m in (("eager", twin), ("replayed", model)):
+            times = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.encode_prompts(prompts)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            walls[f"{route}_ms"] = statistics.median(times) * 1e3
+        res["cases"][name] = {"context_shape": list(eager.shape), "bit_identical": same[name], **walls}
+    same["prompt_after_the_others"] = torch.equal(model.encode_prompts(sets["prompt"]),
+                                                  twin.encode_prompts(sets["prompt"]))
+    res["graphs"] = len(model.text_encoder._graphs.graphs)
+    res["bit_identical"] = same
+    res["ok"] = all(same.values()) and res["graphs"] == 3  # [1, 77], [2, 77], [4, 77]
+    return res
+
+
 def phase_sample_graph(steps: int, reload_checkpoint: str) -> dict:
     """Phase 12: the reverse loop as one CUDA graph per signature, on the
     slice's model built anew (SD-1.5 width, bf16, random weights from seed
@@ -4854,7 +5064,8 @@ def phase_sample_graph(steps: int, reload_checkpoint: str) -> dict:
     ddpm, dpmpp, euler, euler_a, heun, dpmpp_sde); img2img at strength 0.75,
     inpaint with a half mask, DeepCache at 3, one ControlNet; the hires fix
     (512 x2: K1 at kv 16384, the K2 shapes); each ``_graph_case``. Then A, B
-    and A again replayed, each its eager bits; the server
+    and A again replayed, each its eager bits; the text encoder's graphs
+    first (``_graph_encoder``); the server
     (``_graph_server``, reloading ``reload_checkpoint``); a loop that syncs
     must raise at capture and leave the process usable
     (``_graph_capture_control``). Peak allocated and reserved GB with every
@@ -4894,6 +5105,9 @@ def phase_sample_graph(steps: int, reload_checkpoint: str) -> dict:
     reserved0 = torch.cuda.memory_reserved() / 2**30
     marks = [("start", time.perf_counter())]
     try:
+        with torch.inference_mode():
+            encoder = _graph_encoder(model)
+        marks.append(("encoder", time.perf_counter()))
         results = {name: _graph_case(model, name, fn) for name, fn in cases.items()}
         marks.append(("cases", time.perf_counter()))
         aba = []
@@ -4936,8 +5150,10 @@ def phase_sample_graph(steps: int, reload_checkpoint: str) -> dict:
                                                      "reload_replay_equals_eager")}
     if not (control["raised"] and control.get("names_the_loop") and control.get("usable_after")):
         failures["capture_control"] = control
+    if not encoder["ok"]:
+        failures["encoder"] = encoder
     res = {"phase": "sample_graph", "gpu": gpu_line(), "steps": steps, "image_size": 512, "guidance_scale": 7.5,
-           "dtype": dtype, "cases": results, "a_b_a": aba, "memory": memory, "server": server,
+           "dtype": dtype, "encoder": encoder, "cases": results, "a_b_a": aba, "memory": memory, "server": server,
            "capture_control": control, "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])},
            "ok": not failures}
     emit(res)

@@ -35,6 +35,21 @@ is ``{"ti": [K, 768]}``, with the JAX package's ``textual_inversion.json``
 sidecar (``placeholder_token``, ``num_vectors``) beside it; a port of the
 textual-inversion trainer writes exactly this. The placeholder tokenizes to
 K sentinel ids past the vocabulary, where the tower injects the vectors.
+The concept's ids and vectors live in device tensors beside the tower
+(made at the first encode on its device, updated in place by
+``set_textual_inversion_vectors``).
+
+One program per call (the JAX package's jitted ``_encode`` and
+``_encode_ti``): on a CUDA device ``encode_text`` runs the tower as one CUDA
+graph per (batch, sequence length, concept present) signature, through the
+model's :class:`~stable_diffusion_pytorch_tpu_torch.utils.graphs.GraphPool`:
+the first call of a signature is the warm-up (run eagerly on the pool's side
+stream) and the capture, later calls copy the ids into the graph's static
+input, replay, and clone the output out (a request's cond and uncond
+encodes share a signature). The token weighting stays eager after the
+tower, as JAX's sits outside its jit. The tower runs eagerly on the CPU,
+under ``capture=False`` (a ``LatentDiffusion`` built with ``capture=False``
+passes it) and inside another capture.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer, Toke
 from stable_diffusion_pytorch_tpu_torch.models.prompt_weighting import parse_weighted_prompt
 from stable_diffusion_pytorch_tpu_torch.ops.attention import multi_head_attention
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import load_params_for_inference, read_weights, resolve_checkpoint
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, replayed
 
 BOS_TOKEN_ID = 49406
 EOS_TOKEN_ID = 49407
@@ -231,6 +247,9 @@ class CLIPModel:
         self.pretrained = pretrained
         self.tokenizer = resolve_tokenizer(cfg)
         self._ti: Optional[Tuple[str, np.ndarray, np.ndarray]] = None
+        # the concept on the tower's device: (the _ti it holds, ids [K], vectors [K, D] f32)
+        self._ti_device: Optional[tuple] = None
+        self._graphs = GraphPool()  # the tower's CUDA graphs, one per signature
 
     # ------------------------------------------------------------------ #
     # textual inversion
@@ -248,9 +267,29 @@ class CLIPModel:
         return ids
 
     def set_textual_inversion_vectors(self, vectors) -> None:
+        """New vectors for the registered concept; its device tensor is
+        updated in place (the captured towers read it there)."""
         if self._ti is None:
             raise ValueError("call add_textual_inversion first")
-        self._ti = (self._ti[0], self._ti[1], np.asarray(vectors, np.float32))
+        old = self._ti
+        self._ti = (old[0], old[1], np.asarray(vectors, np.float32))
+        held = self._ti_device
+        if held is not None and held[0] is old and held[2].shape == self._ti[2].shape:
+            held[2].copy_(torch.from_numpy(self._ti[2]))
+            self._ti_device = (self._ti, held[1], held[2])
+
+    def _concept_tensors(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The registered concept's (ids, vectors) on ``device``, made again
+        (and the tower's graphs dropped) when the concept or its device
+        changed since they were made."""
+        held = self._ti_device
+        if held is None or held[0] is not self._ti or held[2].device != device:
+            _, ids, vectors = self._ti
+            held = (self._ti, torch.as_tensor(ids, dtype=torch.long).to(device),
+                    torch.from_numpy(np.array(vectors, np.float32)).to(device))
+            self._ti_device = held
+            self._graphs.clear()
+        return held[1], held[2]
 
     def load_textual_inversion(self, ckpt_dir: str) -> str:
         """Register the concept of a textual-inversion checkpoint (the port's
@@ -364,21 +403,26 @@ class CLIPModel:
     # ------------------------------------------------------------------ #
 
     @torch.no_grad()
-    def encode_text(self, input_ids, token_weights=None) -> torch.Tensor:
-        """[B, S] token ids -> [B, S, 768] on the encoder's device.
+    def encode_text(self, input_ids, token_weights=None, capture: bool = True) -> torch.Tensor:
+        """[B, S] token ids -> [B, S, 768] on the encoder's device; the tower
+        a replayed CUDA graph on a CUDA device unless ``capture`` is False
+        (module docstring).
 
         ``token_weights`` [B, S]: each token's embedding times its weight,
         then the sequence rescaled so that its mean magnitude is the
         unweighted one (abs-mean before over abs-mean after, floor 1e-8), in
         float32 and cast back."""
         device = self.module.text_model.final_layer_norm.weight.device
-        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long, device=device)
-        if self._ti is None:
-            emb = self.module(ids)
-        else:
-            _, ov_ids, vectors = self._ti
-            emb = self.module(ids, token_overrides=(torch.as_tensor(ov_ids, dtype=torch.long),
-                                                    torch.from_numpy(vectors)))
+        ids = torch.as_tensor(input_ids if isinstance(input_ids, torch.Tensor) else np.asarray(input_ids),
+                              dtype=torch.long, device=device)
+        concept = None if self._ti is None else self._concept_tensors(device)
+
+        def tower(x):
+            return self.module(x) if concept is None else self.module(x, token_overrides=concept)
+
+        emb = replayed(self._graphs, tower, ids, key=(tuple(ids.shape), concept is not None), capture=capture,
+                       what=f"the text encoder (ids {list(ids.shape)}, concept {concept is not None})",
+                       pinned=lambda: [*self.module.parameters(), *(concept or ())])
         if token_weights is None:
             return emb
         w = torch.as_tensor(np.asarray(token_weights, np.float32), device=device)
@@ -388,11 +432,12 @@ class CLIPModel:
         new = f.abs().mean(dim=(-2, -1), keepdim=True)
         return (f * (prev / new.clamp(min=1e-8))).to(emb.dtype)
 
-    def encode_text_chunked(self, ids, token_weights=None) -> torch.Tensor:
+    def encode_text_chunked(self, ids, token_weights=None, capture: bool = True) -> torch.Tensor:
         """[B, K, 77] chunk ids -> [B, K*77, 768]: each chunk runs through the
         tower alone (positions restart per chunk), the sequences concatenate."""
         b, k, s = np.shape(ids)
         emb = self.encode_text(
             np.asarray(ids).reshape(b * k, s),
-            token_weights=None if token_weights is None else np.asarray(token_weights).reshape(b * k, s))
+            token_weights=None if token_weights is None else np.asarray(token_weights).reshape(b * k, s),
+            capture=capture)
         return emb.reshape(b, k * s, -1)

@@ -25,7 +25,10 @@ it but not the same.
 
 :class:`CLIPScorer` computes in full float32 (``utils/precision.py``: no TF32
 inside its calls), so a score does not move with the process's TF32
-switches. With no checkpoint staged it warns loudly and scores with seeded
+switches. On a CUDA device each tower's embedding is one CUDA graph per
+batch signature (the JAX package's jitted ``_embed_text`` and
+``_embed_image``), the scorer's graphs in one pool (``utils/graphs.py``);
+``capture=False`` runs them eagerly. With no checkpoint staged it warns loudly and scores with seeded
 random weights (the machinery runs; the numbers mean nothing).
 """
 
@@ -41,6 +44,7 @@ from torch import nn
 
 from stable_diffusion_pytorch_tpu_torch.models.clip import CLIPEncoderLayer, CLIPTextTransformer, tower_state
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import read_weights
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, module_tensors, replayed
 from stable_diffusion_pytorch_tpu_torch.utils.precision import full_float32
 
 # CLIP preprocessing constants (OpenAI)
@@ -142,10 +146,11 @@ class CLIPScorer:
     """Frozen full CLIP on ``device`` (the card unless the caller asks for the
     CPU): ``score(images, prompts)`` -> the mean CLIP score; ``pretrained``
     says whether staged weights were loaded. ``text_cfg``/``vision_cfg`` are
-    the towers' keyword arguments (their defaults are ViT-L/14's)."""
+    the towers' keyword arguments (their defaults are ViT-L/14's);
+    ``capture``: each embedding a replayed CUDA graph on a CUDA device."""
 
     def __init__(self, tokenizer, model_dir: Optional[str] = "data/pretrained", text_cfg: Optional[dict] = None,
-                 vision_cfg: Optional[dict] = None, device="cuda", seed: int = 0):
+                 vision_cfg: Optional[dict] = None, device="cuda", seed: int = 0, capture: bool = True):
         from stable_diffusion_pytorch_tpu_torch.models.build import without_default_init, init_weights, require_device
 
         device = require_device(device)
@@ -178,22 +183,34 @@ class CLIPScorer:
         for tower in (self.text_tower, self.vision_tower):
             tower.float().to(device).eval().requires_grad_(False)
         self.text_proj, self.visual_proj = self.text_proj.to(device), self.visual_proj.to(device)
+        self.capture = capture
+        self._graphs = GraphPool()
+
+    def _text(self, ids: torch.Tensor) -> torch.Tensor:
+        with full_float32():
+            hidden = self.text_tower(ids)
+            emb = hidden[torch.arange(ids.shape[0], device=ids.device), ids.argmax(dim=-1)] @ self.text_proj.T
+            return emb / emb.norm(dim=-1, keepdim=True)
+
+    def _image(self, pixels: torch.Tensor) -> torch.Tensor:
+        with full_float32():
+            emb = self.vision_tower(pixels) @ self.visual_proj.T
+            return emb / emb.norm(dim=-1, keepdim=True)
 
     @torch.no_grad()
     def embed_text(self, ids) -> torch.Tensor:
         """[B, S] token ids -> unit text embeddings [B, p] (the state at the EOT token)."""
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
-        with full_float32():
-            hidden = self.text_tower(ids)
-            emb = hidden[torch.arange(ids.shape[0], device=self.device), ids.argmax(dim=-1)] @ self.text_proj.T
-        return emb / emb.norm(dim=-1, keepdim=True)
+        return replayed(self._graphs, self._text, ids, what=f"the CLIP score's text tower ({list(ids.shape)})",
+                        pinned=lambda: [*module_tensors(self.text_tower)(), self.text_proj], capture=self.capture)
 
     @torch.no_grad()
     def embed_images(self, pixels: torch.Tensor) -> torch.Tensor:
         """CLIP-normalized [B, S, S, 3] -> unit image embeddings [B, p]."""
-        with full_float32():
-            emb = self.vision_tower(pixels.to(self.device)) @ self.visual_proj.T
-        return emb / emb.norm(dim=-1, keepdim=True)
+        pixels = pixels.to(self.device)
+        return replayed(self._graphs, self._image, pixels,
+                        what=f"the CLIP score's vision tower ({list(pixels.shape)})",
+                        pinned=lambda: [*module_tensors(self.vision_tower)(), self.visual_proj], capture=self.capture)
 
     def similarities(self, images, prompts: Sequence[str], batch: int = 16) -> np.ndarray:
         """cos(text, image) of each (uint8 image [H, W, 3], prompt) pair -> [N] float32."""

@@ -171,13 +171,17 @@ class InceptionV3Pool3(nn.Module):
         self.Mixed_7a = InceptionD(768)
         self.Mixed_7b = InceptionE(1280)
         self.Mixed_7c = InceptionE(2048)
+        # transform_input's ImageNet statistics, on the module's device (a
+        # forward makes no host copy, so a CUDA graph can capture it)
+        self.register_buffer("input_std", torch.tensor([0.229, 0.224, 0.225], dtype=torch.float64), persistent=False)
+        self.register_buffer("input_mean", torch.tensor([0.485, 0.456, 0.406], dtype=torch.float64), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.Conv2d_1a_3x3.conv.weight.dtype
         x = x.to(dtype)
         if self.transform_input:
-            scale = torch.tensor([0.229, 0.224, 0.225], dtype=dtype, device=x.device) / 0.5
-            shift = (torch.tensor([0.485, 0.456, 0.406], dtype=dtype, device=x.device) - 0.5) / 0.5
+            scale = self.input_std.to(dtype) / 0.5
+            shift = (self.input_mean.to(dtype) - 0.5) / 0.5
             x = x * scale + shift
         x = x.permute(0, 3, 1, 2)
         for name in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3"):

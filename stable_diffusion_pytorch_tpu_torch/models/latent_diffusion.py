@@ -36,7 +36,7 @@ from stable_diffusion_pytorch_tpu_torch.models import schedule as sched_lib
 from stable_diffusion_pytorch_tpu_torch.models.blocks import GaussianDistribution
 from stable_diffusion_pytorch_tpu_torch.models.prompt_weighting import has_weight_syntax
 from stable_diffusion_pytorch_tpu_torch.models.schedule import DiffusionSchedule
-from stable_diffusion_pytorch_tpu_torch.utils.graphs import CapturedGraph
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool
 
 SIGMA_SPACE_SAMPLERS = ("euler", "euler_a", "heun", "dpmpp_sde")
 SAMPLERS = ("ddim", "ddpm", "dpmpp") + SIGMA_SPACE_SAMPLERS
@@ -508,7 +508,7 @@ class CachedLoop:
     sampling_model``). On the eager route a call runs the body. On the
     graph route the signature's first call runs the body eagerly on a side
     stream (the warm-up), returns that result, and captures the body into
-    the model's one graph pool; each later call copies its inputs into the
+    the model's one graph pool (``utils/graphs.py:GraphPool``); each later call copies its inputs into the
     graph's static ones, replays, and clones the output out at once. The
     graphs of one model share their pool and their side stream (the
     allocator reuses a freed block only on its own stream): a capture reuses
@@ -553,17 +553,7 @@ class CachedLoop:
         if x_T.device.type != "cuda" or not model.capture:
             return self._body(inputs)
         if self.graph is None:
-            if model._graph_pool is None:
-                model._graph_pool = torch.cuda.graph_pool_handle()
-            if model._graph_stream is None:
-                model._graph_stream = torch.cuda.Stream(x_T.device)
-            try:
-                self.graph = CapturedGraph(self._body, inputs, what=self.describe(), pinned=model.graph_tensors,
-                                           pool=model._graph_pool, stream=model._graph_stream,
-                                           capture_error_mode="thread_local")
-            except Exception:
-                model._graph_pool = None  # it takes no further capture: the next starts a new pool
-                raise
+            self.graph = model._graphs.capture(self._body, inputs, what=self.describe(), pinned=model.graph_tensors)
             first, self.graph.first = self.graph.first, None
             return first
         return self.graph.replay(inputs).clone()
@@ -592,8 +582,7 @@ class LatentDiffusion:
         # and the one memory pool and side stream its CUDA graphs share
         self._capture = bool(capture)
         self._loops: dict = {}
-        self._graph_pool = None
-        self._graph_stream = None
+        self._graphs = GraphPool()
 
     @property
     def capture(self) -> bool:
@@ -676,20 +665,22 @@ class LatentDiffusion:
         """[B] prompts -> [B, K*77, 768]. ``weighted=None`` detects
         ``(word:1.3)`` emphasis (``prompt_weighting.py``); prompts past 75
         tokens are encoded in K chunks of 77. Both are off in reference-compat
-        mode, where brackets stay literal and long prompts are truncated."""
+        mode, where brackets stay literal and long prompts are truncated. The
+        text tower is captured per signature on a CUDA device unless the model
+        was built with ``capture=False`` (``CLIPModel.encode_text``)."""
         prompts = list(prompts)
         compat_mode = self.compat is not None and self.compat.reference_compat
         if weighted is None:
             weighted = not compat_mode and any(has_weight_syntax(p) for p in prompts)
-        te = self.text_encoder
+        te, capture = self.text_encoder, self.capture
         if not compat_mode:
             ids, w, k = te.tokenize_chunked(prompts, weighted=weighted)
             if k > 1:
-                return te.encode_text_chunked(ids, w)
+                return te.encode_text_chunked(ids, w, capture=capture)
         if weighted:
             out, w = te.tokenize_weighted(prompts)
-            return te.encode_text(out.input_ids, token_weights=w)
-        return te.encode_text(te.tokenize(prompts).input_ids)
+            return te.encode_text(out.input_ids, token_weights=w, capture=capture)
+        return te.encode_text(te.tokenize(prompts).input_ids, capture=capture)
 
     def encode_uncond(self, batch_size: int, text: str = "") -> torch.Tensor:
         """The unconditional (or negative-prompt) embedding, weighted and

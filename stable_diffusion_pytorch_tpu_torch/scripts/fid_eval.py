@@ -30,8 +30,12 @@ InceptionV3, ``utils/fid.py:InceptionFeatureExtractor``); latent features:
 the sampled latents average-pooled 4 x 4. Initial noise is drawn per batch
 from a torch generator seeded with ``seed + batch index``, and the DDPM
 steps' noise from one seeded ``seed + STEP_SEED + batch index``, on the CPU; the functions
-take both as arguments (the tests pass the JAX package's in). Prints ONE
-JSON line. ``--device`` (default ``cuda``; without a card the run stops
+take both as arguments (the tests pass the JAX package's in). The loops run
+through the loop cache of a ``LatentDiffusion`` over each UNet
+(``sample_loop``: on the card one CUDA graph per signature, replayed) and
+the decode through the stack's own graphs, unless the stack is built with
+``capture=False``; draws handed in run the eager loop. Prints ONE JSON
+line. ``--device`` (default ``cuda``; without a card the run stops
 unless given ``--device cpu``) is the port's own.
 """
 
@@ -49,7 +53,7 @@ import torch
 from stable_diffusion_pytorch_tpu_torch.config import AutoencoderConfig, DDPMConfig, UnetConfig
 from stable_diffusion_pytorch_tpu_torch.models.autoencoder import AutoEncoderKL
 from stable_diffusion_pytorch_tpu_torch.models.build import init_weights, require_device, without_default_init
-from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_sample_fn
+from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion, make_sample_fn
 from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
 from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
 from stable_diffusion_pytorch_tpu_torch.utils.fid import (
@@ -58,6 +62,7 @@ from stable_diffusion_pytorch_tpu_torch.utils.fid import (
     VAEFeatureExtractor,
     fid_from_features,
 )
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, module_tensors, replayed
 
 UNET_KW = dict(num_res_blocks=1, n_heads=4, attention_resolutions=[1], channels_list=[16, 32], time_emb_dim=32,
                dropout=0.0, n_layers=1, context_dim=24)
@@ -73,9 +78,11 @@ STEP_SEED = 1_000_003  # the step noise's generators, apart from the initial noi
 
 class Stack:
     """The tiny UNet (once with the default math, once with the reference's
-    time embedding and bottleneck groups, the same weights) and the VAE."""
+    time embedding and bottleneck groups, the same weights) and the VAE; a
+    ``LatentDiffusion`` over each UNet keeps its loops (``capture``: theirs,
+    and the decode's)."""
 
-    def __init__(self, unet_state: dict, vae_state: dict, device="cpu"):
+    def __init__(self, unet_state: dict, vae_state: dict, device="cpu", capture: bool = True):
         cfg = UnetConfig(**UNET_KW)
         with torch.device(device), without_default_init():
             self.unet = UNetModel(4, 4, cfg)
@@ -86,9 +93,17 @@ class Stack:
             module.float().eval().requires_grad_(False)
         self.schedule = make_schedule(DDPMConfig(noise_steps=NOISE_STEPS))
         self.device = torch.device(device)
+        self.capture = capture
+        self.models = {compat: LatentDiffusion(unet, self.vae, None, self.schedule, capture=capture)
+                       for compat, unet in ((False, self.unet), (True, self.compat_unet))}
+        self._graphs = GraphPool()  # the decode's
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        return replayed(self._graphs, self.vae.decode, latents, what=f"the VAE decode ({list(latents.shape)})",
+                        pinned=module_tensors(self.vae), capture=self.capture)
 
     @classmethod
-    def seeded(cls, seed: int, device="cpu") -> "Stack":
+    def seeded(cls, seed: int, device="cpu", capture: bool = True) -> "Stack":
         """Weights from ``init_weights`` with a CPU generator seeded ``seed``."""
         gen = torch.Generator().manual_seed(seed)
         with without_default_init():
@@ -96,7 +111,7 @@ class Stack:
         with torch.no_grad():
             init_weights(unet, gen)
             init_weights(vae, gen)
-        return cls(unet.state_dict(), vae.state_dict(), device)
+        return cls(unet.state_dict(), vae.state_dict(), device, capture)
 
     def perturbed(self, seed: int) -> dict:
         """The UNet's weights plus ``PERTURB`` N(0, 1), drawn in parameter order from ``seed``."""
@@ -104,12 +119,21 @@ class Stack:
         return {k: v.cpu() + PERTURB * torch.randn(v.shape, generator=gen) for k, v in self.unet.state_dict().items()}
 
     def sample_fn(self, compat: bool, steps: int, deep_cache: int = 0) -> Callable:
-        if compat:
-            return make_sample_fn(self.compat_unet, self.schedule, num_steps=steps, sampler="ddpm",
-                                  guidance_scale=GUIDANCE, reference_cfg_formula=True, ascending_loop=True,
-                                  leading_timesteps=True)
-        return make_sample_fn(self.unet, self.schedule, num_steps=steps, sampler="ddim", guidance_scale=GUIDANCE,
-                              deep_cache_interval=deep_cache)
+        """``fn(x_T, ctx, uncond, generator=None, noise=None) -> x_0``: the
+        set's loop through its model's loop cache, or with ``noise`` (the
+        step draws handed in) the eager loop."""
+        model = self.models[compat]
+        options = (dict(sampler="ddpm", guidance_scale=GUIDANCE, reference_cfg_formula=True, ascending_loop=True,
+                        leading_timesteps=True) if compat
+                   else dict(sampler="ddim", guidance_scale=GUIDANCE, deep_cache_interval=deep_cache))
+
+        def fn(x_T, ctx, uncond, generator=None, noise=None):
+            if noise is not None:
+                return make_sample_fn(model.unet, self.schedule, num_steps=steps, **options)(
+                    x_T, ctx, uncond, generator=generator, noise=noise)
+            return model.sample_loop(x_T, ctx, steps, **options)(x_T, ctx, uncond, generator)
+
+        return fn
 
 
 def initial_noise(compat: bool, seed: int, n: int, lat: int) -> List[torch.Tensor]:
@@ -135,7 +159,7 @@ def sample_set(stack: Stack, fn: Callable, ctx_bank: np.ndarray, uncond: np.ndar
         noise = None if step_noise is None else [n.to(device) for n in step_noise[j]]
         x0 = fn(x_T.to(device), ctx, unc, generator=torch.Generator().manual_seed(seed + STEP_SEED + j * BATCH),
                 noise=noise)
-        images.append(stack.vae.decode(x0).float().cpu().numpy())
+        images.append(stack.decode(x0).float().cpu().numpy())
         latents.append(x0.float().cpu().numpy())
     return np.concatenate(images), np.concatenate(latents)
 
@@ -164,13 +188,15 @@ class ImageFID:
 
     def __init__(self, kind: str, stack: Stack, device, towers: int = 4, feat_dim: int = 256,
                  model_dir: str = "data/pretrained"):
+        capture = stack.capture
         if kind == "inception":
-            self.extractors, self.metric = [InceptionFeatureExtractor(model_dir=model_dir, device=device)], kind
+            self.extractors = [InceptionFeatureExtractor(model_dir=model_dir, device=device, capture=capture)]
+            self.metric = kind
         elif kind == "vae":
-            self.extractors, self.metric = [VAEFeatureExtractor(stack.vae)], "fid_vae_proxy"
+            self.extractors, self.metric = [VAEFeatureExtractor(stack.vae, capture=capture)], "fid_vae_proxy"
         elif kind == "random_inception":
-            self.extractors = [RandomInceptionFeatureExtractor(seed=s, feat_dim=feat_dim, device=device)
-                               for s in range(towers)]
+            self.extractors = [RandomInceptionFeatureExtractor(seed=s, feat_dim=feat_dim, device=device,
+                                                               capture=capture) for s in range(towers)]
             self.metric = f"fid_inception_random_x{towers}_d{feat_dim or 2048}"
         else:
             raise ValueError(f"unknown FID_EXTRACTOR {kind!r}: random_inception, vae or inception")
@@ -214,7 +240,7 @@ def run(stack: Stack, n_images: int, steps: int, res: int, deep_cache: Sequence[
                                                                  latent_features(default_lat))),
     }
     if deep_cache:
-        exact = Stack(stack.perturbed(99), stack.vae.state_dict(), stack.device)
+        exact = Stack(stack.perturbed(99), stack.vae.state_dict(), stack.device, stack.capture)
         sets = {k: sample_set(exact, exact.sample_fn(False, steps, k), ctx_bank, uncond,
                               initial_noise(False, SEEDS["compat"], n_images, lat))
                 for k in (0, *deep_cache)}

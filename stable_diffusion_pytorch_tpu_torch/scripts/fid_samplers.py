@@ -25,6 +25,10 @@ The JAX tool's protocol, at its tiny configuration (UNet channels [16, 32],
 initial noise of each batch comes from a torch generator seeded ``seed +
 batch index``, DDPM's step noise from one seeded ``STEP_SEED`` further
 (``sample_set`` takes both, so the tests can pass the JAX package's in).
+On the card the quick-train's step is one CUDA graph (its draws made
+first, a capturable Adam), and the loops run through the loop cache of a
+``LatentDiffusion`` over the UNet (one graph per signature), unless
+``capture=False`` is asked for; draws handed in run the eager loop.
 Prints ONE JSON line, with the quick-train's first and last losses.
 ``--device`` (default ``cuda``; without a card the run stops unless given
 ``--device cpu``) is the port's own.
@@ -42,10 +46,11 @@ import torch
 
 from stable_diffusion_pytorch_tpu_torch.config import DDPMConfig, UnetConfig
 from stable_diffusion_pytorch_tpu_torch.models.build import init_weights, require_device, without_default_init
-from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_sample_fn
+from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion, make_sample_fn
 from stable_diffusion_pytorch_tpu_torch.models.schedule import add_noise, make_schedule, schedule_on
 from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
 from stable_diffusion_pytorch_tpu_torch.utils.fid import fid_from_features
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, module_tensors, replayed
 
 UNET_KW = dict(num_res_blocks=1, n_heads=4, attention_resolutions=[1], channels_list=[16, 32], time_emb_dim=32,
                dropout=0.0, n_layers=1, context_dim=24)
@@ -92,28 +97,42 @@ def make_batch(basis: torch.Tensor, gen: torch.Generator, n: int):
     return x0, w[:, None, :] + 0.1 * torch.randn(n, CTX_TOKENS, CTX_DIM, generator=gen)
 
 
-def quick_train(unet: UNetModel, schedule, basis: torch.Tensor, steps: int, seed: int = 7) -> List[float]:
-    """``steps`` of eps matching on ``unet``'s device, in float32 -> the losses."""
+def quick_train(unet: UNetModel, schedule, basis: torch.Tensor, steps: int, seed: int = 7,
+                capture: bool = True) -> List[float]:
+    """``steps`` of eps matching on ``unet``'s device, in float32 -> the
+    losses. Each step's draws are made first on the CPU; on a CUDA device
+    the step (forward, backward and a capturable Adam's update) is one CUDA
+    graph, captured at the first step and replayed, unless ``capture`` is
+    False (the same capturable Adam, eagerly); the losses stay on the
+    device until the end."""
     device = next(unet.parameters()).device
     sched = schedule_on(schedule, device)
-    opt = torch.optim.Adam(unet.parameters(), lr=LR)
+    opt = torch.optim.Adam(unet.parameters(), lr=LR, capturable=device.type == "cuda")
     gen = torch.Generator().manual_seed(seed)
+    graphs = GraphPool("global")
     unet.train().requires_grad_(True)
+
+    def step(batch):
+        x0, tok, t, eps, keep = batch
+        pred = unet(add_noise(sched, x0, eps, t), t, tok * keep)
+        loss = ((pred.float() - eps) ** 2).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
     losses = []
     for _ in range(steps):
         x0, tok = make_batch(basis, gen, BATCH)
         t = torch.randint(0, schedule.noise_steps, (BATCH,), generator=gen)
         eps = torch.randn(x0.shape, generator=gen)
         keep = (torch.rand(BATCH, generator=gen) >= DROP).float()[:, None, None]
-        x0, tok, t, eps, keep = (a.to(device) for a in (x0, tok, t, eps, keep))
-        pred = unet(add_noise(sched, x0, eps, t), t, tok * keep)
-        loss = ((pred.float() - eps) ** 2).mean()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
+        batch = tuple(a.to(device) for a in (x0, tok, t, eps, keep))
+        losses.append(replayed(graphs, step, batch, what="the quick-train step", capture=capture,
+                               pinned=lambda: [*module_tensors(unet)(), *(s for st in opt.state.values()
+                                                                           for s in st.values())]))
     unet.eval().requires_grad_(False)
-    return losses
+    return torch.stack(losses).cpu().tolist() if losses else []
 
 
 def perturb(unet: UNetModel, scale: float, seed: int = 99) -> None:
@@ -129,22 +148,34 @@ def initial_noise(seed: int, n: int, res: int) -> List[torch.Tensor]:
             for i in range(0, n, BATCH)]
 
 
+def loop_model(unet: UNetModel, schedule, capture: bool = True) -> LatentDiffusion:
+    """The latent-space model whose loop cache runs the tool's loops."""
+    return LatentDiffusion(unet, None, None, schedule, capture=capture)
+
+
 @torch.no_grad()
-def sample_set(unet: UNetModel, schedule, sampler: str, steps: int, ctx_bank: np.ndarray, x_Ts: Sequence[torch.Tensor],
+def sample_set(unet, schedule, sampler: str, steps: int, ctx_bank: np.ndarray, x_Ts: Sequence[torch.Tensor],
                guidance: float, step_noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
                seed: int = 0) -> np.ndarray:
     """Latents [N, res, res, 4] float32 from ``x_Ts`` over ``ctx_bank`` batch
     by batch, the unconditional context all zeros; DDPM's step noise is
-    ``step_noise[j]`` where given, else from a CPU generator seeded ``seed +
-    STEP_SEED + 16 j``."""
-    device = next(unet.parameters()).device
-    fn = make_sample_fn(unet, schedule, num_steps=steps, sampler=sampler, guidance_scale=guidance)
+    ``step_noise[j]`` where given (the eager loop), else from a CPU
+    generator seeded ``seed + STEP_SEED + 16 j`` (through the loop cache of
+    ``unet``, a :func:`loop_model`, or of a model made over it)."""
+    model = unet if isinstance(unet, LatentDiffusion) else loop_model(unet, schedule)
+    device = model.device
+    fn = make_sample_fn(model.unet, schedule, num_steps=steps, sampler=sampler, guidance_scale=guidance)
     out = []
     for j, x_T in enumerate(x_Ts):
         ctx = torch.from_numpy(ctx_bank[j * BATCH: j * BATCH + len(x_T)]).to(device)
-        noise = None if step_noise is None else [n.to(device) for n in step_noise[j]]
-        out.append(fn(x_T.to(device), ctx, torch.zeros_like(ctx), noise=noise,
-                      generator=torch.Generator().manual_seed(seed + STEP_SEED + j * BATCH)).float().cpu().numpy())
+        generator = torch.Generator().manual_seed(seed + STEP_SEED + j * BATCH)
+        x_T = x_T.to(device)
+        if step_noise is None:
+            x0 = model.sample_loop(x_T, ctx, steps, sampler=sampler, guidance_scale=guidance)(
+                x_T, ctx, torch.zeros_like(ctx), generator)
+        else:
+            x0 = fn(x_T, ctx, torch.zeros_like(ctx), noise=[n.to(device) for n in step_noise[j]], generator=generator)
+        out.append(x0.float().cpu().numpy())
     return np.concatenate(out)
 
 
@@ -202,11 +233,12 @@ def main(argv=None) -> dict:
     else:
         perturb(unet, float(env("FS_PERTURB", "0.02")))
     unet.eval().requires_grad_(False)
+    model = loop_model(unet, schedule)
     ctx_bank = make_batch(basis, torch.Generator().manual_seed(1234), n)[1].numpy()
     result = {"metric": "sampler_quality_vs_steps_latent_fid", "n_images": n,
               "train_steps": train_steps, "train_loss_first": losses[0] if losses else None,
               "train_loss_last": losses[-1] if losses else None,
-              **curve(unet, schedule, parse_grid(env("FS_GRID", DEFAULT_GRID)), ctx_bank, n, res,
+              **curve(model, schedule, parse_grid(env("FS_GRID", DEFAULT_GRID)), ctx_bank, n, res,
                       int(env("FS_TARGET_STEPS", "200")), float(env("FS_GUIDANCE", "2.0")), int(env("FS_POOL", "8")))}
     print(json.dumps(result), flush=True)
     return result

@@ -61,7 +61,7 @@ from stable_diffusion_pytorch_tpu_torch.models.build import (
     require_device,
     without_default_init,
 )
-from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import make_sample_fn
+from stable_diffusion_pytorch_tpu_torch.models.latent_diffusion import LatentDiffusion, make_sample_fn
 from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
 from stable_diffusion_pytorch_tpu_torch.models.unet import UNetModel
 from stable_diffusion_pytorch_tpu_torch.scripts.stage_check import hf_tokenizer
@@ -157,13 +157,15 @@ def vae_parity(seed: int, device, size: int = 512) -> dict:
     return {"image_size": size, "encode": enc, "decode": dec}
 
 
+COMPAT_LOOP = dict(sampler="ddpm", guidance_scale=7.5, scale_factor=0.0, reference_cfg_formula=True,
+                   ascending_loop=True, leading_timesteps=True)
+
+
 def compat_sample_fn(unet, steps: int = LOOP_STEPS, noise_steps: int = 1000):
     """The reference-compat loop as the JAX tool builds it: DDPM, CFG 7.5 by
     the swapped formula, ascending over the raw timesteps, ``scale_factor``
     0 (the stochastic term off, so the loop is deterministic)."""
-    return make_sample_fn(unet, make_schedule(DDPMConfig(noise_steps=noise_steps)), num_steps=steps, sampler="ddpm",
-                          guidance_scale=7.5, scale_factor=0.0, reference_cfg_formula=True, ascending_loop=True,
-                          leading_timesteps=True)
+    return make_sample_fn(unet, make_schedule(DDPMConfig(noise_steps=noise_steps)), num_steps=steps, **COMPAT_LOOP)
 
 
 def loop_inputs(seed: int, latent: int = 64, context_dim: int = 768):
@@ -181,8 +183,10 @@ def loop_parity(seed: int, device, latent: int = 64) -> dict:
     unet, cpu_unet = _pair(build_unet(cfg, seed, device, compat=True), device)
     x_T, ctx, uncond = loop_inputs(seed, latent, cfg.context_dim)
     with torch.no_grad(), full_float32():
-        out = compat_sample_fn(unet)(x_T.to(device), ctx.to(device), uncond.to(device),
-                                     generator=torch.Generator().manual_seed(seed))
+        model = LatentDiffusion(unet, None, None, make_schedule(DDPMConfig(noise_steps=1000)))
+        x_T_d, ctx_d = x_T.to(device), ctx.to(device)
+        out = model.sample_loop(x_T_d, ctx_d, LOOP_STEPS, **COMPAT_LOOP)(x_T_d, ctx_d, uncond.to(device),
+                                                                        torch.Generator().manual_seed(seed))
         ref = compat_sample_fn(cpu_unet)(x_T, ctx, uncond, generator=torch.Generator().manual_seed(seed))
     return {"steps": LOOP_STEPS, **_delta(out, ref, LOOP_TOL, device)}
 

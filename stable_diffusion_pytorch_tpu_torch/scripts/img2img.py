@@ -6,9 +6,11 @@ package's scripts/img2img.py).
     python -m stable_diffusion_pytorch_tpu_torch.scripts.img2img --init-image photo.png \\
         --mask-image mask.png --prompt "a red hat"    # inpainting: white mask = repaint
 
-``Img2ImgConfig`` holds the JAX CLI's fields; the model-size flags, the
-compat switches, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``
-are txt2img's. ``--controlnet-checkpoint`` takes a checkpoint in the port's
+``Img2ImgConfig`` holds the JAX CLI's fields; the whole config parses
+through ``load_config`` with it as an extra group, as txt2img's and the JAX
+CLI's do (``--config-file`` and every trainer flag parse; the model-size
+flags, the compat switches, ``--seed``, ``--guidance-scale`` and
+``--mixed-precision`` are read). ``--controlnet-checkpoint`` takes a checkpoint in the port's
 layout (``models/controlnet.py``), or a comma list. ``--device`` (default
 ``cuda``; without a card the run stops unless given ``--device cpu``) is the
 port's own. Weights staged under ``--model-dir`` are loaded
@@ -22,17 +24,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-from stable_diffusion_pytorch_tpu_torch.config import (
-    AutoencoderConfig,
-    BaseConfig,
-    ClipConfig,
-    DDPMConfig,
-    UnetConfig,
-)
+from stable_diffusion_pytorch_tpu_torch.config import BaseConfig
 from stable_diffusion_pytorch_tpu_torch.models.build import require_device, resolve_dtype
 from stable_diffusion_pytorch_tpu_torch.pipeline import img2img, inpaint
 from stable_diffusion_pytorch_tpu_torch.scripts.txt2img import build_for_sampling, control_images, parse_args
-from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
 logger = logging.getLogger("img2img")
 
@@ -74,11 +69,8 @@ class Img2ImgConfig(BaseConfig):
     )
 
 
-_GROUPS = (UnetConfig, AutoencoderConfig, ClipConfig, DDPMConfig, CompatConfig, Img2ImgConfig)
-
-
 def main(argv=None) -> None:
-    args, cfg = parse_args(argv, _GROUPS, "img2img and inpainting (PyTorch port)")
+    args, cfg = parse_args(argv, Img2ImgConfig)
     icfg = cfg[Img2ImgConfig]
     if not icfg.init_image:
         raise SystemExit("img2img: --init-image is required")

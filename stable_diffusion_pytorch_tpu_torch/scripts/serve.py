@@ -22,9 +22,10 @@ On a card each signature's reverse loop (a bucket's batch, the size, steps,
 sampler, guidance, karras) is captured once as a CUDA graph at its first
 batch, a warm-up run and a capture on the batcher thread, and replayed by
 every later batch of that signature (the JAX server's jit cache:
-``LatentDiffusion.sample_loop``); the graphs share one memory pool.
-``--warmup`` and ``--warmup-sizes`` capture the signatures they name before
-the server listens. ``/reload`` copies the weights in place, so the
+``LatentDiffusion.sample_loop``); the graphs share one memory pool. So is
+the text encoder's tower, once per batch of prompts (``CLIPModel.encode_text``).
+``--warmup`` and ``--warmup-sizes`` capture the signatures they name, the
+loop's and the encoder's, before the server listens. ``/reload`` copies the weights in place, so the
 captured graphs stay valid and replay with the new weights, with no
 capture. On the CPU the loop runs eagerly.
 

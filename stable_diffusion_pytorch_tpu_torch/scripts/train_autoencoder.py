@@ -34,7 +34,7 @@ from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import get_logger
 
 
-def build_trainer(argv=None) -> AutoencoderTrainer:
+def build_trainer(argv=None, capture: bool = True) -> AutoencoderTrainer:
     """Parse the flags and build the VAE, datasets, test images and trainer."""
     logger = get_logger("train_autoencoder")
     cfg, device = parse_training_flags(argv, "train_autoencoder", logger, map_deepspeed=True)
@@ -46,7 +46,7 @@ def build_trainer(argv=None) -> AutoencoderTrainer:
     eval_dataset = get_dataset(cfg.dataset, split="validation", tokenizer=tokenizer, logger=logger)
     test_images = sample_test_image(cfg.dataset, split="test", tokenizer=tokenizer, logger=logger, num=10)
     return AutoencoderTrainer(vae, cfg, train_dataset, eval_dataset, test_images=test_images, logger=logger,
-                              compat=compat, device=device)
+                              compat=compat, device=device, capture=capture)
 
 
 def _main(argv=None) -> AutoencoderTrainer:

@@ -25,7 +25,7 @@ from stable_diffusion_pytorch_tpu_torch.utils.data import ControlNetDataset, get
 from stable_diffusion_pytorch_tpu_torch.utils.errors import record
 
 
-def build_trainer(argv=None) -> ControlNetTrainer:
+def build_trainer(argv=None, capture: bool = True) -> ControlNetTrainer:
     """Parse the flags and build the models, the ControlNet, the datasets and the trainer."""
     cfg, device, compat, model, logger = build_training_models(argv, "train_controlnet")
     vae_cfg = AutoencoderConfig(**cfg.model.autoencoder.to_dict())
@@ -36,7 +36,8 @@ def build_trainer(argv=None) -> ControlNetTrainer:
     tokenizer = model.text_encoder.tokenizer
     datasets = [ControlNetDataset(get_dataset(cfg.dataset, split=split, tokenizer=tokenizer, logger=logger))
                 for split in ("train", "validation")]
-    return ControlNetTrainer(model, controlnet, cfg, *datasets, logger=logger, device=device)
+    return ControlNetTrainer(model, controlnet, cfg, *datasets, logger=logger, device=device,
+                             capture=capture)
 
 
 def _main(argv=None) -> ControlNetTrainer:

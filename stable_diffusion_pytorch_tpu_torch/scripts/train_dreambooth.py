@@ -73,7 +73,7 @@ def ensure_class_images(model, cfg_train, resolution: int, logger) -> int:
     return need
 
 
-def build_trainer(argv=None, read=None) -> UNetTrainer:
+def build_trainer(argv=None, read=None, capture: bool = True) -> UNetTrainer:
     """Parse the flags and build the models, the class images, the datasets
     and the trainer; ``read(path)`` decodes an image file (Pillow by default)."""
     cfg, device, compat, model, logger = build_training_models(argv, "train_dreambooth")
@@ -93,7 +93,7 @@ def build_trainer(argv=None, read=None) -> UNetTrainer:
         logger.info(f"prior preservation on: {len(class_ds)} class image(s), weight {t.prior_loss_weight:g} "
                     f"(UNet batch {2 * t.train_batch_size})")
     return UNetTrainer(model, cfg, train_dataset, instance_ds, logger=logger, compat=compat, device=device,
-                       train_collate=collate)
+                       train_collate=collate, capture=capture)
 
 
 def _main(argv=None) -> UNetTrainer:

@@ -42,7 +42,7 @@ def init_concept_vectors(text_encoder, cfg_train, seed: int = 0) -> np.ndarray:
     return (rng.standard_normal((k, text_encoder.module.d_model)) * 0.02).astype(np.float32)
 
 
-def build_trainer(argv=None) -> TextualInversionTrainer:
+def build_trainer(argv=None, capture: bool = True) -> TextualInversionTrainer:
     """Parse the flags, register the concept and build the datasets and trainer."""
     cfg, device, _, model, logger = build_training_models(argv, "train_textual_inversion")
     te, t = model.text_encoder, cfg.train
@@ -51,7 +51,8 @@ def build_trainer(argv=None) -> TextualInversionTrainer:
                 + (f", initialized from {t.initializer_token!r}" if t.initializer_token else ", random init"))
     datasets = [TextualInversionDataset(get_dataset(cfg.dataset, split=split, tokenizer=te.tokenizer, logger=logger),
                                         t.placeholder_token, te.tokenize) for split in ("train", "validation")]
-    return TextualInversionTrainer(model, cfg, *datasets, logger=logger, device=device)
+    return TextualInversionTrainer(model, cfg, *datasets, logger=logger, device=device,
+                                   capture=capture)
 
 
 def _main(argv=None) -> TextualInversionTrainer:

@@ -104,11 +104,11 @@ def build_training_models(argv, name: str, map_deepspeed: bool = False):
     return cfg, device, compat, model, logger
 
 
-def build_trainer(argv=None) -> UNetTrainer:
-    """Parse the flags and build the models, datasets and trainer. With
-    ``--latent-cache PATH`` the training rows come from that cache, built
-    first from the training set (the frozen VAE and CLIP on the run's
-    device) when the file does not exist."""
+def build_trainer(argv=None, capture: bool = True) -> UNetTrainer:
+    """Parse the flags and build the models, datasets and trainer (``capture``:
+    the trainer's). With ``--latent-cache PATH`` the training rows come from
+    that cache, built first from the training set (the frozen VAE and CLIP
+    on the run's device) when the file does not exist."""
     cfg, device, compat, model, logger = build_training_models(argv, "train_unet", map_deepspeed=True)
     tokenizer = model.text_encoder.tokenizer
     train_dataset = get_dataset(cfg.dataset, split="train", tokenizer=tokenizer, logger=logger)
@@ -122,7 +122,7 @@ def build_trainer(argv=None) -> UNetTrainer:
         train_dataset, collate = LatentCacheDataset(cache), collate_latents
         logger.info(f"training from cached latents: {cache}")
     return UNetTrainer(model, cfg, train_dataset, eval_dataset, logger=logger, compat=compat, device=device,
-                       train_collate=collate)
+                       train_collate=collate, capture=capture)
 
 
 def _main(argv=None) -> UNetTrainer:

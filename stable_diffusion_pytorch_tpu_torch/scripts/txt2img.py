@@ -4,14 +4,17 @@
         --prompt "a cat" --image-size 512 --sampling-steps 50 --guidance-scale 7.5 \\
         --channels-list 320,640,1280,1280 ...
 
-Flag names are the JAX CLI's for the ported subset: every sampling flag of
-``SamplingConfig`` (every sampler, Karras spacing, v-prediction, trailing
-spacing, guidance rescale, the hires fix, DeepCache, ``--unet-checkpoint``,
-``--lora-checkpoint``/``--lora-scale``, ``--textual-inversion``,
-``--controlnet-checkpoint`` (a comma list)/``--control-image``/
-``--control-scale``, each a checkpoint in the port's layout), the
-model-size flags of the UNet/VAE/CLIP/DDPM config groups, the compat switches
-the slice reads, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``.
+The flags are the JAX CLI's: the whole config parses through
+``config.py:load_config`` with ``SamplingConfig`` as an extra group, as the
+JAX CLI's does, so ``--config-file`` (a path, or a preset's name) and every
+trainer flag parse, and those sampling does not read are accepted and
+ignored. Sampling reads every flag of ``SamplingConfig`` (every sampler,
+Karras spacing, v-prediction, trailing spacing, guidance rescale, the hires
+fix, DeepCache, ``--unet-checkpoint``, ``--lora-checkpoint``/``--lora-scale``,
+``--textual-inversion``, ``--controlnet-checkpoint`` (a comma list)/
+``--control-image``/``--control-scale``, each a checkpoint in the port's
+layout), the model-size flags of the UNet/VAE/CLIP/DDPM config groups, the
+compat switches, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``.
 ``--device`` (default ``cuda``; without a card the run stops unless given
 ``--device cpu``) is the port's own. Weights staged under ``--model-dir``
 (default ``data/pretrained``: ``unet.pt``, ``vae/`` or ``vae.pt``,
@@ -22,7 +25,6 @@ with the repository.
 
 from __future__ import annotations
 
-import argparse
 import logging
 import time
 
@@ -31,7 +33,7 @@ from stable_diffusion_pytorch_tpu_torch.config import (
     ClipConfig,
     DDPMConfig,
     UnetConfig,
-    add_dataclass_args,
+    load_config,
 )
 from stable_diffusion_pytorch_tpu_torch.models.build import (
     build_models,
@@ -46,27 +48,23 @@ from stable_diffusion_pytorch_tpu_torch.utils.compat import CompatConfig
 
 logger = logging.getLogger("txt2img")
 
-_GROUPS = (UnetConfig, AutoencoderConfig, ClipConfig, DDPMConfig, CompatConfig, SamplingConfig)
+_GROUPS = (UnetConfig, AutoencoderConfig, ClipConfig, DDPMConfig, CompatConfig)
 
 
-def parse_args(argv=None, groups=_GROUPS, description="text-to-image sampling (PyTorch port)"):
-    """-> (args, {config dataclass: its instance}) for the flags of ``groups``
-    and the port's own ``--seed``, ``--guidance-scale``, ``--mixed-precision``
-    and ``--device`` (the img2img CLI passes its own groups)."""
-    parser = argparse.ArgumentParser(description=description)
-    for dc in groups:
-        add_dataclass_args(parser, dc)
-    parser.add_argument("--seed", type=int, default=42, help="seed for weights and noise")
-    parser.add_argument("--guidance-scale", type=float, default=7.5,
-                        help="guidance scale for classifier free guidance")
-    parser.add_argument("--mixed-precision", default="bf16", choices=["no", "bf16", "fp16", "fp32"],
-                        help="compute dtype on a CUDA device (the CPU always computes in float32)")
+def _add_device(parser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (cuda; the CPU only when asked: --device cpu)")
-    args = parser.parse_args(argv)
-    configs = {
-        dc: dc(**{f: getattr(args, f) for f in dc.__dataclass_fields__}) for dc in groups
-    }
+
+
+def parse_args(argv=None, extra=SamplingConfig):
+    """-> (args, {config dataclass: its instance}): the whole config through
+    ``load_config`` with ``extra`` (``SamplingConfig``, or the img2img CLI's
+    group) as an extra group and ``--device``; the instances are those of
+    the model groups, the compat switches and ``extra``. ``args`` holds
+    every flag, ``--seed``, ``--guidance-scale`` and ``--mixed-precision``
+    among them."""
+    args, _ = load_config(argv, extra_data_classes=[extra], parser_hook=_add_device)
+    configs = {dc: dc(**{f: getattr(args, f) for f in dc.__dataclass_fields__}) for dc in (*_GROUPS, extra)}
     return args, configs
 
 

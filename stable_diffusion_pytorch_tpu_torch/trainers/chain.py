@@ -8,7 +8,8 @@ one process and the moments on the card, the counterpart is one CUDA graph
 per optimizer step (its accumulation micro steps and the update), captured
 once and replayed N times a chunk with no host sync between the replays
 (:class:`StepGraph`, on the mechanism the sampling loop shares,
-``utils/graphs.py``). Each step's draws are made outside the graph with the
+``utils/graphs.py``); so is each optimizer step at N = 1, the JAX package's
+per-step ``_jit_step``. Each step's draws are made outside the graph with the
 per-step path's generators and copied, with the batches, into the graph's
 static inputs; the optimizer's scalars are a chunk's rows uploaded at once,
 row i copied into the optimizer's buffer before step i
@@ -54,7 +55,8 @@ def chunk_safe(micro: int, steps: int, accum: int, max_train_steps: int, ckpt_st
 class StepGraph(CapturedGraph):
     """One optimizer step as a CUDA graph (``utils/graphs.py:CapturedGraph``):
     ``body(inputs) -> metrics`` (f32 ``[micro steps, K]``) over static
-    ``inputs`` (a tree of the step's batches and draws), in a private pool.
+    ``inputs`` (a tree of the step's batches and draws), in the trainer's
+    pool (``pool``, ``stream``: its :class:`~stable_diffusion_pytorch_tpu_torch.utils.graphs.GraphPool`'s).
 
     Made with the first step's inputs: that step runs eagerly on a side
     stream (the warm-up, a real step: it makes what a step makes once, the
@@ -66,18 +68,23 @@ class StepGraph(CapturedGraph):
     falls back to the eager step."""
 
     def __init__(self, body: Callable[[Any], torch.Tensor], inputs, save_counters: Callable[[], Callable[[], None]],
-                 pinned: Callable[[], List[torch.Tensor]]):
-        super().__init__(body, inputs, what="the optimizer step (chained dispatch)", save_counters=save_counters,
-                         pinned=pinned, advice="run with --steps-per-dispatch 1 for the per-step path")
+                 pinned: Callable[[], List[torch.Tensor]], **kwargs):
+        kwargs.setdefault("capture_error_mode", "global")
+        super().__init__(body, inputs, what="the optimizer step", save_counters=save_counters, pinned=pinned,
+                         advice="build the trainer with capture=False for the eager step", **kwargs)
 
 
-def route(spd: int, device: torch.device, offload: bool, group) -> Optional[str]:
-    """How ``--steps-per-dispatch spd`` runs: None (one step at a time: spd 1,
-    or the optimizer offloaded, as in JAX), ``"graph"`` (a CUDA device, one
-    process: each optimizer step replayed as a CUDA graph) or ``"eager"``
-    (the CPU, or a process group: chunks of steps run one after the other)."""
-    if spd <= 1 or offload:
+def route(spd: int, device: torch.device, offload: bool, group, capture: bool = True) -> Optional[str]:
+    """How the optimizer steps run at ``--steps-per-dispatch spd``:
+    ``"graph"`` (a CUDA device, one process, the trainer built with
+    ``capture``: each optimizer step replayed as one CUDA graph, at spd 1
+    too, as the JAX package runs each step as one jitted program), None (one
+    micro step at a time: the optimizer offloaded, as in JAX, or spd 1 off
+    the graph route: the CPU, a process group, ``capture=False``) or
+    ``"eager"`` (spd above 1 off the graph route: chunks of steps run one
+    after the other, one pull of the metrics a chunk)."""
+    if offload:
         return None
-    if device.type == "cuda" and group is None:
+    if device.type == "cuda" and group is None and capture:
         return "graph"
-    return "eager"
+    return "eager" if spd > 1 else None

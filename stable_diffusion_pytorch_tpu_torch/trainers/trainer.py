@@ -61,20 +61,37 @@ feed-forward weights over groups of T adjacent ranks
 With one process every option but ``--tensor-parallel`` is the one-device
 run. The combinations :func:`check_parallel` names raise ``ValueError``.
 
-Chained dispatch, ``--steps-per-dispatch N`` (``trainers/chain.py``): where
-the JAX package's rule allows (:func:`~stable_diffusion_pytorch_tpu_torch.trainers.chain.chunk_safe`),
-N optimizer steps run as one chunk whose metrics reach the host in one pull;
-checkpoint and evaluation boundaries, an epoch's remainder and a resume's
-partial window run one optimizer step at a time. On a CUDA device with one
-process each optimizer step is one CUDA graph, captured at the first step
-and replayed (boundary steps replay it too, with a pull after each); on the
-CPU and over a process group the chunks run without a graph; under
-``--offload-optimizer`` every step is dispatched alone, as in the JAX
-package. The loss stream is the per-step path's, bit for bit on the CPU.
+One program per call, as the JAX package jits its steps (``trainers/chain.py``,
+``utils/graphs.py``): on a CUDA device with one process each optimizer step
+(its accumulation micro steps and the update) is one CUDA graph, captured at
+the first step and replayed, at ``--steps-per-dispatch 1`` (the default, JAX's
+``_jit_step``) as at N, and the evaluation step is one graph per batch
+signature (JAX's ``_jit_eval``). The route is fixed when the trainer is built
+(``capture=False`` builds the eager trainer, the graph route's control); a
+window the graph cannot take (an epoch's remainder, a resume's partial
+window, a batch of another shape) runs eagerly. The CPU, a process group and
+``--offload-optimizer`` run each micro step eagerly, as before.
+
+Chained dispatch, ``--steps-per-dispatch N``: where the JAX package's rule
+allows (:func:`~stable_diffusion_pytorch_tpu_torch.trainers.chain.chunk_safe`),
+N optimizer steps run as one chunk whose metrics reach the host in one pull
+(N replays on the graph route; on the CPU and over a process group the steps
+of a chunk run eagerly); checkpoint and evaluation boundaries run one
+optimizer step at a time. Under ``--offload-optimizer`` every step is
+dispatched alone, as in the JAX package. The loss stream is the per-step
+path's, bit for bit on the CPU.
+
+``SD_TRAIN_PROFILE=1`` (the JAX package's switch, read where it reads it):
+each micro step's wall time split into host phases (:class:`~stable_diffusion_pytorch_tpu_torch.utils.profiling.PhaseTimer`):
+``fetch`` (the loader), ``place`` (the batch to the device; on a dispatch,
+the draws too), ``dispatch`` (the eager step's launches, or the replays) and
+``sync`` (the loss pulled to the host, or a dispatch's one pull); their p50
+and mean go into every logged record and the end-of-run summary line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
@@ -113,7 +130,8 @@ from stable_diffusion_pytorch_tpu_torch.trainers.steps import (
 )
 from stable_diffusion_pytorch_tpu_torch.utils.checkpoint import CheckpointManager, resume_train_state_math
 from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, detransform, to_img
-from stable_diffusion_pytorch_tpu_torch.utils.profiling import StepTimer
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, signature
+from stable_diffusion_pytorch_tpu_torch.utils.profiling import PhaseTimer, StepTimer
 from stable_diffusion_pytorch_tpu_torch.utils.tracking import Tracker, get_logger
 
 LOG_IMAGE_PROMPT = "a white cat wearing a hat"  # the reference's eval prompt (train_unet.py:452-465)
@@ -207,7 +225,11 @@ class Trainer:
     eval_cadence_offset = 0  # evaluate when (global_step + offset) % log_interval == 0
     tensor_parallel_ok = False  # whether --tensor-parallel applies (it splits the trained UNet's weights)
 
-    def __init__(self, cfg, train_dataset, eval_dataset, logger=None, device="cuda", train_collate=None):
+    def __init__(self, cfg, train_dataset, eval_dataset, logger=None, device="cuda", train_collate=None,
+                 capture: bool = True):
+        """``capture``: on a CUDA device with one process, run each optimizer
+        step and evaluation step as a replayed CUDA graph (the route is fixed
+        here); False runs them eagerly (the graph route's control)."""
         if train_dataset is None:
             raise ValueError("must specify a training dataset")
         if eval_dataset is None and cfg.train.log_interval > 0:
@@ -263,10 +285,15 @@ class Trainer:
         if any(getattr(ds, "synthetic_fallback", False) for ds in (train_dataset, eval_dataset)):
             self.tracker.set_persistent(synthetic_fallback=True)
         self.random_flip = bool(cfg.dataset.random_flip and cfg.dataset.device_preprocess)
-        # chained dispatch (train() sets the route): the captured step, the metrics' order
-        self._route, self._graph, self._metric_keys = None, None, []
+        # the captured step, the metrics' order; the trainer's graphs (the
+        # step's and the evaluation's) share one pool and one side stream
+        self._graph, self._metric_keys = None, []
+        self._graphs = GraphPool("global")
         self._chunk_warm = self._single_warm = False
+        self._last_dispatch: Dict[str, float] = {}
         self._build()
+        self._route = chain.route(int(cfg.train.steps_per_dispatch or 1), self.device, self.state.optimizer.offload,
+                                  self.group, capture)
 
     # subclass surface
     def _build(self) -> None:
@@ -283,8 +310,16 @@ class Trainer:
     def _train_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> Dict[str, Any]:
         return self._step(batch, self._train_draws(batch, generator))
 
-    def _eval_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+    def _eval_draws(self, batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        """Every random draw of one evaluation step on this rank's ``batch``."""
         raise NotImplementedError
+
+    def _eval_body(self, batch: Dict[str, torch.Tensor], draws) -> torch.Tensor:
+        """One evaluation step from its batch and draws -> the loss (0-d)."""
+        raise NotImplementedError
+
+    def _eval_step(self, batch: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        return self._eval_body(batch, self._eval_draws(batch, generator))
 
     def log_images(self, global_step: int):
         """Under ``--log-image``, after each evaluation: sample or reconstruct,
@@ -410,12 +445,18 @@ class Trainer:
         return out
 
     def _micro_steps(self, epoch_iter, *, skip_until: int, micro_step0: int, step_timer, max_train_steps: int,
-                     ckpt_steps):
+                     ckpt_steps, phases: Optional[PhaseTimer] = None):
         """Yield (metrics as floats, step wall seconds incl. the batch fetch)
         for each micro step of one epoch: one micro step at a time, or under
         chained dispatch chunks of optimizer steps (:meth:`_dispatch`) where
         :func:`chain.chunk_safe` allows, and on the graph route every
-        optimizer step whose window the epoch holds (JAX ``_micro_steps``)."""
+        optimizer step whose window the epoch holds (JAX ``_micro_steps``).
+        ``phases`` (``SD_TRAIN_PROFILE=1``) takes each micro step's
+        ``place``, ``dispatch`` and ``sync`` seconds."""
+
+        def phase(name):
+            return phases.phase(name) if phases is not None else contextlib.nullcontext()
+
         cfg = self.cfg
         accum = cfg.train.gradient_accumulation_steps
         spd = int(cfg.train.steps_per_dispatch or 1)
@@ -455,6 +496,9 @@ class Trainer:
                 for i in range(want):
                     if warm:  # the first dispatch captures: left out, as JAX leaves out its compile
                         step_timer.add(per_step)
+                        if phases is not None:
+                            for name, dt in self._last_dispatch.items():
+                                phases.add(name, dt / want)
                     micro += 1
                     yield dict(zip(self._metric_keys, map(float, rows[i]))), per_step + fetch_dt / want
                 continue
@@ -462,13 +506,18 @@ class Trainer:
             if route is not None and not self._single_warm:
                 self._single_warm = True  # a chained run's first step alone builds what it builds
                 step_timer.skip_next()
+                if phases is not None:
+                    phases.skip_next("dispatch")
             t0 = time.perf_counter()
-            placed = self._place_batch(batch)
+            with phase("place"):
+                placed = self._place_batch(batch)
             with step_timer:
-                metrics = self._train_step(placed, step_generator(self.device, 0, self.cfg.train.seed, micro))
+                with phase("dispatch"):
+                    metrics = self._train_step(placed, step_generator(self.device, 0, self.cfg.train.seed, micro))
                 # reading the loss waits for the step's device work; the
                 # other metrics stay on the device until the loop reads them
-                metrics["loss"] = float(self._mean(metrics["loss"]))
+                with phase("sync"):
+                    metrics["loss"] = float(self._mean(metrics["loss"]))
             micro += 1
             yield metrics, fetch_dt + (time.perf_counter() - t0)
 
@@ -511,29 +560,40 @@ class Trainer:
     def _dispatch(self, window, micro0: int, steps: int):
         """Run ``steps`` optimizer steps of ``window`` (their micro batches) ->
         the metrics of each micro step, f32 [micro steps, K] on the host, in
-        one pull. The optimizer's scalars of the chunk go up in one copy; row
-        i reaches its buffer before step i."""
+        one pull. The steps' batches and draws are placed first, and the
+        optimizer's scalars of the chunk go up in one copy; row i reaches its
+        buffer before step i. On the graph route a step replays the captured
+        one (the first step captures it); a step whose inputs the graph
+        cannot take runs eagerly. ``_last_dispatch``: the host seconds of
+        ``place``, ``dispatch`` and the one pull (``sync``)."""
         accum = self.cfg.train.gradient_accumulation_steps
         opt = self.state.optimizer
+        t0 = time.perf_counter()
+        inputs = [self._window_inputs(window[i * accum:(i + 1) * accum], micro0 + i * accum) for i in range(steps)]
         rows = upload(opt.scalar_rows(steps), torch.empty((steps, 4), dtype=torch.float32, device=opt.scalars.device))
+        t1 = time.perf_counter()
         outs = []
         opt.fed = True
         try:
             for i in range(steps):
-                inputs = self._window_inputs(window[i * accum:(i + 1) * accum], micro0 + i * accum)
                 opt.scalars.copy_(rows[i])
-                if self._route != "graph":
-                    outs.append(self._window(inputs))
+                if self._route != "graph" or (self._graph is not None and not self._graph.takes(inputs[i])):
+                    outs.append(self._window(inputs[i]))
                 elif self._graph is None:
-                    self._graph = chain.StepGraph(self._window, inputs, self._save_counters, self._graph_tensors)
+                    self._graph = self._graphs.capture(self._window, inputs[i], graph_cls=chain.StepGraph,
+                                                       save_counters=self._save_counters, pinned=self._graph_tensors)
                     outs.append(self._graph.first)
+                    self._graph.first = None
                 else:
-                    outs.append(self._graph.replay(inputs).clone())
+                    outs.append(self._graph.replay(inputs[i]).clone())
                     self.state.step += accum
                     opt.count += 1
         finally:
             opt.fed = False
-        return torch.cat(outs).cpu().numpy()
+        t2 = time.perf_counter()
+        out = torch.cat(outs).cpu().numpy()
+        self._last_dispatch = {"place": t1 - t0, "dispatch": t2 - t1, "sync": time.perf_counter() - t2}
+        return out
 
     def _resume(self) -> dict:
         restored, resumed_step = self.ckpt_manager.restore(self.state)
@@ -580,22 +640,15 @@ class Trainer:
         self.logger.info("**********************************************")
 
         spd = int(cfg.train.steps_per_dispatch or 1)
-        self._route = chain.route(spd, self.device, self.state.optimizer.offload, self.group)
         self._chunk_warm = self._single_warm = False
-        if spd > 1:
-            self.logger.info({
-                None: f"--steps-per-dispatch {spd}: the optimizer is offloaded, so every step is dispatched alone",
-                "graph": f"--steps-per-dispatch {spd}: each optimizer step runs as one CUDA graph, {spd} replays "
-                         "a chunk and one pull of the metrics",
-                "eager": f"--steps-per-dispatch {spd}: chunks of {spd} optimizer steps and one pull of the metrics, "
-                         "run without a CUDA graph (" + ("a process group" if self.group is not None
-                                                          else f"a {self.device.type} device") + ")",
-            }[self._route])
+        self.logger.info(self._route_line(spd))
 
         micro_step = global_step * accum
         window_losses = []
         window_wall = 0.0
         self.step_timer = step_timer = StepTimer(warmup=2)  # the first steps build and tune
+        # SD_TRAIN_PROFILE=1: each micro step's wall time by host phase (JAX trainer.py:518-520)
+        phases = PhaseTimer(warmup=2) if os.environ.get("SD_TRAIN_PROFILE", "") == "1" else None
         done = False
         gns = GradNoiseScale()
         spike_thr = float(cfg.log.spike_threshold or 0.0)
@@ -606,12 +659,13 @@ class Trainer:
                 break
             self.train_loader.set_epoch(epoch)
             stepper = self._micro_steps(
-                self.train_loader,
+                phases.timed_iter(self.train_loader, "fetch") if phases is not None else self.train_loader,
                 skip_until=resume_step if (resumed and epoch == start_epoch) else -1,
                 micro_step0=micro_step,
                 step_timer=step_timer,
                 max_train_steps=max_train_steps,
                 ckpt_steps=ckpt_steps,
+                phases=phases,
             )
             for metrics, step_wall in stepper:
                 micro_step += 1
@@ -629,6 +683,7 @@ class Trainer:
                         "lr": lr,
                         "samples_per_sec": total_bs / max(dt, 1e-9),
                         **step_timer.summary_ms(),
+                        **(phases.summary_ms() if phases is not None else {}),
                     }
                     if "gns_s" in metrics:
                         # the sync micro step's estimator halves, read beside the loss
@@ -665,17 +720,46 @@ class Trainer:
                 path = self.ckpt_manager.save(global_step, self.state, epoch=epoch, write=self.is_main_process)
                 self.logger.info(f"Saved state to {path}")
 
+        if phases is not None:
+            summary = {**step_timer.summary_ms(), **phases.summary_ms()}
+            if summary:
+                self.logger.info("SD_TRAIN_PROFILE phase breakdown (ms): "
+                                 + ", ".join(f"{k}={v:.1f}" for k, v in summary.items()))
         self.tracker.finish()
 
+    def _route_line(self, spd: int) -> str:
+        """The log line that says how the optimizer steps run."""
+        head = f"--steps-per-dispatch {spd}: "
+        if self._route == "graph":
+            return head + ("each optimizer step runs as one CUDA graph, captured at the first step and replayed, "
+                           + (f"{spd} replays a chunk and one pull of the metrics" if spd > 1
+                              else "one pull of the metrics a step"))
+        why = ("the optimizer is offloaded" if self.state.optimizer.offload
+               else "a process group" if self.group is not None
+               else f"a {self.device.type} device" if self.device.type != "cuda" else "the trainer built with capture off")
+        if self._route == "eager":
+            return head + f"chunks of {spd} optimizer steps and one pull of the metrics, run without a CUDA graph ({why})"
+        return head + f"one micro step at a time, each step dispatched alone without a CUDA graph ({why})"
+
     def evaluate(self, global_step: int) -> Optional[float]:
+        """The mean evaluation loss over the evaluation loader (batch ``i``'s
+        draws from ``step_generator(device, 1, seed, i)``). On the graph route
+        each batch signature's evaluation step is one CUDA graph: the first
+        batch of a signature runs it eagerly on a side stream and captures
+        it, later ones replay it (the last batch may be shorter)."""
         if self.eval_loader is None:
             return None
         self.logger.info(f"Evaluate on eval dataset [len: {len(self.eval_dataset)}]")
-        losses = [
-            float(self._mean(self._eval_step(self._place_batch(batch),
-                                             step_generator(self.device, 1, self.cfg.train.seed, i))))
-            for i, batch in enumerate(self.eval_loader)
-        ]
+        losses = []
+        for i, batch in enumerate(self.eval_loader):
+            placed = self._place_batch(batch)
+            inputs = (placed, self._eval_draws(placed, step_generator(self.device, 1, self.cfg.train.seed, i)))
+            if self._route == "graph":
+                loss = self._graphs.run(("eval", *signature(inputs)), lambda x: self._eval_body(*x),
+                                        inputs, what="the evaluation step", pinned=self.state.local_params)
+            else:
+                loss = self._eval_body(*inputs)
+            losses.append(float(self._mean(loss)))
         if not losses:
             return None
         eval_loss = float(np.mean(losses))
@@ -696,10 +780,11 @@ class UNetTrainer(Trainer):
     tensor_parallel_ok = True
 
     def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, compat=None, device="cuda",
-                 train_collate=None):
+                 train_collate=None, capture: bool = True):
         self.model = model
         self.compat = compat
-        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, train_collate=train_collate)
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, train_collate=train_collate,
+                         capture=capture)
 
     def _build(self) -> None:
         cfg, compat, model = self.cfg, self.compat, self.model
@@ -782,8 +867,11 @@ class UNetTrainer(Trainer):
     def _step(self, batch, draws):
         return self._train(self.state, batch, self.uncond_train, draws)
 
-    def _eval_step(self, batch, generator):
-        return self._eval(batch, self.uncond_ids, self._draws(batch, generator), params=self.state.tensors())
+    def _eval_draws(self, batch, generator):
+        return self._draws(batch, generator)
+
+    def _eval_body(self, batch, draws):
+        return self._eval(batch, self.uncond_ids, draws, params=self.state.tensors())
 
     @torch.no_grad()
     def log_images(self, global_step: int):
@@ -816,9 +904,9 @@ class TextualInversionTrainer(Trainer):
 
     run_name = "train_textual_inversion"
 
-    def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, device="cuda"):
+    def __init__(self, model, cfg, train_dataset, eval_dataset, logger=None, device="cuda", capture: bool = True):
         self.model = model
-        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device)
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, capture=capture)
 
     def _build(self) -> None:
         cfg, model = self.cfg, self.model
@@ -845,8 +933,11 @@ class TextualInversionTrainer(Trainer):
     def _step(self, batch, draws):
         return self._train(self.state, batch, draws)
 
-    def _eval_step(self, batch, generator):
-        return self._eval(batch, self._unet_draws(batch, generator), self.state.tensors())
+    def _eval_draws(self, batch, generator):
+        return self._unet_draws(batch, generator)
+
+    def _eval_body(self, batch, draws):
+        return self._eval(batch, draws, self.state.tensors())
 
     @torch.no_grad()
     def log_images(self, global_step: int):
@@ -874,10 +965,11 @@ class ControlNetTrainer(Trainer):
     run_name = "train_controlnet"
 
     def __init__(self, model, controlnet, cfg, train_dataset, eval_dataset, logger=None, device="cuda",
-                 train_collate=None):
+                 train_collate=None, capture: bool = True):
         self.model = model
         self.controlnet = controlnet
-        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, train_collate=train_collate)
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, train_collate=train_collate,
+                         capture=capture)
 
     def _build(self) -> None:
         cfg, model, net = self.cfg, self.model, self.controlnet
@@ -903,8 +995,11 @@ class ControlNetTrainer(Trainer):
     def _step(self, batch, draws):
         return self._train(self.state, batch, self.uncond_ids, draws)
 
-    def _eval_step(self, batch, generator):
-        return self._eval(batch, self.uncond_ids, self._unet_draws(batch, generator))
+    def _eval_draws(self, batch, generator):
+        return self._unet_draws(batch, generator)
+
+    def _eval_body(self, batch, draws):
+        return self._eval(batch, self.uncond_ids, draws)
 
     @torch.no_grad()
     def log_images(self, global_step: int):
@@ -935,11 +1030,11 @@ class AutoencoderTrainer(Trainer):
     eval_cadence_offset = 1  # (global_step + 1) % log_interval, as the JAX package's VAE trainer
 
     def __init__(self, vae, cfg, train_dataset, eval_dataset, test_images=None, logger=None, compat=None,
-                 device="cuda"):
+                 device="cuda", capture: bool = True):
         self.vae = vae
         self.compat = compat
         self.test_images = list(test_images or [])
-        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device)
+        super().__init__(cfg, train_dataset, eval_dataset, logger, device=device, capture=capture)
 
     def _build(self) -> None:
         cfg, vae = self.cfg, self.vae
@@ -990,8 +1085,11 @@ class AutoencoderTrainer(Trainer):
     def _step(self, batch, draws):
         return self._train(self.state, batch, *draws)
 
-    def _eval_step(self, batch, generator):
-        return self._eval(batch, *self._draws(batch, generator))
+    def _eval_draws(self, batch, generator):
+        return self._draws(batch, generator)
+
+    def _eval_body(self, batch, draws):
+        return self._eval(batch, *draws)
 
     @torch.no_grad()
     def recon(self, image: np.ndarray) -> np.ndarray:

@@ -25,7 +25,10 @@ return float64 numpy features:
 
 Every extractor computes in full float32 (``utils/precision.py``: no TF32
 inside its call), so features do not move with the process's TF32 switches;
-card and CPU then differ only by summation order.
+card and CPU then differ only by summation order. On a CUDA device each
+extractor's features are one CUDA graph per batch signature (the JAX
+package's jitted ``_extract``), its graphs in one pool
+(``utils/graphs.py``); ``capture=False`` runs them eagerly.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, module_tensors, replayed
 from stable_diffusion_pytorch_tpu_torch.utils.precision import full_float32
 
 
@@ -91,35 +95,48 @@ class VAEFeatureExtractor:
 
     name = "fid_vae"
 
-    def __init__(self, vae: torch.nn.Module, pool: int = 4):
+    def __init__(self, vae: torch.nn.Module, pool: int = 4, capture: bool = True):
         self.vae = vae
         self.pool = pool
+        self.capture = capture
+        self._graphs = GraphPool()
 
-    @torch.no_grad()
-    def __call__(self, images) -> np.ndarray:
+    def _features(self, images: torch.Tensor) -> torch.Tensor:
         with full_float32():
-            mean = self.vae.encode(_images(images, _device(self.vae))).mean.float()
+            mean = self.vae.encode(images).mean.float()
         b, h, w, c = mean.shape
         pool = self.pool
         ph = max(h // pool, 1)
         mean = mean[:, : ph * pool, : ph * pool, :]
-        mean = mean.reshape(b, pool, ph, pool, ph, c).mean(dim=(2, 4))
-        return mean.reshape(b, -1).cpu().numpy().astype(np.float64)
+        return mean.reshape(b, pool, ph, pool, ph, c).mean(dim=(2, 4)).reshape(b, -1)
+
+    @torch.no_grad()
+    def __call__(self, images) -> np.ndarray:
+        x = _images(images, _device(self.vae))
+        feats = replayed(self._graphs, self._features, x, what=f"the VAE features ({list(x.shape)})",
+                         pinned=module_tensors(self.vae), capture=self.capture)
+        return feats.cpu().numpy().astype(np.float64)
 
 
 class _TowerExtractor:
     """InceptionV3 pool3 features of images resized to 299x299, in full f32."""
 
-    def __init__(self, model, feat_dim: int = 0):
+    def __init__(self, model, feat_dim: int = 0, capture: bool = True):
         self.model = model.eval().requires_grad_(False)
         self.feat_dim = feat_dim
+        self.capture = capture
+        self._graphs = GraphPool()
+
+    def _features(self, images: torch.Tensor) -> torch.Tensor:
+        with full_float32():
+            feats = self.model(resize_299(images))
+        return feats[:, : self.feat_dim] if self.feat_dim else feats
 
     @torch.no_grad()
     def __call__(self, images) -> np.ndarray:
-        with full_float32():
-            feats = self.model(resize_299(_images(images, _device(self.model))))
-        if self.feat_dim:
-            feats = feats[:, : self.feat_dim]
+        x = _images(images, _device(self.model))
+        feats = replayed(self._graphs, self._features, x, what=f"the Inception features ({list(x.shape)})",
+                         pinned=module_tensors(self.model), capture=self.capture)
         return feats.cpu().numpy().astype(np.float64)
 
 
@@ -127,11 +144,13 @@ class InceptionFeatureExtractor(_TowerExtractor):
     """Canonical InceptionV3 pool3 features from staged weights
     (``{model_dir}/inception/inception_v3.{npz,safetensors,pth}``, or
     ``state``: :class:`InceptionV3Pool3`'s state dict), ``transform_input``
-    on, on ``device`` (the card unless the caller asks for the CPU)."""
+    on, on ``device`` (the card unless the caller asks for the CPU);
+    ``capture`` as the other extractors'."""
 
     name = "fid_inception"
 
-    def __init__(self, state: Optional[dict] = None, model_dir: str = "data/pretrained", device="cuda"):
+    def __init__(self, state: Optional[dict] = None, model_dir: str = "data/pretrained", device="cuda",
+                 capture: bool = True):
         from stable_diffusion_pytorch_tpu_torch.models.build import require_device
         from stable_diffusion_pytorch_tpu_torch.models.inception import InceptionV3Pool3, load_inception_state
 
@@ -145,7 +164,7 @@ class InceptionFeatureExtractor(_TowerExtractor):
         with torch.device(device):
             model = InceptionV3Pool3(transform_input=True)
         model.load_state_dict(state, strict=True)
-        super().__init__(model)
+        super().__init__(model, capture=capture)
 
 
 class RandomInceptionFeatureExtractor(_TowerExtractor):
@@ -157,7 +176,7 @@ class RandomInceptionFeatureExtractor(_TowerExtractor):
 
     name = "fid_inception_random"
 
-    def __init__(self, seed: int = 0, feat_dim: int = 0, device="cuda"):
+    def __init__(self, seed: int = 0, feat_dim: int = 0, device="cuda", capture: bool = True):
         from stable_diffusion_pytorch_tpu_torch.models.build import require_device
         from stable_diffusion_pytorch_tpu_torch.models.inception import InceptionV3Pool3
 
@@ -168,7 +187,7 @@ class RandomInceptionFeatureExtractor(_TowerExtractor):
             for name, p in model.named_parameters():
                 if name.endswith("conv.weight"):
                     p.normal_(0.0, float(np.sqrt(2.0 / p[0].numel())), generator=gen)
-        super().__init__(model.to(device), feat_dim)
+        super().__init__(model.to(device), feat_dim, capture=capture)
 
 
 def fid_between(

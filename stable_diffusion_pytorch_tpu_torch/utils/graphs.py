@@ -1,11 +1,15 @@
 """One body over static inputs captured once as a CUDA graph and replayed.
 
-The JAX package compiles its hot loops once per signature and reruns the
-program: the trainers' chunk of optimizer steps (``--steps-per-dispatch``)
-and the sampling loop's ``lax.scan`` (``LatentDiffusion._jit_cache``). On a
-CUDA device the port's counterpart of both is :class:`CapturedGraph`: the
-trainers capture one optimizer step (``trainers/chain.py``), the sampling
-loop one whole reverse loop (``models/latent_diffusion.py``).
+The JAX package compiles what it runs once per signature (``jax.jit``) and
+reruns the program: the trainers' optimizer step and its chunks
+(``--steps-per-dispatch``), their evaluation step, the sampling loop's
+``lax.scan`` (``LatentDiffusion._jit_cache``), the text encoder. On a CUDA
+device the port's counterpart is :class:`CapturedGraph`: the trainers
+capture one optimizer step (``trainers/chain.py``) and their evaluation
+step, the sampling loop one whole reverse loop
+(``models/latent_diffusion.py``), the text encoder its tower
+(``models/clip.py``). Each owner keeps its graphs in one :class:`GraphPool`:
+one memory pool and one side stream for all of them.
 """
 
 from __future__ import annotations
@@ -154,6 +158,10 @@ class CapturedGraph:
         self._pinned = pinned
         self._pointers = [t.data_ptr() for t in pinned()]
 
+    def takes(self, inputs) -> bool:
+        """Whether ``inputs`` have the captured inputs' signature."""
+        return signature(inputs) == self._signature
+
     def replay(self, inputs):
         got = signature(inputs)
         if got != self._signature:
@@ -166,3 +174,75 @@ class CapturedGraph:
         self.graph.replay()
         native.add_replays(self.tally)
         return self.out
+
+
+class GraphPool:
+    """The CUDA graphs of one owner (a trainer, a model, a tower): one memory
+    pool and one side stream that all of them share, made at the first
+    capture, and one graph per key (:meth:`run`).
+
+    The graphs of a pool must never replay at once and their callers keep
+    inputs and outputs outside it (:meth:`run` clones each output out): then
+    a capture reuses the temporaries of the captures before it, and the pool
+    grows to the largest body's temporaries plus one output per graph. A
+    failed capture raises and retires the pool (it takes no further capture,
+    :func:`_after_failed_capture`): the next capture starts a new one, the
+    graphs already captured keep theirs. The pool is released when its
+    graphs are (:meth:`clear`, or the owner going)."""
+
+    def __init__(self, capture_error_mode: str = "thread_local"):
+        self.capture_error_mode = capture_error_mode
+        self.pool = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.graphs: dict = {}
+
+    def capture(self, body: Callable[[Any], Any], inputs, graph_cls=None, **kwargs) -> CapturedGraph:
+        """A :class:`CapturedGraph` (or ``graph_cls``, a subclass) of ``body``
+        in this pool, on its stream (``kwargs``: the graph's own, ``what``
+        among them)."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(tensors(inputs)[0].device)
+        kwargs.setdefault("capture_error_mode", self.capture_error_mode)
+        try:
+            return (graph_cls or CapturedGraph)(body, inputs, pool=self.pool, stream=self.stream, **kwargs)
+        except Exception:
+            self.pool = None  # it takes no further capture: the next starts a new pool
+            raise
+
+    def run(self, key, body: Callable[[Any], Any], inputs, **kwargs):
+        """``body(inputs)`` through the graph of ``key``: its first call is the
+        warm-up (whose result it returns) and the capture, later calls replay
+        and clone the output out."""
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = self.capture(body, inputs, **kwargs)
+            first, graph.first = graph.first, None
+            return first
+        return map_tensors(torch.clone, graph.replay(inputs))
+
+    def clear(self) -> None:
+        """Drop every graph (and with the last of them the pool's memory); the
+        next capture starts a new pool."""
+        self.graphs.clear()
+        self.pool = None
+
+
+def replayed(graphs: GraphPool, body: Callable[[Any], Any], inputs, *, what: str, pinned=list, key=None,
+             capture: bool = True):
+    """``body(inputs)``: on a CUDA device through the graph of ``graphs``
+    keyed by ``key`` (the inputs' signature by default), its output cloned
+    out; eagerly on the CPU, with ``capture`` False, or inside another
+    capture (which then records the body itself)."""
+    if (tensors(inputs)[0].device.type != "cuda" or not capture
+            or torch.cuda.is_current_stream_capturing()):
+        return body(inputs)
+    key = tuple(signature(inputs)) if key is None else key
+    return graphs.run(key, body, inputs, what=what, pinned=pinned)
+
+
+def module_tensors(*modules) -> Callable[[], List[torch.Tensor]]:
+    """-> a function listing the parameters and buffers of ``modules``
+    (what a captured body reads in place)."""
+    return lambda: [t for m in modules for t in (*m.parameters(), *m.buffers())]

@@ -19,18 +19,29 @@ import numpy as np
 import torch
 
 from stable_diffusion_pytorch_tpu_torch.utils.data import DataLoader, collate_fn
+from stable_diffusion_pytorch_tpu_torch.utils.graphs import GraphPool, module_tensors, replayed
 from stable_diffusion_pytorch_tpu_torch.utils.preprocess import device_preprocess
 
 
 @torch.no_grad()
-def build_latent_cache(vae, dataset, cache_path: str, batch_size: int = 32, logger=None, text_encoder=None) -> str:
+def build_latent_cache(vae, dataset, cache_path: str, batch_size: int = 32, logger=None, text_encoder=None,
+                       capture: bool = True) -> str:
     """Encode every row of ``dataset`` with ``vae`` (on its device, in its
     dtype), ``batch_size`` rows at a time, and save the moments and token
     ids to ``cache_path``; with ``text_encoder`` (a ``models.clip.CLIPModel``)
     the context embeddings and the empty prompt's embedding too. Rows in
-    uint8 (``--device-preprocess``) are normalized on the device first."""
+    uint8 (``--device-preprocess``) are normalized on the device first. On a
+    CUDA device the encode is one CUDA graph per batch signature (the JAX
+    package's jitted encode; the text encoder's are its own) unless
+    ``capture`` is False; the graphs go with the call."""
     device = next(vae.parameters()).device
     loader = DataLoader(dataset, batch_size=batch_size, shuffle=False, drop_last=False, collate=collate_fn)
+    graphs = GraphPool()
+
+    def moments(pixels):
+        dist = vae.encode(pixels)
+        return torch.cat([dist.mean, dist.log_var], dim=-1).float()
+
     moments_out, ids_out, ctx_out = [], [], []
     for batch in loader:
         if "pixel_values" in batch:
@@ -38,16 +49,17 @@ def build_latent_cache(vae, dataset, cache_path: str, batch_size: int = 32, logg
         else:
             raw = torch.from_numpy(batch["raw_images"]).to(device)
             pixels = device_preprocess(raw, raw.shape[1])
-        dist = vae.encode(pixels)
-        moments_out.append(torch.cat([dist.mean, dist.log_var], dim=-1).float().cpu().numpy())
+        moments_out.append(replayed(graphs, moments, pixels, what=f"the latent cache's encode ({list(pixels.shape)})",
+                                    pinned=module_tensors(vae), capture=capture).cpu().numpy())
         ids_out.append(batch["input_ids"])
         if text_encoder is not None:
-            ctx_out.append(text_encoder.encode_text(batch["input_ids"]).float().cpu().numpy().astype(np.float16))
+            ctx_out.append(text_encoder.encode_text(batch["input_ids"], capture=capture).float().cpu().numpy()
+                           .astype(np.float16))
     moments = np.concatenate(moments_out)
     arrays = {"moments": moments, "input_ids": np.concatenate(ids_out)}
     if text_encoder is not None:
         arrays["context_emb"] = np.concatenate(ctx_out)
-        uncond = text_encoder.encode_text(text_encoder.tokenize([""]).input_ids)[0]
+        uncond = text_encoder.encode_text(text_encoder.tokenize([""]).input_ids, capture=capture)[0]
         arrays["uncond_emb"] = uncond.float().cpu().numpy()
     os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
     np.savez(cache_path, **arrays)

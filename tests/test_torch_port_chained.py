@@ -25,9 +25,10 @@ against the port's per-step path and the JAX package's rule.
 - The optimizer's scalars read from its device buffer give the same bits
   as the Python floats of the host path, for the fused AdamW (f32 and bf16
   moments), ``ChainAdamW`` and the int8 Adam (its plain version here).
-- The route: a CUDA device with one process captures a graph; the CPU and a
-  process group run chunks without one; the offloaded optimizer dispatches
-  step by step. The 2-rank gloo group's chained runs are in
+- The route: a CUDA device with one process captures a graph, at
+  ``--steps-per-dispatch 1`` too; the CPU, a process group and a trainer
+  built with ``capture=False`` run chunks without one (at 1: micro step by
+  micro step); the offloaded optimizer dispatches step by step. The 2-rank gloo group's chained runs are in
   ``tests/test_torch_port_parallel.py`` (its spawned group).
 """
 
@@ -344,8 +345,97 @@ def test_chunk_rows_are_the_per_step_rows():
 
 def test_route_table():
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
-    assert chain.route(1, cuda, False, None) is None
-    assert chain.route(2, cuda, False, None) == "graph"
-    assert chain.route(2, cuda, True, None) is None  # the optimizer offloaded: step by step, as JAX
-    assert chain.route(2, cuda, False, object()) == "eager"  # a process group: no collective is captured
+    for spd in (1, 2):  # one CUDA process replays each optimizer step, at spd 1 too (JAX's _jit_step)
+        assert chain.route(spd, cuda, False, None) == "graph"
+        assert chain.route(spd, cuda, True, None) is None  # the optimizer offloaded: step by step, as JAX
+    assert chain.route(1, cuda, False, object()) is None  # a process group: no collective is captured
+    assert chain.route(2, cuda, False, object()) == "eager"
+    assert chain.route(1, cpu, False, None) is None
     assert chain.route(2, cpu, False, None) == "eager"
+    assert chain.route(1, cuda, False, None, capture=False) is None  # the eager trainer, the graph's control
+    assert chain.route(2, cuda, False, None, capture=False) == "eager"
+
+
+# --------------------------------------------------------------------------- #
+# SD_TRAIN_PROFILE=1: PhaseTimer and the records' phase keys
+# --------------------------------------------------------------------------- #
+
+
+def test_phase_timer_equals_jax():
+    """The same samples through the port's and JAX's ``PhaseTimer``: the
+    warm-up per name, ``skip_next``, ``phase``, ``timed_iter`` (its samples
+    replaced by fixed ones) and the summary's keys and values."""
+    from stable_diffusion_pytorch_tpu.utils.profiling import PhaseTimer as JaxPhaseTimer
+    from stable_diffusion_pytorch_tpu_torch.utils.profiling import PhaseTimer
+
+    rng = np.random.default_rng(0)
+    script = [("add", name, float(x)) for name, x in zip(rng.choice(["fetch", "place", "dispatch", "sync"], 60),
+                                                          rng.random(60))]
+    script[10:10] = [("skip", "dispatch", 2)]
+    script[25:25] = [("skip", "sync", 1)]
+    timers = [PhaseTimer(warmup=2), JaxPhaseTimer(warmup=2)]
+    for t in timers:
+        assert t.summary_ms() == {}
+        for op, name, x in script:
+            t.add(name, x) if op == "add" else t.skip_next(name, x)
+        with t.phase("phase"):
+            pass
+        assert list(t.timed_iter(range(4), "iter")) == [0, 1, 2, 3]
+        t.samples["phase"], t.samples["iter"] = [0.5], [0.25, 0.75]  # the clock's samples, made equal
+    got, want = (t.summary_ms() for t in timers)
+    assert got == want and set(got) == {f"{n}_ms_{s}" for n in ("fetch", "place", "dispatch", "sync", "phase", "iter")
+                                        for s in ("p50", "mean")}
+
+
+def test_profile_records_carry_the_jax_trainers_phase_keys(tmp_path, monkeypatch, one_layer_text_encoder):
+    """``SD_TRAIN_PROFILE=1``: ``train_unet.main`` on both sides (the JAX
+    side's models, datasets and steps stood in) logs records with the same
+    keys, step by step: the phases' p50 and mean once each has passed its
+    warm-up."""
+    import train_unet as jax_train_unet
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("SD_TRAIN_PROFILE", "1")
+    flags = [*MAIN_FLAGS, "--steps-per-dispatch", "1", "--gradient-accumulation-steps", "1"]
+    train_unet.main([*TINY, *flags, "--ckpt-dir", "port/ckpt", "--logging-dir", "port/logs"])
+    _jax_loop_only(monkeypatch)
+    jax_train_unet.main([*flags, "--ckpt-dir", "jax/ckpt", "--logging-dir", "jax/logs"])
+    keys = [[sorted(r) for r in _records(os.path.join(w, "logs", "train_unet_metrics.jsonl")) if "train_loss" in r]
+            for w in ("port", "jax")]
+    assert keys[0] == keys[1] and len(keys[0]) == 5
+    assert {f"{p}_ms_{s}" for p in ("fetch", "place", "dispatch", "sync") for s in ("p50", "mean")} <= set(keys[0][-1])
+
+
+def test_graph_route_replays_every_whole_window_and_steps_the_rest():
+    """On the graph route at ``--steps-per-dispatch 1`` each optimizer step
+    whose window the epoch holds is one dispatch; a resume's partial window
+    and the epoch's remainder run micro step by micro step."""
+    accum = 3
+    plan = []
+
+    class Stub:
+        cfg = types.SimpleNamespace(train=types.SimpleNamespace(
+            steps_per_dispatch=1, log_interval=2, gradient_accumulation_steps=accum, seed=0))
+        _route, _metric_keys, eval_cadence_offset, device = "graph", ["loss"], 0, torch.device("cpu")
+        _chunk_warm = _single_warm = False
+
+        def _dispatch(self, window, m0, steps):
+            plan.append(("step", m0, [int(b["m"][0]) for b in window]))
+            return np.zeros((steps * accum, 1), np.float32)
+
+        def _train_step(self, placed, generator):
+            plan.append(("micro", int(placed["m"][0])))
+            return {"loss": torch.zeros(())}
+
+        def _place_batch(self, batch):
+            return batch
+
+        def _mean(self, x):
+            return x
+
+    batches = [{"x": np.zeros(1), "m": np.array([s])} for s in range(11)]
+    stepper = trainer_mod.Trainer._micro_steps(Stub(), iter(batches), skip_until=1, micro_step0=1,
+                                               step_timer=trainer_mod.StepTimer(), max_train_steps=9, ckpt_steps=2)
+    list(stepper)
+    assert plan == [("micro", 1), ("micro", 2), ("step", 3, [3, 4, 5]), ("step", 6, [6, 7, 8]), ("micro", 9),
+                    ("micro", 10)]

@@ -92,3 +92,35 @@ def test_to_img_adds_suffix_once_and_detransform():
 
 def test_to_img_name_without_suffix(tmp_path):
     assert to_img(np.zeros((2, 3, 3), np.uint8), str(tmp_path), "plain") == str(tmp_path / "plain.png")
+
+
+SAMPLING_ARGV = [
+    ["--prompt", "a cat", "--image-size", "32", "--sampler", "dpmpp", "--sampling-steps", "7", "--seed", "7"],
+    ["--config-file", "perf.json", "--prompt", "x", "--learning-rate", "3e-4", "--mixed-precision", "no"],
+    ["--config-file", "zero2.json", "--guidance-scale", "4.5", "--max-train-steps", "9", "--center-crop",
+     "--channels-list", "32,64", "--reference-compat"],
+]
+
+
+@pytest.mark.parametrize("argv", SAMPLING_ARGV, ids=["sampling", "perf_preset", "zero2_preset_trainer_flags"])
+def test_sampling_clis_parse_the_whole_config_as_jax(argv):
+    """The port's txt2img and img2img parse through ``load_config`` as the
+    JAX CLIs do: the same argv (a preset by name, trainer flags sampling
+    ignores) gives every flag of JAX's ``load_config(argv,
+    extra_data_classes=[SamplingConfig])`` (img2img: its own group) the same
+    value, and the groups ``build_for_sampling`` reads are built from them."""
+    from scripts.img2img import Img2ImgConfig as JaxImg2ImgConfig
+    from stable_diffusion_pytorch_tpu.config import load_config as jax_load_config
+    from stable_diffusion_pytorch_tpu.pipeline import SamplingConfig as JaxSamplingConfig
+    from stable_diffusion_pytorch_tpu_torch.config import UnetConfig
+    from stable_diffusion_pytorch_tpu_torch.pipeline import SamplingConfig
+    from stable_diffusion_pytorch_tpu_torch.scripts import img2img, txt2img
+
+    for port_extra, jax_extra, extra_argv in ((SamplingConfig, JaxSamplingConfig, []),
+                                              (img2img.Img2ImgConfig, JaxImg2ImgConfig, ["--init-image", "a.png"])):
+        full = [*argv, *extra_argv]
+        want, _ = jax_load_config(full, extra_data_classes=[jax_extra])
+        got, groups = txt2img.parse_args([*full, "--device", "cpu"], port_extra)
+        assert {k: getattr(got, k) for k in vars(want)} == vars(want)
+        assert got.device == "cpu" and set(vars(got)) == set(vars(want)) | {"device"}
+        assert groups[port_extra].prompt == want.prompt and groups[UnetConfig].channels_list == want.channels_list

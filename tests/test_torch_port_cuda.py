@@ -25,8 +25,12 @@ one leaf's update at rtol 1e-6 (atol 1e-7) in f32 and within one bf16 ulp
 rounding boundary), dequantized moments at rtol 1e-5 / atol 1e-8 elsewhere;
 the whole step (clip, K9 and apply in one launch over every leaf) gives
 ``adam8bit_step_plain``'s parameters, codes and scales bit for bit, with one
-device kernel per step. The sampling loop's graphs (a tiny model, cuDNN
-deterministic): each signature's warm-up and its replays give the eager
+device kernel per step. The trainers' graphs (tiny, cuDNN deterministic):
+each optimizer step and each evaluation signature replayed at
+``--steps-per-dispatch`` 1 and 2 gives the eager trainer's losses,
+evaluation losses and parameters bit for bit; a window the graph cannot
+take runs eagerly. The text encoder's graphs give the eager tower's bits.
+The sampling loop's graphs (a tiny model, cuDNN deterministic): each signature's warm-up and its replays give the eager
 loop's x_0 bit for bit, the capture's tally its launches, A-B-A each its
 own, a replay after an in-place weight load the new weights' render; a
 changed input, a moved parameter and a loop that syncs with the host
@@ -827,42 +831,140 @@ def test_serve_path_on_cuda_launches_the_sampling_kernels(cuda):
         service.stop()
 
 
+TINY_TRAIN = ["--device", "cuda", "--dataset", "synthetic", "--resolution", "32", "--train-batch-size", "2",
+              "--eval-batch-size", "2", "--max-train-samples", "8", "--max-val-samples", "3",
+              "--gradient-accumulation-steps", "2", "--dataloader-num-workers", "0", "--channels-list", "32,64",
+              "--n-heads", "4", "--time-emb-dim", "64", "--n-layers", "1", "--autoencoder-channels-list", "16,32",
+              "--groups", "8"]
+
+
+def _tiny_run(build_trainer, work, flags, capture=True):
+    """Train a tiny trainer on the card (its evaluation loader keeping a
+    short last batch) -> its losses, evaluation losses, parameters, launches
+    (host and replays), graph and route."""
+    trainer = build_trainer([*TINY_TRAIN, "--ckpt-dir", str(work / "ckpt"), "--logging-dir", str(work / "logs"),
+                             *flags], capture=capture)
+    trainer.eval_loader.drop_last = False
+    native.reset_counters()
+    trainer.train()
+    torch.cuda.synchronize()
+    with open(trainer.tracker.jsonl_path) as f:
+        records = [json.loads(line) for line in f]
+    return {"losses": [r["train_loss"] for r in records if "train_loss" in r],
+            "eval": [r["eval_loss"] for r in records if "eval_loss" in r],
+            "params": [p.detach().clone() for p in trainer.state.params],
+            "launches": {k: c.count + c.replays for k, c in native.COUNTERS.items()},
+            "graph": trainer._graph, "route": trainer._route, "graphs": dict(trainer._graphs.graphs)}
+
+
 @pytest.mark.parametrize("lean", [False, True], ids=["adamw", "adamw8bit"])
 def test_chained_dispatch_replays_the_step_as_a_cuda_graph(cuda, tmp_path, lean):
-    """``--steps-per-dispatch 2`` on the card (tiny UNet trainer, bf16 over f32,
-    accumulation 2, cuDNN deterministic): each optimizer step is one CUDA
-    graph, captured at the first and replayed; the losses and parameters
-    equal the per-step run's bit for bit; the capture's tally per replay
-    equals the per-step launches per optimizer step (K9 in it under int8
-    Adam)."""
+    """Each optimizer step on the card is one CUDA graph (tiny UNet trainer,
+    bf16 over f32, accumulation 2, cuDNN deterministic), captured at the
+    first and replayed, at ``--steps-per-dispatch`` 1 (JAX's ``_jit_step``)
+    and 2: the losses and parameters equal the eager trainer's
+    (``capture=False``) bit for bit; the capture's tally per replay equals
+    the eager launches per optimizer step (K9 in it under int8 Adam, with
+    the bf16 accumulator and conv-save remat)."""
     from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
 
     torch.backends.cudnn.deterministic = True
-    runs = {}
-    for spd in (1, 2):
-        work = tmp_path / str(spd)
-        trainer = build_trainer([
-            "--device", "cuda", "--dataset", "synthetic", "--resolution", "32", "--train-batch-size", "2",
-            "--max-train-samples", "8", "--max-train-steps", "4", "--gradient-accumulation-steps", "2",
-            "--log-interval", "0", "--steps-per-dispatch", str(spd), "--ckpt-dir", str(work / "ckpt"),
-            "--logging-dir", str(work / "logs"), "--dataloader-num-workers", "0", "--channels-list", "32,64",
-            "--n-heads", "4", "--time-emb-dim", "64", "--n-layers", "1", "--autoencoder-channels-list", "16,32",
-            "--groups", "8", *(["--use-8bit-adam", "--accum-dtype", "bf16"] if lean else [])])
-        native.reset_counters()
-        trainer.train()
-        torch.cuda.synchronize()
-        with open(trainer.tracker.jsonl_path) as f:
-            losses = [json.loads(line)["train_loss"] for line in f if "train_loss" in line]
-        runs[spd] = {"losses": losses, "params": [p.detach().clone() for p in trainer.state.params],
-                     "launches": {k: c.count + c.replays for k, c in native.COUNTERS.items()},
-                     "graph": trainer._graph, "route": trainer._route}
-    assert runs[1]["route"] is None and runs[2]["route"] == "graph" and runs[2]["graph"] is not None
-    assert runs[2]["losses"] == runs[1]["losses"] and len(runs[1]["losses"]) == 4
-    assert all(torch.equal(a, b) for a, b in zip(runs[2]["params"], runs[1]["params"]))
-    tally = {k: sum(v.values()) for k, v in runs[2]["graph"].tally.items()}
+    flags = ["--max-train-steps", "4", "--log-interval", "0",
+             *(["--use-8bit-adam", "--accum-dtype", "bf16", "--remat-policy", "conv-save"] if lean else [])]
+    eager = _tiny_run(build_trainer, tmp_path / "eager", flags, capture=False)
+    assert eager["route"] is None and eager["graph"] is None and len(eager["losses"]) == 4
     kernels = ["flash_attention", "flash_attention_bwd_split", "group_norm", "group_norm_bwd", "group_norm_cat"]
-    for k in kernels + (["adam8bit_update"] if lean else []):
-        assert tally[k] * 4 == runs[1]["launches"][k] == runs[2]["launches"][k], (k, tally, runs[1]["launches"])
+    for spd in (1, 2):
+        run = _tiny_run(build_trainer, tmp_path / str(spd), [*flags, "--steps-per-dispatch", str(spd)])
+        assert run["route"] == "graph" and run["graph"] is not None
+        assert run["losses"] == eager["losses"]
+        assert all(torch.equal(a, b) for a, b in zip(run["params"], eager["params"]))
+        tally = {k: sum(v.values()) for k, v in run["graph"].tally.items()}
+        for k in kernels + (["adam8bit_update"] if lean else []):
+            assert tally[k] * 4 == eager["launches"][k] == run["launches"][k], (k, tally, eager["launches"])
+
+
+@pytest.mark.parametrize("kind", ["unet", "textual_inversion", "controlnet", "vae"])
+def test_default_step_and_evaluation_replay_bit_for_bit(cuda, tmp_path, kind):
+    """Each trainer at ``--steps-per-dispatch 1`` on the card (tiny, cuDNN
+    deterministic, 3 optimizer steps at accumulation 2 over 8 rows: the
+    epoch's 4 micro batches hold two windows, so step 3's window is the
+    next epoch's): losses, evaluation losses and parameters equal the eager
+    trainer's bit for bit. The evaluation step is one graph per batch
+    signature: 3 rows at batch 2 give a batch of 2 and a last batch of 1
+    (the loader set to keep it)."""
+    import importlib
+
+    script = {"unet": "train_unet", "textual_inversion": "train_textual_inversion",
+              "controlnet": "train_controlnet", "vae": "train_autoencoder"}[kind]
+    build_trainer = importlib.import_module(f"stable_diffusion_pytorch_tpu_torch.scripts.{script}").build_trainer
+    extra = {"textual_inversion": ["--placeholder-token", "<c>", "--num-vectors", "2", "--initializer-token", "toy"],
+             "vae": ["--max-test-samples", "1"]}.get(kind, [])
+    flags = ["--max-train-steps", "3", "--log-interval", "2" if kind != "vae" else "3", *extra]
+    torch.backends.cudnn.deterministic = True
+    eager = _tiny_run(build_trainer, tmp_path / "eager", flags, capture=False)
+    run = _tiny_run(build_trainer, tmp_path / "graph", flags)
+    assert eager["route"] is None and run["route"] == "graph" and run["graph"] is not None
+    assert len(run["losses"]) == 3 and run["losses"] == eager["losses"]
+    assert len(run["eval"]) == 1 and run["eval"] == eager["eval"]
+    assert all(torch.equal(a, b) for a, b in zip(run["params"], eager["params"]))
+    assert len([k for k in run["graphs"] if k[0] == "eval"]) == 2  # the batch of 2 and the last batch of 1
+
+
+def test_step_graph_runs_a_window_it_cannot_take_eagerly(cuda, tmp_path):
+    """A window whose batches differ from the captured step's runs eagerly
+    on the graph route, and the next matching window replays again."""
+    from stable_diffusion_pytorch_tpu_torch.scripts.train_unet import build_trainer
+
+    trainer = build_trainer([*TINY_TRAIN, "--max-train-steps", "4", "--log-interval", "0", "--ckpt-dir",
+                             str(tmp_path / "ckpt"), "--logging-dir", str(tmp_path / "logs")])
+    batches = list(trainer.train_loader)
+    short = [{k: v[:1] for k, v in b.items()} for b in batches[:2]]
+    rows = [trainer._dispatch(batches[:2], 0, 1), trainer._dispatch(short, 2, 1), trainer._dispatch(batches[2:4], 4, 1)]
+    graph = trainer._graph
+    assert graph is not None and not graph.takes(trainer._window_inputs(short, 2))
+    assert trainer.state.optimizer.count == 3 and trainer.state.step == 6
+    assert all(r.shape[0] == 2 for r in rows)
+
+
+def test_text_encoder_replays_the_eager_tower_bit_for_bit(cuda):
+    """``encode_text`` on the card captures the tower once per (batch,
+    length, concept) and replays it: the context equals the eager tower's
+    (``capture=False``) bit for bit, with and without token weights and a
+    textual-inversion concept; a cond and an uncond encode of one signature
+    each keep their own values (the output is cloned out); new concept
+    vectors reach the captured tower through its buffer, updated in place;
+    inside another capture the tower runs eagerly."""
+    import numpy as np
+
+    model = _tiny_sampling_model()
+    te = model.text_encoder
+    ids_a, ids_b = (te.tokenize([p]).input_ids for p in ("a cat", ""))
+    w = np.ones(np.shape(ids_a), np.float32)
+    w[0, 2] = 1.3
+    for call in range(3):
+        a, b = te.encode_text(ids_a), te.encode_text(ids_b)
+        assert torch.equal(a, te.encode_text(ids_a, capture=False)), call
+        assert torch.equal(b, te.encode_text(ids_b, capture=False)) and not torch.equal(a, b), call
+        assert torch.equal(te.encode_text(ids_a, token_weights=w), te.encode_text(ids_a, token_weights=w,
+                                                                                  capture=False))
+    assert len(te._graphs.graphs) == 1
+    rng = np.random.default_rng(0)
+    te.add_textual_inversion("<c>", rng.standard_normal((2, te.module.d_model)).astype(np.float32))
+    ids = te.tokenize(["a photo of <c>"]).input_ids
+    first = te.encode_text(ids)
+    assert torch.equal(first, te.encode_text(ids, capture=False)) and torch.equal(te.encode_text(ids), first)
+    buffer = te._ti_device[2]
+    te.set_textual_inversion_vectors(rng.standard_normal((2, te.module.d_model)).astype(np.float32))
+    assert te._ti_device[2] is buffer
+    moved = te.encode_text(ids)
+    assert not torch.equal(moved, first) and torch.equal(moved, te.encode_text(ids, capture=False))
+    ids_t = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        inner = te.encode_text(ids_t)  # eager inside the capture
+    graph.replay()
+    assert torch.equal(inner, moved)
 
 
 def _tiny_sampling_model(dtype=torch.bfloat16):
@@ -988,14 +1090,65 @@ def test_sample_graph_failed_capture_leaves_the_process_usable(cuda):
     with torch.no_grad():
         with pytest.raises(RuntimeError, match="capturing the sampling loop"):
             model.sample(x_T, ctx, **kw)
-        stream = model._graph_stream
-        assert model._graph_pool is None and stream is not None
+        stream = model._graphs.stream
+        assert model._graphs.pool is None and stream is not None
         assert torch.cuda.current_stream() == torch.cuda.default_stream()
         assert torch.isfinite(torch.randn(16, device=cuda)).all()
         assert torch.isfinite(torch.nn.Linear(8, 8, device=cuda).weight).all()
         unet.sync = False
         first = model.sample(x_T, ctx, **kw)
         (entry,) = model._loops.values()
-        assert entry.graph is not None and model._graph_pool is not None and model._graph_stream is stream
+        assert entry.graph is not None and model._graphs.pool is not None and model._graphs.stream is stream
         assert torch.equal(model.sample(x_T, ctx, **kw), first)
         assert torch.isfinite(torch.randn(16, device=cuda)).all()
+
+
+def test_evaluation_towers_latent_cache_and_quick_train_replay_eager_bits(cuda, tmp_path):
+    """The evaluation towers (a VAE's features, a random Inception's, the
+    canonical extractor's with ``transform_input`` on a random state, a tiny
+    CLIP scorer's similarities), the latent cache's encode and
+    ``fid_samplers``' quick-train step, each through its graphs (one per
+    batch signature; a short last batch is its own) and eagerly
+    (``capture=False``), cuDNN deterministic: the same bits."""
+    import numpy as np
+
+    from stable_diffusion_pytorch_tpu_torch.config import DDPMConfig
+    from stable_diffusion_pytorch_tpu_torch.models.bpe import CLIPBPETokenizer
+    from stable_diffusion_pytorch_tpu_torch.models.clip_vision import CLIPScorer
+    from stable_diffusion_pytorch_tpu_torch.models.schedule import make_schedule
+    from stable_diffusion_pytorch_tpu_torch.scripts import fid_samplers as fs
+    from stable_diffusion_pytorch_tpu_torch.utils import fid
+    from stable_diffusion_pytorch_tpu_torch.utils.latent_cache import build_latent_cache
+
+    torch.backends.cudnn.deterministic = True
+    model = _tiny_sampling_model(torch.float32)
+    images = np.random.default_rng(0).uniform(-1, 1, (5, 32, 32, 3)).astype(np.float32)
+    state = fid.RandomInceptionFeatureExtractor(seed=2, device="cpu").model.state_dict()
+    for make in (lambda c: fid.VAEFeatureExtractor(model.autoencoder, capture=c),
+                 lambda c: fid.RandomInceptionFeatureExtractor(seed=1, feat_dim=64, device="cuda", capture=c),
+                 lambda c: fid.InceptionFeatureExtractor(state=state, device="cuda", capture=c)):
+        graph, eager = make(True), make(False)
+        for batch in (images[:2], images[2:4], images[4:]):
+            np.testing.assert_array_equal(graph(batch), eager(batch))
+        assert len(graph._graphs.graphs) == 2 and not eager._graphs.graphs
+    text = dict(d_model=32, n_layers=1, n_heads=2, intermediate=64)
+    vision = dict(d_model=32, n_layers=1, n_heads=2, intermediate=64, image_size=28, patch_size=14)
+    scorers = [CLIPScorer(CLIPBPETokenizer(), model_dir=None, text_cfg=text, vision_cfg=vision, device="cuda",
+                          capture=c) for c in (True, False)]
+    pixels = ((images + 1) * 127.5).astype(np.uint8)
+    prompts = ["a cat", "a dog", "a red car", "", "a photo"]
+    for _ in range(2):
+        np.testing.assert_array_equal(*(s.similarities(pixels, prompts, batch=2) for s in scorers))
+    rows = [{"pixel_values": img, "input_ids": model.text_encoder.tokenize(["a cat"]).input_ids[0]}
+            for img in images]
+    caches = [np.load(build_latent_cache(model.autoencoder, rows, str(tmp_path / f"{c}.npz"), batch_size=2,
+                                         text_encoder=model.text_encoder, capture=c)) for c in (True, False)]
+    for key in ("moments", "context_emb", "uncond_emb"):
+        np.testing.assert_array_equal(caches[0][key], caches[1][key])
+    schedule = make_schedule(DDPMConfig(noise_steps=1000))
+    basis = fs.make_basis(16)
+    runs = []
+    for c in (True, False):
+        unet = fs.build_unet(0, "cuda")
+        runs.append((fs.quick_train(unet, schedule, basis, 4, capture=c), [p.detach().clone() for p in unet.parameters()]))
+    assert runs[0][0] == runs[1][0] and all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

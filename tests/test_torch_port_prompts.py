@@ -221,3 +221,37 @@ def test_textual_inversion_loads_the_port_checkpoint_layout(with_ti, tmp_path):
     (tmp_path / "textual_inversion.json").write_text(json.dumps({"placeholder_token": "<sks>", "num_vectors": 3}))
     with pytest.raises(ValueError, match="3 vectors"):
         port_model.text_encoder.load_textual_inversion(str(tmp_path))
+
+
+def test_encode_text_static_inputs_match_jax(with_ti):
+    """The tower's inputs as its CUDA graph takes them: the ids one tensor
+    on the tower's device (a tensor taken as given), the concept's ids and
+    vectors from the tensors held beside the tower, which
+    ``set_textual_inversion_vectors`` updates in place. Without and with a
+    concept, without and with token weights: JAX's ``encode_text`` at 1e-4.
+    On the CPU nothing is captured."""
+    jax_model, port_model = with_ti
+    jte, pte = jax_model.text_encoder, port_model.text_encoder
+    prompts = ["a (red:1.5) photo of <c>", "<c> on a [beach]"]
+
+    def check():
+        ids, w = pte.tokenize_weighted(prompts)
+        np.testing.assert_array_equal(ids.input_ids, np.asarray(jte.tokenize_weighted(prompts)[0].input_ids))
+        for weights in (None, w):
+            ref = np.asarray(jte.encode_text(ids.input_ids, token_weights=weights))
+            out = pte.encode_text(torch.as_tensor(ids.input_ids), token_weights=weights)
+            np.testing.assert_allclose(out.numpy(), ref, **EMB)
+
+    check()
+    vec = _ti_vectors(2)
+    jte.add_textual_inversion("<c>", vec)
+    pte.add_textual_inversion("<c>", vec)
+    check()
+    held = pte._ti_device[2]
+    np.testing.assert_array_equal(held.numpy(), vec)
+    jte.set_textual_inversion_vectors(2 * vec)
+    pte.set_textual_inversion_vectors(2 * vec)
+    assert pte._ti_device[2] is held
+    np.testing.assert_array_equal(held.numpy(), 2 * vec)
+    check()
+    assert not pte._graphs.graphs
